@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # from the root of a checkout, on a host with one card
+
+Phases, each fatal on failure:
+
+1. Build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all together) and print the build seconds.
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it (full-scale synthetic IMDB, HAN at
+   heads=8, hidden=64) and on edge cases (an all-padding unit, fully
+   masked rows, W = 1, a Din that is not a multiple of the K tile), at
+   atol=rtol=1e-4 (the float32 sum order differs).  Time kernel, plain
+   version and, for the fused kernel, ``x @ W`` plus the plain aggregation
+   as a yardstick, with CUDA events.
+3. Serve the request mix of the three target metapaths (repeats=2) on
+   full-scale IMDB with HAN at its own width (heads=8, hidden=64,
+   att_dim=128), block=16, max_edges=20000, 3 slots, similarity
+   admission, once with the multigraph backend and once with fused-fp.
+   Launch counters are zeroed just before each run and read just after
+   it; each kernel must have launched in the run of its path.  Every result must be finite, both backends
+   must agree, and the card must agree with the CPU on a small graph.
+4. Print the ``kernels`` JSON line, the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
+
+TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` are False): every number is float32.
+Full results go to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+OUT = ROOT / "chiprun_out"
+
+ATOL = RTOL = 1e-4
+PEAK_FP32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+METAPATHS = [("movie", "director", "movie"), ("movie", "actor", "movie"),
+             ("movie", "keyword", "movie")]
+WIDTH = dict(heads=8, hidden=64, att_dim=128)  # HAN's own width (init_han defaults)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(name: str, got, want) -> float:
+    """Max abs error of ``got`` against ``want``; fails beyond the tolerance."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
+        err = max(err, float((g - w).abs().max()))
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL, msg=lambda m: f"{name}: {m}")
+    log(f"[check] {name}: max_abs_err={err:.3e} (atol={ATOL}, rtol={RTOL})")
+    return err
+
+
+# -- phase 2: kernels against their plain versions ----------------------------
+
+
+def slice_operands(eng, fusion):
+    """The operands one step of the serving path hands each kernel: the three
+    target metapaths batched, the engine's own weights."""
+    batches = [eng._batch(mp) for mp in METAPATHS]
+    col, gid, row, masks = fusion.build_unit_tables(batches)
+    B, H, Dh = eng.block, eng.heads, eng.hidden
+    n_pad = batches[0].num_dst_pad
+    x = eng.features["movie"]
+    x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0]))
+    w, b = eng.params["w_fp"]["movie"], eng.params["b_fp"]["movie"]
+    a_src = torch.stack([eng._metapath_params(mp)[0] for mp in METAPATHS])
+    a_dst = torch.stack([eng._metapath_params(mp)[1] for mp in METAPATHS])
+    h = (x @ w + b).reshape(n_pad, H, Dh)
+    bias = torch.zeros((len(METAPATHS), H), device=x.device)
+    multi = dict(col_index=col, graph_id=gid, dst_row=row, masks=masks,
+                 theta_src=torch.einsum("nhd,ghd->gnh", h, a_src).contiguous(),
+                 theta_dst=torch.einsum("nhd,ghd->gnh", h, a_dst).contiguous(),
+                 h_src=h.contiguous(), edge_bias=bias)
+    fused = dict(col_index=col, graph_id=gid, dst_row=row,
+                 wsel=torch.zeros(len(METAPATHS), dtype=torch.int32, device=x.device),
+                 masks=masks, x=x, w=w[None].contiguous(), b=b[None].contiguous(),
+                 a_src=a_src, a_dst=a_dst, edge_bias=bias)
+    return multi, fused
+
+
+def edge_operands(seed, dev, *, B=16, U=24, W=6, G=3, H=8, Dh=64, nblk=8, din=100, tables=2):
+    """Random operands with the degenerate cases the serving path can meet."""
+    rng = np.random.default_rng(seed)
+    col = np.full((U, W), -1, np.int32)
+    for u in range(U):
+        k = rng.integers(0, W + 1)
+        col[u, :k] = rng.choice(nblk, size=k, replace=False)
+    col[0] = -1                      # an all-padding unit
+    masks = rng.random((U, W, B, B)) < 0.3
+    masks[1, :, 3, :] = False        # a fully masked dst row
+    n = nblk * B
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    gid = rng.integers(0, G, U).astype(np.int32)
+    row = rng.integers(0, nblk, U).astype(np.int32)
+    bias = rng.standard_normal((G, H)).astype(np.float32)
+    multi = dict(col_index=t(col), graph_id=t(gid), dst_row=t(row), masks=t(masks),
+                 theta_src=t(rng.standard_normal((G, n, H)).astype(np.float32)),
+                 theta_dst=t(rng.standard_normal((G, n, H)).astype(np.float32)),
+                 h_src=t(rng.standard_normal((n, H, Dh)).astype(np.float32)),
+                 edge_bias=t(bias))
+    fused = dict(col_index=t(col), graph_id=t(gid), dst_row=t(row),
+                 wsel=t(rng.integers(0, tables, G).astype(np.int32)), masks=t(masks),
+                 x=t(rng.standard_normal((n, din)).astype(np.float32)),
+                 w=t((rng.standard_normal((tables, din, H * Dh)) / np.sqrt(din)).astype(np.float32)),
+                 b=t((rng.standard_normal((tables, H * Dh)) * 0.1).astype(np.float32)),
+                 a_src=t(rng.standard_normal((G, H, Dh)).astype(np.float32)),
+                 a_dst=t(rng.standard_normal((G, H, Dh)).astype(np.float32)),
+                 edge_bias=t(bias))
+    return multi, fused
+
+
+def multigraph_cost(ops):
+    """(bytes, flops) the multigraph forward needs on these inputs: each input
+    read once (masks of live slots only), each output written once; per live
+    slot 2·B·B·H·Dh for p @ h and ~8 ops per logit."""
+    col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
+    U, W = col.shape
+    B, (ns, H, Dh) = masks.shape[-1], h.shape
+    live = int((col >= 0).sum())
+    nbytes = (col.numel() * 4 + 2 * U * 4 + live * B * B
+              + 4 * (ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel()
+                     + ops["edge_bias"].numel())
+              + 4 * U * B * H * (Dh + 1))
+    flops = live * (2 * B * B * H * Dh + 8 * B * B * H)
+    return nbytes, flops, live
+
+
+def fused_cost(ops):
+    """(bytes, flops, kernel_flops) of the fused forward on these inputs.
+
+    ``flops`` is the work the function needs: each (weight table, src or dst
+    block) that some live unit reads projected once (2·B·Din·H·Dh), θs and
+    θd of each (graph, block) read once (2·B·H·Dh each), then the multigraph
+    work.  ``kernel_flops`` is the work this kernel does: it re-projects the
+    src tile of every live slot and the dst tile of every unit; it explains
+    the kernel's time and is not its bound."""
+    col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
+    U, W = col.shape
+    B = masks.shape[-1]
+    G, H, Dh = ops["a_src"].shape
+    din = x.shape[1]
+    live_mask = col >= 0
+    live = int(live_mask.sum())
+    nblk = x.shape[0] // B
+    g_of = gid.long()[:, None].expand(U, W)[live_mask]
+    src_blk = col.long()[live_mask]
+    table = ops["wsel"].long()
+    projected = torch.unique(torch.cat([table[g_of] * nblk + src_blk,
+                                        table[gid.long()] * nblk + row.long()])).numel()
+    theta_src = torch.unique(g_of * nblk + src_blk).numel()
+    theta_dst = torch.unique(gid.long() * nblk + row.long()).numel()
+    na = live * (2 * B * B * H * Dh + 8 * B * B * H)
+    nbytes = (col.numel() * 4 + 2 * U * 4 + G * 4 + live * B * B
+              + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
+              + 4 * U * B * H * (Dh + 1))
+    flops = (projected * 2 * B * din * H * Dh + (theta_src + theta_dst) * 2 * B * H * Dh + na)
+    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na
+    return nbytes, flops, kernel_flops
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_phase(eng, fusion, mg_mod, ff_mod) -> dict:
+    dev = eng.device
+    slice_mg, slice_ff = slice_operands(eng, fusion)
+    U, W = slice_mg["col_index"].shape
+    log(f"[slice] U={U} W={W} B={eng.block} H={eng.heads} Dh={eng.hidden} "
+        f"Din={slice_ff['x'].shape[1]} N_pad={slice_ff['x'].shape[0]}")
+    err_mg, err_ff = 0.0, 0.0
+    cases = [("slice", slice_mg, slice_ff)]
+    cases.append(("edge B=16 W=6 Din=100", *edge_operands(1, dev)))
+    cases.append(("edge W=1", *edge_operands(2, dev, W=1)))
+    cases.append(("edge B=8 H=2 Dh=8 Din=37", *edge_operands(3, dev, B=8, H=2, Dh=8, din=37)))
+    for name, mg, ff in cases:
+        got = mg_mod.seg_gat_agg_multigraph_fwd(**mg)
+        want = mg_mod.seg_gat_agg_multigraph_plain(**mg)
+        torch.cuda.synchronize()
+        err_mg = max(err_mg, compare(f"multigraph {name}", got, want))
+        got = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
+        want = ff_mod.seg_gat_agg_fused_fp_plain(**ff)
+        torch.cuda.synchronize()
+        err_ff = max(err_ff, compare(f"fused_fp {name}", got, want))
+        if name.startswith("edge"):
+            B = mg["masks"].shape[-1]
+            if not (got[0][:B] == 0).all() or not (got[0][B + 3] == 0).all():
+                raise AssertionError(f"fused_fp {name}: padding unit / masked row not zero")
+
+    # timing at the slice's shapes, straight on the launch (no argument checks)
+    B, H, Dh = eng.block, eng.heads, eng.hidden
+    out = torch.empty((U * B, H, Dh), device=dev)
+    lse = torch.empty((U * B, H), device=dev)
+    mg_ms = cuda_ms(lambda: mg_mod.launch(**slice_mg, out=out, lse=lse, leaky_slope=0.2), reps=20)
+    mg_plain_ms = cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_plain(**slice_mg), reps=3)
+    ff_ms = cuda_ms(lambda: ff_mod.launch(**slice_ff, out=out, lse=lse, leaky_slope=0.2), reps=3)
+    ff_plain_ms = cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**slice_ff), reps=3)
+
+    def xw_then_plain_na():
+        x, w, b = slice_ff["x"], slice_ff["w"][0], slice_ff["b"][0]
+        h = torch.addmm(b, x, w).reshape(x.shape[0], H, Dh)
+        return mg_mod.seg_gat_agg_multigraph_plain(
+            slice_mg["col_index"], slice_mg["graph_id"], slice_mg["dst_row"], slice_mg["masks"],
+            torch.einsum("nhd,ghd->gnh", h, slice_ff["a_src"]),
+            torch.einsum("nhd,ghd->gnh", h, slice_ff["a_dst"]), h, slice_mg["edge_bias"])
+
+    ff_lib_ms = cuda_ms(xw_then_plain_na, reps=3)
+    mg_bytes, mg_flops, live = multigraph_cost(slice_mg)
+    ff_bytes, ff_flops, ff_kernel_flops = fused_cost(slice_ff)
+    mg_bound, mg_by = bound_ms(mg_bytes, mg_flops)
+    ff_bound, ff_by = bound_ms(ff_bytes, ff_flops)
+    log(f"[time] multigraph kernel {mg_ms:.4f} ms, plain {mg_plain_ms:.4f} ms, "
+        f"bound {mg_bound:.4f} ms ({mg_by}); live slots {live}")
+    log(f"[time] fused_fp kernel {ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms, "
+        f"x@W+plain NA {ff_lib_ms:.4f} ms, bound {ff_bound:.4f} ms ({ff_by}); "
+        f"function flops {ff_flops:.4e}, flops as the kernel does them {ff_kernel_flops:.4e}")
+    return {
+        "multigraph": dict(max_abs_err=err_mg, ms=mg_ms, plain_ms=mg_plain_ms, library_ms=None,
+                           bound_ms=mg_bound, bound_by=mg_by, bytes=mg_bytes, flops=mg_flops,
+                           live_slots=live, units=U, width=W),
+        "fused_fp": dict(max_abs_err=err_ff, ms=ff_ms, plain_ms=ff_plain_ms, library_ms=ff_lib_ms,
+                         bound_ms=ff_bound, bound_by=ff_by, bytes=ff_bytes, flops=ff_flops,
+                         kernel_flops=ff_kernel_flops, live_slots=live, units=U,
+                         width=W),
+    }
+
+
+# -- phase 3: the serving path -------------------------------------------------
+
+
+def timed_step(eng) -> tuple[float, float]:
+    """(CUDA-event ms, host-clock ms) of one engine step."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    eng.step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def serve(graph, serve_mod, backend, counters):
+    """The main path: a fresh engine serves the request mix.  Every launch
+    counter is zeroed just before the run and read just after it."""
+    eng = serve_mod.HGNNEngine(
+        graph, target_type="movie", num_slots=3, cache_bytes=64 << 20,
+        admission="similarity", backend=backend, block=16, max_edges=20_000,
+        device="cuda", **WIDTH,
+    )
+    for req in serve_mod.make_request_mix(0, [[mp] for mp in METAPATHS], repeats=2):
+        eng.submit(req)
+    torch.cuda.reset_peak_memory_stats()
+    steps_ms = []
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        steps_ms.append(timed_step(eng)[0])
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = dict(steps_ms=steps_ms, wall_s=wall_s, launches=launches,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(), metrics=eng.metrics())
+    return eng, {r.rid: r for r in eng.finished}, stats
+
+
+def steady_state(eng, serve_mod) -> dict:
+    """A second mix (repeats=4) on the warmed engine, every step timed with
+    CUDA events and traced by torch.profiler (device activity only, so the
+    host adds no per-op records).  Device busy time (the kernels' and
+    copies' own time) and the device wall time (the CUDA events) are of the
+    same steps; idle share = 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for req in serve_mod.make_request_mix(100, [[mp] for mp in METAPATHS], repeats=4):
+        eng.submit(req)
+    steps = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while eng.queue or any(s is not None for s in eng.slots):
+            steps.append(timed_step(eng))
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.self_device_time_total > 0),
+        key=lambda k: -k[1],
+    )
+    busy_ms = sum(k[1] for k in kernels)
+    wall_ms = sum(s[0] for s in steps)
+    if busy_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return dict(
+        steps_ms=[s[0] for s in steps], steps_host_ms=[s[1] for s in steps],
+        device_wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+        top_kernels=[dict(name=k[0][:80], device_ms=k[1], calls=k[2]) for k in kernels[:8]],
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import NABackend, fusion
+    from repro_torch.graphs import synthetic_hetgraph
+    from repro_torch.kernels import build
+    from repro_torch.kernels import seg_gat_agg_fused_fp as ff_mod
+    from repro_torch.kernels import seg_gat_agg_multigraph as mg_mod
+    from repro_torch.launch import hgnn_serve
+    from repro_torch import serve as serve_mod
+
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    OUT.mkdir(exist_ok=True)
+
+    t0 = time.perf_counter()
+    reports = build.build()
+    build_s = time.perf_counter() - t0
+    log(f"[build] {len(build.KERNELS)} kernels in {build_s:.1f} s")
+    for name, text in reports.items():
+        (OUT / f"ptxas_{name}.txt").write_text(text)
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
+    log(f"[graph] full IMDB in {time.perf_counter() - t0:.1f} s: "
+        f"{dict(graph.vertex_counts)}, movie features {graph.feature_dim('movie')}")
+
+    probe = serve_mod.HGNNEngine(graph, target_type="movie", block=16, max_edges=20_000,
+                                 device="cuda", **WIDTH)
+    for mp in METAPATHS:
+        b = probe._batch(mp)
+        log(f"[sgb] {b.name}: {b.num_edges} edges, block CSR {tuple(b.col_index.shape)}")
+    kernels = kernel_phase(probe, fusion, mg_mod, ff_mod)
+    del probe
+
+    # the main path, each backend's run with its own counts
+    counters = {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
+                "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd}
+    eng_mg, res_mg, st_mg = serve(graph, serve_mod, NABackend.MULTIGRAPH, counters)
+    eng_ff, res_ff, st_ff = serve(graph, serve_mod, NABackend.FUSED_FP, counters)
+    launches_by_path = {"multigraph": st_mg["launches"], "fused_fp": st_ff["launches"]}
+    log(f"[launches] launches_by_path={json.dumps(launches_by_path)}")
+    # each kernel's count comes from the run of the path that launches it
+    launches = {"multigraph": st_mg["launches"]["multigraph"],
+                "fused_fp": st_ff["launches"]["fused_fp"]}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the serving path never launched: {launches_by_path}")
+    if st_mg["launches"]["fused_fp"]:
+        raise AssertionError(f"the multigraph run launched the fused kernel: {launches_by_path}")
+    for name, st in (("multigraph", st_mg), ("fused-fp", st_ff)):
+        m = st["metrics"]
+        log(f"[serve {name}] steps_ms={['%.3f' % t for t in st['steps_ms']]} wall={st['wall_s']:.3f} s "
+            f"peak_mem={st['peak_mem_bytes'] / 2**20:.1f} MiB requests={m['requests_finished']} "
+            f"na_launches={m['na_launches']} fused_steps={m['fused_steps']} "
+            f"bypasses={m['fused_cache_bypasses']} cache_hit_rate={m['cache_hit_rate']:.3f}")
+    if st_ff["metrics"]["fused_steps"] == 0:
+        raise AssertionError("the fused-fp run never took the fused path")
+    n_target = graph.num_vertices("movie")
+    if sorted(res_mg) != sorted(res_ff) or len(res_mg) != 2 * len(METAPATHS):
+        raise AssertionError("not every request finished")
+    serve_err = 0.0
+    for rid, r in res_mg.items():
+        if r.result.shape != (n_target, WIDTH["heads"] * WIDTH["hidden"]):
+            raise AssertionError(f"request {rid}: result shape {tuple(r.result.shape)}")
+        if not torch.isfinite(r.result).all() or abs(float(r.beta.sum()) - 1.0) > 1e-5:
+            raise AssertionError(f"request {rid}: non-finite result or beta not a softmax")
+        serve_err = max(serve_err, compare(f"serve rid {rid} fused-fp vs multigraph",
+                                           (res_ff[rid].result, res_ff[rid].beta),
+                                           (r.result, r.beta)))
+
+    # steady state on the warmed engines (after the main path's counts were read)
+    steady = {}
+    for name, eng in (("multigraph", eng_mg), ("fused-fp", eng_ff)):
+        st = steady[name] = steady_state(eng, serve_mod)
+        log(f"[steady {name}] steps_ms={['%.3f' % t for t in st['steps_ms']]} "
+            f"device wall {st['device_wall_ms']:.3f} ms, busy {st['device_busy_ms']:.3f} ms, "
+            f"idle share {st['device_idle_share']:.4f}")
+        for k in st["top_kernels"]:
+            log(f"[steady {name}]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    del eng_mg, eng_ff
+
+    # the card against the CPU (plain versions) on a small graph
+    small = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.02, seed=0)
+    for backend in (NABackend.MULTIGRAPH, NABackend.FUSED_FP):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = serve_mod.HGNNEngine(small, target_type="movie", backend=backend, block=8,
+                                       max_edges=2000, device=dev)
+            for req in serve_mod.make_request_mix(0, [[mp] for mp in METAPATHS], repeats=1):
+                eng.submit(req)
+            out[dev] = {r.rid: r.result for r in eng.run()}
+        for rid in out["cpu"]:
+            compare(f"small imdb {backend.value} rid {rid} cuda vs cpu",
+                    (out["cuda"][rid].cpu(),), (out["cpu"][rid],))
+
+    # the launcher, as a user runs it
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        hgnn_serve.main(["--na-backend", "fused-fp"])
+    cli = json.loads(buf.getvalue())
+    if cli["requests_finished"] == 0 or not cli["device"].startswith("cuda"):
+        raise AssertionError(f"launcher run: {cli}")
+    log(f"[launcher] fused-fp: {cli['requests_finished']} requests, {cli['steps']} steps, "
+        f"fused_steps={cli['fused_steps']}, wall {cli['wall_s']:.3f} s")
+
+    sources = {
+        "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
+                       "src/repro/kernels/seg_gat_agg_multigraph.py:180"),
+        "fused_fp": ("seg_gat_agg_fused_fp_fwd", "src/repro_torch/csrc/seg_gat_agg_fused_fp.cu",
+                     "src/repro/kernels/seg_gat_agg_fused_fp.py:288"),
+    }
+    line = {"kernels": [
+        {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
+         "replaces": sources[k][2], "launches": launches[k],
+         "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
+         "plain_ms": kernels[k]["plain_ms"], "bound_ms": kernels[k]["bound_ms"],
+         "bound_by": kernels[k]["bound_by"], "library_ms": kernels[k]["library_ms"]}
+        for k in ("multigraph", "fused_fp")
+    ]}
+    full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
+                launches=launches, launches_by_path=launches_by_path,
+                serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
+                serve_max_abs_err=serve_err, launcher=cli)
+    (OUT / "chip_smoke.json").write_text(json.dumps(full, indent=1, default=str))
+    for k in line["kernels"]:
+        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
+            raise AssertionError(f"non-finite number in {k}")
+    log(card_line())
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""HiHGNN core of the port: stage ops, the NA dispatch with its kernel
+backends, similarity-aware scheduling and FP-traffic accounting."""
+from . import stages
+from .fusion import (
+    FusedFPInputs,
+    NABackend,
+    SemanticGraphBatch,
+    batch_semantic_graph,
+    build_unit_tables,
+    neighbor_aggregate_multi,
+)
+from .reuse import FPTraffic, fp_buffer_traffic
+from .scheduling import shortest_hamilton_path, similarity_matrix
+
+__all__ = [
+    "stages",
+    "FusedFPInputs",
+    "NABackend",
+    "SemanticGraphBatch",
+    "batch_semantic_graph",
+    "build_unit_tables",
+    "neighbor_aggregate_multi",
+    "FPTraffic",
+    "fp_buffer_traffic",
+    "shortest_hamilton_path",
+    "similarity_matrix",
+]

@@ -1,0 +1,238 @@
+"""NA execution paths of the port (the counterpart of ``repro.core.fusion``).
+
+Three interchangeable NA backends with identical semantics:
+
+* ``BLOCK``      — plain PyTorch block-CSR online softmax, one semantic
+  graph at a time (``stages.block_softmax_aggregate``, the oracle).
+* ``MULTIGRAPH`` — ALL semantic graphs of a step in one launch of the
+  multigraph kernel (``kernels/seg_gat_agg_multigraph``): the paper's
+  multi-lane datapath.
+* ``FUSED_FP``   — the multigraph launch with the FP stage pulled inside
+  (``kernels/seg_gat_agg_fused_fp``): raw features are projected on chip
+  against per-graph weight tables and h' never goes to device memory
+  (paper Alg. 2, DESIGN.md §10).  Takes ``fp=FusedFPInputs`` in place of
+  the theta/h operands.
+
+On CUDA tensors the two kernel backends launch the hand-written kernels;
+on CPU tensors the kernel wrappers take their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import torch
+
+from ..graphs.formats import to_block_csr
+from ..graphs.hetgraph import SemanticGraph
+from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp_fwd
+from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph_fwd
+from ..obs.trace import trace_span
+from . import stages
+
+
+class NABackend(enum.Enum):
+    BLOCK = "block"
+    MULTIGRAPH = "multigraph"
+    FUSED_FP = "fused_fp"
+
+
+# materialized-path equivalent of the fused backend (serving's FP-cache-hit
+# bypass: the projected table already exists, so re-projecting inside the
+# kernel would waste the cache)
+_FUSED_TO_MULTIGRAPH = {NABackend.FUSED_FP: NABackend.MULTIGRAPH}
+
+
+@dataclasses.dataclass
+class SemanticGraphBatch:
+    """Device-resident block CSR of one semantic graph."""
+
+    name: str
+    src_type: str
+    dst_type: str
+    num_src: int
+    num_dst: int
+    num_edges: int
+    path_types: tuple[str, ...]
+    col_index: torch.Tensor  # int32 [R, W]  (-1 = padding)
+    masks: torch.Tensor      # bool  [R, W, B, B]
+    block: int
+
+    @property
+    def num_dst_pad(self) -> int:
+        return int(self.col_index.shape[0]) * self.block
+
+
+def batch_semantic_graph(
+    sg: SemanticGraph, *, block: int = 128, device: str | torch.device = "cpu"
+) -> SemanticGraphBatch:
+    bc = to_block_csr(sg, block=block)
+    return SemanticGraphBatch(
+        name=sg.name,
+        src_type=sg.src_type,
+        dst_type=sg.dst_type,
+        num_src=sg.num_src,
+        num_dst=sg.num_dst,
+        num_edges=sg.num_edges,
+        path_types=sg.path_types,
+        col_index=torch.as_tensor(bc.col_index, device=device),
+        masks=torch.as_tensor(bc.masks, device=device),
+        block=block,
+    )
+
+
+@dataclasses.dataclass
+class FusedFPInputs:
+    """Operands of the FUSED_FP backend: raw features plus the projection
+    and attention parameters the megakernel applies on chip.
+
+    ``w``/``b`` are stacked per weight *table* and ``wsel`` maps each
+    semantic graph to its table — graphs sharing a projection (HAN: all of
+    them) share one table.
+    """
+
+    x: torch.Tensor       # [N, Din]       raw features (shared src/dst space)
+    w: torch.Tensor       # [T, Din, H*Dh] per-table projection weights
+    b: torch.Tensor       # [T, H*Dh]
+    a_src: torch.Tensor   # [G, H, Dh]
+    a_dst: torch.Tensor   # [G, H, Dh]
+    wsel: torch.Tensor    # int32 [G]      graph -> weight-table row
+
+    @classmethod
+    def shared(cls, x, w, b, a_src, a_dst) -> "FusedFPInputs":
+        """All graphs project through ONE weight table (HAN's layout)."""
+        return cls(
+            x=x,
+            w=w[None] if w.dim() == 2 else w,
+            b=b[None] if b.dim() == 1 else b,
+            a_src=a_src,
+            a_dst=a_dst,
+            wsel=torch.zeros((a_src.shape[0],), dtype=torch.int32, device=x.device),
+        )
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[0] == n:
+        return x
+    if x.shape[0] > n:
+        raise ValueError(f"{x.shape[0]} rows do not fit in {n}")
+    return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
+
+
+def build_unit_tables(batches: list[SemanticGraphBatch]):
+    """Stack the block-CSR rows of several semantic graphs into the flat
+    (col_index, graph_id, dst_row, masks) work-unit layout of the
+    multigraph kernels: one unit per (graph, dst-block row), col widths
+    padded to the max across graphs.  Requires all graphs to share the dst
+    vertex space and block size (HAN's metapath graphs do).  Runs on the
+    batches' device."""
+    if not batches:
+        raise ValueError("no semantic graphs")
+    b = batches[0].block
+    n_rows = int(batches[0].col_index.shape[0])
+    dev = batches[0].col_index.device
+    for bb in batches:
+        if bb.block != b or int(bb.col_index.shape[0]) != n_rows:
+            raise ValueError("semantic graphs must share the block size and dst vertex space")
+
+    w_max = max(int(bb.col_index.shape[1]) for bb in batches)
+    g_n = len(batches)
+    col = torch.full((g_n, n_rows, w_max), -1, dtype=torch.int32, device=dev)
+    masks = torch.zeros((g_n, n_rows, w_max, b, b), dtype=torch.bool, device=dev)
+    for i, bb in enumerate(batches):
+        wg = int(bb.col_index.shape[1])
+        col[i, :, :wg] = bb.col_index
+        masks[i, :, :wg] = bb.masks
+    gid = torch.arange(g_n, dtype=torch.int32, device=dev).repeat_interleave(n_rows)
+    row = torch.arange(n_rows, dtype=torch.int32, device=dev).repeat(g_n)
+    return (
+        col.reshape(g_n * n_rows, w_max),
+        gid,
+        row,
+        masks.reshape(g_n * n_rows, w_max, b, b),
+    )
+
+
+def neighbor_aggregate_multi(
+    batches: list[SemanticGraphBatch],
+    theta_src: torch.Tensor | None,  # [G, Ns, H]   (None with FUSED_FP)
+    theta_dst: torch.Tensor | None,  # [G, Nd, H]   (None with FUSED_FP)
+    h_src: torch.Tensor | None,      # [Ns, H, Dh]  (None with FUSED_FP)
+    *,
+    backend: NABackend = NABackend.MULTIGRAPH,
+    fp: FusedFPInputs | None = None,
+) -> torch.Tensor:
+    """NA for ALL semantic graphs of a step at once.  Returns
+    [G, num_dst, H, Dh].
+
+    MULTIGRAPH and FUSED_FP are one kernel launch for the whole step;
+    BLOCK is a per-graph loop with the same semantics.  With FUSED_FP, pass ``fp=FusedFPInputs(...)`` and leave
+    theta_src/theta_dst/h_src as None.  GAT's LeakyReLU slope is 0.2 and
+    the per-graph edge bias is zero throughout.
+
+    Spans (obs.trace, DESIGN.md §12): the kernel backends emit one
+    ``stage=NA`` span for the whole launch; BLOCK emits one ``na/<graph>``
+    span per semantic graph on its own ``sg/<graph>`` lane row.
+    """
+    b0 = batches[0]
+    b = b0.block
+    nd = b0.num_dst
+    nd_pad = b0.num_dst_pad
+    ns_pad = ((b0.num_src + b - 1) // b) * b
+    g_n = len(batches)
+
+    if backend is NABackend.FUSED_FP:
+        if fp is None:
+            raise ValueError(
+                "FUSED_FP takes fp=FusedFPInputs (raw features + weight tables) "
+                "in place of theta_src/theta_dst/h_src"
+            )
+        if b0.num_src != b0.num_dst:
+            raise ValueError(
+                "fused FP+NA streams ONE raw-feature table for both src and dst "
+                "tiles; src and dst must share the vertex space"
+            )
+        col, gid, row, masks = build_unit_tables(batches)
+        x_pad = _pad_rows(fp.x, max(ns_pad, nd_pad)).contiguous()
+        with trace_span(
+            "na/fused_fp", stage="NA", backend=backend.value, graphs=g_n,
+            units=int(col.shape[0]), fused_fp=True,
+            graph_names=[bb.name for bb in batches],
+        ) as sp:
+            out, _ = seg_gat_agg_fused_fp_fwd(
+                col, gid, row, fp.wsel, masks, x_pad, fp.w, fp.b,
+                fp.a_src, fp.a_dst,
+            )  # [G*R*B, H, Dh] — units are g-major, rows in order
+            out = sp.sync(out)
+        return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
+
+    if backend is NABackend.BLOCK:
+        outs = []
+        for i, bb in enumerate(batches):
+            with trace_span(
+                f"na/{bb.name}", stage="NA", lane=f"sg/{bb.name}",
+                graph=bb.name, backend=backend.value, edges=bb.num_edges,
+            ) as sp:
+                z = stages.block_softmax_aggregate(
+                    bb.col_index, bb.masks,
+                    _pad_rows(theta_src[i], ns_pad), _pad_rows(theta_dst[i], nd_pad),
+                    _pad_rows(h_src[: bb.num_src], ns_pad),
+                )
+                outs.append(sp.sync(z[:nd]))
+        return torch.stack(outs)
+
+    if backend is not NABackend.MULTIGRAPH:
+        raise ValueError(f"unknown NA backend {backend}")
+    col, gid, row, masks = build_unit_tables(batches)
+    th_s = _pad_rows(theta_src.transpose(0, 1), ns_pad).transpose(0, 1).contiguous()
+    th_d = _pad_rows(theta_dst.transpose(0, 1), nd_pad).transpose(0, 1).contiguous()
+    hs = _pad_rows(h_src, ns_pad).contiguous()
+    with trace_span(
+        "na/multigraph", stage="NA", backend=backend.value, graphs=g_n,
+        units=int(col.shape[0]), graph_names=[bb.name for bb in batches],
+    ) as sp:
+        out, _ = seg_gat_agg_multigraph_fwd(
+            col, gid, row, masks, th_s, th_d, hs,
+        )  # [G*R*B, H, Dh] — units are g-major, rows in order
+        out = sp.sync(out)
+    return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]

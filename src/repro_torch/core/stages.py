@@ -1,0 +1,95 @@
+"""HGNN execution stages (reference semantics, plain PyTorch, float32).
+
+The paper decomposes HGNN execution into FP -> (theta) -> NA -> LSF -> GSF
+(Algorithm 2).  Each function here is the counterpart of the one of the
+same name in ``repro.core.stages``, with the same layouts:
+
+  * multi-head features are [N, H, Dh]; attention coefficients are [N, H]
+  * block-CSR NA takes col_index [R, W] (-1 = padding), masks [R, W, B, B]
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def feature_projection(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """FP stage: h' = x @ W (+ b).  x: [N, Din], w: [Din, H*Dh] -> [N, H*Dh]."""
+    h = x @ w
+    if b is not None:
+        h = h + b
+    return h
+
+
+def attention_coefficients(
+    h: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-vertex GAT coefficients theta_src[u] = <h'_u, a_src>,
+    theta_dst[v] = <h'_v, a_dst>.  h: [N, H, Dh]; a_*: [H, Dh] ->
+    ([N, H], [N, H])."""
+    th_s = torch.einsum("nhd,hd->nh", h, a_src)
+    th_d = torch.einsum("nhd,hd->nh", h, a_dst)
+    return th_s, th_d
+
+
+def block_softmax_aggregate(
+    col_index: torch.Tensor,   # int32 [R, W]   (-1 = padding)
+    masks: torch.Tensor,       # bool  [R, W, B, B]
+    theta_src: torch.Tensor,   # [Ns_pad, H]
+    theta_dst: torch.Tensor,   # [Nd_pad, H]
+    h_src: torch.Tensor,       # [Ns_pad, H, Dh]
+    *,
+    leaky_slope: float = 0.2,
+    edge_bias: torch.Tensor | float = 0.0,
+) -> torch.Tensor:
+    """Block-CSR *online-softmax* NA — the paper's softmax decomposition
+    (numerator and denominator accumulated together, Fig. 6), all rows at
+    once, one block slot at a time, with float32 carries.  The BLOCK
+    oracle.  Returns [Nd_pad, H, Dh]."""
+    R, W = col_index.shape
+    B = masks.shape[-1]
+    H, Dh = theta_src.shape[1], h_src.shape[-1]
+    dev = h_src.device
+    th_d = theta_dst.reshape(R, B, H).float()
+    m_run = torch.full((R, B, H), NEG_INF, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((R, B, H), dtype=torch.float32, device=dev)
+    acc = torch.zeros((R, B, H, Dh), dtype=torch.float32, device=dev)
+    lanes = torch.arange(B, device=dev)
+    for w in range(W):
+        c = col_index[:, w].long()
+        src = (c.clamp(min=0)[:, None] * B + lanes).reshape(-1)  # [R*B]
+        th_s = theta_src[src].reshape(R, B, H).float()
+        hs = h_src[src].reshape(R, B, H, Dh).float()
+        pre = th_d[:, :, None, :] + th_s[:, None, :, :] + edge_bias  # [R, Bd, Bs, H]
+        logits = torch.where(pre >= 0, pre, leaky_slope * pre)
+        live = (masks[:, w] & (c >= 0)[:, None, None])[..., None]
+        logits = torch.where(live, logits, NEG_INF)
+        m_new = torch.maximum(m_run, logits.amax(dim=2))
+        scale = torch.exp(m_run - m_new)
+        p = torch.where(live, torch.exp(logits - m_new[:, :, None, :]), 0.0)
+        l_run = l_run * scale + p.sum(dim=2)
+        acc = acc * scale[..., None] + torch.einsum("rdsh,rshf->rdhf", p, hs)
+        m_run = m_new
+    out = acc / l_run.clamp(min=1e-9)[..., None]
+    return out.reshape(R * B, H, Dh).to(h_src.dtype)
+
+
+def local_semantic_fusion(
+    z: torch.Tensor, w_g: torch.Tensor, b_g: torch.Tensor, q: torch.Tensor, valid_dst: torch.Tensor
+) -> torch.Tensor:
+    """LSF stage (paper Alg. 2 line 21): partial semantic importance
+    w_P = (1/|V|) sum_v q^T tanh(W_g z_v + b).
+    z: [Nd, D]; w_g: [D, Da]; q: [Da]; valid_dst: [Nd] -> scalar."""
+    s = torch.tanh(z @ w_g + b_g) @ q  # [Nd]
+    s = torch.where(valid_dst, s, 0.0)
+    return s.sum() / valid_dst.sum().clamp(min=1).to(s.dtype)
+
+
+def global_semantic_fusion(
+    w_p: torch.Tensor, z_stack: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GSF stage: beta = softmax_P(w_P); h_v = sum_P beta_P z_v^P.
+    w_p: [P]; z_stack: [P, Nd, D] -> ([Nd, D], beta [P])."""
+    beta = torch.softmax(w_p, dim=0)
+    return torch.einsum("p,pnd->nd", beta, z_stack), beta
