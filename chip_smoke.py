@@ -21,8 +21,28 @@ Phases, each fatal on failure:
    Launch counters are zeroed just before each run and read just after
    it; each kernel must have launched in the run of its path.  Every result must be finite, both backends
    must agree, and the card must agree with the CPU on a small graph.
-4. Print the ``kernels`` JSON line, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+4. Training (HAN at heads=8, hidden=64, att_dim=128 on full-scale IMDB,
+   block=16, max_edges=400000, full batch, AdamW lr=5e-3):
+   a. the backward kernels #2 and #4 (and #1, #3 once more) against their
+      plain versions at the training shapes and on the edge cases, at
+      atol=rtol=1e-4 (the fused kernels on exactly representable operands,
+      see ``exact_fused``); each backward runs twice and must be bitwise
+      equal; timed with CUDA events beside its bound;
+   b. the main path: ``launch.hgnn_train.run_training`` with the kernel
+      backend for 20 steps, counters zeroed just before: #1 and #2 launch
+      once a step, #3 and #4 never, and the loss falls;
+   c. FUSED_FP training, 3 steps from the same initial state through
+      ``make_hgnn_train_step(han_forward(FUSED_FP))``: #3 and #4 launch,
+      and the first step's loss and gradients agree with MULTIGRAPH's at
+      rtol=1e-3, atol=1e-5;
+   d. 3 MULTIGRAPH steps twice from the same state give bitwise-equal
+      states; steady steps of both backends under ``torch.profiler`` give
+      the device idle share;
+   e. the card against the CPU on small acm (block=8), per-step losses at
+      1e-4, and the training launcher as a user runs it, with a checkpoint
+      directory, resumed once.
+5. Print the ``kernels`` JSON line (#1-#4), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): every number is float32.
@@ -31,9 +51,11 @@ Full results go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -268,6 +290,353 @@ def kernel_phase(eng, fusion, mg_mod, ff_mod) -> dict:
     }
 
 
+# -- phase 4: training -------------------------------------------------------------
+
+TRAIN = dict(dataset="imdb", scale=1.0, feat_scale=1.0, block=16, max_edges=400_000)
+TRAIN_WIDTH = dict(hidden=64, heads=8)
+
+
+def train_operands(data, params, fusion):
+    """The operands one training step hands each kernel: all semantic graphs
+    of the problem batched, the model's own weights."""
+    col, gid, row, masks = fusion.build_unit_tables(data.graphs)
+    b0 = data.graphs[0]
+    n_pad = b0.num_dst_pad
+    H, Dh = params["a_src"].shape[1:]
+    x = data.features[data.target_type]
+    x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0])).contiguous()
+    w, b, a_src, a_dst = (params[k] for k in ("w_fp", "b_fp", "a_src", "a_dst"))
+    h = torch.addmm(b, x, w).reshape(n_pad, H, Dh)
+    bias = torch.zeros((len(data.graphs), H), device=x.device)
+    multi = dict(col_index=col, graph_id=gid, dst_row=row, masks=masks,
+                 theta_src=torch.einsum("nhd,ghd->gnh", h, a_src).contiguous(),
+                 theta_dst=torch.einsum("nhd,ghd->gnh", h, a_dst).contiguous(),
+                 h_src=h.contiguous(), edge_bias=bias)
+    fused = dict(col_index=col, graph_id=gid, dst_row=row,
+                 wsel=torch.zeros(len(data.graphs), dtype=torch.int32, device=x.device),
+                 masks=masks, x=x, w=w[None].contiguous(), b=b[None].contiguous(),
+                 a_src=a_src.contiguous(), a_dst=a_dst.contiguous(), edge_bias=bias)
+    return multi, fused
+
+
+def multigraph_bwd_cost(ops):
+    """(bytes, flops) of the multigraph backward on these inputs: its inputs
+    (out, lse, g_out and the forward's operands, masks of live slots only)
+    read once, its four gradients written once; per live slot and head
+    4·B·B·Dh for the two products and ~10 ops per logit."""
+    col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
+    U, W = col.shape
+    B, (ns, H, Dh) = masks.shape[-1], h.shape
+    live = int((col >= 0).sum())
+    grads = ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel() + ops["edge_bias"].numel()
+    nbytes = col.numel() * 4 + 2 * U * 4 + live * B * B + 4 * (2 * grads + U * B * H * (2 * Dh + 1))
+    return nbytes, live * H * (4 * B * B * Dh + 10 * B * B), live
+
+
+def fused_bwd_cost(ops):
+    """(bytes, flops, kernel_flops) of the fused backward launch on these
+    inputs.  ``flops`` is the work the function needs: each (table, block)
+    a live unit reads projected once, θ of each (graph, block) once, then
+    the multigraph backward's work.  ``kernel_flops`` is what this kernel
+    does: it re-projects the src tile of every live slot and the dst tile of
+    every unit; it explains the kernel's time and is not its bound."""
+    col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
+    U, W = col.shape
+    B = masks.shape[-1]
+    G, H, Dh = ops["a_src"].shape
+    T, din = ops["w"].shape[:2]
+    live_mask = col >= 0
+    live = int(live_mask.sum())
+    nblk = x.shape[0] // B
+    g_of = gid.long()[:, None].expand(U, W)[live_mask]
+    src_blk = col.long()[live_mask]
+    table = ops["wsel"].long()
+    projected = torch.unique(torch.cat([table[g_of] * nblk + src_blk,
+                                        table[gid.long()] * nblk + row.long()])).numel()
+    thetas = (torch.unique(g_of * nblk + src_blk).numel()
+              + torch.unique(gid.long() * nblk + row.long()).numel())
+    na = live * H * (4 * B * B * Dh + 10 * B * B)
+    nbytes = (col.numel() * 4 + 2 * U * 4 + G * 4 + live * B * B
+              + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
+              + 4 * U * B * H * (2 * Dh + 1)
+              + 4 * (T * x.shape[0] * H * Dh + 2 * G * H * Dh + G * H))
+    flops = projected * 2 * B * din * H * Dh + thetas * 2 * B * H * Dh + na
+    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na
+    return nbytes, flops, kernel_flops
+
+
+def check_bwd(name, fn, plain, ops, out, lse, g):
+    """Kernel backward twice (bitwise equal) against its plain version."""
+    got = fn(**ops, out=out, lse=lse, g_out=g)
+    again = fn(**ops, out=out, lse=lse, g_out=g)
+    want = plain(**ops, out=out, lse=lse, g_out=g)
+    torch.cuda.synchronize()
+    got, again, want = ([t for t in ts if t is not None] for ts in (got, again, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+    return compare(name, got, want)
+
+
+def exact_fused(ops: dict) -> dict:
+    """The fused operands rounded to small dyadic values (x to 1/16, W and b
+    to 1/64, a and the bias to 1/16, clipped) so that every projection and
+    θ, and so every pre-activation, is exact in float32 whatever the order
+    of the sums.  The kernel re-projects with its own K-tiled sum and the
+    plain version with cuBLAS; on inexact operands a pre-activation within
+    rounding of 0 takes the other LeakyReLU branch in the two versions and
+    its backward derivative jumps from 1 to the slope, which no tolerance
+    absorbs (the forward is continuous there)."""
+    def q(t, step, lim):
+        return (torch.round(t / step).clamp(-lim, lim) * step).contiguous()
+
+    return dict(ops, x=q(ops["x"], 1 / 16, 2), w=q(ops["w"], 1 / 64, 4), b=q(ops["b"], 1 / 64, 4),
+                a_src=q(ops["a_src"], 1 / 16, 8), a_dst=q(ops["a_dst"], 1 / 16, 8),
+                edge_bias=q(ops["edge_bias"], 1 / 16, 8))
+
+
+def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
+    dev = data.labels.device
+    tr_mg, tr_ff = train_operands(data, params, fusion)
+    U, W = tr_mg["col_index"].shape
+    log(f"[train slice] U={U} W={W} live pairs={int((tr_mg['col_index'] >= 0).sum())} "
+        f"B={data.graphs[0].block} H={params['a_src'].shape[1]} Dh={params['a_src'].shape[2]} "
+        f"Din={tr_ff['x'].shape[1]} N_pad={tr_ff['x'].shape[0]}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [("train", tr_mg, tr_ff)]
+    cases.append(("edge B=16 W=6 Din=100", *edge_operands(1, dev)))
+    cases.append(("edge W=1", *edge_operands(2, dev, W=1)))
+    cases.append(("edge B=8 H=2 Dh=8 Din=37", *edge_operands(3, dev, B=8, H=2, Dh=8, din=37)))
+    errs = dict(multigraph=0.0, multigraph_bwd=0.0, fused_fp=0.0, fused_fp_bwd=0.0)
+    for name, mg, ff in cases:
+        out, lse = mg_mod.seg_gat_agg_multigraph_fwd(**mg)
+        want = mg_mod.seg_gat_agg_multigraph_plain(**mg)
+        torch.cuda.synchronize()
+        errs["multigraph"] = max(errs["multigraph"], compare(f"multigraph {name}", (out, lse), want))
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        errs["multigraph_bwd"] = max(errs["multigraph_bwd"], check_bwd(
+            f"multigraph_bwd {name}", mg_mod.seg_gat_agg_multigraph_bwd,
+            mg_mod.seg_gat_agg_multigraph_bwd_plain, mg, out, lse, g))
+        ff = exact_fused(ff)
+        out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
+        want = ff_mod.seg_gat_agg_fused_fp_plain(**ff)
+        torch.cuda.synchronize()
+        errs["fused_fp"] = max(errs["fused_fp"], compare(f"fused_fp {name}", (out_f, lse_f), want))
+        errs["fused_fp_bwd"] = max(errs["fused_fp_bwd"], check_bwd(
+            f"fused_fp_bwd {name}", ff_mod.seg_gat_agg_fused_fp_bwd,
+            ff_mod.seg_gat_agg_fused_fp_bwd_plain, ff, out_f, lse_f, g))
+        if name == "train":
+            res = dict(out=out, lse=lse, out_f=out_f, lse_f=lse_f, g=g)
+
+    # timing at the training shapes, straight on the launches (no argument checks)
+    mg, ff = tr_mg, exact_fused(tr_ff)
+    out, lse, out_f, lse_f, g = (res[k] for k in ("out", "lse", "out_f", "lse_f", "g"))
+    B, (G, H, Dh) = data.graphs[0].block, ff["a_src"].shape
+    o = torch.empty_like(out)
+    lo = torch.empty_like(lse)
+    t = {}
+    t["multigraph"] = (cuda_ms(lambda: mg_mod.launch(**mg, out=o, lse=lo, leaky_slope=0.2), reps=10),
+                       cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_plain(**mg), reps=2), None)
+    idx = mg_mod.bwd_index(mg["col_index"], mg["graph_id"], mg["dst_row"], G,
+                           mg["theta_src"].shape[1] // B, mg["theta_dst"].shape[1] // B)
+    delta = (g * out).sum(-1)
+    t["multigraph_bwd"] = (
+        cuda_ms(lambda: mg_mod.launch_bwd(**mg, g_out=g, lse=lse, delta=delta, index=idx,
+                                          leaky_slope=0.2), reps=5),
+        cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_bwd_plain(**mg, out=out, lse=lse, g_out=g),
+                reps=1), None)
+
+    def xw(opsf):
+        h = torch.addmm(opsf["b"][0], opsf["x"], opsf["w"][0]).reshape(opsf["x"].shape[0], H, Dh)
+        return (h, torch.einsum("nhd,ghd->gnh", h, opsf["a_src"]),
+                torch.einsum("nhd,ghd->gnh", h, opsf["a_dst"]))
+
+    def xw_then_plain_na():
+        h, ths, thd = xw(ff)
+        return mg_mod.seg_gat_agg_multigraph_plain(
+            mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd, h, mg["edge_bias"])
+
+    def xw_then_plain_vjp():
+        h, ths, thd = xw(ff)
+        return mg_mod.seg_gat_agg_multigraph_bwd_plain(
+            mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd, h,
+            mg["edge_bias"], out_f, lse_f, g)
+
+    t["fused_fp"] = (cuda_ms(lambda: ff_mod.launch(**ff, out=o, lse=lo, leaky_slope=0.2), reps=2),
+                     cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**ff), reps=1),
+                     cuda_ms(xw_then_plain_na, reps=1))
+    fidx = ff_mod.bwd_index(ff["col_index"], ff["graph_id"], ff["dst_row"], ff["wsel"], G,
+                            ff["w"].shape[0], ff["x"].shape[0] // B)
+    delta_f = (g * out_f).sum(-1)
+    t["fused_fp_bwd"] = (
+        cuda_ms(lambda: ff_mod.launch_bwd(**ff, g_out=g, lse=lse_f, delta=delta_f, index=fidx,
+                                          leaky_slope=0.2), reps=2),
+        cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_bwd_plain(**ff, out=out_f, lse=lse_f, g_out=g,
+                                                               need_dx=False), reps=1),
+        cuda_ms(xw_then_plain_vjp, reps=1))
+    costs = {"multigraph": multigraph_cost(mg)[:2], "multigraph_bwd": multigraph_bwd_cost(mg)[:2],
+             "fused_fp": fused_cost(ff)[:2], "fused_fp_bwd": fused_bwd_cost(ff)[:2]}
+    kernel_flops = {"fused_fp": fused_cost(ff)[2], "fused_fp_bwd": fused_bwd_cost(ff)[2]}
+    result = {}
+    for k, (ms, plain_ms, lib_ms) in t.items():
+        nbytes, flops = costs[k]
+        bound, by = bound_ms(nbytes, flops)
+        result[k] = dict(max_abs_err=errs[k], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                         kernel_flops=kernel_flops.get(k))
+        lib = "" if lib_ms is None else f", x@W + plain {lib_ms:.4f} ms"
+        extra = "" if k not in kernel_flops else f", flops as the kernel does them {kernel_flops[k]:.4e}"
+        log(f"[train time] {k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+            f"{bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops{extra})")
+    return result
+
+
+def profiled_steps(step_fn, state, idx, n) -> tuple[object, dict]:
+    """``n`` train steps, each timed with CUDA events, all under
+    torch.profiler (device activity only); idle share = 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step_fn(state, {"idx": idx})
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), key=lambda k: -k[1])
+    busy, wall = sum(k[1] for k in kernels), sum(steps)
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return state, dict(steps_ms=steps, device_busy_ms=busy, device_wall_ms=wall,
+                       device_idle_share=1.0 - busy / wall,
+                       top_kernels=[dict(name=k[0][:80], device_ms=k[1], calls=k[2])
+                                    for k in kernels[:8]])
+
+
+def training(data, counters, fusion_mod) -> dict:
+    """Phases 4b-4e; returns what they measured."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import HAN, han_forward
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import hgnn_loss_and_grads, init_hgnn_train_state, make_hgnn_train_step
+
+    NAB = fusion_mod.NABackend
+    res = {}
+    # b. the main path, as a user runs it: counters zeroed just before, read just after
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, hist, meta = hgnn_train.run_training(steps=20, backend="kernel", log_every=1,
+                                            log=lines.append, device="cuda", **TRAIN, **TRAIN_WIDTH)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res["multigraph_run"] = dict(launches=launches, wall_s=wall, meta=meta,
+                                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                                 steps_ms=[h["sec"] * 1e3 for h in hist],
+                                 loss=[h["loss"] for h in hist])
+    log(f"[train multigraph] {lines[0]}")
+    log(f"[train multigraph] launches={json.dumps(launches)} loss {hist[0]['loss']:.6f} -> "
+        f"{hist[-1]['loss']:.6f}, step ms cold {hist[0]['sec'] * 1e3:.3f}, steady median "
+        f"{float(np.median([h['sec'] for h in hist[1:]])) * 1e3:.3f}, wall {wall:.3f} s, peak mem "
+        f"{res['multigraph_run']['peak_mem_bytes'] / 2**30:.3f} GiB")
+    if launches != {"multigraph": 20, "multigraph_bwd": 20, "fused_fp": 0, "fused_fp_bwd": 0}:
+        raise AssertionError(f"training launches per step are not 1/1/0/0 over 20 steps: {launches}")
+    if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the loss did not fall: {[h['loss'] for h in hist]}")
+
+    # c. FUSED_FP training from the same initial state
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+    state0 = init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt, **width)
+    idx = torch.arange(data.labels.shape[0])
+    step_ff = make_hgnn_train_step(lambda p: han_forward(p, data, backend=NAB.FUSED_FP), data, opt)
+    step_mg = make_hgnn_train_step(lambda p: han_forward(p, data, backend=NAB.MULTIGRAPH), data, opt)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    st, m0 = step_ff(state0, {"idx": idx})
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    st, prof_ff = profiled_steps(step_ff, st, idx, 2)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res["fused_fp_run"] = dict(launches=launches, cold_ms=cold_ms, steady=prof_ff,
+                               peak_mem_bytes=torch.cuda.max_memory_allocated(), first_loss=float(m0["loss"]))
+    log(f"[train fused_fp] launches={json.dumps(launches)} step ms cold {cold_ms:.3f}, steady "
+        f"{['%.3f' % s for s in prof_ff['steps_ms']]}, idle share {prof_ff['device_idle_share']:.4f}, "
+        f"peak mem {res['fused_fp_run']['peak_mem_bytes'] / 2**30:.3f} GiB")
+    if launches != {"multigraph": 0, "multigraph_bwd": 0, "fused_fp": 3, "fused_fp_bwd": 3}:
+        raise AssertionError(f"FUSED_FP training launches are not 0/0/3/3 over 3 steps: {launches}")
+    if abs(float(m0["loss"]) - hist[0]["loss"]) > 1e-3 * abs(hist[0]["loss"]):
+        raise AssertionError(f"FUSED_FP first loss {float(m0['loss'])} vs the main path's {hist[0]['loss']}")
+    grads = {}
+    for nab in (NAB.MULTIGRAPH, NAB.FUSED_FP):
+        loss, _, g = hgnn_loss_and_grads(lambda p: han_forward(p, data, backend=nab),
+                                         state0.params, data, idx)
+        grads[nab] = (loss, g)
+    names = sorted(grads[NAB.MULTIGRAPH][1])
+    err = 0.0
+    for k in names:
+        a, b = grads[NAB.FUSED_FP][1][k], grads[NAB.MULTIGRAPH][1][k]
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5, msg=lambda s: f"grad {k}: {s}")
+        err = max(err, float((a - b).abs().max()))
+    torch.testing.assert_close(grads[NAB.FUSED_FP][0], grads[NAB.MULTIGRAPH][0], rtol=1e-3, atol=1e-5)
+    res["fused_vs_multigraph_grad_max_abs_err"] = err
+    log(f"[check] first-step loss and gradients fused_fp vs multigraph: max_abs_err={err:.3e} "
+        f"(rtol=1e-3, atol=1e-5)")
+
+    # d. repeatability, then steady MULTIGRAPH steps under the profiler
+    runs = []
+    for _ in range(2):
+        st = state0
+        for _ in range(3):
+            st, _ = step_mg(st, {"idx": idx})
+        torch.cuda.synchronize()
+        runs.append(st)
+    from repro_torch.checkpoint.io import _flatten
+
+    for (ka, va), (kb, vb) in zip(_flatten(runs[0]), _flatten(runs[1])):
+        if ka != kb or not torch.equal(va, vb):
+            raise AssertionError(f"3 MULTIGRAPH steps twice from one state differ at {ka}")
+    log("[check] 3 MULTIGRAPH steps, twice from the same state: bitwise equal")
+    _, prof_mg = profiled_steps(step_mg, runs[0], idx, 3)
+    res["multigraph_steady"] = prof_mg
+    log(f"[train multigraph steady] steps_ms={['%.3f' % s for s in prof_mg['steps_ms']]} busy "
+        f"{prof_mg['device_busy_ms']:.3f} ms of {prof_mg['device_wall_ms']:.3f} ms, idle share "
+        f"{prof_mg['device_idle_share']:.4f}")
+    for name, pr in (("multigraph", prof_mg), ("fused_fp", prof_ff)):
+        for k in pr["top_kernels"][:5]:
+            log(f"[train {name} steady]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+
+    # e. the card against the CPU on a small graph; the launcher with a resume
+    small = dict(dataset="acm", scale=0.05, block=8, max_edges=20_000, hidden=8, heads=2,
+                 steps=3, log_every=1, log=lambda _: None)
+    losses = {dev: [h["loss"] for h in hgnn_train.run_training(device=dev, **small)[1]]
+              for dev in ("cpu", "cuda")}
+    compare("small acm training losses cuda vs cpu",
+            (torch.tensor(losses["cuda"]),), (torch.tensor(losses["cpu"]),))
+    ck = OUT / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    outs = []
+    for steps in ("4", "6"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hgnn_train.main(["--steps", steps, "--ckpt-every", "2", "--ckpt", str(ck)])
+        outs.append(buf.getvalue())
+    if "[resume] step=4" not in outs[1] or latest_step(str(ck)) != 6:
+        raise AssertionError(f"launcher resume: {outs[1][-500:]}")
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"[launcher] hgnn_train: {outs[0].strip().splitlines()[-1]}; resumed at step 4: "
+        f"{outs[1].strip().splitlines()[-1]}")
+    res["small_losses"] = losses
+    return res
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -345,8 +714,9 @@ def main() -> int:
     from repro_torch.core import NABackend, fusion
     from repro_torch.graphs import synthetic_hetgraph
     from repro_torch.kernels import build
-    from repro_torch.kernels import seg_gat_agg_fused_fp as ff_mod
-    from repro_torch.kernels import seg_gat_agg_multigraph as mg_mod
+    # the modules, not the differentiable functions the package exports by the same names
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
     from repro_torch.launch import hgnn_serve
     from repro_torch import serve as serve_mod
 
@@ -380,16 +750,20 @@ def main() -> int:
 
     # the main path, each backend's run with its own counts
     counters = {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
-                "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd}
+                "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
+                "multigraph_bwd": mg_mod.seg_gat_agg_multigraph_bwd,
+                "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
     eng_mg, res_mg, st_mg = serve(graph, serve_mod, NABackend.MULTIGRAPH, counters)
     eng_ff, res_ff, st_ff = serve(graph, serve_mod, NABackend.FUSED_FP, counters)
     launches_by_path = {"multigraph": st_mg["launches"], "fused_fp": st_ff["launches"]}
     log(f"[launches] launches_by_path={json.dumps(launches_by_path)}")
     # each kernel's count comes from the run of the path that launches it
-    launches = {"multigraph": st_mg["launches"]["multigraph"],
-                "fused_fp": st_ff["launches"]["fused_fp"]}
-    if not all(launches.values()):
+    serve_launches = {"multigraph": st_mg["launches"]["multigraph"],
+                      "fused_fp": st_ff["launches"]["fused_fp"]}
+    if not all(serve_launches.values()):
         raise AssertionError(f"a kernel of the serving path never launched: {launches_by_path}")
+    if any(st["launches"][k] for st in (st_mg, st_ff) for k in ("multigraph_bwd", "fused_fp_bwd")):
+        raise AssertionError(f"serving launched a backward kernel: {launches_by_path}")
     if st_mg["launches"]["fused_fp"]:
         raise AssertionError(f"the multigraph run launched the fused kernel: {launches_by_path}")
     for name, st in (("multigraph", st_mg), ("fused-fp", st_ff)):
@@ -448,21 +822,50 @@ def main() -> int:
     log(f"[launcher] fused-fp: {cli['requests_finished']} requests, {cli['steps']} steps, "
         f"fused_steps={cli['fused_steps']}, wall {cli['wall_s']:.3f} s")
 
+    # phase 4: training
+    from repro_torch.launch import hgnn_train
+
+    t0 = time.perf_counter()
+    _, tdata = hgnn_train.build_problem(device="cuda", **TRAIN)
+    log(f"[train problem] {[b.name for b in tdata.graphs]}: edges "
+        f"{[b.num_edges for b in tdata.graphs]}, built in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.models.hgnn import HAN
+
+    params0 = HAN.init(torch.Generator().manual_seed(0), tdata, **TRAIN_WIDTH,
+                       att_dim=2 * TRAIN_WIDTH["hidden"])
+    train_kernels = train_kernel_phase(tdata, params0, fusion, mg_mod, ff_mod)
+    train_counters = {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
+                      "multigraph_bwd": mg_mod.seg_gat_agg_multigraph_bwd,
+                      "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
+                      "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
+    train = training(tdata, train_counters, fusion)
+    # each kernel's count comes from the training run of the path that launches it
+    launches = {"multigraph": train["multigraph_run"]["launches"]["multigraph"],
+                "multigraph_bwd": train["multigraph_run"]["launches"]["multigraph_bwd"],
+                "fused_fp": train["fused_fp_run"]["launches"]["fused_fp"],
+                "fused_fp_bwd": train["fused_fp_run"]["launches"]["fused_fp_bwd"]}
+
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
                        "src/repro/kernels/seg_gat_agg_multigraph.py:180"),
+        "multigraph_bwd": ("seg_gat_agg_multigraph_bwd",
+                           "src/repro_torch/csrc/seg_gat_agg_multigraph_bwd.cu",
+                           "src/repro/kernels/seg_gat_agg_multigraph.py:228"),
         "fused_fp": ("seg_gat_agg_fused_fp_fwd", "src/repro_torch/csrc/seg_gat_agg_fused_fp.cu",
                      "src/repro/kernels/seg_gat_agg_fused_fp.py:288"),
+        "fused_fp_bwd": ("seg_gat_agg_fused_fp_bwd", "src/repro_torch/csrc/seg_gat_agg_fused_fp_bwd.cu",
+                         "src/repro/kernels/seg_gat_agg_fused_fp.py:331"),
     }
     line = {"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
          "replaces": sources[k][2], "launches": launches[k],
-         "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
-         "plain_ms": kernels[k]["plain_ms"], "bound_ms": kernels[k]["bound_ms"],
-         "bound_by": kernels[k]["bound_by"], "library_ms": kernels[k]["library_ms"]}
-        for k in ("multigraph", "fused_fp")
+         "max_abs_err": train_kernels[k]["max_abs_err"], "ms": train_kernels[k]["ms"],
+         "plain_ms": train_kernels[k]["plain_ms"], "bound_ms": train_kernels[k]["bound_ms"],
+         "bound_by": train_kernels[k]["bound_by"], "library_ms": train_kernels[k]["library_ms"]}
+        for k in sources
     ]}
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
+                train_kernels=train_kernels, training=train,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
                 serve_max_abs_err=serve_err, launcher=cli)

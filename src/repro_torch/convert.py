@@ -1,4 +1,4 @@
-"""Carry a JAX ``repro.serve.HGNNEngine``'s weights across to the port.
+"""Carry JAX weights and train state across to the port.
 
 The two frameworks' random streams never match, so parity between
 ``repro`` and ``repro_torch`` is held on the SAME weights, passed through
@@ -7,6 +7,10 @@ numpy::
     params = jax.tree.map(np.asarray, jax_engine.params)
     mp = {k: tuple(np.asarray(a) for a in v) for k, v in jax_engine._mp_params.items()}
     port = HGNNEngine(graph, ..., **engine_params_from_numpy(params, mp, device="cuda"))
+
+    params = jax.tree.map(np.asarray, repro.models.hgnn.init_han(key, data))
+    port_params = han_params_from_numpy(params, device="cuda")
+    state = train_state_from_numpy(params, jax.tree.map(np.asarray, opt), step)
 
 This module imports nothing of JAX: it takes numpy arrays.
 """
@@ -44,4 +48,33 @@ def engine_params_from_numpy(
             tuple(mp): (_tensor(a_src, device), _tensor(a_dst, device))
             for mp, (a_src, a_dst) in metapath_params.items()
         },
+    )
+
+
+def han_params_from_numpy(params: Mapping, device: str | torch.device = "cuda") -> dict:
+    """``repro.models.hgnn.init_han`` params (numpy) as the port's HAN
+    params: the same names, float32 tensors on ``device``."""
+    return {k: _tensor(v, device) for k, v in params.items()}
+
+
+def train_state_from_numpy(
+    params: Mapping, opt: Mapping, step, device: str | torch.device = "cuda"
+):
+    """A reference ``TrainState`` (params, AdamW state ``m``/``v``/
+    ``master``/``count``, step) given as numpy, as the port's
+    ``TrainState``.  ``master`` entries that are None stay None."""
+    from .train.step import TrainState
+
+    def tree(t):
+        return {k: None if v is None else _tensor(v, device) for k, v in t.items()}
+
+    return TrainState(
+        params=tree(params),
+        opt={
+            "m": tree(opt["m"]),
+            "v": tree(opt["v"]),
+            "master": {k: None for k in params},  # float32 params keep no master copy
+            "count": torch.tensor(np.asarray(opt["count"]), dtype=torch.int32, device=device),
+        },
+        step=torch.tensor(np.asarray(step), dtype=torch.int32, device=device),
     )

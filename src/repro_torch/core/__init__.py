@@ -7,10 +7,11 @@ from .fusion import (
     SemanticGraphBatch,
     batch_semantic_graph,
     build_unit_tables,
+    neighbor_aggregate,
     neighbor_aggregate_multi,
 )
 from .reuse import FPTraffic, fp_buffer_traffic
-from .scheduling import shortest_hamilton_path, similarity_matrix
+from .scheduling import shortest_hamilton_path, similarity_matrix, similarity_schedule
 
 __all__ = [
     "stages",
@@ -19,9 +20,11 @@ __all__ = [
     "SemanticGraphBatch",
     "batch_semantic_graph",
     "build_unit_tables",
+    "neighbor_aggregate",
     "neighbor_aggregate_multi",
     "FPTraffic",
     "fp_buffer_traffic",
     "shortest_hamilton_path",
     "similarity_matrix",
+    "similarity_schedule",
 ]

@@ -15,6 +15,15 @@ Three interchangeable NA backends with identical semantics:
 
 On CUDA tensors the two kernel backends launch the hand-written kernels;
 on CPU tensors the kernel wrappers take their plain PyTorch versions.
+Both go through the kernels' ``torch.autograd.Function``s, which keep the
+forward's ``lse`` residual for the backward kernel.  Under
+``torch.no_grad()`` (serving), or when no operand requires grad, the
+Function runs the same single forward launch, its output has no
+``grad_fn`` and the residual is freed on return.  BLOCK is differentiable
+by plain autograd.
+
+``SEGMENT`` and ``KERNEL`` (the per-graph Pallas kernel #5 of R-GAT and
+S-HGN) are not ported yet: asking for either raises.
 """
 from __future__ import annotations
 
@@ -25,16 +34,31 @@ import torch
 
 from ..graphs.formats import to_block_csr
 from ..graphs.hetgraph import SemanticGraph
-from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp_fwd
-from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph_fwd
+from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
+from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph
 from ..obs.trace import trace_span
 from . import stages
 
 
 class NABackend(enum.Enum):
+    SEGMENT = "segment"
     BLOCK = "block"
+    KERNEL = "kernel"
     MULTIGRAPH = "multigraph"
     FUSED_FP = "fused_fp"
+
+
+_NOT_PORTED = {
+    NABackend.SEGMENT: "the SEGMENT backend (padded edge lists) is not ported yet: "
+                       "ROADMAP Queue 1 item 4 (the other HGNN models)",
+    NABackend.KERNEL: "the per-graph KERNEL backend (Pallas kernel #5, seg_gat_agg) is not "
+                      "ported yet: ROADMAP Queue 1 item 4 (the other HGNN models)",
+}
+
+
+def check_ported(backend: NABackend) -> None:
+    if backend in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[backend])
 
 
 # materialized-path equivalent of the fused backend (serving's FP-cache-hit
@@ -153,6 +177,28 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
     )
 
 
+def neighbor_aggregate(
+    batch: SemanticGraphBatch,
+    theta_src: torch.Tensor,  # [Ns, H]
+    theta_dst: torch.Tensor,  # [Nd, H]
+    h_src: torch.Tensor,      # [Ns, H, Dh]
+    *,
+    leaky_slope: float = 0.2,
+    edge_bias: torch.Tensor | float = 0.0,
+) -> torch.Tensor:
+    """Attention NA of one semantic graph on BLOCK, the plain
+    online-softmax oracle (differentiable by autograd).  Returns
+    [num_dst, H, Dh].  The kernel backends run all graphs of a step in one
+    launch: :func:`neighbor_aggregate_multi`."""
+    ns_pad = ((batch.num_src + batch.block - 1) // batch.block) * batch.block
+    out = stages.block_softmax_aggregate(
+        batch.col_index, batch.masks,
+        _pad_rows(theta_src, ns_pad), _pad_rows(theta_dst, batch.num_dst_pad),
+        _pad_rows(h_src, ns_pad), leaky_slope=leaky_slope, edge_bias=edge_bias,
+    )
+    return out[: batch.num_dst]
+
+
 def neighbor_aggregate_multi(
     batches: list[SemanticGraphBatch],
     theta_src: torch.Tensor | None,  # [G, Ns, H]   (None with FUSED_FP)
@@ -160,20 +206,24 @@ def neighbor_aggregate_multi(
     h_src: torch.Tensor | None,      # [Ns, H, Dh]  (None with FUSED_FP)
     *,
     backend: NABackend = NABackend.MULTIGRAPH,
+    leaky_slope: float = 0.2,
+    edge_bias: torch.Tensor | None = None,  # [G, H]
     fp: FusedFPInputs | None = None,
 ) -> torch.Tensor:
     """NA for ALL semantic graphs of a step at once.  Returns
     [G, num_dst, H, Dh].
 
-    MULTIGRAPH and FUSED_FP are one kernel launch for the whole step;
-    BLOCK is a per-graph loop with the same semantics.  With FUSED_FP, pass ``fp=FusedFPInputs(...)`` and leave
-    theta_src/theta_dst/h_src as None.  GAT's LeakyReLU slope is 0.2 and
-    the per-graph edge bias is zero throughout.
+    MULTIGRAPH and FUSED_FP are one kernel launch for the whole step
+    (forward, and under autograd one backward launch); BLOCK is a per-graph
+    loop of :func:`neighbor_aggregate` with the same semantics.  With
+    FUSED_FP, pass ``fp=FusedFPInputs(...)`` and leave
+    theta_src/theta_dst/h_src as None.
 
     Spans (obs.trace, DESIGN.md §12): the kernel backends emit one
     ``stage=NA`` span for the whole launch; BLOCK emits one ``na/<graph>``
     span per semantic graph on its own ``sg/<graph>`` lane row.
     """
+    check_ported(backend)
     b0 = batches[0]
     b = b0.block
     nd = b0.num_dst
@@ -194,16 +244,15 @@ def neighbor_aggregate_multi(
             )
         col, gid, row, masks = build_unit_tables(batches)
         x_pad = _pad_rows(fp.x, max(ns_pad, nd_pad)).contiguous()
+        operands = (col, gid, row, fp.wsel, masks, x_pad, fp.w, fp.b, fp.a_src, fp.a_dst,
+                    edge_bias)
         with trace_span(
             "na/fused_fp", stage="NA", backend=backend.value, graphs=g_n,
             units=int(col.shape[0]), fused_fp=True,
             graph_names=[bb.name for bb in batches],
         ) as sp:
-            out, _ = seg_gat_agg_fused_fp_fwd(
-                col, gid, row, fp.wsel, masks, x_pad, fp.w, fp.b,
-                fp.a_src, fp.a_dst,
-            )  # [G*R*B, H, Dh] — units are g-major, rows in order
-            out = sp.sync(out)
+            # [G*R*B, H, Dh] — units are g-major, rows in order
+            out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope))
         return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
     if backend is NABackend.BLOCK:
@@ -213,12 +262,12 @@ def neighbor_aggregate_multi(
                 f"na/{bb.name}", stage="NA", lane=f"sg/{bb.name}",
                 graph=bb.name, backend=backend.value, edges=bb.num_edges,
             ) as sp:
-                z = stages.block_softmax_aggregate(
-                    bb.col_index, bb.masks,
-                    _pad_rows(theta_src[i], ns_pad), _pad_rows(theta_dst[i], nd_pad),
-                    _pad_rows(h_src[: bb.num_src], ns_pad),
+                z = neighbor_aggregate(
+                    bb, theta_src[i], theta_dst[i], h_src[: bb.num_src],
+                    leaky_slope=leaky_slope,
+                    edge_bias=0.0 if edge_bias is None else edge_bias[i],
                 )
-                outs.append(sp.sync(z[:nd]))
+                outs.append(sp.sync(z))
         return torch.stack(outs)
 
     if backend is not NABackend.MULTIGRAPH:
@@ -227,12 +276,11 @@ def neighbor_aggregate_multi(
     th_s = _pad_rows(theta_src.transpose(0, 1), ns_pad).transpose(0, 1).contiguous()
     th_d = _pad_rows(theta_dst.transpose(0, 1), nd_pad).transpose(0, 1).contiguous()
     hs = _pad_rows(h_src, ns_pad).contiguous()
+    operands = (col, gid, row, masks, th_s, th_d, hs, edge_bias)
     with trace_span(
         "na/multigraph", stage="NA", backend=backend.value, graphs=g_n,
         units=int(col.shape[0]), graph_names=[bb.name for bb in batches],
     ) as sp:
-        out, _ = seg_gat_agg_multigraph_fwd(
-            col, gid, row, masks, th_s, th_d, hs,
-        )  # [G*R*B, H, Dh] — units are g-major, rows in order
-        out = sp.sync(out)
+        # [G*R*B, H, Dh] — units are g-major, rows in order
+        out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope))
     return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]

@@ -8,8 +8,10 @@ shortest Hamilton path (exact Held-Karp DP — #semantic graphs <= ~16 in
 practice).  The serving engine applies it to its request queue: a
 request exposes ``path_types`` exactly like a semantic graph.
 
-A copy of ``repro.core.scheduling`` (the parts serving uses); outputs are
-identical.
+A copy of ``repro.core.scheduling`` (the parts serving and the trainer
+use); outputs are identical.  The trainer orders its semantic graphs with
+:func:`similarity_schedule`; that order fixes each graph's row in the
+stacked attention parameters, so it must match the reference's.
 """
 from __future__ import annotations
 
@@ -88,3 +90,12 @@ def shortest_hamilton_path(w: np.ndarray) -> tuple[list[int], float]:
         order.append(p)
     order.reverse()
     return order, cost
+
+
+def similarity_schedule(
+    sgs: Sequence[SemanticGraph], vertex_counts: Mapping[str, int]
+) -> tuple[list[int], np.ndarray]:
+    """Execution order of semantic graphs maximizing consecutive FP reuse."""
+    w = similarity_matrix(sgs, vertex_counts)
+    order, _ = shortest_hamilton_path(w)
+    return order, w

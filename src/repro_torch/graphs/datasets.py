@@ -142,3 +142,14 @@ def dataset_target(name: str) -> tuple[str, int]:
     spec = TABLE5[name]
     return spec["target"], spec["num_classes"]
 
+
+
+def synthetic_labels(g: HetGraph, name: str, seed: int = 0) -> np.ndarray:
+    """Labels with planted structure: class = argmax over random projection
+    of features, so models can actually fit them (loss decreases)."""
+    target, ncls = dataset_target(name)
+    rng = np.random.default_rng(seed + 1)
+    x = g.features[target]
+    w = rng.standard_normal((x.shape[1], ncls)).astype(np.float32)
+    logits = x @ w + 0.1 * rng.standard_normal((x.shape[0], ncls)).astype(np.float32)
+    return logits.argmax(-1).astype(np.int32)

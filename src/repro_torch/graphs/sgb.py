@@ -110,3 +110,12 @@ def build_semantic_graph(
         path_types=tuple(metapath),
     )
 
+
+
+def build_semantic_graphs(
+    g: HetGraph,
+    metapaths: list[tuple[str, ...]],
+    *,
+    max_edges: int | None = None,
+) -> list[SemanticGraph]:
+    return [build_semantic_graph(g, mp, max_edges=max_edges, seed=i) for i, mp in enumerate(metapaths)]

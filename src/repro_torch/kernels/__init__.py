@@ -1,12 +1,30 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version beside it.  Importing this package builds nothing: a kernel is
 compiled (``kernels/build.py``) the first time a CUDA tensor reaches it."""
-from .seg_gat_agg_fused_fp import seg_gat_agg_fused_fp_fwd, seg_gat_agg_fused_fp_plain
-from .seg_gat_agg_multigraph import seg_gat_agg_multigraph_fwd, seg_gat_agg_multigraph_plain
+from .seg_gat_agg_fused_fp import (
+    seg_gat_agg_fused_fp,
+    seg_gat_agg_fused_fp_bwd,
+    seg_gat_agg_fused_fp_bwd_plain,
+    seg_gat_agg_fused_fp_fwd,
+    seg_gat_agg_fused_fp_plain,
+)
+from .seg_gat_agg_multigraph import (
+    seg_gat_agg_multigraph,
+    seg_gat_agg_multigraph_bwd,
+    seg_gat_agg_multigraph_bwd_plain,
+    seg_gat_agg_multigraph_fwd,
+    seg_gat_agg_multigraph_plain,
+)
 
 __all__ = [
+    "seg_gat_agg_fused_fp",
+    "seg_gat_agg_fused_fp_bwd",
+    "seg_gat_agg_fused_fp_bwd_plain",
     "seg_gat_agg_fused_fp_fwd",
     "seg_gat_agg_fused_fp_plain",
+    "seg_gat_agg_multigraph",
+    "seg_gat_agg_multigraph_bwd",
+    "seg_gat_agg_multigraph_bwd_plain",
     "seg_gat_agg_multigraph_fwd",
     "seg_gat_agg_multigraph_plain",
 ]

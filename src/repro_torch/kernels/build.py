@@ -34,7 +34,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("seg_gat_agg_multigraph", "seg_gat_agg_fused_fp")
+KERNELS = (
+    "seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd",
+    "seg_gat_agg_fused_fp", "seg_gat_agg_fused_fp_bwd",
+)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""Stage-fusion megakernel forward: FP+NA in one launch (paper Alg. 2).
+"""Stage-fusion megakernel, forward and backward: FP+NA in one launch (paper Alg. 2).
 
 The multigraph NA of ``seg_gat_agg_multigraph`` with the FP stage pulled
 inside: the kernel streams **raw** feature tiles, projects them on chip
@@ -14,6 +14,15 @@ hand-written kernel ``csrc/seg_gat_agg_fused_fp.cu``; CPU tensors take
 :func:`seg_gat_agg_fused_fp_plain`, which projects every vertex once and
 then aggregates (the plain version, and the oracle the kernel is held
 against).
+
+The backward (:func:`seg_gat_agg_fused_fp_bwd`) recomputes both
+projections and p on chip: CUDA tensors launch
+``csrc/seg_gat_agg_fused_fp_bwd.cu`` (per-live-slot and per-unit
+projection-space partials, then deterministic segmented sums by weight
+table and by graph); the chain through ``h = x·W[t] + b[t]`` is two plain
+products.  CPU tensors take :func:`seg_gat_agg_fused_fp_bwd_plain`.
+:func:`seg_gat_agg_fused_fp` is the differentiable entry point (a
+``torch.autograd.Function`` around kernels #3 and #4).
 """
 from __future__ import annotations
 
@@ -22,10 +31,28 @@ import ctypes
 import torch
 
 from . import build
-from .seg_gat_agg_multigraph import SMEM_OPTIN, SUPPORTED_BLOCKS, unit_softmax_aggregate
+from .seg_gat_agg_multigraph import (
+    check_smem,
+    csr,
+    live_slots,
+    unit_softmax_aggregate,
+    unit_softmax_aggregate_vjp,
+)
 
 K_TILE = 32  # Din columns staged per step of the K-tiled projection, as in the .cu source
 _NAME = "seg_gat_agg_fused_fp"
+_BWD_NAME = "seg_gat_agg_fused_fp_bwd"
+
+
+def _project(x, w, b, wsel, a_src, a_dst):
+    """Project every vertex once per weight table: (h_all [T, N, H, Dh],
+    theta_src [G, N, H], theta_dst [G, N, H], h per graph [G, N, H, Dh])."""
+    G, H, Dh = a_src.shape
+    T, n = w.shape[0], x.shape[0]
+    h_all = (torch.einsum("nd,tdk->tnk", x, w) + b[:, None, :]).reshape(T, n, H, Dh)
+    hg = h_all[wsel.long()]
+    return (h_all, torch.einsum("gnhd,ghd->gnh", hg, a_src),
+            torch.einsum("gnhd,ghd->gnh", hg, a_dst), hg)
 
 
 def seg_gat_agg_fused_fp_plain(
@@ -34,26 +61,82 @@ def seg_gat_agg_fused_fp_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: project once, then aggregate.
     Returns (out [U·B, H, Dh], lse [U·B, H])."""
-    G, H, Dh = a_src.shape
-    T, n = w.shape[0], x.shape[0]
-    h_all = (torch.einsum("nd,tdk->tnk", x, w) + b[:, None, :]).reshape(T, n, H, Dh)
-    hg = h_all[wsel.long()]                          # [G, N, H, Dh]
-    ths = torch.einsum("gnhd,ghd->gnh", hg, a_src)
-    thd = torch.einsum("gnhd,ghd->gnh", hg, a_dst)
+    h_all, ths, thd, _ = _project(x, w, b, wsel, a_src, a_dst)
     return unit_softmax_aggregate(
         col_index, graph_id, dst_row, masks, ths, thd, h_all, wsel, edge_bias, leaky_slope,
     )
 
 
+def _chain_projection(x, w, dh_t, need_dx: bool):
+    """Through ``h = x·W[t] + b[t]``: (d_x or None, d_w, d_b) from the
+    projection-space gradient ``dh_t [T, N, H·Dh]``."""
+    d_w = torch.matmul(x.t(), dh_t)                    # [T, Din, H·Dh]
+    d_x = torch.matmul(dh_t, w.transpose(1, 2)).sum(dim=0) if need_dx else None
+    return d_x, d_w, dh_t.sum(dim=1)
+
+
+def seg_gat_agg_fused_fp_bwd_plain(
+    col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+    out, lse, g_out, *, leaky_slope: float = 0.2, need_dx: bool = True,
+):
+    """Plain PyTorch version of the backward (the whole VJP of the JAX
+    ``_fused_bwd``): project once, take the multigraph VJP on the projected
+    tables, then chain through the attention vectors and the projection.
+    Returns (d_x or None, d_w, d_b, d_a_src, d_a_dst, d_edge_bias)."""
+    T = w.shape[0]
+    n = x.shape[0]
+    h_all, ths, thd, hg = _project(x, w, b, wsel, a_src, a_dst)
+    delta = (g_out * out).sum(dim=-1)
+    d_ths, d_thd, d_h, d_bias = unit_softmax_aggregate_vjp(
+        col_index, graph_id, dst_row, masks, ths, thd, h_all, wsel, edge_bias, leaky_slope,
+        lse, delta, g_out,
+    )
+    # theta = <h, a> per graph: back into the graph's table and into a
+    d_hg = d_ths[..., None] * a_src[:, None] + d_thd[..., None] * a_dst[:, None]
+    d_h = d_h.index_add(0, wsel.long(), d_hg)
+    d_a_src = torch.einsum("gnh,gnhd->ghd", d_ths, hg)
+    d_a_dst = torch.einsum("gnh,gnhd->ghd", d_thd, hg)
+    d_x, d_w, d_b = _chain_projection(x, w, d_h.reshape(T, n, -1), need_dx)
+    return d_x, d_w, d_b, d_a_src, d_a_dst, d_bias
+
+
 def smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block (mirrors the .cu layout)."""
+    """Dynamic shared memory of one block of the forward (mirrors the .cu layout)."""
     return 4 * (2 * B * H * Dh + H * B * B + K_TILE * B + 5 * B * H) + B * B
+
+
+def bwd_smem_bytes(B: int, H: int, Dh: int) -> int:
+    """Dynamic shared memory of one block of the backward (mirrors the .cu layout)."""
+    return 4 * (3 * B * H * Dh + 2 * H * B * B + K_TILE * B + H * Dh + 6 * B * H) + B * B
+
+
+def bwd_index(col_index, graph_id, dst_row, wsel, n_graphs: int, n_tables: int,
+              nblk: int) -> dict:
+    """The live-slot numbering and the two CSRs the backward reduces over:
+    the slots (rows 0..P-1 of the partial buffer) and units (rows P..P+U-1)
+    by (weight table, block), and the units by graph.  Depends on the
+    topology only."""
+    W = col_index.shape[1]
+    pos, pair_of = live_slots(col_index)
+    pcol = col_index.reshape(-1)[pos].long()
+    table = wsel.long()[graph_id.long()]
+    keys = torch.cat([table[pos // W] * nblk + pcol, table * nblk + dst_row.long()])
+    return dict(n_live=int(pos.numel()), pair_of=pair_of,
+                table=csr(keys, n_tables * nblk), graph=csr(graph_id, n_graphs))
 
 
 def _kernel_fn():
     lib = build.load(_NAME)
     fn = lib.seg_gat_agg_fused_fp_fwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _bwd_kernel_fn():
+    lib = build.load(_BWD_NAME)
+    fn = lib.seg_gat_agg_fused_fp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -79,27 +162,47 @@ def launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
     seg_gat_agg_fused_fp_fwd.launches += 1
 
 
-def seg_gat_agg_fused_fp_fwd(
-    col_index: torch.Tensor,   # int32 [U, W]  src block columns (-1 pad, unique per row)
-    graph_id: torch.Tensor,    # int32 [U]
-    dst_row: torch.Tensor,     # int32 [U]     dst block row within the graph
-    wsel: torch.Tensor,        # int32 [G]     graph -> weight-table row
-    masks: torch.Tensor,       # bool  [U, W, B, B]
-    x: torch.Tensor,           # f32   [N_pad, Din]  raw features, shared src/dst space
-    w: torch.Tensor,           # f32   [T, Din, H·Dh] (or [Din, H·Dh] shared)
-    b: torch.Tensor,           # f32   [T, H·Dh]      (or [H·Dh] shared)
-    a_src: torch.Tensor,       # f32   [G, H, Dh]
-    a_dst: torch.Tensor,       # f32   [G, H, Dh]
-    edge_bias: torch.Tensor | None = None,  # f32 [G, H]
-    *,
-    leaky_slope: float = 0.2,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused FP+NA: per-unit aggregates ``out [U·B, H, Dh]`` (same contract
-    as ``seg_gat_agg_multigraph_fwd``) and ``lse [U·B, H]``.  ``x`` must
-    cover every block index in ``col_index``/``dst_row`` (N_pad = n_blocks·B).
+def launch_bwd(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+               g_out, lse, delta, index: dict, leaky_slope: float):
+    """Launch the backward kernel (pass 1 and its reductions) on checked
+    operands and :func:`bwd_index`'s ``index``, on the current stream.
+    Returns (dh_t [T, N_pad, H·Dh], d_a_src, d_a_dst, d_edge_bias).
+    Counts one launch."""
+    U, W = col_index.shape
+    B = masks.shape[-1]
+    G, H, Dh = a_src.shape
+    T, din = w.shape[:2]
+    n_pad = x.shape[0]
+    n_live = index["n_live"]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dh_part = torch.empty((n_live + U, B, H * Dh), **f32)
+    dthd_units = torch.empty((U, B * H), **f32)
+    das_units = torch.empty((U, H * Dh), **f32)
+    dad_units = torch.empty((U, H * Dh), **f32)
+    dh_t = torch.empty((T, n_pad, H * Dh), **f32)
+    d_a_src = torch.empty((G, H, Dh), **f32)
+    d_a_dst = torch.empty((G, H, Dh), **f32)
+    dthd_g = torch.empty((G, B, H), **f32)
+    lib, fn = _bwd_kernel_fn()
+    p = build.ptr
+    with torch.cuda.device(x.device):
+        err = fn(
+            p(col_index), p(index["pair_of"]), p(graph_id), p(dst_row), p(wsel), p(masks),
+            p(x), p(w), p(b), p(a_src), p(a_dst), p(edge_bias), p(g_out), p(lse), p(delta),
+            p(dh_part), p(dthd_units), p(das_units), p(dad_units),
+            *(p(t) for key in ("table", "graph") for t in index[key]),
+            p(dh_t), p(d_a_src), p(d_a_dst), p(dthd_g),
+            U, W, n_live, B, G, T, n_pad, din, H, Dh, leaky_slope, build.stream_of(x),
+        )
+    build.check_error(lib, _BWD_NAME, err)
+    seg_gat_agg_fused_fp_bwd.launches += 1
+    return dh_t, d_a_src, d_a_dst, dthd_g.sum(dim=1)
 
-    CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only."""
+
+def _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+                    edge_bias):
+    """Check the operands of either direction; returns (w, b, edge_bias)
+    with a shared table taken as T = 1 and zeros for a None bias."""
     dev = x.device
     if w.dim() == 2:
         w = w[None]
@@ -130,26 +233,126 @@ def seg_gat_agg_fused_fp_fwd(
     build.check_range("graph_id", graph_id, 0, G)
     build.check_range("dst_row", dst_row, 0, n_pad // B)
     build.check_range("wsel", wsel, 0, T)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_NAME}: unsupported device {dev}")
+    return w, b, edge_bias
 
-    if dev.type == "cpu":
+
+def seg_gat_agg_fused_fp_fwd(
+    col_index: torch.Tensor,   # int32 [U, W]  src block columns (-1 pad, unique per row)
+    graph_id: torch.Tensor,    # int32 [U]
+    dst_row: torch.Tensor,     # int32 [U]     dst block row within the graph
+    wsel: torch.Tensor,        # int32 [G]     graph -> weight-table row
+    masks: torch.Tensor,       # bool  [U, W, B, B]
+    x: torch.Tensor,           # f32   [N_pad, Din]  raw features, shared src/dst space
+    w: torch.Tensor,           # f32   [T, Din, H·Dh] (or [Din, H·Dh] shared)
+    b: torch.Tensor,           # f32   [T, H·Dh]      (or [H·Dh] shared)
+    a_src: torch.Tensor,       # f32   [G, H, Dh]
+    a_dst: torch.Tensor,       # f32   [G, H, Dh]
+    edge_bias: torch.Tensor | None = None,  # f32 [G, H]
+    *,
+    leaky_slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused FP+NA: per-unit aggregates ``out [U·B, H, Dh]`` (same contract
+    as ``seg_gat_agg_multigraph_fwd``) and ``lse [U·B, H]``.  ``x`` must
+    cover every block index in ``col_index``/``dst_row`` (N_pad = n_blocks·B).
+
+    CUDA operands launch the kernel; CPU operands take the plain version.
+    float32 only."""
+    w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
+                                      a_src, a_dst, edge_bias)
+    if x.device.type == "cpu":
         return seg_gat_agg_fused_fp_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
             edge_bias, leaky_slope=leaky_slope,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"{_NAME}: unsupported device {dev}")
-    if B not in SUPPORTED_BLOCKS:
-        raise ValueError(f"{_NAME}: block size B={B} not in {SUPPORTED_BLOCKS}")
-    if smem_bytes(B, H, Dh) > SMEM_OPTIN:
-        raise ValueError(
-            f"{_NAME}: B={B}, H={H}, Dh={Dh} needs {smem_bytes(B, H, Dh)} B of shared "
-            f"memory per block, more than the {SMEM_OPTIN} B a block can have"
-        )
-    out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=dev)
-    lse = torch.empty((U * B, H), dtype=torch.float32, device=dev)
+    U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape[1:]
+    check_smem(_NAME, B, H, Dh, smem_bytes(B, H, Dh))
+    out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=x.device)
+    lse = torch.empty((U * B, H), dtype=torch.float32, device=x.device)
     launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
            edge_bias, out, lse, float(leaky_slope))
     return out, lse
 
 
+def seg_gat_agg_fused_fp_bwd(
+    col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+    out: torch.Tensor,    # f32 [U·B, H, Dh]  the forward's output
+    lse: torch.Tensor,    # f32 [U·B, H]      the forward's residual
+    g_out: torch.Tensor,  # f32 [U·B, H, Dh]  cotangent of out
+    *,
+    leaky_slope: float = 0.2,
+    need_dx: bool = True,
+):
+    """The VJP of :func:`seg_gat_agg_fused_fp_fwd`: (d_x or None, d_w
+    [T, Din, H·Dh], d_b [T, H·Dh], d_a_src, d_a_dst, d_edge_bias), bitwise
+    repeatable on the card.  ``need_dx=False`` skips the ``d_x`` product.
+
+    CUDA operands launch the backward kernel; CPU operands take the plain
+    version.  float32 only."""
+    w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
+                                      a_src, a_dst, edge_bias)
+    dev = x.device
+    U, B, (G, H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape
+    build.check_tensor("out", out, torch.float32, (U * B, H, Dh), dev)
+    build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
+    build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
+    if dev.type == "cpu":
+        return seg_gat_agg_fused_fp_bwd_plain(
+            col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+            out, lse, g_out, leaky_slope=leaky_slope, need_dx=need_dx,
+        )
+    check_smem(_BWD_NAME, B, H, Dh, bwd_smem_bytes(B, H, Dh))
+    index = bwd_index(col_index, graph_id, dst_row, wsel, G, w.shape[0], x.shape[0] // B)
+    delta = (g_out * out).sum(dim=-1)
+    dh_t, d_a_src, d_a_dst, d_bias = launch_bwd(
+        col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+        g_out, lse, delta, index, float(leaky_slope))
+    d_x, d_w, d_b = _chain_projection(x, w, dh_t, need_dx)
+    return d_x, d_w, d_b, d_a_src, d_a_dst, d_bias
+
+
 seg_gat_agg_fused_fp_fwd.launches = 0
+seg_gat_agg_fused_fp_bwd.launches = 0
+
+
+class FusedFPNA(torch.autograd.Function):
+    """Forward kernel #3 keeping ``out`` and ``lse``; backward kernel #4."""
+
+    @staticmethod
+    def forward(ctx, col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+                edge_bias, leaky_slope):
+        out, lse = seg_gat_agg_fused_fp_fwd(
+            col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+            leaky_slope=leaky_slope)
+        ctx.save_for_backward(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src,
+                              a_dst, edge_bias, out, lse)
+        ctx.leaky_slope = leaky_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        *operands, out, lse = ctx.saved_tensors
+        grads = seg_gat_agg_fused_fp_bwd(*operands, out, lse, g_out.contiguous(),
+                                         leaky_slope=ctx.leaky_slope,
+                                         need_dx=ctx.needs_input_grad[5])
+        return (None, None, None, None, None, *grads, None)
+
+
+def seg_gat_agg_fused_fp(
+    col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+    edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
+) -> torch.Tensor:
+    """Differentiable fused FP+NA ``[U·B, H, Dh]`` (the counterpart of
+    ``repro``'s ``seg_gat_agg_fused_fp``): gradients flow to x, w, b,
+    a_src, a_dst and edge_bias through kernel #4.  A 2-D ``w`` / 1-D ``b``
+    is one shared table."""
+    if w.dim() == 2:
+        w = w[None]
+    if b.dim() == 1:
+        b = b[None]
+    if edge_bias is None:
+        G, H, _ = a_src.shape
+        edge_bias = torch.zeros((G, H), dtype=torch.float32, device=x.device)
+    return FusedFPNA.apply(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+                           edge_bias, float(leaky_slope))

@@ -1,4 +1,4 @@
-"""Multi-graph fused NA forward — the paper's multi-lane execution (§4.2):
+"""Multi-graph fused NA, forward and backward — the paper's multi-lane execution (§4.2):
 one launch processes work units from *different* semantic graphs.
 
 Work unit u is a (graph ``graph_id[u]``, dst-block row ``dst_row[u]``)
@@ -15,6 +15,14 @@ with no live edge gives exact zeros.
 the hand-written kernel ``csrc/seg_gat_agg_multigraph.cu``; CPU tensors
 take :func:`seg_gat_agg_multigraph_plain`, the plain PyTorch version of
 the same function (and the oracle the kernel is held against).
+
+The backward (:func:`seg_gat_agg_multigraph_bwd`) recomputes p from lse:
+CUDA tensors launch ``csrc/seg_gat_agg_multigraph_bwd.cu`` (per-live-slot
+partials, then deterministic segmented sums over CSRs built here by
+:func:`bwd_index`); CPU tensors take :func:`seg_gat_agg_multigraph_bwd_plain`.
+:func:`seg_gat_agg_multigraph` is the differentiable entry point: a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+keeps ``out`` and ``lse``, and whose backward launches the backward kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +37,33 @@ SUPPORTED_BLOCKS = (8, 16, 32)  # the kernel is instantiated for these B
 SMEM_OPTIN = 232_448            # bytes of shared memory a block may opt into (sm_90)
 _PLAIN_CHUNK_BYTES = 64 << 20   # working set of one chunk of units in the plain version
 _NAME = "seg_gat_agg_multigraph"
+_BWD_NAME = "seg_gat_agg_multigraph_bwd"
+
+
+def _gather_unit_chunk(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                       h_tables, h_select, edge_bias, leaky_slope, u0, u1):
+    """The operands of units [u0, u1) gathered over all their W·B src
+    slots: (g, r, src, pre, logits, live, hs)."""
+    W = col_index.shape[1]
+    B = masks.shape[-1]
+    n = u1 - u0
+    lanes = torch.arange(B, device=h_tables.device)
+    cols = col_index[u0:u1].long()
+    g = graph_id[u0:u1].long()
+    r = dst_row[u0:u1].long()
+    src = (cols.clamp(min=0)[:, :, None] * B + lanes).reshape(n, W * B)
+    td = theta_dst[g[:, None], r[:, None] * B + lanes]            # [n, B, H]
+    ts = theta_src[g[:, None], src]                                # [n, W·B, H]
+    hs = h_tables[h_select[g][:, None], src]                       # [n, W·B, H, Dh]
+    live = masks[u0:u1].permute(0, 2, 1, 3).reshape(n, B, W * B)
+    live = (live & (cols >= 0).repeat_interleave(B, dim=1)[:, None, :])[..., None]
+    pre = td[:, :, None, :] + ts[:, None, :, :] + edge_bias[g][:, None, None, :]
+    logits = torch.where(pre >= 0, pre, leaky_slope * pre)         # [n, B, W·B, H]
+    return g, r, src, pre, logits, live, hs
+
+
+def _chunk_units(U: int, per_unit_bytes: int) -> range:
+    return range(0, U, max(1, _PLAIN_CHUNK_BYTES // max(per_unit_bytes, 1)))
 
 
 def unit_softmax_aggregate(
@@ -52,25 +87,15 @@ def unit_softmax_aggregate(
     dev = h_tables.device
     out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=dev)
     lse = torch.empty((U * B, H), dtype=torch.float32, device=dev)
-    per_unit = W * B * (H * Dh + 4 * B * H) * 4
-    chunk = max(1, _PLAIN_CHUNK_BYTES // max(per_unit, 1))
-    lanes = torch.arange(B, device=dev)
     h_select = h_select.long()
-    for u0 in range(0, U, chunk):
-        u1 = min(U, u0 + chunk)
+    chunks = _chunk_units(U, W * B * (H * Dh + 4 * B * H) * 4)
+    for u0 in chunks:
+        u1 = min(U, u0 + chunks.step)
         n = u1 - u0
-        cols = col_index[u0:u1].long()
-        g = graph_id[u0:u1].long()
-        r = dst_row[u0:u1].long()
-        src = (cols.clamp(min=0)[:, :, None] * B + lanes).reshape(n, W * B)
-        td = theta_dst[g[:, None], r[:, None] * B + lanes]            # [n, B, H]
-        ts = theta_src[g[:, None], src]                                # [n, W·B, H]
-        hs = h_tables[h_select[g][:, None], src]                       # [n, W·B, H, Dh]
-        live = masks[u0:u1].permute(0, 2, 1, 3).reshape(n, B, W * B)
-        live = (live & (cols >= 0).repeat_interleave(B, dim=1)[:, None, :])[..., None]
-        pre = td[:, :, None, :] + ts[:, None, :, :] + edge_bias[g][:, None, None, :]
-        logits = torch.where(pre >= 0, pre, leaky_slope * pre)
-        logits = torch.where(live, logits, NEG_INF)                    # [n, B, W·B, H]
+        _, _, _, _, logits, live, hs = _gather_unit_chunk(
+            col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_tables, h_select,
+            edge_bias, leaky_slope, u0, u1)
+        logits = torch.where(live, logits, NEG_INF)
         m = logits.amax(dim=2)
         p = torch.where(live, torch.exp(logits - m[:, :, None, :]), 0.0)
         l = p.sum(dim=2)
@@ -78,6 +103,48 @@ def unit_softmax_aggregate(
         out[u0 * B:u1 * B] = (agg / l.clamp(min=1e-9)[..., None]).reshape(n * B, H, Dh)
         lse[u0 * B:u1 * B] = (m + torch.log(l.clamp(min=1e-30))).reshape(n * B, H)
     return out, lse
+
+
+def unit_softmax_aggregate_vjp(
+    col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_tables, h_select,
+    edge_bias, leaky_slope: float, lse, delta, g_out,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`unit_softmax_aggregate`, recomputing p from
+    ``lse`` chunk by chunk (no autograd activations are kept):
+    ``p = exp(logit - lse)``, ``dp = g_out·h``, ``dpre = LeakyReLU'·p·(dp -
+    delta)`` with ``delta = Σ g_out·out``.  Returns (d_theta_src,
+    d_theta_dst, d_h_tables, d_edge_bias)."""
+    U, W = col_index.shape
+    B = masks.shape[-1]
+    T, ns_pad, H, Dh = h_tables.shape
+    dev = h_tables.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_ths = torch.zeros(theta_src.shape, **f32)
+    d_thd = torch.zeros(theta_dst.shape, **f32)
+    d_h = torch.zeros(h_tables.shape, **f32)
+    lanes = torch.arange(B, device=dev)
+    h_select = h_select.long()
+    chunks = _chunk_units(U, W * B * (2 * H * Dh + 8 * B * H) * 4)
+    for u0 in chunks:
+        u1 = min(U, u0 + chunks.step)
+        n = u1 - u0
+        g, r, src, pre, logits, live, hs = _gather_unit_chunk(
+            col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_tables, h_select,
+            edge_bias, leaky_slope, u0, u1)
+        ls = lse[u0 * B:u1 * B].reshape(n, B, 1, H)
+        go = g_out[u0 * B:u1 * B].reshape(n, B, H, Dh)
+        p = torch.where(live, torch.exp(logits - ls), 0.0)            # [n, B, W·B, H]
+        dp = torch.einsum("nbhf,nshf->nbsh", go, hs)
+        dlogit = p * (dp - delta[u0 * B:u1 * B].reshape(n, B, 1, H))
+        dpre = torch.where(pre >= 0, dlogit, leaky_slope * dlogit)
+        d_ths.index_put_((g[:, None].expand(n, W * B), src), dpre.sum(dim=1), accumulate=True)
+        d_thd.index_put_((g[:, None].expand(n, B), r[:, None] * B + lanes), dpre.sum(dim=2),
+                         accumulate=True)
+        rows = (h_select[g][:, None] * ns_pad + src).reshape(-1)
+        d_h.view(T * ns_pad, H, Dh).index_add_(
+            0, rows, torch.einsum("nbsh,nbhf->nshf", p, go).reshape(-1, H, Dh))
+    # the bias enters every logit of its graph: its gradient is the graph's dpre mass
+    return d_ths, d_thd, d_h, d_thd.sum(dim=1)
 
 
 def seg_gat_agg_multigraph_plain(
@@ -93,15 +160,99 @@ def seg_gat_agg_multigraph_plain(
     )
 
 
+def seg_gat_agg_multigraph_bwd_plain(
+    col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
+    out, lse, g_out, *, leaky_slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward (the whole VJP of the JAX
+    ``_multigraph_bwd``, scatters included): (d_theta_src, d_theta_dst,
+    d_h_src, d_edge_bias)."""
+    G = theta_src.shape[0]
+    delta = (g_out * out).sum(dim=-1)
+    d_ths, d_thd, d_h, d_bias = unit_softmax_aggregate_vjp(
+        col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src[None],
+        torch.zeros(G, dtype=torch.long, device=h_src.device), edge_bias, leaky_slope,
+        lse, delta, g_out,
+    )
+    return d_ths, d_thd, d_h[0], d_bias
+
+
 def smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block (mirrors the .cu layout)."""
+    """Dynamic shared memory of one block of the forward (mirrors the .cu layout)."""
     return 4 * (B * H * Dh + H * B * B + 5 * B * H) + B * B
+
+
+def bwd_smem_bytes(B: int, H: int, Dh: int) -> int:
+    """Dynamic shared memory of one block of the backward (mirrors the .cu layout)."""
+    return 4 * (2 * B * H * Dh + 2 * H * B * B + 6 * B * H) + B * B
+
+
+def check_smem(name: str, B: int, H: int, Dh: int, nbytes: int) -> None:
+    if B not in SUPPORTED_BLOCKS:
+        raise ValueError(f"{name}: block size B={B} not in {SUPPORTED_BLOCKS}")
+    if nbytes > SMEM_OPTIN:
+        raise ValueError(
+            f"{name}: B={B}, H={H}, Dh={Dh} needs {nbytes} B of shared "
+            f"memory per block, more than the {SMEM_OPTIN} B a block can have"
+        )
+
+
+# -- indices of the backward's reductions -------------------------------------
+
+
+def csr(keys: torch.Tensor, n_keys: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(offsets int32 [n_keys + 1], items int32 [N]): the positions of
+    ``keys`` grouped by key, in their own order within a key (a stable
+    sort), so a segmented sum over them runs in a fixed order."""
+    sorted_keys, order = torch.sort(keys.long(), stable=True)
+    bounds = torch.arange(n_keys + 1, device=keys.device)
+    return (torch.searchsorted(sorted_keys, bounds).int().contiguous(),
+            order.int().contiguous())
+
+
+def live_slots(col_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos [P], pair_of int32 [U, W]): the flat (unit, slot) position of
+    every live slot in order, and each slot's number among them (-1 for
+    padding).  The backward writes partials for live slots only."""
+    live = (col_index >= 0).reshape(-1)
+    pos = live.nonzero().squeeze(1)
+    pair_of = torch.full((live.numel(),), -1, dtype=torch.int32, device=col_index.device)
+    pair_of[pos] = torch.arange(pos.numel(), dtype=torch.int32, device=col_index.device)
+    return pos, pair_of.reshape(col_index.shape)
+
+
+def bwd_index(col_index, graph_id, dst_row, n_graphs: int, nblk_src: int, nblk_dst: int) -> dict:
+    """The live-slot numbering and the three CSRs the backward reduces over:
+    slots by src block (d_h_src, shared by every graph), slots by (graph,
+    src block) (d_theta_src), units by (graph, dst block) (d_theta_dst).
+    Depends on the topology only."""
+    W = col_index.shape[1]
+    pos, pair_of = live_slots(col_index)
+    pcol = col_index.reshape(-1)[pos].long()
+    pgid = graph_id.long()[pos // W]
+    return dict(
+        n_live=int(pos.numel()), pair_of=pair_of,
+        src=csr(pcol, nblk_src),
+        gsrc=csr(pgid * nblk_src + pcol, n_graphs * nblk_src),
+        gdst=csr(graph_id.long() * nblk_dst + dst_row.long(), n_graphs * nblk_dst),
+    )
+
+
+# -- the CUDA kernels -------------------------------------------------------------
 
 
 def _kernel_fn():
     lib = build.load(_NAME)
     fn = lib.seg_gat_agg_multigraph_fwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _bwd_kernel_fn():
+    lib = build.load(_BWD_NAME)
+    fn = lib.seg_gat_agg_multigraph_bwd
+    fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -127,6 +278,70 @@ def launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     seg_gat_agg_multigraph_fwd.launches += 1
 
 
+def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
+               g_out, lse, delta, index: dict, leaky_slope: float):
+    """Launch the backward kernel (pass 1 and its reductions) on checked
+    operands and :func:`bwd_index`'s ``index``, on the current stream.
+    Returns (d_theta_src, d_theta_dst, d_h_src).  Counts one launch."""
+    U, W = col_index.shape
+    B = masks.shape[-1]
+    G, ns_pad, H = theta_src.shape
+    nd_pad = theta_dst.shape[1]
+    Dh = h_src.shape[-1]
+    n_live = index["n_live"]
+    dev = h_src.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dths_part = torch.empty((n_live, B, H), **f32)
+    dhs_part = torch.empty((n_live, B, H * Dh), **f32)
+    dthd_units = torch.empty((U * B, H), **f32)
+    d_h_src = torch.empty((ns_pad, H, Dh), **f32)
+    d_theta_src = torch.empty((G, ns_pad, H), **f32)
+    d_theta_dst = torch.empty((G, nd_pad, H), **f32)
+    lib, fn = _bwd_kernel_fn()
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = fn(
+            p(col_index), p(index["pair_of"]), p(graph_id), p(dst_row), p(masks),
+            p(theta_src), p(theta_dst), p(h_src), p(edge_bias), p(g_out), p(lse), p(delta),
+            p(dths_part), p(dhs_part), p(dthd_units),
+            *(p(t) for key in ("src", "gsrc", "gdst") for t in index[key]),
+            p(d_h_src), p(d_theta_src), p(d_theta_dst),
+            U, W, B, G, ns_pad, nd_pad, H, Dh, leaky_slope, build.stream_of(h_src),
+        )
+    build.check_error(lib, _BWD_NAME, err)
+    seg_gat_agg_multigraph_bwd.launches += 1
+    return d_theta_src, d_theta_dst, d_h_src
+
+
+def _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias):
+    """Check the operands of either direction; returns ``edge_bias`` (zeros
+    when None)."""
+    dev = h_src.device
+    build.check_tensor("col_index", col_index, torch.int32, (None, None), dev)
+    U, W = col_index.shape
+    build.check_tensor("masks", masks, torch.bool, (U, W, None, None), dev)
+    B = masks.shape[-1]
+    build.check_tensor("masks", masks, torch.bool, (U, W, B, B), dev)
+    build.check_tensor("graph_id", graph_id, torch.int32, (U,), dev)
+    build.check_tensor("dst_row", dst_row, torch.int32, (U,), dev)
+    build.check_tensor("theta_src", theta_src, torch.float32, (None, None, None), dev)
+    G, ns_pad, H = theta_src.shape
+    build.check_tensor("theta_dst", theta_dst, torch.float32, (G, None, H), dev)
+    build.check_tensor("h_src", h_src, torch.float32, (ns_pad, H, None), dev)
+    if edge_bias is None:
+        edge_bias = torch.zeros((G, H), dtype=torch.float32, device=dev)
+    build.check_tensor("edge_bias", edge_bias, torch.float32, (G, H), dev)
+    nd_pad = theta_dst.shape[1]
+    if ns_pad % B or nd_pad % B:
+        raise ValueError(f"Ns_pad={ns_pad} and Nd_pad={nd_pad} must be multiples of B={B}")
+    build.check_range("col_index", col_index, -1, ns_pad // B)
+    build.check_range("graph_id", graph_id, 0, G)
+    build.check_range("dst_row", dst_row, 0, nd_pad // B)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_NAME}: unsupported device {dev}")
+    return edge_bias
+
+
 def seg_gat_agg_multigraph_fwd(
     col_index: torch.Tensor,   # int32 [U, W]  src block columns (-1 pad, unique per row)
     graph_id: torch.Tensor,    # int32 [U]
@@ -144,48 +359,93 @@ def seg_gat_agg_multigraph_fwd(
 
     CUDA operands launch the kernel; CPU operands take the plain version.
     float32 only."""
-    dev = h_src.device
-    build.check_tensor("col_index", col_index, torch.int32, (None, None), dev)
-    U, W = col_index.shape
-    build.check_tensor("masks", masks, torch.bool, (U, W, None, None), dev)
-    B = masks.shape[-1]
-    build.check_tensor("masks", masks, torch.bool, (U, W, B, B), dev)
-    build.check_tensor("graph_id", graph_id, torch.int32, (U,), dev)
-    build.check_tensor("dst_row", dst_row, torch.int32, (U,), dev)
-    build.check_tensor("theta_src", theta_src, torch.float32, (None, None, None), dev)
-    G, ns_pad, H = theta_src.shape
-    build.check_tensor("theta_dst", theta_dst, torch.float32, (G, None, H), dev)
-    build.check_tensor("h_src", h_src, torch.float32, (ns_pad, H, None), dev)
-    Dh = h_src.shape[-1]
-    if edge_bias is None:
-        edge_bias = torch.zeros((G, H), dtype=torch.float32, device=dev)
-    build.check_tensor("edge_bias", edge_bias, torch.float32, (G, H), dev)
-    nd_pad = theta_dst.shape[1]
-    if ns_pad % B or nd_pad % B:
-        raise ValueError(f"Ns_pad={ns_pad} and Nd_pad={nd_pad} must be multiples of B={B}")
-    build.check_range("col_index", col_index, -1, ns_pad // B)
-    build.check_range("graph_id", graph_id, 0, G)
-    build.check_range("dst_row", dst_row, 0, nd_pad // B)
-
-    if dev.type == "cpu":
+    edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                                h_src, edge_bias)
+    if h_src.device.type == "cpu":
         return seg_gat_agg_multigraph_plain(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
             edge_bias, leaky_slope=leaky_slope,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"{_NAME}: unsupported device {dev}")
-    if B not in SUPPORTED_BLOCKS:
-        raise ValueError(f"{_NAME}: block size B={B} not in {SUPPORTED_BLOCKS}")
-    if smem_bytes(B, H, Dh) > SMEM_OPTIN:
-        raise ValueError(
-            f"{_NAME}: B={B}, H={H}, Dh={Dh} needs {smem_bytes(B, H, Dh)} B of shared "
-            f"memory per block, more than the {SMEM_OPTIN} B a block can have"
-        )
-    out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=dev)
-    lse = torch.empty((U * B, H), dtype=torch.float32, device=dev)
+    U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], h_src.shape[1:]
+    check_smem(_NAME, B, H, Dh, smem_bytes(B, H, Dh))
+    out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=h_src.device)
+    lse = torch.empty((U * B, H), dtype=torch.float32, device=h_src.device)
     launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
            edge_bias, out, lse, float(leaky_slope))
     return out, lse
 
 
+def seg_gat_agg_multigraph_bwd(
+    col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
+    out: torch.Tensor,    # f32 [U·B, H, Dh]  the forward's output
+    lse: torch.Tensor,    # f32 [U·B, H]      the forward's residual
+    g_out: torch.Tensor,  # f32 [U·B, H, Dh]  cotangent of out
+    *,
+    leaky_slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`seg_gat_agg_multigraph_fwd`: (d_theta_src,
+    d_theta_dst, d_h_src, d_edge_bias), bitwise repeatable on the card.
+
+    CUDA operands launch the backward kernel; CPU operands take the plain
+    version.  float32 only."""
+    edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                                h_src, edge_bias)
+    dev = h_src.device
+    U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], h_src.shape[1:]
+    build.check_tensor("out", out, torch.float32, (U * B, H, Dh), dev)
+    build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
+    build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
+    if dev.type == "cpu":
+        return seg_gat_agg_multigraph_bwd_plain(
+            col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
+            out, lse, g_out, leaky_slope=leaky_slope,
+        )
+    check_smem(_BWD_NAME, B, H, Dh, bwd_smem_bytes(B, H, Dh))
+    G = theta_src.shape[0]
+    index = bwd_index(col_index, graph_id, dst_row, G, theta_src.shape[1] // B,
+                      theta_dst.shape[1] // B)
+    delta = (g_out * out).sum(dim=-1)
+    d_ths, d_thd, d_hs = launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                                    h_src, edge_bias, g_out, lse, delta, index,
+                                    float(leaky_slope))
+    return d_ths, d_thd, d_hs, d_thd.sum(dim=1)
+
+
 seg_gat_agg_multigraph_fwd.launches = 0
+seg_gat_agg_multigraph_bwd.launches = 0
+
+
+class MultigraphNA(torch.autograd.Function):
+    """Forward kernel #1 keeping ``out`` and ``lse``; backward kernel #2."""
+
+    @staticmethod
+    def forward(ctx, col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
+                edge_bias, leaky_slope):
+        out, lse = seg_gat_agg_multigraph_fwd(
+            col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
+            leaky_slope=leaky_slope)
+        ctx.save_for_backward(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                              h_src, edge_bias, out, lse)
+        ctx.leaky_slope = leaky_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        *operands, out, lse = ctx.saved_tensors
+        grads = seg_gat_agg_multigraph_bwd(*operands, out, lse, g_out.contiguous(),
+                                           leaky_slope=ctx.leaky_slope)
+        return (None, None, None, None, *grads, None)
+
+
+def seg_gat_agg_multigraph(
+    col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
+    edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
+) -> torch.Tensor:
+    """Differentiable per-unit aggregates ``[U·B, H, Dh]`` (the counterpart
+    of ``repro``'s ``seg_gat_agg_multigraph``): gradients flow to
+    theta_src, theta_dst, h_src and edge_bias through kernel #2."""
+    if edge_bias is None:
+        G, _, H = theta_src.shape
+        edge_bias = torch.zeros((G, H), dtype=torch.float32, device=h_src.device)
+    return MultigraphNA.apply(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
+                              h_src, edge_bias, float(leaky_slope))

@@ -1,10 +1,61 @@
 """Shared plumbing of the HGNN models (the counterpart of
-``repro.models.hgnn.common``; the serving slice needs only ``glorot``)."""
+``repro.models.hgnn.common``).
+
+Models are (params, pure function) pairs as in the reference: ``init(gen,
+data, **kw) -> params`` (a dict of float32 tensors drawn from an explicit
+``torch.Generator`` in place of ``split_keys``) and ``forward(params, data,
+*, backend) -> logits``.  Parameters are plain tensors; a train step makes
+them require grad for its own forward.
+"""
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
+
+from ...core.fusion import SemanticGraphBatch, batch_semantic_graph
+from ...graphs.hetgraph import HetGraph, SemanticGraph
+from ...runtime import resolve_device
+
+
+@dataclasses.dataclass
+class HGNNData:
+    """Device-resident inputs for one HGNN forward pass."""
+
+    features: dict[str, torch.Tensor]        # type -> [N_t, D_t]
+    graphs: list[SemanticGraphBatch]
+    target_type: str
+    num_classes: int
+    labels: torch.Tensor | None = None       # int64 [N_target]
+
+    @property
+    def feature_dims(self) -> dict[str, int]:
+        return {t: int(x.shape[1]) for t, x in self.features.items()}
+
+
+def prepare_data(
+    g: HetGraph,
+    sgs: Sequence[SemanticGraph],
+    target_type: str,
+    num_classes: int,
+    labels: np.ndarray | None = None,
+    *,
+    block: int = 16,
+    device: str | torch.device = "cuda",
+) -> HGNNData:
+    """Move a graph and its semantic graphs to ``device`` (the card unless
+    the caller asks for the CPU; raises on a host without a card)."""
+    device = resolve_device(device)
+    return HGNNData(
+        features={t: torch.as_tensor(x, device=device) for t, x in g.features.items()},
+        graphs=[batch_semantic_graph(s, block=block, device=device) for s in sgs],
+        target_type=target_type,
+        num_classes=num_classes,
+        labels=None if labels is None else torch.as_tensor(labels, device=device).long(),
+    )
 
 
 def glorot(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
@@ -13,3 +64,18 @@ def glorot(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
     fan_in, fan_out = shape[0], shape[-1]
     lim = math.sqrt(6.0 / (fan_in + fan_out))
     return torch.empty(shape, dtype=torch.float32).uniform_(-lim, lim, generator=gen)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[:, None])[:, 0].mean()
+
+
+ForwardFn = Callable[..., torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class HGNNModel:
+    name: str
+    init: Callable[..., dict]
+    forward: ForwardFn  # (params, data, *, backend) -> logits

@@ -1,4 +1,5 @@
 """Observability of the port (DESIGN.md §12): span tracing + metrics."""
+from .emit import Emitter
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import (
     Span,
@@ -12,6 +13,7 @@ from .trace import (
 
 __all__ = [
     "Counter",
+    "Emitter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",

@@ -1,0 +1,4 @@
+from .adamw import AdamWConfig, apply_updates, global_norm, init_opt_state
+from .schedules import warmup_cosine
+
+__all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_opt_state", "warmup_cosine"]

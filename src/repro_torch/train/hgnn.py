@@ -1,0 +1,84 @@
+"""Train-step builder for the HGNN models (the counterpart of
+``repro.train.hgnn``).
+
+HGNNs train transductively: the forward runs over the whole resident graph
+every step and the step's minibatch ``idx`` selects the labeled target
+vertices whose cross-entropy is optimized.  The step runs eagerly: a
+forward, one ``torch.autograd.grad`` (the NA backward is one launch of
+kernel #2 or #4 on the kernel backends), then AdamW.
+
+The minibatch loss is written so that its backward is elementwise and the
+whole step is bitwise repeatable on the card: a per-vertex weight (the
+count of the vertex in ``idx`` over ``len(idx)``) multiplies the full-graph
+NLL, in place of ``logits[idx]``, whose backward would scatter with atomics.
+It equals the reference's mean NLL over ``idx`` up to the order of the sum.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..models.hgnn.common import HGNNData, HGNNModel
+from ..optim import AdamWConfig, apply_updates, init_opt_state
+from .step import TrainState
+
+
+def init_hgnn_train_state(
+    model: HGNNModel, gen: torch.Generator, data: HGNNData, opt_cfg: AdamWConfig, **init_kw
+) -> TrainState:
+    params = model.init(gen, data, **init_kw)
+    dev = data.features[data.target_type].device
+    return TrainState(params=params, opt=init_opt_state(params, opt_cfg),
+                      step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def hgnn_loss_and_grads(forward_fn: Callable[[Any], torch.Tensor], params, data: HGNNData,
+                        idx: torch.Tensor):
+    """(loss, acc, grads) of the minibatch ``idx``: one forward and one
+    ``torch.autograd.grad``.  ``grads`` has the keys of ``params``."""
+    labels = data.labels
+    # the count of each vertex in idx over len(idx): the minibatch mean as an
+    # elementwise weight on the full-graph NLL
+    counts = torch.bincount(idx.detach().cpu().long(), minlength=labels.shape[0])
+    weight = (counts.float() / idx.numel()).to(labels.device)
+    params = {k: p.detach().requires_grad_() for k, p in params.items()}
+    logp = torch.log_softmax(forward_fn(params).float(), dim=-1)
+    onehot = F.one_hot(labels, data.num_classes).float()
+    loss = -(weight * (logp * onehot).sum(dim=-1)).sum()
+    names = sorted(params)
+    grads = dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+    with torch.no_grad():
+        acc = (weight * (logp.argmax(dim=-1) == labels).float()).sum()
+    return loss.detach(), acc, grads
+
+
+def make_hgnn_train_step(
+    forward_fn: Callable[[Any], torch.Tensor],
+    data: HGNNData,
+    opt_cfg: AdamWConfig,
+    *,
+    lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """Build the HGNN train step.
+
+    ``forward_fn(params) -> logits [N_target, C]`` runs the full-graph
+    forward; ``batch["idx"]`` selects the step's labeled minibatch.
+    Metrics (0-d tensors): ``loss``, minibatch accuracy ``acc``,
+    ``grad_norm`` and ``lr``.
+    """
+    if data.labels is None:
+        raise ValueError("training needs labels in HGNNData")
+    dev = data.labels.device
+    sched = lr_schedule or (lambda s: torch.tensor(opt_cfg.lr, dtype=torch.float32, device=dev))
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        loss, acc, grads = hgnn_loss_and_grads(forward_fn, state.params, data, batch["idx"])
+        with torch.no_grad():
+            lr = sched(state.step)
+            new_params, new_opt, gnorm = apply_updates(state.params, grads, state.opt, opt_cfg, lr)
+        metrics = {"loss": loss, "acc": acc, "grad_norm": gnorm, "lr": lr}
+        return TrainState(params=new_params, opt=new_opt, step=state.step + 1), metrics
+
+    return train_step

@@ -1,0 +1,14 @@
+"""The train state shared by the trainers (``repro.train.step.TrainState``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any          # dict of tensors
+    opt: Any             # the optimizer state (optim.adamw layout)
+    step: torch.Tensor   # int32 scalar

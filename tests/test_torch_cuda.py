@@ -1,0 +1,170 @@
+"""The port's card-only tests of the training slice, and the kernel cases
+they share with tests/test_torch_kernels_bwd.py.  This file imports no
+JAX, so it runs on a host with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Backward kernels #2 and #4 against their plain versions (atol=rtol=1e-4,
+float32 sums in another order), each run twice and bitwise equal; the
+trainer on the card against the CPU; kernel training bitwise repeatable.
+Every test carries the ``cuda`` marker and skips without a card."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint.io import _flatten
+from repro_torch.kernels import (
+    seg_gat_agg_fused_fp_bwd,
+    seg_gat_agg_fused_fp_bwd_plain,
+    seg_gat_agg_fused_fp_fwd,
+    seg_gat_agg_multigraph_bwd,
+    seg_gat_agg_multigraph_bwd_plain,
+    seg_gat_agg_multigraph_fwd,
+)
+from repro_torch.launch import hgnn_train
+
+
+def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
+    """tests/test_kernels.py:_multigraph_case (random, possibly repeated,
+    (graph, row) units), with an all-padding unit and a fully masked row
+    when ``degenerate``."""
+    rng = np.random.default_rng(seed)
+    col = np.full((U, W), -1, np.int32)
+    for u in range(U):
+        k = rng.integers(1, W + 1)
+        col[u, :k] = rng.choice(nblk, size=k, replace=False)
+    gid = rng.integers(0, G, U).astype(np.int32)
+    row = rng.integers(0, nblk, U).astype(np.int32)
+    masks = rng.random((U, W, B, B)) < 0.3
+    if degenerate:
+        col[1] = -1
+        masks[0, :, 2, :] = False
+    ths = rng.standard_normal((G, nblk * B, H)).astype(np.float32)
+    thd = rng.standard_normal((G, nblk * B, H)).astype(np.float32)
+    hs = rng.standard_normal((nblk * B, H, Dh)).astype(np.float32)
+    bias = rng.standard_normal((G, H)).astype(np.float32)
+    return col, gid, row, masks, ths, thd, hs, bias
+
+
+def single_graph_case():
+    """tests/test_kernels.py:test_seg_gat_agg_multigraph_vjp_matches_block_autodiff:
+    one graph, R = 3 rows in order, unique columns per row."""
+    rng = np.random.default_rng(3)
+    B, R, W, H, Dh, nblk = 8, 3, 2, 2, 8, 4
+    col = np.stack([rng.permutation(nblk)[:W] for _ in range(R)]).astype(np.int32)
+    masks = rng.random((R, W, B, B)) < 0.4
+    ths = rng.standard_normal((1, nblk * B, H)).astype(np.float32)
+    thd = rng.standard_normal((1, R * B, H)).astype(np.float32)
+    hs = rng.standard_normal((nblk * B, H, Dh)).astype(np.float32)
+    bias = rng.standard_normal((1, H)).astype(np.float32)
+    return (col, np.zeros(R, np.int32), np.arange(R, dtype=np.int32), masks, ths, thd, hs, bias)
+
+
+MULTI_CASES = {
+    "single-graph": single_graph_case,
+    "seed7": lambda: multigraph_case(7),
+    "seed7-degenerate": lambda: multigraph_case(7, degenerate=True),
+    "W=1": lambda: multigraph_case(5, W=1, U=3),
+    "B=16-Dh=4": lambda: multigraph_case(13, B=16, U=3, W=2, Dh=4, H=3, nblk=3,
+                                          degenerate=True),
+}
+
+
+def fused_case(seed, *, units=6, width=3, nblk=5, graphs=3, tables=2, din=12, B=8, H=2, DH=4,
+                degenerate=False):
+    """tests/test_fused_fp.py:_rand_tables, with an all-padding unit and a
+    fully masked row when ``degenerate``."""
+    rng = np.random.default_rng(seed)
+    col = rng.integers(-1, nblk, (units, width)).astype(np.int32)
+    col[:, 0] = np.maximum(col[:, 0], 0)
+    gid = rng.integers(0, graphs, (units,)).astype(np.int32)
+    row = rng.integers(0, nblk, (units,)).astype(np.int32)
+    wsel = rng.integers(0, tables, (graphs,)).astype(np.int32)
+    masks = rng.random((units, width, B, B)) < 0.6
+    masks[:, 0, 0, 0] = True
+    if degenerate:
+        col[1] = -1
+        masks[0, :, 2, :] = False
+    n = nblk * B
+    x = rng.standard_normal((n, din)).astype(np.float32)
+    w = (rng.standard_normal((tables, din, H * DH)) / np.sqrt(din)).astype(np.float32)
+    b = rng.standard_normal((tables, H * DH)).astype(np.float32) * 0.1
+    a_s = rng.standard_normal((graphs, H, DH)).astype(np.float32)
+    a_d = rng.standard_normal((graphs, H, DH)).astype(np.float32)
+    bias = rng.standard_normal((graphs, H)).astype(np.float32) * 0.3
+    return col, gid, row, wsel, masks, x, w, b, a_s, a_d, bias
+
+
+FUSED_CASES = {
+    "seed2": lambda: fused_case(2),
+    "seed1-one-table-degenerate": lambda: fused_case(1, tables=1, degenerate=True),
+    "seed3-degenerate": lambda: fused_case(3, degenerate=True),
+    "W=1-din=37": lambda: fused_case(4, units=4, width=1, din=37),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _exact(case):
+    """Fused operands on a 1/16 grid: projections and pre-activations are
+    exact in float32 whatever the sum order, so the kernel and the plain
+    version take the same LeakyReLU branch everywhere."""
+    return [np.round(a * 16) / 16 if a.dtype == np.float32 else a for a in case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MULTI_CASES))
+def test_multigraph_bwd_kernel_matches_plain_on_cuda(cuda, name):
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in MULTI_CASES[name]()]
+    out, lse = seg_gat_agg_multigraph_fwd(*case)
+    g_out = torch.cos(out)
+    got = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)
+    again = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)
+    want = seg_gat_agg_multigraph_bwd_plain(*case, out, lse, g_out)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_CASES))
+def test_fused_fp_bwd_kernel_matches_plain_on_cuda(cuda, name):
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in _exact(FUSED_CASES[name]())]
+    out, lse = seg_gat_agg_fused_fp_fwd(*case)
+    g_out = torch.cos(out)
+    got = seg_gat_agg_fused_fp_bwd(*case, out, lse, g_out)
+    again = seg_gat_agg_fused_fp_bwd(*case, out, lse, g_out)
+    want = seg_gat_agg_fused_fp_bwd_plain(*case, out, lse, g_out)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+_RUN = dict(dataset="acm", hidden=8, heads=2, scale=0.05, block=16, max_edges=20_000,
+            batch=32, log=lambda *_: None, log_every=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["kernel", "reference"])
+def test_trainer_on_cuda_matches_cpu(cuda, backend):
+    kw = dict(_RUN, block=8, steps=4, backend=backend)
+    hist = {dev: hgnn_train.run_training(**{**kw, "device": dev})[1] for dev in ("cpu", "cuda")}
+    for c, g in zip(hist["cpu"], hist["cuda"]):
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_training_on_cuda_is_bitwise_repeatable(cuda):
+    kw = dict(_RUN, steps=3, device="cuda")
+    a, _, _ = hgnn_train.run_training(**kw)
+    b, _, _ = hgnn_train.run_training(**kw)
+    for (ka, va), (kb, vb) in zip(_flatten(a), _flatten(b)):
+        assert ka == kb and torch.equal(va, vb), ka

@@ -12,7 +12,7 @@ import torch
 
 import repro_torch.kernels.build as kbuild
 from repro_torch.core import NABackend
-from repro_torch.graphs import synthetic_hetgraph
+from repro_torch.graphs import build_semantic_graph, synthetic_hetgraph
 from repro_torch.kernels import (
     seg_gat_agg_fused_fp_fwd,
     seg_gat_agg_fused_fp_plain,
@@ -20,6 +20,7 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph_plain,
 )
 from repro_torch.launch import hgnn_serve
+from repro_torch.models.hgnn import prepare_data
 from repro_torch.serve import GraphRequest, HGNNEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -48,6 +49,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
         HGNNEngine(g, target_type="movie")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         hgnn_serve.main(["--na-backend", "multigraph"])
+    sg = build_semantic_graph(g, ("movie", "director", "movie"), max_edges=2000)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_data(g, [sg], "movie", 3)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
