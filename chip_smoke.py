@@ -41,7 +41,25 @@ Phases, each fatal on failure:
    e. the card against the CPU on small acm (block=8), per-step losses at
       1e-4, and the training launcher as a user runs it, with a checkpoint
       directory, resumed once.
-5. Print the ``kernels`` JSON line (#1-#4), the card's name and power
+5. The per-graph models on full IMDB's six relation graphs (AM, MA, KM,
+   MK, DM, MD), block=16, at the JAX package's ``init_*`` widths (R-GAT
+   hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
+   edge_dim 64; R-GCN hidden 64, layers 3):
+   a. kernel #5 against its plain version on every relation graph at
+      R-GAT's layer-0 operands with a nonzero edge bias, and on the edge
+      cases (an all-padding row, fully masked rows, W = 1, B = 8 and 32,
+      Ns_pad < Nd_pad and Ns_pad > Nd_pad), at atol=rtol=1e-4; twice
+      bitwise equal; against #1 at G = 1 on the same operands; the six
+      launches of one layer timed with CUDA events beside their bound;
+   b. inference, under no_grad: R-GAT and S-HGN on KERNEL (#5 once per
+      relation and layer, 18 and 12 launches; counters zeroed just before
+      each model's first forward and read just after) and R-GCN (mean NA);
+      logits against BLOCK on the card (R-GAT, S-HGN) or the CPU (R-GCN)
+      at 1e-4; cold and steady forward times, peak memory;
+   c. R-GAT training through ``run_training(model_name="R-GAT")``: the
+      launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
+      20 steps, #1 and #2 six times a step, and the loss falls.
+6. Print the ``kernels`` JSON line (#1-#5), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -490,29 +508,40 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
     return result
 
 
-def profiled_steps(step_fn, state, idx, n) -> tuple[object, dict]:
-    """``n`` train steps, each timed with CUDA events, all under
+def profiled(run, n) -> dict:
+    """``run()`` ``n`` times, each timed with CUDA events, all under
     torch.profiler (device activity only); idle share = 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = []
+    times = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            state, _ = step_fn(state, {"idx": idx})
+            run()
             end.record()
             end.synchronize()
-            steps.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end))
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                       if e.self_device_time_total > 0), key=lambda k: -k[1])
-    busy, wall = sum(k[1] for k in kernels), sum(steps)
+    busy, wall = sum(k[1] for k in kernels), sum(times)
     if busy <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return state, dict(steps_ms=steps, device_busy_ms=busy, device_wall_ms=wall,
-                       device_idle_share=1.0 - busy / wall,
-                       top_kernels=[dict(name=k[0][:80], device_ms=k[1], calls=k[2])
-                                    for k in kernels[:8]])
+    return dict(steps_ms=times, device_busy_ms=busy, device_wall_ms=wall,
+                device_idle_share=1.0 - busy / wall,
+                top_kernels=[dict(name=k[0][:80], device_ms=k[1], calls=k[2])
+                             for k in kernels[:8]])
+
+
+def profiled_steps(step_fn, state, idx, n) -> tuple[object, dict]:
+    """``n`` train steps under :func:`profiled`."""
+    box = [state]
+
+    def run():
+        box[0], _ = step_fn(box[0], {"idx": idx})
+
+    res = profiled(run, n)
+    return box[0], res
 
 
 def training(data, counters, fusion_mod) -> dict:
@@ -637,6 +666,278 @@ def training(data, counters, fusion_mod) -> dict:
     return res
 
 
+# -- phase 5: the per-graph models, kernel #5 -----------------------------------------
+
+RELATION = dict(dataset="imdb", block=16)  # full IMDB (the graph of phase 3), its six relations
+MODEL_WIDTHS = {  # the init_* defaults of the JAX package, the widths benchmarks/breakdown.py runs
+    "R-GAT": dict(hidden=64, heads=4, layers=3),
+    "S-HGN": dict(hidden=64, heads=4, layers=2, edge_dim=64),
+    "R-GCN": dict(hidden=64, layers=3),
+}
+RGAT_TRAIN = dict(hidden=64, heads=4)  # the launcher's R-GAT (layers=2) at R-GAT's own width
+
+
+def relation_data(graph, device):
+    from repro_torch.graphs import relation_semantic_graphs, synthetic_labels
+    from repro_torch.models.hgnn import prepare_data
+
+    return prepare_data(graph, relation_semantic_graphs(graph), "movie", 3,
+                        synthetic_labels(graph, "imdb", seed=0), block=RELATION["block"],
+                        device=device)
+
+
+def kernel5_operands(data, params, fusion) -> list[dict]:
+    """The operands layer 0 of R-GAT hands kernel #5, one dict per relation
+    graph (its own weights), with a nonzero per-head edge bias as S-HGN's
+    relations carry."""
+    lp = params["layers"][0]
+    heads = lp["rel"]["g0"]["a_src"].shape[0]
+    gen = torch.Generator(device=data.labels.device).manual_seed(5)
+    ops = []
+    for i, b in enumerate(data.graphs):
+        rp = lp["rel"][f"g{i}"]
+        hs = (data.features[b.src_type] @ rp["w_src"]).reshape(b.num_src, heads, -1)
+        hd = (data.features[b.dst_type] @ rp["w_dst"]).reshape(b.num_dst, heads, -1)
+        ns_pad = -(-b.num_src // b.block) * b.block
+        pad = fusion._pad_rows
+        ops.append(dict(
+            col_index=b.col_index, masks=b.masks,
+            theta_src=pad(torch.einsum("nhd,hd->nh", hs, rp["a_src"]), ns_pad).contiguous(),
+            theta_dst=pad(torch.einsum("nhd,hd->nh", hd, rp["a_dst"]), b.num_dst_pad).contiguous(),
+            h_src=pad(hs, ns_pad).contiguous(),
+            edge_bias=torch.randn(heads, generator=gen, device=hs.device)))
+    return ops
+
+
+def kernel5_edge(seed, dev, *, B=16, R=12, W=5, H=4, Dh=64, nblk_src=8):
+    """Random single-graph operands with an all-padding row and fully
+    masked dst rows (the first row of block row 1, every row of block 2's
+    first slot)."""
+    rng = np.random.default_rng(seed)
+    col = np.full((R, W), -1, np.int32)
+    for r in range(R):
+        k = rng.integers(1, min(W, nblk_src) + 1)
+        col[r, :k] = rng.choice(nblk_src, size=k, replace=False)
+    col[0] = -1
+    masks = rng.random((R, W, B, B)) < 0.3
+    masks[1, :, 0, :] = False
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    ns = nblk_src * B
+    return dict(col_index=t(col), masks=t(masks),
+                theta_src=t(rng.standard_normal((ns, H)).astype(np.float32)),
+                theta_dst=t(rng.standard_normal((R * B, H)).astype(np.float32)),
+                h_src=t(rng.standard_normal((ns, H, Dh)).astype(np.float32)),
+                edge_bias=t(rng.standard_normal(H).astype(np.float32)))
+
+
+def kernel5_cost(ops_list):
+    """(bytes, flops) kernel #5 needs on these graphs together: each input
+    read once (masks of live slots only), each output written once; per
+    live (row, slot) and head 2·B·B·Dh for p @ h and ~8 ops per logit (#1's
+    count at G = 1)."""
+    nbytes = flops = live_total = 0
+    for ops in ops_list:
+        col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
+        R, W = col.shape
+        B, (_, H, Dh) = masks.shape[-1], h.shape
+        live = int((col >= 0).sum())
+        live_total += live
+        nbytes += (col.numel() * 4 + live * B * B
+                   + 4 * (ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel() + H)
+                   + 4 * R * B * H * Dh)
+        flops += live * (2 * B * B * H * Dh + 8 * B * B * H)
+    return nbytes, flops, live_total
+
+
+def kernel5_phase(data, params, fusion, k5_mod, mg_mod) -> dict:
+    """#5 against its plain version on every relation graph of full IMDB at
+    R-GAT's width and on the edge cases; twice bitwise equal; against #1 at
+    G = 1; timed with CUDA events beside its bound."""
+    dev = data.labels.device
+    ops_list = kernel5_operands(data, params, fusion)
+    cases = [(f"{b.name} R={b.col_index.shape[0]} W={b.col_index.shape[1]} "
+              f"Ns_pad={ops['theta_src'].shape[0]} Nd_pad={ops['theta_dst'].shape[0]}", ops)
+             for b, ops in zip(data.graphs, ops_list)]
+    cases += [("edge B=16 (padding row, masked rows)", kernel5_edge(1, dev)),
+              ("edge W=1", kernel5_edge(2, dev, W=1)),
+              ("edge B=8 H=2 Dh=8", kernel5_edge(3, dev, B=8, H=2, Dh=8)),
+              ("edge B=32 Dh=32", kernel5_edge(4, dev, B=32, Dh=32)),
+              ("edge Ns_pad < Nd_pad", kernel5_edge(5, dev, R=20, nblk_src=3)),
+              ("edge Ns_pad > Nd_pad", kernel5_edge(6, dev, R=2, W=8, nblk_src=40))]
+    err = err_mg = 0.0
+    for name, ops in cases:
+        got = k5_mod.seg_gat_agg(**ops)
+        again = k5_mod.seg_gat_agg(**ops)
+        want = k5_mod.seg_gat_agg_plain(**ops)
+        R = ops["col_index"].shape[0]
+        mg, _ = mg_mod.seg_gat_agg_multigraph_fwd(
+            ops["col_index"], torch.zeros(R, dtype=torch.int32, device=dev),
+            torch.arange(R, dtype=torch.int32, device=dev), ops["masks"], ops["theta_src"][None],
+            ops["theta_dst"][None], ops["h_src"], ops["edge_bias"][None].contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"seg_gat_agg {name}: two runs on the same inputs differ")
+        err = max(err, compare(f"seg_gat_agg {name}", (got,), (want,)))
+        d_mg = float((got - mg).abs().max())
+        err_mg = max(err_mg, d_mg)
+        compare(f"seg_gat_agg vs multigraph kernel at G=1, {name}", (got,), (mg,))
+        B = ops["masks"].shape[-1]
+        dead = (ops["col_index"] < 0).all(dim=1).repeat_interleave(B)
+        if not (got[dead] == 0).all():
+            raise AssertionError(f"seg_gat_agg {name}: an all-padding row is not exact zeros")
+    log(f"[check] seg_gat_agg: every case twice bitwise equal; max |#5 - #1 at G=1| = {err_mg:.3e}")
+
+    outs = [torch.empty((o["theta_dst"].shape[0], *o["h_src"].shape[1:]), device=dev)
+            for o in ops_list]
+
+    def one_layer():  # the six launches of one R-GAT layer, straight on the launch
+        for o, out in zip(ops_list, outs):
+            k5_mod.launch(o["col_index"], o["masks"], o["theta_src"], o["theta_dst"], o["h_src"],
+                          o["edge_bias"], out, 0.2)
+
+    ms = cuda_ms(one_layer, reps=20)
+    per_graph = {}
+    for b, o, out in zip(data.graphs, ops_list, outs):
+        col = o["col_index"]
+        per_graph[b.name] = dict(
+            ms=cuda_ms(lambda: k5_mod.launch(o["col_index"], o["masks"], o["theta_src"],
+                                             o["theta_dst"], o["h_src"], o["edge_bias"], out, 0.2),
+                       reps=20),
+            rows=int(col.shape[0]), live=int((col >= 0).sum()),
+            max_live_per_row=int((col >= 0).sum(dim=1).max()))
+        log(f"[time] seg_gat_agg {b.name}: {per_graph[b.name]['ms']:.4f} ms, rows "
+            f"{per_graph[b.name]['rows']}, live (row, slot) pairs {per_graph[b.name]['live']}, "
+            f"most live slots in one row {per_graph[b.name]['max_live_per_row']}")
+    plain_ms = cuda_ms(lambda: [k5_mod.seg_gat_agg_plain(**o) for o in ops_list], reps=3)
+    nbytes, flops, live = kernel5_cost(ops_list)
+    bound, by = bound_ms(nbytes, flops)
+    log(f"[time] seg_gat_agg, the six relations of one layer: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops); "
+        f"live (row, slot) pairs {live}")
+    return dict(max_abs_err=err, max_abs_diff_vs_multigraph=err_mg, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                live_pairs=live, per_graph=per_graph)
+
+
+def inference(graph, counters, NAB) -> dict:
+    """R-GAT and S-HGN on KERNEL (#5 once per relation and layer) and R-GCN
+    (mean NA) on full IMDB's relation graphs, forward under no_grad: each
+    model's first forward with the counters zeroed just before and read just
+    after, then steady forwards; logits against BLOCK on the card (R-GAT,
+    S-HGN) or the CPU (R-GCN) at 1e-4."""
+    from repro_torch.models.hgnn import MODELS
+    from repro_torch.tree import tree_map
+
+    data = relation_data(graph, "cuda")
+    res = {}
+    for name, width in MODEL_WIDTHS.items():
+        model = MODELS[name]
+        params = model.init(torch.Generator().manual_seed(0), data, **width)
+        backend = NAB.SEGMENT if name == "R-GCN" else NAB.KERNEL
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = model.forward(params, data, backend=backend)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.forward(params, data, backend=backend)
+            torch.cuda.synchronize()
+            steady.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            prof = profiled(lambda: model.forward(params, data, backend=backend), 3)
+        if logits.shape != (graph.num_vertices("movie"), 3) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: logits {tuple(logits.shape)} or non-finite")
+        with torch.no_grad():
+            if name == "R-GCN":
+                cpu = relation_data(graph, "cpu")
+                ref = model.forward(tree_map(lambda t: t.cpu(), params), cpu).to(logits.device)
+                against = "the CPU"
+            else:
+                ref = model.forward(params, data, backend=NAB.BLOCK)
+                against = "BLOCK on the card"
+        err = compare(f"{name} logits {backend.value} vs {against}", (logits,), (ref,))
+        expect = 0 if name == "R-GCN" else width["layers"] * len(data.graphs)
+        if launches["seg_gat_agg"] != expect or any(v for k, v in launches.items()
+                                                    if k != "seg_gat_agg"):
+            raise AssertionError(f"{name} forward launches {launches}, expected {expect} of #5")
+        res[name] = dict(launches=launches, cold_ms=cold_ms, steady_ms=steady,
+                         peak_mem_bytes=peak, max_abs_err=err, profiled=prof)
+        log(f"[infer {name}] {backend.value}: launches={json.dumps(launches)} forward ms cold "
+            f"{cold_ms:.3f}, steady median {float(np.median(steady)):.3f} "
+            f"({['%.3f' % s for s in steady]}), peak mem {peak / 2**30:.3f} GiB")
+        log(f"[infer {name}] 3 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} "
+            f"ms, device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle "
+            f"share {prof['device_idle_share']:.4f}")
+        for k in prof["top_kernels"][:4]:
+            log(f"[infer {name}]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    return res
+
+
+def rgat_training(counters) -> dict:
+    """The launcher's R-GAT (layers=2, metapath graphs, MULTIGRAPH per graph
+    and layer) at R-GAT's width on full IMDB, 20 steps through
+    ``run_training(model_name="R-GAT")``, counters zeroed just before: #1
+    and #2 launch 6 times a step, and the loss falls."""
+    from repro_torch.launch import hgnn_train
+
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, hist, meta = hgnn_train.run_training(model_name="R-GAT", steps=20, backend="kernel",
+                                            log_every=1, log=lines.append, device="cuda",
+                                            **TRAIN, **RGAT_TRAIN)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps_ms = [h["sec"] * 1e3 for h in hist]
+    res = dict(launches=launches, per_step={k: v / 20 for k, v in launches.items()}, wall_s=wall,
+               meta=meta, steps_ms=steps_ms, loss=[h["loss"] for h in hist],
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    log(f"[train R-GAT] {lines[0]}")
+    log(f"[train R-GAT] launches={json.dumps(launches)} per step "
+        f"{json.dumps(res['per_step'])}; loss {hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f}, "
+        f"step ms cold {steps_ms[0]:.3f}, steady median {float(np.median(steps_ms[1:])):.3f}, "
+        f"wall {wall:.3f} s, peak mem {res['peak_mem_bytes'] / 2**30:.3f} GiB")
+    want = {k: 0 for k in launches} | {"multigraph": 120, "multigraph_bwd": 120}
+    if launches != want:
+        raise AssertionError(f"R-GAT training launches {launches}, expected {want} (6/6 a step)")
+    if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the R-GAT loss did not fall: {[h['loss'] for h in hist]}")
+
+    # the same step, steady, under the profiler (after the main path's counts were read)
+    from repro_torch.core import NABackend
+    from repro_torch.models.hgnn import RGAT
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_hgnn_train_state, make_hgnn_train_step
+
+    _, data = hgnn_train.build_problem(device="cuda", **TRAIN)
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    state = init_hgnn_train_state(RGAT, torch.Generator().manual_seed(0), data, opt,
+                                  layers=2, **RGAT_TRAIN)
+    step = make_hgnn_train_step(
+        lambda p: RGAT.forward(p, data, backend=NABackend.MULTIGRAPH), data, opt)
+    idx = torch.arange(data.labels.shape[0])
+    state, _ = step(state, {"idx": idx})
+    _, res["steady"] = profiled_steps(step, state, idx, 3)
+    pr = res["steady"]
+    log(f"[train R-GAT steady] steps_ms={['%.3f' % t for t in pr['steps_ms']]} busy "
+        f"{pr['device_busy_ms']:.3f} ms of {pr['device_wall_ms']:.3f} ms, idle share "
+        f"{pr['device_idle_share']:.4f}")
+    for k in pr["top_kernels"][:5]:
+        log(f"[train R-GAT steady]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    return res
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -717,6 +1018,7 @@ def main() -> int:
     # the modules, not the differentiable functions the package exports by the same names
     ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
     mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    k5_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg")
     from repro_torch.launch import hgnn_serve
     from repro_torch import serve as serve_mod
 
@@ -844,6 +1146,23 @@ def main() -> int:
                 "multigraph_bwd": train["multigraph_run"]["launches"]["multigraph_bwd"],
                 "fused_fp": train["fused_fp_run"]["launches"]["fused_fp"],
                 "fused_fp_bwd": train["fused_fp_run"]["launches"]["fused_fp_bwd"]}
+    del tdata
+
+    # phase 5: the per-graph models on full IMDB's relation graphs
+    from repro_torch.models.hgnn import MODELS
+
+    rdata = relation_data(graph, "cuda")
+    log("[relations] " + ", ".join(
+        f"{b.name} {b.src_type}->{b.dst_type} {b.num_edges} edges, block CSR "
+        f"{tuple(b.col_index.shape)}" for b in rdata.graphs))
+    rgat0 = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), rdata, **MODEL_WIDTHS["R-GAT"])
+    train_kernels["seg_gat_agg"] = kernel5_phase(rdata, rgat0, fusion, k5_mod, mg_mod)
+    del rdata, rgat0
+    all_counters = dict(train_counters, seg_gat_agg=k5_mod.seg_gat_agg)
+    infer = inference(graph, all_counters, NABackend)
+    # #5's count comes from the inference runs that launch it (R-GAT, then S-HGN)
+    launches["seg_gat_agg"] = sum(infer[m]["launches"]["seg_gat_agg"] for m in ("R-GAT", "S-HGN"))
+    rgat_train = rgat_training(all_counters)
 
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
@@ -855,6 +1174,8 @@ def main() -> int:
                      "src/repro/kernels/seg_gat_agg_fused_fp.py:288"),
         "fused_fp_bwd": ("seg_gat_agg_fused_fp_bwd", "src/repro_torch/csrc/seg_gat_agg_fused_fp_bwd.cu",
                          "src/repro/kernels/seg_gat_agg_fused_fp.py:331"),
+        "seg_gat_agg": ("seg_gat_agg", "src/repro_torch/csrc/seg_gat_agg.cu",
+                        "src/repro/kernels/seg_gat_agg.py:97"),
     }
     line = {"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
@@ -865,7 +1186,8 @@ def main() -> int:
         for k in sources
     ]}
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
-                train_kernels=train_kernels, training=train,
+                train_kernels=train_kernels, training=train, inference=infer,
+                rgat_training=rgat_train,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
                 serve_max_abs_err=serve_err, launcher=cli)

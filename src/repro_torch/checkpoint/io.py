@@ -8,8 +8,9 @@ checkpoint.
 
 Leaf keys are JAX's tree-path strings, so a checkpoint of either package
 restores into the other: a field of a dataclass such as ``TrainState``
-is ``[<flat index i>]`` (params, opt, step in order), a dict entry ``['name']`` with keys in sorted order,
-joined by ``/``; None leaves (an unused ``master``) do not appear.  Leaves
+is ``[<flat index i>]`` (params, opt, step in order), a dict entry
+``['name']`` with keys in sorted order, a list entry ``[i]``, joined by
+``/``; None leaves (an unused ``master``) do not appear.  Leaves
 are logical (unsharded) arrays.  Placing them onto a lane mesh
 (``reshard_to``) waits for the multi-lane slice.
 """
@@ -33,6 +34,8 @@ def _flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
         return [kv for i, f in enumerate(fields) for kv in _flatten(f, join(f"[<flat index {i}>]"))]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in _flatten(tree[k], join(f"[{k!r}]"))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, t in enumerate(tree) for kv in _flatten(t, join(f"[{i}]"))]
     if tree is None:
         return []
     return [(prefix, tree)]
@@ -48,6 +51,8 @@ def _rebuild(like, values: dict, prefix: str = ""):
             for i, f in enumerate(dataclasses.fields(like))})
     if isinstance(like, dict):
         return {k: _rebuild(v, values, join(f"[{k!r}]")) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, values, join(f"[{i}]")) for i, v in enumerate(like))
     if like is None:
         return None
     return values[prefix]
@@ -88,7 +93,7 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
-    """Restore into the structure of ``like`` (a TrainState or dict of
+    """Restore into the structure of ``like`` (a TrainState or a tree of
     tensors): each leaf is loaded bit for bit, in the file's dtype, onto the
     device of ``like``'s leaf of the same key.  Returns (state, aux)."""
     path = os.path.join(ckpt_dir, f"step_{step}")

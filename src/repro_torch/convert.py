@@ -8,8 +8,8 @@ numpy::
     mp = {k: tuple(np.asarray(a) for a in v) for k, v in jax_engine._mp_params.items()}
     port = HGNNEngine(graph, ..., **engine_params_from_numpy(params, mp, device="cuda"))
 
-    params = jax.tree.map(np.asarray, repro.models.hgnn.init_han(key, data))
-    port_params = han_params_from_numpy(params, device="cuda")
+    params = jax.tree.map(np.asarray, repro.models.hgnn.init_rgat(key, data))
+    port_params = params_from_numpy(params, device="cuda")
     state = train_state_from_numpy(params, jax.tree.map(np.asarray, opt), step)
 
 This module imports nothing of JAX: it takes numpy arrays.
@@ -20,6 +20,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from .tree import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,29 +53,28 @@ def engine_params_from_numpy(
     )
 
 
-def han_params_from_numpy(params: Mapping, device: str | torch.device = "cuda") -> dict:
-    """``repro.models.hgnn.init_han`` params (numpy) as the port's HAN
-    params: the same names, float32 tensors on ``device``."""
-    return {k: _tensor(v, device) for k, v in params.items()}
+def params_from_numpy(params, device: str | torch.device = "cuda"):
+    """Any JAX params tree given as numpy — nested dicts and lists, e.g.
+    R-GAT's ``params["layers"][l]["rel"]["g0"]["w_src"]`` — as the same
+    tree of float32 tensors on ``device``."""
+    return tree_map(lambda a: _tensor(a, device), params)
 
 
 def train_state_from_numpy(
-    params: Mapping, opt: Mapping, step, device: str | torch.device = "cuda"
+    params, opt: Mapping, step, device: str | torch.device = "cuda"
 ):
     """A reference ``TrainState`` (params, AdamW state ``m``/``v``/
     ``master``/``count``, step) given as numpy, as the port's
-    ``TrainState``.  ``master`` entries that are None stay None."""
+    ``TrainState``.  The trees may nest; ``master`` mirrors the params
+    with None leaves (float32 params keep no master copy)."""
     from .train.step import TrainState
 
-    def tree(t):
-        return {k: None if v is None else _tensor(v, device) for k, v in t.items()}
-
     return TrainState(
-        params=tree(params),
+        params=params_from_numpy(params, device),
         opt={
-            "m": tree(opt["m"]),
-            "v": tree(opt["v"]),
-            "master": {k: None for k in params},  # float32 params keep no master copy
+            "m": params_from_numpy(opt["m"], device),
+            "v": params_from_numpy(opt["v"], device),
+            "master": tree_map(lambda _: None, params),
             "count": torch.tensor(np.asarray(opt["count"]), dtype=torch.int32, device=device),
         },
         step=torch.tensor(np.asarray(step), dtype=torch.int32, device=device),

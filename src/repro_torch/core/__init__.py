@@ -7,6 +7,7 @@ from .fusion import (
     SemanticGraphBatch,
     batch_semantic_graph,
     build_unit_tables,
+    mean_aggregate,
     neighbor_aggregate,
     neighbor_aggregate_multi,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "SemanticGraphBatch",
     "batch_semantic_graph",
     "build_unit_tables",
+    "mean_aggregate",
     "neighbor_aggregate",
     "neighbor_aggregate_multi",
     "FPTraffic",

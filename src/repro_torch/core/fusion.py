@@ -1,29 +1,34 @@
 """NA execution paths of the port (the counterpart of ``repro.core.fusion``).
 
-Three interchangeable NA backends with identical semantics:
+Five interchangeable NA backends with identical semantics:
 
+* ``SEGMENT``    — two-pass segment softmax over a dst-sorted padded edge
+  list (``stages.segment_softmax_aggregate``, plain PyTorch): the staged
+  baseline, one semantic graph at a time.
 * ``BLOCK``      — plain PyTorch block-CSR online softmax, one semantic
   graph at a time (``stages.block_softmax_aggregate``, the oracle).
+* ``KERNEL``     — the per-graph kernel #5 (``kernels/seg_gat_agg``): one
+  launch per semantic graph, forward only (no gradient, as in the JAX
+  package; an operand that requires one raises).  R-GAT's and S-HGN's
+  inference path.
 * ``MULTIGRAPH`` — ALL semantic graphs of a step in one launch of the
   multigraph kernel (``kernels/seg_gat_agg_multigraph``): the paper's
-  multi-lane datapath.
+  multi-lane datapath; for one graph it is the differentiable per-graph
+  route (kernels #1/#2 at G = 1).
 * ``FUSED_FP``   — the multigraph launch with the FP stage pulled inside
   (``kernels/seg_gat_agg_fused_fp``): raw features are projected on chip
   against per-graph weight tables and h' never goes to device memory
   (paper Alg. 2, DESIGN.md §10).  Takes ``fp=FusedFPInputs`` in place of
   the theta/h operands.
 
-On CUDA tensors the two kernel backends launch the hand-written kernels;
-on CPU tensors the kernel wrappers take their plain PyTorch versions.
-Both go through the kernels' ``torch.autograd.Function``s, which keep the
-forward's ``lse`` residual for the backward kernel.  Under
+On CUDA tensors the kernel backends launch the hand-written kernels; on
+CPU tensors the kernel wrappers take their plain PyTorch versions.
+MULTIGRAPH and FUSED_FP go through the kernels' ``torch.autograd.Function``s,
+which keep the forward's ``lse`` residual for the backward kernel.  Under
 ``torch.no_grad()`` (serving), or when no operand requires grad, the
 Function runs the same single forward launch, its output has no
-``grad_fn`` and the residual is freed on return.  BLOCK is differentiable
-by plain autograd.
-
-``SEGMENT`` and ``KERNEL`` (the per-graph Pallas kernel #5 of R-GAT and
-S-HGN) are not ported yet: asking for either raises.
+``grad_fn`` and the residual is freed on return.  SEGMENT and BLOCK are
+differentiable by plain autograd.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ import enum
 
 import torch
 
-from ..graphs.formats import to_block_csr
+from ..graphs.formats import to_block_csr, to_padded_edges
 from ..graphs.hetgraph import SemanticGraph
+from ..kernels.seg_gat_agg import seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph
 from ..obs.trace import trace_span
@@ -48,19 +54,6 @@ class NABackend(enum.Enum):
     FUSED_FP = "fused_fp"
 
 
-_NOT_PORTED = {
-    NABackend.SEGMENT: "the SEGMENT backend (padded edge lists) is not ported yet: "
-                       "ROADMAP Queue 1 item 4 (the other HGNN models)",
-    NABackend.KERNEL: "the per-graph KERNEL backend (Pallas kernel #5, seg_gat_agg) is not "
-                      "ported yet: ROADMAP Queue 1 item 4 (the other HGNN models)",
-}
-
-
-def check_ported(backend: NABackend) -> None:
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[backend])
-
-
 # materialized-path equivalent of the fused backend (serving's FP-cache-hit
 # bypass: the projected table already exists, so re-projecting inside the
 # kernel would waste the cache)
@@ -69,7 +62,7 @@ _FUSED_TO_MULTIGRAPH = {NABackend.FUSED_FP: NABackend.MULTIGRAPH}
 
 @dataclasses.dataclass
 class SemanticGraphBatch:
-    """Device-resident block CSR of one semantic graph."""
+    """Device-resident formats for one semantic graph."""
 
     name: str
     src_type: str
@@ -78,19 +71,41 @@ class SemanticGraphBatch:
     num_dst: int
     num_edges: int
     path_types: tuple[str, ...]
-    col_index: torch.Tensor  # int32 [R, W]  (-1 = padding)
-    masks: torch.Tensor      # bool  [R, W, B, B]
-    block: int
+    # padded edge list (SEGMENT backend, mean NA)
+    src: torch.Tensor | None = None       # int32 [E_pad]  dst-sorted
+    dst: torch.Tensor | None = None       # int32 [E_pad]
+    valid: torch.Tensor | None = None     # bool  [E_pad]
+    # block CSR (BLOCK / KERNEL / MULTIGRAPH / FUSED_FP backends)
+    col_index: torch.Tensor | None = None  # int32 [R, W]  (-1 = padding)
+    masks: torch.Tensor | None = None      # bool  [R, W, B, B]
+    block: int = 128
 
     @property
     def num_dst_pad(self) -> int:
+        if self.col_index is None:
+            return self.num_dst
         return int(self.col_index.shape[0]) * self.block
 
 
 def batch_semantic_graph(
-    sg: SemanticGraph, *, block: int = 128, device: str | torch.device = "cpu"
+    sg: SemanticGraph,
+    *,
+    block: int = 128,
+    with_edges: bool = True,
+    with_blocks: bool = True,
+    edge_pad: int | None = None,
+    device: str | torch.device = "cpu",
 ) -> SemanticGraphBatch:
-    bc = to_block_csr(sg, block=block)
+    kw: dict = {}
+    if with_edges:
+        pe = to_padded_edges(sg, pad_to=edge_pad)
+        kw.update(src=torch.as_tensor(pe.src, device=device),
+                  dst=torch.as_tensor(pe.dst, device=device),
+                  valid=torch.as_tensor(pe.valid, device=device))
+    if with_blocks:
+        bc = to_block_csr(sg, block=block)
+        kw.update(col_index=torch.as_tensor(bc.col_index, device=device),
+                  masks=torch.as_tensor(bc.masks, device=device), block=block)
     return SemanticGraphBatch(
         name=sg.name,
         src_type=sg.src_type,
@@ -99,9 +114,7 @@ def batch_semantic_graph(
         num_dst=sg.num_dst,
         num_edges=sg.num_edges,
         path_types=sg.path_types,
-        col_index=torch.as_tensor(bc.col_index, device=device),
-        masks=torch.as_tensor(bc.masks, device=device),
-        block=block,
+        **kw,
     )
 
 
@@ -152,6 +165,9 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
     batches' device."""
     if not batches:
         raise ValueError("no semantic graphs")
+    for bb in batches:
+        if bb.col_index is None:
+            raise ValueError(f"{bb.name}: batch built without its block CSR (with_blocks)")
     b = batches[0].block
     n_rows = int(batches[0].col_index.shape[0])
     dev = batches[0].col_index.device
@@ -177,25 +193,64 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
     )
 
 
+def _bias_row(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
+    """One graph's ``edge_bias`` (a number, a 0-d, [H] or [1, H] tensor) as
+    the [1, H] row of the multigraph kernels; a tensor keeps its graph."""
+    if not isinstance(edge_bias, torch.Tensor):
+        return torch.full((1, H), float(edge_bias), dtype=torch.float32, device=dev)
+    if edge_bias.dim() == 2:
+        return edge_bias
+    return edge_bias.expand(H).reshape(1, H).contiguous()
+
+
 def neighbor_aggregate(
     batch: SemanticGraphBatch,
     theta_src: torch.Tensor,  # [Ns, H]
     theta_dst: torch.Tensor,  # [Nd, H]
     h_src: torch.Tensor,      # [Ns, H, Dh]
     *,
+    backend: NABackend = NABackend.SEGMENT,
     leaky_slope: float = 0.2,
     edge_bias: torch.Tensor | float = 0.0,
 ) -> torch.Tensor:
-    """Attention NA of one semantic graph on BLOCK, the plain
-    online-softmax oracle (differentiable by autograd).  Returns
-    [num_dst, H, Dh].  The kernel backends run all graphs of a step in one
-    launch: :func:`neighbor_aggregate_multi`."""
+    """Attention NA of one semantic graph with the chosen backend.
+    Returns [num_dst, H, Dh].
+
+    MULTIGRAPH runs the graph alone through :func:`neighbor_aggregate_multi`
+    (kernels #1/#2 at G = 1, differentiable); KERNEL launches kernel #5
+    and has no gradient; SEGMENT and BLOCK are plain PyTorch."""
+    if backend is NABackend.MULTIGRAPH:
+        bias = _bias_row(edge_bias, theta_src.shape[-1], h_src.device)
+        return neighbor_aggregate_multi(
+            [batch], theta_src[None], theta_dst[None], h_src,
+            backend=backend, leaky_slope=leaky_slope, edge_bias=bias,
+        )[0]
+    if backend is NABackend.SEGMENT:
+        if batch.src is None:
+            raise ValueError(f"{batch.name}: batch built without its edge list (with_edges)")
+        return stages.segment_softmax_aggregate(
+            batch.src, batch.dst, batch.valid, theta_src, theta_dst, h_src,
+            batch.num_dst, leaky_slope=leaky_slope, edge_bias=edge_bias,
+        )
+    if backend not in (NABackend.BLOCK, NABackend.KERNEL):
+        raise ValueError(f"neighbor_aggregate takes one graph; {backend} runs through "
+                         "neighbor_aggregate_multi")
+    if batch.col_index is None:
+        raise ValueError(f"{batch.name}: batch built without its block CSR (with_blocks)")
     ns_pad = ((batch.num_src + batch.block - 1) // batch.block) * batch.block
-    out = stages.block_softmax_aggregate(
-        batch.col_index, batch.masks,
-        _pad_rows(theta_src, ns_pad), _pad_rows(theta_dst, batch.num_dst_pad),
-        _pad_rows(h_src, ns_pad), leaky_slope=leaky_slope, edge_bias=edge_bias,
-    )
+    th_s = _pad_rows(theta_src, ns_pad)
+    hs = _pad_rows(h_src, ns_pad)
+    th_d = _pad_rows(theta_dst, batch.num_dst_pad)
+    if backend is NABackend.BLOCK:
+        out = stages.block_softmax_aggregate(
+            batch.col_index, batch.masks, th_s, th_d, hs,
+            leaky_slope=leaky_slope, edge_bias=edge_bias,
+        )
+    else:
+        out = seg_gat_agg(
+            batch.col_index, batch.masks, th_s.contiguous(), th_d.contiguous(),
+            hs.contiguous(), leaky_slope=leaky_slope, edge_bias=edge_bias,
+        )
     return out[: batch.num_dst]
 
 
@@ -214,16 +269,32 @@ def neighbor_aggregate_multi(
     [G, num_dst, H, Dh].
 
     MULTIGRAPH and FUSED_FP are one kernel launch for the whole step
-    (forward, and under autograd one backward launch); BLOCK is a per-graph
-    loop of :func:`neighbor_aggregate` with the same semantics.  With
-    FUSED_FP, pass ``fp=FusedFPInputs(...)`` and leave
-    theta_src/theta_dst/h_src as None.
+    (forward, and under autograd one backward launch); SEGMENT, BLOCK and
+    KERNEL are a per-graph loop of :func:`neighbor_aggregate` with the same
+    semantics (KERNEL: one launch of kernel #5 per graph).  With FUSED_FP,
+    pass ``fp=FusedFPInputs(...)`` and leave theta_src/theta_dst/h_src as
+    None.
 
-    Spans (obs.trace, DESIGN.md §12): the kernel backends emit one
-    ``stage=NA`` span for the whole launch; BLOCK emits one ``na/<graph>``
-    span per semantic graph on its own ``sg/<graph>`` lane row.
+    Spans (obs.trace, DESIGN.md §12): the multigraph backends emit one
+    ``stage=NA`` span for the whole launch; the per-graph loop emits one
+    ``na/<graph>`` span per semantic graph on its own ``sg/<graph>`` lane
+    row.
     """
-    check_ported(backend)
+    if backend in (NABackend.SEGMENT, NABackend.BLOCK, NABackend.KERNEL):
+        outs = []
+        for i, bb in enumerate(batches):
+            with trace_span(
+                f"na/{bb.name}", stage="NA", lane=f"sg/{bb.name}",
+                graph=bb.name, backend=backend.value, edges=bb.num_edges,
+            ) as sp:
+                z = neighbor_aggregate(
+                    bb, theta_src[i], theta_dst[i], h_src[: bb.num_src],
+                    backend=backend, leaky_slope=leaky_slope,
+                    edge_bias=0.0 if edge_bias is None else edge_bias[i],
+                )
+                outs.append(sp.sync(z))
+        return torch.stack(outs)
+
     b0 = batches[0]
     b = b0.block
     nd = b0.num_dst
@@ -255,21 +326,6 @@ def neighbor_aggregate_multi(
             out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope))
         return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
-    if backend is NABackend.BLOCK:
-        outs = []
-        for i, bb in enumerate(batches):
-            with trace_span(
-                f"na/{bb.name}", stage="NA", lane=f"sg/{bb.name}",
-                graph=bb.name, backend=backend.value, edges=bb.num_edges,
-            ) as sp:
-                z = neighbor_aggregate(
-                    bb, theta_src[i], theta_dst[i], h_src[: bb.num_src],
-                    leaky_slope=leaky_slope,
-                    edge_bias=0.0 if edge_bias is None else edge_bias[i],
-                )
-                outs.append(sp.sync(z))
-        return torch.stack(outs)
-
     if backend is not NABackend.MULTIGRAPH:
         raise ValueError(f"unknown NA backend {backend}")
     col, gid, row, masks = build_unit_tables(batches)
@@ -284,3 +340,11 @@ def neighbor_aggregate_multi(
         # [G*R*B, H, Dh] — units are g-major, rows in order
         out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope))
     return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
+
+
+def mean_aggregate(batch: SemanticGraphBatch, h_src: torch.Tensor) -> torch.Tensor:
+    """Mean NA (R-GCN) over the batch's edge list.  Returns [num_dst, ...]."""
+    if batch.src is None:
+        raise ValueError(f"{batch.name}: batch built without its edge list (with_edges)")
+    return stages.segment_mean_aggregate(batch.src, batch.dst, batch.valid, h_src,
+                                         batch.num_dst)

@@ -5,6 +5,7 @@ The paper decomposes HGNN execution into FP -> (theta) -> NA -> LSF -> GSF
 same name in ``repro.core.stages``, with the same layouts:
 
   * multi-head features are [N, H, Dh]; attention coefficients are [N, H]
+  * edge lists are dst-sorted PaddedEdges (src, dst, valid)
   * block-CSR NA takes col_index [R, W] (-1 = padding), masks [R, W, B, B]
 """
 from __future__ import annotations
@@ -31,6 +32,74 @@ def attention_coefficients(
     th_s = torch.einsum("nhd,hd->nh", h, a_src)
     th_d = torch.einsum("nhd,hd->nh", h, a_dst)
     return th_s, th_d
+
+
+def _segment_lengths(dst: torch.Tensor, num_dst: int) -> torch.Tensor:
+    """Edges per dst vertex of a dst-sorted edge list: [num_dst].  Every
+    entry of ``dst`` must lie in [0, num_dst), so the lengths cover the
+    whole list (padding edges sit at num_dst - 1, after the real ones)."""
+    bounds = torch.searchsorted(
+        dst, torch.arange(num_dst + 1, dtype=dst.dtype, device=dst.device))
+    return bounds[1:] - bounds[:-1]
+
+
+def _segment_sum(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0, unsafe=True)
+
+
+def segment_softmax_aggregate(
+    src: torch.Tensor,        # int32 [E]  dst-sorted
+    dst: torch.Tensor,        # int32 [E]
+    valid: torch.Tensor,      # bool  [E]
+    theta_src: torch.Tensor,  # [Ns, H]
+    theta_dst: torch.Tensor,  # [Nd, H]
+    h_src: torch.Tensor,      # [Ns, H, Dh]
+    num_dst: int,
+    *,
+    leaky_slope: float = 0.2,
+    edge_bias: torch.Tensor | float = 0.0,
+) -> torch.Tensor:
+    """NA stage reference: two-pass segment softmax attention aggregation.
+
+    z_v = sum_u softmax_u(LeakyReLU(theta_dst[v] + theta_src[u] + bias)) h'_u
+
+    The edge list must be dst-sorted (``graphs.to_padded_edges`` makes it
+    so): each dst vertex's edges are one contiguous segment, reduced by
+    ``torch.segment_reduce`` in edge order, so the forward uses no float
+    atomics and is deterministic on the card.  The max that stabilises the
+    softmax is detached: the result does not depend on it.  The backward
+    is plain autograd (its gathers' gradients scatter with atomics); no
+    launcher path trains through this function.
+    Returns [Nd, H, Dh]."""
+    pre = theta_dst[dst] + theta_src[src] + edge_bias
+    logits = torch.where(pre >= 0, pre, leaky_slope * pre)
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    lengths = _segment_lengths(dst, num_dst)
+    m = torch.segment_reduce(logits.detach(), "max", lengths=lengths, axis=0, unsafe=True,
+                             initial=NEG_INF)  # [Nd, H]; isolated vertices keep -1e30
+    p = torch.where(valid[:, None], torch.exp(logits - m[dst]), 0.0)
+    denom = _segment_sum(p, lengths)  # [Nd, H]
+    num = _segment_sum(p[:, :, None] * h_src[src], lengths)
+    return num / denom.clamp(min=1e-9)[:, :, None]
+
+
+def segment_mean_aggregate(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    h_src: torch.Tensor,
+    num_dst: int,
+) -> torch.Tensor:
+    """R-GCN NA: z_v = (1/|N_v|) sum_{u in N_v} h'_u.  h_src [Ns, ...].
+    A segmented sum over the dst-sorted edge list, as
+    :func:`segment_softmax_aggregate` (no float atomics in the forward;
+    plain autograd backward)."""
+    w = valid.to(h_src.dtype)
+    lengths = _segment_lengths(dst, num_dst)
+    deg = _segment_sum(w, lengths)
+    shape = (-1,) + (1,) * (h_src.dim() - 1)
+    num = _segment_sum(h_src[src] * w.reshape(shape), lengths)
+    return num / deg.clamp(min=1.0).reshape(shape)
 
 
 def block_softmax_aggregate(

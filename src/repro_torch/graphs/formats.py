@@ -1,14 +1,21 @@
-"""Device-facing graph format: block CSR.
+"""Device-facing graph formats.
 
-The (dst × src) adjacency of a SemanticGraph is cut into B×B blocks; only
-non-empty blocks are kept, organized as block rows padded to a fixed
-number of blocks per row.  This is the HiHGNN hardware adaptation: the
-irregular NA stage is *block-densified* so it runs as masked dense tile
-work (see DESIGN.md §2).  The per-row block lists are what the
-online-softmax kernels (``kernels/seg_gat_agg_multigraph``,
-``kernels/seg_gat_agg_fused_fp``) iterate over.
+Two executable layouts for a SemanticGraph:
 
-A copy of ``repro.graphs.formats.to_block_csr``; arrays are identical.
+* ``PaddedEdges`` — dst-sorted edge list padded to a static length; drives
+  the plain segment ops (the SEGMENT backend, R-GCN's mean NA).  Its
+  segments (the edges of one dst vertex) are contiguous.
+
+* ``BlockCSR`` — the (dst × src) adjacency cut into B×B blocks; only
+  non-empty blocks are kept, organized as block rows padded to a fixed
+  number of blocks per row.  This is the HiHGNN hardware adaptation: the
+  irregular NA stage is *block-densified* so it runs as masked dense tile
+  work (see DESIGN.md §2).  The per-row block lists are what the
+  online-softmax kernels (``kernels/seg_gat_agg``,
+  ``kernels/seg_gat_agg_multigraph``, ``kernels/seg_gat_agg_fused_fp``)
+  iterate over.
+
+Copies of ``repro.graphs.formats``; arrays are identical.
 """
 from __future__ import annotations
 
@@ -21,6 +28,41 @@ from .hetgraph import SemanticGraph
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedEdges:
+    """dst-sorted edge list, padded to ``length`` with sentinel edges.
+
+    Padding edges point at (src=0, dst=num_dst-1), after every real edge,
+    so the list stays dst-sorted; ``valid`` masks them out of every
+    aggregation.
+    """
+
+    src: np.ndarray  # int32 [E_pad]
+    dst: np.ndarray  # int32 [E_pad]
+    valid: np.ndarray  # bool [E_pad]
+    num_src: int
+    num_dst: int
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.valid.sum())
+
+
+def to_padded_edges(sg: SemanticGraph, *, pad_to: int | None = None) -> PaddedEdges:
+    order = np.argsort(sg.dst_ids, kind="stable")
+    src = sg.src_ids[order]
+    dst = sg.dst_ids[order]
+    e = src.shape[0]
+    e_pad = pad_to if pad_to is not None else max(_ceil_to(max(e, 1), 128), 128)
+    if e_pad < e:
+        raise ValueError(f"pad_to={e_pad} is less than the {e} edges")
+    pad = e_pad - e
+    src = np.concatenate([src, np.zeros(pad, np.int32)])
+    dst = np.concatenate([dst, np.full(pad, max(sg.num_dst - 1, 0), np.int32)])
+    valid = np.concatenate([np.ones(e, bool), np.zeros(pad, bool)])
+    return PaddedEdges(src=src, dst=dst, valid=valid, num_src=sg.num_src, num_dst=sg.num_dst)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +129,21 @@ def to_block_csr(sg: SemanticGraph, *, block: int = 128, min_blocks_per_row: int
     # scatter edges into their block masks
     masks[row_blk, slot_of_block[inv], sg.dst_ids % b, sg.src_ids % b] = True
     return BlockCSR(b, nd_pad, ns_pad, col_index, masks, sg.num_edges)
+
+
+def block_csr_to_dense(bc: BlockCSR) -> np.ndarray:
+    """Dense [num_dst_pad, num_src_pad] boolean adjacency (test oracle)."""
+    b = bc.block
+    out = np.zeros((bc.num_dst_pad, bc.num_src_pad), bool)
+    for r in range(bc.n_dst_blocks):
+        for j in range(bc.max_blocks_per_row):
+            c = bc.col_index[r, j]
+            if c >= 0:
+                out[r * b : (r + 1) * b, c * b : (c + 1) * b] |= bc.masks[r, j]
+    return out
+
+
+def dense_adjacency(sg: SemanticGraph) -> np.ndarray:
+    out = np.zeros((sg.num_dst, sg.num_src), bool)
+    out[sg.dst_ids, sg.src_ids] = True
+    return out

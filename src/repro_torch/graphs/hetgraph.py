@@ -108,3 +108,22 @@ def make_relation(name, src_type, dst_type, src_ids, dst_ids) -> Relation:
         dst_ids=np.asarray(dst_ids, np.int32),
     )
 
+
+
+def relation_semantic_graphs(g: HetGraph) -> list[SemanticGraph]:
+    """One semantic graph per relation (the R-GCN / R-GAT / S-HGN view)."""
+    out = []
+    for rel in g.relations.values():
+        out.append(
+            SemanticGraph(
+                name=rel.name,
+                src_type=rel.src_type,
+                dst_type=rel.dst_type,
+                src_ids=rel.src_ids,
+                dst_ids=rel.dst_ids,
+                num_src=g.num_vertices(rel.src_type),
+                num_dst=g.num_vertices(rel.dst_type),
+                path_types=(rel.src_type, rel.dst_type),
+            )
+        )
+    return out

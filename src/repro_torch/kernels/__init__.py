@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version beside it.  Importing this package builds nothing: a kernel is
 compiled (``kernels/build.py``) the first time a CUDA tensor reaches it."""
+from .seg_gat_agg import seg_gat_agg, seg_gat_agg_plain
 from .seg_gat_agg_fused_fp import (
     seg_gat_agg_fused_fp,
     seg_gat_agg_fused_fp_bwd,
@@ -17,6 +18,8 @@ from .seg_gat_agg_multigraph import (
 )
 
 __all__ = [
+    "seg_gat_agg",
+    "seg_gat_agg_plain",
     "seg_gat_agg_fused_fp",
     "seg_gat_agg_fused_fp_bwd",
     "seg_gat_agg_fused_fp_bwd_plain",

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = (
-    "seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd",
+    "seg_gat_agg", "seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd",
     "seg_gat_agg_fused_fp", "seg_gat_agg_fused_fp_bwd",
 )
 

@@ -2,7 +2,8 @@
 ``repro.models.hgnn.common``).
 
 Models are (params, pure function) pairs as in the reference: ``init(gen,
-data, **kw) -> params`` (a dict of float32 tensors drawn from an explicit
+data, **kw) -> params`` (a tree of nested dicts and lists of float32
+tensors, the reference's names and layout, drawn from an explicit
 ``torch.Generator`` in place of ``split_keys``) and ``forward(params, data,
 *, backend) -> logits``.  Parameters are plain tensors; a train step makes
 them require grad for its own forward.
@@ -16,7 +17,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ...core.fusion import SemanticGraphBatch, batch_semantic_graph
+from ...core.fusion import NABackend, SemanticGraphBatch, batch_semantic_graph
 from ...graphs.hetgraph import HetGraph, SemanticGraph
 from ...runtime import resolve_device
 
@@ -44,14 +45,19 @@ def prepare_data(
     labels: np.ndarray | None = None,
     *,
     block: int = 16,
+    with_edges: bool = True,
+    with_blocks: bool = True,
     device: str | torch.device = "cuda",
 ) -> HGNNData:
     """Move a graph and its semantic graphs to ``device`` (the card unless
-    the caller asks for the CPU; raises on a host without a card)."""
+    the caller asks for the CPU; raises on a host without a card): each
+    graph's padded edge list (SEGMENT, mean NA) and block CSR (the other
+    backends), as asked."""
     device = resolve_device(device)
     return HGNNData(
         features={t: torch.as_tensor(x, device=device) for t, x in g.features.items()},
-        graphs=[batch_semantic_graph(s, block=block, device=device) for s in sgs],
+        graphs=[batch_semantic_graph(s, block=block, with_edges=with_edges,
+                                     with_blocks=with_blocks, device=device) for s in sgs],
         target_type=target_type,
         num_classes=num_classes,
         labels=None if labels is None else torch.as_tensor(labels, device=device).long(),
@@ -79,3 +85,7 @@ class HGNNModel:
     name: str
     init: Callable[..., dict]
     forward: ForwardFn  # (params, data, *, backend) -> logits
+
+    def loss_fn(self, params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
+        logits = self.forward(params, data, backend=backend)
+        return cross_entropy(logits, data.labels)

@@ -6,12 +6,14 @@ semantic graph, semantic attention fusion (LSF+GSF split per Alg. 2).
 Metapath endpoints are all the target type, so FP projects the target
 features exactly once and every semantic graph gathers from it.
 
-Backends: BLOCK (per-graph plain online softmax, plain autograd),
-MULTIGRAPH (all graphs' NA in one launch of kernel #1 forward and #2
-backward) and FUSED_FP (FP inside the launch: kernels #3 and #4).  With
-one lane, ``repro``'s ``han_forward_multilane`` is the same single
-multigraph launch over the units in graph-major order, which is what
-MULTIGRAPH runs here.
+Backends: SEGMENT and BLOCK (per-graph plain PyTorch, plain autograd),
+KERNEL (one launch of kernel #5 per graph; no gradient), MULTIGRAPH (all
+graphs' NA in one launch of kernel #1 forward and #2 backward) and
+FUSED_FP (FP inside the launch: kernels #3 and #4).  With one lane,
+``repro``'s ``han_forward_multilane`` is the same single multigraph launch
+over the units in graph-major order, which is what MULTIGRAPH runs here.
+:func:`han_forward_staged` is the staged baseline (Fig. 4(a)): each stage
+on its own with a device barrier after it.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from ...core import stages
 from ...core.fusion import (
     FusedFPInputs,
     NABackend,
-    check_ported,
     neighbor_aggregate,
     neighbor_aggregate_multi,
 )
@@ -78,7 +79,6 @@ def _fuse(z_all: torch.Tensor, params, n: int):
 
 def _han_embed(params, data: HGNNData, backend: NABackend):
     """FP -> per-graph (theta, NA, LSF) -> GSF."""
-    check_ported(backend)
     x = data.features[data.target_type]
     heads = params["a_src"].shape[1]
     n = x.shape[0]
@@ -103,13 +103,45 @@ def _han_embed(params, data: HGNNData, backend: NABackend):
     z_all = []
     for i, batch in enumerate(data.graphs):
         th_s, th_d = stages.attention_coefficients(hh, params["a_src"][i], params["a_dst"][i])
-        z_all.append(neighbor_aggregate(batch, th_s, th_d, hh))
+        z_all.append(neighbor_aggregate(batch, th_s, th_d, hh, backend=backend))
     return _fuse(torch.stack(z_all), params, n)
 
 
-def han_forward(params, data: HGNNData, *, backend: NABackend = NABackend.BLOCK):
+def han_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
     fused, _ = _han_embed(params, data, backend)
     return fused @ params["w_out"] + params["b_out"]
+
+
+# --- staged execution (Fig. 4(a) baseline): one stage at a time ---
+
+
+def _barrier(t: torch.Tensor) -> torch.Tensor:
+    """The host waits for the device after a stage (a no-op on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return t
+
+
+def han_forward_staged(params, data: HGNNData):
+    """Traditional staged execution: each stage on its own with a host
+    barrier after it, mirroring DGL-on-GPU; NA on SEGMENT."""
+    x = data.features[data.target_type]
+    heads = params["a_src"].shape[1]
+    n = x.shape[0]
+    h = _barrier(stages.feature_projection(x, params["w_fp"], params["b_fp"]))
+    hh = h.reshape(n, heads, -1)
+    z_list = []
+    for i, batch in enumerate(data.graphs):
+        th_s, th_d = stages.attention_coefficients(hh, params["a_src"][i], params["a_dst"][i])
+        _barrier(th_s)
+        z = stages.segment_softmax_aggregate(batch.src, batch.dst, batch.valid, th_s, th_d, hh,
+                                             batch.num_dst)
+        z_list.append(_barrier(F.elu(z.reshape(batch.num_dst, -1))))
+    valid = torch.ones((n,), dtype=torch.bool, device=x.device)
+    w_list = [stages.local_semantic_fusion(z, params["w_g"], params["b_g"], params["q"], valid)
+              for z in z_list]
+    fused, _ = stages.global_semantic_fusion(torch.stack(w_list), torch.stack(z_list))
+    return _barrier(fused @ params["w_out"] + params["b_out"])
 
 
 HAN = HGNNModel(name="HAN", init=init_han, forward=han_forward)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..models.hgnn.common import HGNNData, HGNNModel
 from ..optim import AdamWConfig, apply_updates, init_opt_state
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .step import TrainState
 
 
@@ -37,18 +38,22 @@ def init_hgnn_train_state(
 def hgnn_loss_and_grads(forward_fn: Callable[[Any], torch.Tensor], params, data: HGNNData,
                         idx: torch.Tensor):
     """(loss, acc, grads) of the minibatch ``idx``: one forward and one
-    ``torch.autograd.grad``.  ``grads`` has the keys of ``params``."""
+    ``torch.autograd.grad``.  ``grads`` has the structure of ``params`` (a
+    tree); a param the loss does not reach gets zeros, as under
+    ``jax.grad``."""
     labels = data.labels
     # the count of each vertex in idx over len(idx): the minibatch mean as an
     # elementwise weight on the full-graph NLL
     counts = torch.bincount(idx.detach().cpu().long(), minlength=labels.shape[0])
     weight = (counts.float() / idx.numel()).to(labels.device)
-    params = {k: p.detach().requires_grad_() for k, p in params.items()}
+    params = tree_map(lambda p: p.detach().requires_grad_(), params)
     logp = torch.log_softmax(forward_fn(params).float(), dim=-1)
     onehot = F.one_hot(labels, data.num_classes).float()
     loss = -(weight * (logp * onehot).sum(dim=-1)).sum()
-    names = sorted(params)
-    grads = dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads)])
     with torch.no_grad():
         acc = (weight * (logp.argmax(dim=-1) == labels).float()).sum()
     return loss.detach(), acc, grads

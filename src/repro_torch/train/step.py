@@ -9,6 +9,6 @@ import torch
 
 @dataclasses.dataclass
 class TrainState:
-    params: Any          # dict of tensors
+    params: Any          # a tree of tensors (repro_torch.tree)
     opt: Any             # the optimizer state (optim.adamw layout)
     step: torch.Tensor   # int32 scalar

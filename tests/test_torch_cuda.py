@@ -1,27 +1,41 @@
-"""The port's card-only tests of the training slice, and the kernel cases
-they share with tests/test_torch_kernels_bwd.py.  This file imports no
-JAX, so it runs on a host with a card and no JAX:
+"""The port's card-only tests of the training and R-GAT/S-HGN slices, and
+the kernel cases they share with tests/test_torch_kernels_bwd.py and
+tests/test_torch_kernel5.py.  This file imports no JAX, so it runs on a
+host with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Backward kernels #2 and #4 against their plain versions (atol=rtol=1e-4,
-float32 sums in another order), each run twice and bitwise equal; the
-trainer on the card against the CPU; kernel training bitwise repeatable.
+float32 sums in another order), each run twice and bitwise equal; kernel
+#5 against its plain version for B in {8, 16, 32} and its edge cases; the
+trainer (HAN and R-GAT) on the card against the CPU; kernel training
+bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU.
 Every test carries the ``cuda`` marker and skips without a card."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.checkpoint.io import _flatten
+from repro_torch.core import NABackend
+from repro_torch.graphs import (
+    dataset_target,
+    relation_semantic_graphs,
+    synthetic_hetgraph,
+    synthetic_labels,
+)
 from repro_torch.kernels import (
+    seg_gat_agg,
     seg_gat_agg_fused_fp_bwd,
     seg_gat_agg_fused_fp_bwd_plain,
     seg_gat_agg_fused_fp_fwd,
     seg_gat_agg_multigraph_bwd,
     seg_gat_agg_multigraph_bwd_plain,
     seg_gat_agg_multigraph_fwd,
+    seg_gat_agg_plain,
 )
 from repro_torch.launch import hgnn_train
+from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, prepare_data
+from repro_torch.tree import tree_map
 
 
 def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
@@ -103,6 +117,56 @@ FUSED_CASES = {
 }
 
 
+def kernel5_case(seed, *, B=8, R=3, W=2, H=2, Dh=8, nblk_src=4, degenerate=False):
+    """Single-graph operands of kernel #5 as tests/test_kernels.py makes
+    them (unique columns per row, -1 padding, masks at density 0.3) with
+    a per-head edge bias; ``degenerate`` adds an all-padding row and a fully
+    masked dst row.  Returns (col, masks, theta_src, theta_dst, h_src, bias)."""
+    rng = np.random.default_rng(seed)
+    col = np.full((R, W), -1, np.int32)
+    for r in range(R):
+        k = rng.integers(0, min(W, nblk_src) + 1)
+        col[r, :k] = rng.choice(nblk_src, size=k, replace=False)
+    masks = rng.random((R, W, B, B)) < 0.3
+    if degenerate:
+        col[0] = -1
+        col[1, 0] = max(col[1, 0], 0)
+        masks[1, :, 3, :] = False
+    ns = nblk_src * B
+    ths = rng.standard_normal((ns, H)).astype(np.float32)
+    thd = rng.standard_normal((R * B, H)).astype(np.float32)
+    hs = rng.standard_normal((ns, H, Dh)).astype(np.float32)
+    bias = rng.standard_normal(H).astype(np.float32)
+    return col, masks, ths, thd, hs, bias
+
+
+def padded_row_case():
+    """tests/test_kernels.py:test_seg_gat_agg_edge_bias_and_all_padding: the
+    second dst-block row is all padding and must come out as exact zeros."""
+    rng = np.random.default_rng(0)
+    B, R, W, H, Dh = 8, 2, 2, 2, 8
+    col = np.array([[0, 1], [-1, -1]], np.int32)
+    masks = rng.random((R, W, B, B)) < 0.4
+    ths = rng.standard_normal((2 * B, H)).astype(np.float32)
+    thd = rng.standard_normal((R * B, H)).astype(np.float32)
+    hs = rng.standard_normal((2 * B, H, Dh)).astype(np.float32)
+    bias = rng.standard_normal(H).astype(np.float32)
+    return col, masks, ths, thd, hs, bias
+
+
+KERNEL5_CASES = {  # the shapes of tests/test_kernels.py:test_seg_gat_agg_shapes, then edge cases
+    "B8-R2-W1-H1-Dh8": lambda: kernel5_case(11, B=8, R=2, W=1, H=1, Dh=8),
+    "B8-R3-W2-H2-Dh16": lambda: kernel5_case(13, B=8, R=3, W=2, H=2, Dh=16),
+    "B16-R2-W3-H1-Dh32": lambda: kernel5_case(21, B=16, R=2, W=3, H=1, Dh=32),
+    "B8-R1-W4-H4-Dh8": lambda: kernel5_case(13, B=8, R=1, W=4, H=4, Dh=8),
+    "all-padding-row": padded_row_case,
+    "degenerate-B16": lambda: kernel5_case(5, B=16, R=4, W=3, H=4, Dh=16, degenerate=True),
+    "B32": lambda: kernel5_case(6, B=32, R=3, W=2, H=2, Dh=8, nblk_src=3, degenerate=True),
+    "Ns<Nd": lambda: kernel5_case(7, B=8, R=6, W=2, H=2, Dh=8, nblk_src=2),
+    "Ns>Nd": lambda: kernel5_case(8, B=8, R=1, W=5, H=3, Dh=4, nblk_src=6),
+}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -166,5 +230,74 @@ def test_kernel_training_on_cuda_is_bitwise_repeatable(cuda):
     kw = dict(_RUN, steps=3, device="cuda")
     a, _, _ = hgnn_train.run_training(**kw)
     b, _, _ = hgnn_train.run_training(**kw)
+    for (ka, va), (kb, vb) in zip(_flatten(a), _flatten(b)):
+        assert ka == kb and torch.equal(va, vb), ka
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL5_CASES))
+def test_kernel5_matches_plain_on_cuda(cuda, name):
+    col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)
+                                      for a in KERNEL5_CASES[name]())
+    got = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    again = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    want = seg_gat_agg_plain(col, masks, ths, thd, hs, edge_bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    B = masks.shape[-1]
+    dead = (col < 0).all(dim=1).repeat_interleave(B)
+    assert (got[dead] == 0).all()
+
+
+def _relation_data(device, block=16):
+    g = synthetic_hetgraph("acm", scale=0.05, feat_scale=0.1, seed=0)
+    target, ncls = dataset_target("acm")
+    return prepare_data(g, relation_semantic_graphs(g), target, ncls,
+                        synthetic_labels(g, "acm"), block=block, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", [NABackend.KERNEL, NABackend.SEGMENT], ids=lambda b: b.value)
+@pytest.mark.parametrize("name,kw", [
+    ("R-GAT", dict(hidden=8, heads=2, layers=2)),
+    ("S-HGN", dict(hidden=8, heads=2, layers=2, edge_dim=8)),
+])
+def test_per_graph_inference_on_cuda_matches_cpu(cuda, name, kw, backend):
+    """KERNEL launches #5; SEGMENT runs the segmented reductions on the card."""
+    model = MODELS[name]
+    cpu, card = _relation_data("cpu"), _relation_data(cuda)
+    params = model.init(torch.Generator().manual_seed(0), cpu, **kw)
+    with torch.no_grad():
+        want = model.forward(params, cpu, backend=backend)
+        got = model.forward(tree_map(lambda t: t.to(cuda), params), card, backend=backend)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_han_staged_and_per_graph_backends_on_cuda_match_cpu(cuda):
+    problem = dict(scale=0.05, feat_scale=0.1, block=16, max_edges=20_000)
+    cpu = hgnn_train.build_problem("acm", device="cpu", **problem)[1]
+    card = hgnn_train.build_problem("acm", device=cuda, **problem)[1]
+    params = MODELS["HAN"].init(torch.Generator().manual_seed(0), cpu, hidden=8, heads=2,
+                                att_dim=16)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        want = han_forward(params, cpu, backend=NABackend.BLOCK)
+        got = [han_forward_staged(on_card, card)]
+        got += [han_forward(on_card, card, backend=b) for b in (NABackend.SEGMENT, NABackend.KERNEL)]
+    for g in got:
+        torch.testing.assert_close(g.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rgat_training_on_cuda_matches_cpu_and_repeats(cuda):
+    kw = dict(_RUN, model_name="R-GAT", steps=3)
+    cpu = hgnn_train.run_training(**{**kw, "device": "cpu"})[1]
+    a, hist, meta = hgnn_train.run_training(**{**kw, "device": "cuda"})
+    b, _, _ = hgnn_train.run_training(**{**kw, "device": "cuda"})
+    assert meta["model"] == "R-GAT" and meta["backend"] == "multigraph"
+    for c, g in zip(cpu, hist):
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4, atol=1e-4)
     for (ka, va), (kb, vb) in zip(_flatten(a), _flatten(b)):
         assert ka == kb and torch.equal(va, vb), ka

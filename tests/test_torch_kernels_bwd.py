@@ -127,17 +127,6 @@ def test_neighbor_aggregate_keeps_the_residual_only_under_autograd():
     assert seg_gat_agg_multigraph(*case).grad_fn is None  # no operand needs a gradient
 
 
-@pytest.mark.parametrize("backend", [NABackend.SEGMENT, NABackend.KERNEL])
-def test_unported_backends_raise_naming_their_slice(backend):
-    g = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.02, seed=0)
-    batch = batch_semantic_graph(
-        build_semantic_graph(g, ("movie", "director", "movie"), max_edges=2000), block=8)
-    n = batch.num_dst
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        neighbor_aggregate_multi([batch], torch.zeros(1, n, 2), torch.zeros(1, n, 2),
-                                 torch.zeros(n, 2, 4), backend=backend)
-
-
 # -- kernel #4 ------------------------------------------------------------------
 
 

@@ -37,7 +37,7 @@ from repro.train import init_hgnn_train_state as jinit_state
 from repro.train import make_hgnn_train_step as jmake_step
 from repro_torch import checkpoint as tckpt
 from repro_torch import optim as toptim
-from repro_torch.convert import han_params_from_numpy, train_state_from_numpy
+from repro_torch.convert import params_from_numpy, train_state_from_numpy
 from repro_torch.core import NABackend
 from repro_torch.data import SyntheticHGNNData
 from repro_torch.launch import hgnn_train
@@ -92,7 +92,7 @@ def test_han_logits_and_gradients_match_jax(problem, backend):
 
     j_logits = np.asarray(jax.jit(lambda p: jhan_forward(p, jdata, backend=jb))(jparams))
     j_grads = _np(jax.jit(jax.grad(jloss))(jparams))
-    params = {k: v.requires_grad_() for k, v in han_params_from_numpy(
+    params = {k: v.requires_grad_() for k, v in params_from_numpy(
         _np(jparams), device="cpu").items()}
     logits = han_forward(params, tdata, backend=backend)
     np.testing.assert_allclose(logits.detach().numpy(), j_logits, **TOL)
@@ -230,7 +230,6 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--lanes", "2"], "Queue 1 item 3"),
     (["--plan-lanes", "4"], "Queue 1 item 3"),
-    (["--model", "R-GAT"], "Queue 1 item 4"),
     (["--trace", "t.json"], "Queue 1 item 5"),
     (["--metrics", "m.json"], "Queue 1 item 5"),
 ])
