@@ -59,8 +59,10 @@ Phases, each fatal on failure:
    c. R-GAT training through ``run_training(model_name="R-GAT")``: the
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
       20 steps, #1 and #2 six times a step, and the loss falls.
-6. Print the ``kernels`` JSON line (#1-#5), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+6. Print the ``kernels`` JSON line (#1-#5; each row's ``ms_per`` says
+   what its times cover and ``launches_by_path`` which runs its launches
+   come from; bounds count NA work per edge, not per dense B×B block), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): every number is float32.
@@ -191,10 +193,16 @@ def edge_operands(seed, dev, *, B=16, U=24, W=6, G=3, H=8, Dh=64, nblk=8, din=10
     return multi, fused
 
 
+def live_edges(col, masks) -> int:
+    """The edges these block-CSR operands hold: set mask entries of live
+    slots.  The work of NA is counted per edge, not per dense B×B block."""
+    return int(masks[col >= 0].sum())
+
+
 def multigraph_cost(ops):
     """(bytes, flops) the multigraph forward needs on these inputs: each input
-    read once (masks of live slots only), each output written once; per live
-    slot 2·B·B·H·Dh for p @ h and ~8 ops per logit."""
+    read once (masks of live slots only), each output written once; per edge
+    and head 2·Dh for p @ h and ~8 ops for its logit."""
     col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
     U, W = col.shape
     B, (ns, H, Dh) = masks.shape[-1], h.shape
@@ -203,7 +211,7 @@ def multigraph_cost(ops):
               + 4 * (ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel()
                      + ops["edge_bias"].numel())
               + 4 * U * B * H * (Dh + 1))
-    flops = live * (2 * B * B * H * Dh + 8 * B * B * H)
+    flops = live_edges(col, masks) * H * (2 * Dh + 8)
     return nbytes, flops, live
 
 
@@ -213,9 +221,10 @@ def fused_cost(ops):
     ``flops`` is the work the function needs: each (weight table, src or dst
     block) that some live unit reads projected once (2·B·Din·H·Dh), θs and
     θd of each (graph, block) read once (2·B·H·Dh each), then the multigraph
-    work.  ``kernel_flops`` is the work this kernel does: it re-projects the
-    src tile of every live slot and the dst tile of every unit; it explains
-    the kernel's time and is not its bound."""
+    work per edge.  ``kernel_flops`` is the work this kernel does: it
+    re-projects the src tile of every live slot and the dst tile of every
+    unit, and runs NA on whole B×B blocks; it explains the kernel's time and
+    is not its bound."""
     col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
     U, W = col.shape
     B = masks.shape[-1]
@@ -231,12 +240,13 @@ def fused_cost(ops):
                                         table[gid.long()] * nblk + row.long()])).numel()
     theta_src = torch.unique(g_of * nblk + src_blk).numel()
     theta_dst = torch.unique(gid.long() * nblk + row.long()).numel()
-    na = live * (2 * B * B * H * Dh + 8 * B * B * H)
+    na = live_edges(col, masks) * H * (2 * Dh + 8)
+    na_blocks = live * B * B * H * (2 * Dh + 8)
     nbytes = (col.numel() * 4 + 2 * U * 4 + G * 4 + live * B * B
               + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
               + 4 * U * B * H * (Dh + 1))
     flops = (projected * 2 * B * din * H * Dh + (theta_src + theta_dst) * 2 * B * H * Dh + na)
-    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na
+    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na_blocks
     return nbytes, flops, kernel_flops
 
 
@@ -340,24 +350,25 @@ def train_operands(data, params, fusion):
 def multigraph_bwd_cost(ops):
     """(bytes, flops) of the multigraph backward on these inputs: its inputs
     (out, lse, g_out and the forward's operands, masks of live slots only)
-    read once, its four gradients written once; per live slot and head
-    4·B·B·Dh for the two products and ~10 ops per logit."""
+    read once, its four gradients written once; per edge and head 4·Dh for
+    the two products and ~10 ops for its logit."""
     col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
     U, W = col.shape
     B, (ns, H, Dh) = masks.shape[-1], h.shape
     live = int((col >= 0).sum())
     grads = ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel() + ops["edge_bias"].numel()
     nbytes = col.numel() * 4 + 2 * U * 4 + live * B * B + 4 * (2 * grads + U * B * H * (2 * Dh + 1))
-    return nbytes, live * H * (4 * B * B * Dh + 10 * B * B), live
+    return nbytes, live_edges(col, masks) * H * (4 * Dh + 10), live
 
 
 def fused_bwd_cost(ops):
     """(bytes, flops, kernel_flops) of the fused backward launch on these
     inputs.  ``flops`` is the work the function needs: each (table, block)
     a live unit reads projected once, θ of each (graph, block) once, then
-    the multigraph backward's work.  ``kernel_flops`` is what this kernel
-    does: it re-projects the src tile of every live slot and the dst tile of
-    every unit; it explains the kernel's time and is not its bound."""
+    the multigraph backward's work per edge.  ``kernel_flops`` is what this
+    kernel does: it re-projects the src tile of every live slot and the dst
+    tile of every unit, and runs NA on whole B×B blocks; it explains the
+    kernel's time and is not its bound."""
     col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
     U, W = col.shape
     B = masks.shape[-1]
@@ -373,13 +384,14 @@ def fused_bwd_cost(ops):
                                         table[gid.long()] * nblk + row.long()])).numel()
     thetas = (torch.unique(g_of * nblk + src_blk).numel()
               + torch.unique(gid.long() * nblk + row.long()).numel())
-    na = live * H * (4 * B * B * Dh + 10 * B * B)
+    na = live_edges(col, masks) * H * (4 * Dh + 10)
+    na_blocks = live * B * B * H * (4 * Dh + 10)
     nbytes = (col.numel() * 4 + 2 * U * 4 + G * 4 + live * B * B
               + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
               + 4 * U * B * H * (2 * Dh + 1)
               + 4 * (T * x.shape[0] * H * Dh + 2 * G * H * Dh + G * H))
     flops = projected * 2 * B * din * H * Dh + thetas * 2 * B * H * Dh + na
-    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na
+    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na_blocks
     return nbytes, flops, kernel_flops
 
 
@@ -627,9 +639,9 @@ def training(data, counters, fusion_mod) -> dict:
             st, _ = step_mg(st, {"idx": idx})
         torch.cuda.synchronize()
         runs.append(st)
-    from repro_torch.checkpoint.io import _flatten
+    from repro_torch.tree import tree_leaves_with_path
 
-    for (ka, va), (kb, vb) in zip(_flatten(runs[0]), _flatten(runs[1])):
+    for (ka, va), (kb, vb) in zip(tree_leaves_with_path(runs[0]), tree_leaves_with_path(runs[1])):
         if ka != kb or not torch.equal(va, vb):
             raise AssertionError(f"3 MULTIGRAPH steps twice from one state differ at {ka}")
     log("[check] 3 MULTIGRAPH steps, twice from the same state: bitwise equal")
@@ -733,8 +745,8 @@ def kernel5_edge(seed, dev, *, B=16, R=12, W=5, H=4, Dh=64, nblk_src=8):
 def kernel5_cost(ops_list):
     """(bytes, flops) kernel #5 needs on these graphs together: each input
     read once (masks of live slots only), each output written once; per
-    live (row, slot) and head 2·B·B·Dh for p @ h and ~8 ops per logit (#1's
-    count at G = 1)."""
+    edge and head 2·Dh for p @ h and ~8 ops for its logit (#1's count at
+    G = 1)."""
     nbytes = flops = live_total = 0
     for ops in ops_list:
         col, masks, h = ops["col_index"], ops["masks"], ops["h_src"]
@@ -745,7 +757,7 @@ def kernel5_cost(ops_list):
         nbytes += (col.numel() * 4 + live * B * B
                    + 4 * (ops["theta_src"].numel() + ops["theta_dst"].numel() + h.numel() + H)
                    + 4 * R * B * H * Dh)
-        flops += live * (2 * B * B * H * Dh + 8 * B * B * H)
+        flops += live_edges(col, masks) * H * (2 * Dh + 8)
     return nbytes, flops, live_total
 
 
@@ -1162,6 +1174,17 @@ def main() -> int:
     infer = inference(graph, all_counters, NABackend)
     # #5's count comes from the inference runs that launch it (R-GAT, then S-HGN)
     launches["seg_gat_agg"] = sum(infer[m]["launches"]["seg_gat_agg"] for m in ("R-GAT", "S-HGN"))
+    # which run each count comes from, and what one `ms` covers
+    by_path = {
+        "multigraph": {"HAN training, 20 steps": launches["multigraph"]},
+        "multigraph_bwd": {"HAN training, 20 steps": launches["multigraph_bwd"]},
+        "fused_fp": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp"]},
+        "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"]},
+        "seg_gat_agg": {f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
+                        for m in ("R-GAT", "S-HGN")},
+    }
+    ms_per = {k: "one launch at the HAN training shapes" for k in by_path}
+    ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
     rgat_train = rgat_training(all_counters)
 
     sources = {
@@ -1182,7 +1205,8 @@ def main() -> int:
          "replaces": sources[k][2], "launches": launches[k],
          "max_abs_err": train_kernels[k]["max_abs_err"], "ms": train_kernels[k]["ms"],
          "plain_ms": train_kernels[k]["plain_ms"], "bound_ms": train_kernels[k]["bound_ms"],
-         "bound_by": train_kernels[k]["bound_by"], "library_ms": train_kernels[k]["library_ms"]}
+         "bound_by": train_kernels[k]["bound_by"], "library_ms": train_kernels[k]["library_ms"],
+         "launches_by_path": by_path[k], "ms_per": ms_per[k]}
         for k in sources
     ]}
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,

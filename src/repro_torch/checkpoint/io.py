@@ -6,17 +6,16 @@ per leaf its key, file, dtype and shape).  Writes go to a tmp dir and an
 atomic ``os.replace``: a crash mid-write never corrupts the latest
 checkpoint.
 
-Leaf keys are JAX's tree-path strings, so a checkpoint of either package
-restores into the other: a field of a dataclass such as ``TrainState``
-is ``[<flat index i>]`` (params, opt, step in order), a dict entry
-``['name']`` with keys in sorted order, a list entry ``[i]``, joined by
-``/``; None leaves (an unused ``master``) do not appear.  Leaves
-are logical (unsharded) arrays.  Placing them onto a lane mesh
-(``reshard_to``) waits for the multi-lane slice.
+Leaf keys are JAX's tree-path strings (``tree.tree_leaves_with_path``),
+so a checkpoint of either package restores into the other: a field of a
+dataclass such as ``TrainState`` is ``[<flat index i>]`` (params, opt,
+step in order), a dict entry ``['name']`` with keys in sorted order, a
+list entry ``[i]``, joined by ``/``; None leaves (an unused ``master``) do
+not appear.  Leaves are logical (unsharded) arrays.  Placing them onto a
+lane mesh (``reshard_to``) waits for the multi-lane slice.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -24,38 +23,7 @@ import shutil
 import numpy as np
 import torch
 
-
-def _flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    def join(part):
-        return f"{prefix}/{part}" if prefix else part
-
-    if dataclasses.is_dataclass(tree):
-        fields = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
-        return [kv for i, f in enumerate(fields) for kv in _flatten(f, join(f"[<flat index {i}>]"))]
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in _flatten(tree[k], join(f"[{k!r}]"))]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, t in enumerate(tree) for kv in _flatten(t, join(f"[{i}]"))]
-    if tree is None:
-        return []
-    return [(prefix, tree)]
-
-
-def _rebuild(like, values: dict, prefix: str = ""):
-    def join(part):
-        return f"{prefix}/{part}" if prefix else part
-
-    if dataclasses.is_dataclass(like):
-        return type(like)(**{
-            f.name: _rebuild(getattr(like, f.name), values, join(f"[<flat index {i}>]"))
-            for i, f in enumerate(dataclasses.fields(like))})
-    if isinstance(like, dict):
-        return {k: _rebuild(v, values, join(f"[{k!r}]")) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, values, join(f"[{i}]")) for i, v in enumerate(like))
-    if like is None:
-        return None
-    return values[prefix]
+from ..tree import tree_leaves_with_path, tree_unflatten
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state, aux: dict | None = None) -> str:
@@ -66,7 +34,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state, aux: dict | None = None) ->
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "aux": aux or {}, "leaves": []}
-    for i, (k, v) in enumerate(_flatten(state)):
+    for i, (k, v) in enumerate(tree_leaves_with_path(state)):
         arr = v.detach().cpu().numpy()
         fname = f"leaf_{i}.npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -100,10 +68,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
-    values = {}
-    for k, v in _flatten(like):
+    values = []
+    for k, v in tree_leaves_with_path(like):
         if k not in by_key or by_key[k]["file"] is None:
             raise KeyError(f"checkpoint {path} has no leaf {k!r}")
         arr = np.load(os.path.join(path, by_key[k]["file"]))
-        values[k] = torch.from_numpy(arr).to(v.device)
-    return _rebuild(like, values), manifest["aux"]
+        values.append(torch.from_numpy(arr).to(v.device))
+    return tree_unflatten(like, values), manifest["aux"]

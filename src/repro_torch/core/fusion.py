@@ -34,12 +34,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 
 import torch
 
 from ..graphs.formats import to_block_csr, to_padded_edges
 from ..graphs.hetgraph import SemanticGraph
-from ..kernels.seg_gat_agg import seg_gat_agg
+from ..kernels.seg_gat_agg import bias_vector, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph
 from ..obs.trace import trace_span
@@ -62,7 +63,8 @@ _FUSED_TO_MULTIGRAPH = {NABackend.FUSED_FP: NABackend.MULTIGRAPH}
 
 @dataclasses.dataclass
 class SemanticGraphBatch:
-    """Device-resident formats for one semantic graph."""
+    """Device-resident formats for one semantic graph: its block CSR, and
+    its padded edge list built at first use."""
 
     name: str
     src_type: str
@@ -71,41 +73,33 @@ class SemanticGraphBatch:
     num_dst: int
     num_edges: int
     path_types: tuple[str, ...]
-    # padded edge list (SEGMENT backend, mean NA)
-    src: torch.Tensor | None = None       # int32 [E_pad]  dst-sorted
-    dst: torch.Tensor | None = None       # int32 [E_pad]
-    valid: torch.Tensor | None = None     # bool  [E_pad]
-    # block CSR (BLOCK / KERNEL / MULTIGRAPH / FUSED_FP backends)
-    col_index: torch.Tensor | None = None  # int32 [R, W]  (-1 = padding)
-    masks: torch.Tensor | None = None      # bool  [R, W, B, B]
-    block: int = 128
+    col_index: torch.Tensor  # int32 [R, W]  (-1 = padding)
+    masks: torch.Tensor      # bool  [R, W, B, B]
+    block: int
+    graph: SemanticGraph = dataclasses.field(repr=False)  # host edges
 
     @property
     def num_dst_pad(self) -> int:
-        if self.col_index is None:
-            return self.num_dst
         return int(self.col_index.shape[0]) * self.block
+
+    @functools.cached_property
+    def edges(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The dst-sorted padded edge list ``(src, dst, valid)`` (int32,
+        int32, bool [E_pad]) on the batch's device, read by SEGMENT and mean
+        NA only: built the first time one of them runs, then kept."""
+        pe = to_padded_edges(self.graph)
+        dev = self.col_index.device
+        return (torch.as_tensor(pe.src, device=dev), torch.as_tensor(pe.dst, device=dev),
+                torch.as_tensor(pe.valid, device=dev))
 
 
 def batch_semantic_graph(
     sg: SemanticGraph,
     *,
     block: int = 128,
-    with_edges: bool = True,
-    with_blocks: bool = True,
-    edge_pad: int | None = None,
     device: str | torch.device = "cpu",
 ) -> SemanticGraphBatch:
-    kw: dict = {}
-    if with_edges:
-        pe = to_padded_edges(sg, pad_to=edge_pad)
-        kw.update(src=torch.as_tensor(pe.src, device=device),
-                  dst=torch.as_tensor(pe.dst, device=device),
-                  valid=torch.as_tensor(pe.valid, device=device))
-    if with_blocks:
-        bc = to_block_csr(sg, block=block)
-        kw.update(col_index=torch.as_tensor(bc.col_index, device=device),
-                  masks=torch.as_tensor(bc.masks, device=device), block=block)
+    bc = to_block_csr(sg, block=block)
     return SemanticGraphBatch(
         name=sg.name,
         src_type=sg.src_type,
@@ -114,7 +108,10 @@ def batch_semantic_graph(
         num_dst=sg.num_dst,
         num_edges=sg.num_edges,
         path_types=sg.path_types,
-        **kw,
+        col_index=torch.as_tensor(bc.col_index, device=device),
+        masks=torch.as_tensor(bc.masks, device=device),
+        block=block,
+        graph=sg,
     )
 
 
@@ -165,9 +162,6 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
     batches' device."""
     if not batches:
         raise ValueError("no semantic graphs")
-    for bb in batches:
-        if bb.col_index is None:
-            raise ValueError(f"{bb.name}: batch built without its block CSR (with_blocks)")
     b = batches[0].block
     n_rows = int(batches[0].col_index.shape[0])
     dev = batches[0].col_index.device
@@ -193,16 +187,6 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
     )
 
 
-def _bias_row(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
-    """One graph's ``edge_bias`` (a number, a 0-d, [H] or [1, H] tensor) as
-    the [1, H] row of the multigraph kernels; a tensor keeps its graph."""
-    if not isinstance(edge_bias, torch.Tensor):
-        return torch.full((1, H), float(edge_bias), dtype=torch.float32, device=dev)
-    if edge_bias.dim() == 2:
-        return edge_bias
-    return edge_bias.expand(H).reshape(1, H).contiguous()
-
-
 def neighbor_aggregate(
     batch: SemanticGraphBatch,
     theta_src: torch.Tensor,  # [Ns, H]
@@ -218,25 +202,22 @@ def neighbor_aggregate(
 
     MULTIGRAPH runs the graph alone through :func:`neighbor_aggregate_multi`
     (kernels #1/#2 at G = 1, differentiable); KERNEL launches kernel #5
-    and has no gradient; SEGMENT and BLOCK are plain PyTorch."""
+    and has no gradient; SEGMENT and BLOCK are plain PyTorch.
+    ``edge_bias`` is a number, a 0-d or an [H] tensor."""
+    edge_bias = bias_vector(edge_bias, theta_src.shape[-1], h_src.device)
     if backend is NABackend.MULTIGRAPH:
-        bias = _bias_row(edge_bias, theta_src.shape[-1], h_src.device)
         return neighbor_aggregate_multi(
             [batch], theta_src[None], theta_dst[None], h_src,
-            backend=backend, leaky_slope=leaky_slope, edge_bias=bias,
+            backend=backend, leaky_slope=leaky_slope, edge_bias=edge_bias[None],
         )[0]
     if backend is NABackend.SEGMENT:
-        if batch.src is None:
-            raise ValueError(f"{batch.name}: batch built without its edge list (with_edges)")
         return stages.segment_softmax_aggregate(
-            batch.src, batch.dst, batch.valid, theta_src, theta_dst, h_src,
+            *batch.edges, theta_src, theta_dst, h_src,
             batch.num_dst, leaky_slope=leaky_slope, edge_bias=edge_bias,
         )
     if backend not in (NABackend.BLOCK, NABackend.KERNEL):
         raise ValueError(f"neighbor_aggregate takes one graph; {backend} runs through "
                          "neighbor_aggregate_multi")
-    if batch.col_index is None:
-        raise ValueError(f"{batch.name}: batch built without its block CSR (with_blocks)")
     ns_pad = ((batch.num_src + batch.block - 1) // batch.block) * batch.block
     th_s = _pad_rows(theta_src, ns_pad)
     hs = _pad_rows(h_src, ns_pad)
@@ -344,7 +325,4 @@ def neighbor_aggregate_multi(
 
 def mean_aggregate(batch: SemanticGraphBatch, h_src: torch.Tensor) -> torch.Tensor:
     """Mean NA (R-GCN) over the batch's edge list.  Returns [num_dst, ...]."""
-    if batch.src is None:
-        raise ValueError(f"{batch.name}: batch built without its edge list (with_edges)")
-    return stages.segment_mean_aggregate(batch.src, batch.dst, batch.valid, h_src,
-                                         batch.num_dst)
+    return stages.segment_mean_aggregate(*batch.edges, h_src, batch.num_dst)

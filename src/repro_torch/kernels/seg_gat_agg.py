@@ -70,9 +70,11 @@ def launch(col_index, masks, theta_src, theta_dst, h_src, edge_bias, out,
     seg_gat_agg.launches += 1
 
 
-def _bias_vector(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
+def bias_vector(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
     """``edge_bias`` (a number, a 0-d or an [H] tensor) as a contiguous
-    float32 [H] tensor on ``dev``; never read on the host."""
+    float32 [H] tensor on ``dev``; never read on the host.  The one rule
+    for a graph's bias: ``core.fusion.neighbor_aggregate`` applies it for
+    every backend."""
     if not isinstance(edge_bias, torch.Tensor):
         return torch.full((H,), float(edge_bias), dtype=torch.float32, device=dev)
     if edge_bias.dtype != torch.float32 or edge_bias.device != dev:
@@ -120,7 +122,7 @@ def seg_gat_agg(
     if ns_pad % B:
         raise ValueError(f"Ns_pad={ns_pad} must be a multiple of B={B}")
     build.check_range("col_index", col_index, -1, ns_pad // B)
-    bias = _bias_vector(edge_bias, H, dev)
+    bias = bias_vector(edge_bias, H, dev)
     if dev.type == "cpu":
         return seg_gat_agg_plain(col_index, masks, theta_src, theta_dst, h_src,
                                  leaky_slope=leaky_slope, edge_bias=bias)

@@ -45,19 +45,16 @@ def prepare_data(
     labels: np.ndarray | None = None,
     *,
     block: int = 16,
-    with_edges: bool = True,
-    with_blocks: bool = True,
     device: str | torch.device = "cuda",
 ) -> HGNNData:
     """Move a graph and its semantic graphs to ``device`` (the card unless
     the caller asks for the CPU; raises on a host without a card): each
-    graph's padded edge list (SEGMENT, mean NA) and block CSR (the other
-    backends), as asked."""
+    graph's block CSR now, its padded edge list when SEGMENT or mean NA
+    first reads it."""
     device = resolve_device(device)
     return HGNNData(
         features={t: torch.as_tensor(x, device=device) for t, x in g.features.items()},
-        graphs=[batch_semantic_graph(s, block=block, with_edges=with_edges,
-                                     with_blocks=with_blocks, device=device) for s in sgs],
+        graphs=[batch_semantic_graph(s, block=block, device=device) for s in sgs],
         target_type=target_type,
         num_classes=num_classes,
         labels=None if labels is None else torch.as_tensor(labels, device=device).long(),

@@ -134,8 +134,7 @@ def han_forward_staged(params, data: HGNNData):
     for i, batch in enumerate(data.graphs):
         th_s, th_d = stages.attention_coefficients(hh, params["a_src"][i], params["a_dst"][i])
         _barrier(th_s)
-        z = stages.segment_softmax_aggregate(batch.src, batch.dst, batch.valid, th_s, th_d, hh,
-                                             batch.num_dst)
+        z = stages.segment_softmax_aggregate(*batch.edges, th_s, th_d, hh, batch.num_dst)
         z_list.append(_barrier(F.elu(z.reshape(batch.num_dst, -1))))
     valid = torch.ones((n,), dtype=torch.bool, device=x.device)
     w_list = [stages.local_semantic_fusion(z, params["w_g"], params["b_g"], params["q"], valid)

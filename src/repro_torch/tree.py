@@ -1,24 +1,45 @@
-"""Nested parameter trees: dicts, lists and tuples of tensors, the
-layout of the JAX package's params pytrees (R-GAT's
-``params["layers"][l]["rel"]["g0"]["w_src"]``).
+"""Nested trees: dicts, lists and tuples of tensors, the layout of the JAX
+package's params pytrees (R-GAT's ``params["layers"][l]["rel"]["g0"]["w_src"]``),
+and dataclasses such as ``TrainState``.
 
 Leaves come in JAX's ``tree_leaves`` order: dict entries by sorted key,
-list and tuple entries in order; ``None`` is an empty subtree (an unused
-``master`` entry), as in JAX.
+list, tuple and dataclass entries in order; ``None`` is an empty subtree
+(an unused ``master`` entry), as in JAX.  A leaf's path is JAX's key-path
+string, the key a checkpoint stores it under: a dict entry ``['name']``, a
+list entry ``[i]``, a dataclass field ``[<flat index i>]``, joined by
+``/``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 
-def tree_leaves(tree) -> list:
+def _children(tree) -> list[tuple[str, Any]] | None:
+    """A node's (key, child) pairs in JAX's order; None for a leaf."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f"[<flat index {i}>]", getattr(tree, f.name))
+                for i, f in enumerate(dataclasses.fields(tree))]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
+        return [(f"[{i}]", t) for i, t in enumerate(tree)]
+    return None
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in JAX's leaf order."""
     if tree is None:
         return []
-    return [tree]
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [kv for k, t in kids
+            for kv in tree_leaves_with_path(t, f"{prefix}/{k}" if prefix else k)]
+
+
+def tree_leaves(tree) -> list:
+    return [x for _, x in tree_leaves_with_path(tree)]
 
 
 def tree_map(fn: Callable[..., Any], tree, *rest):
@@ -40,6 +61,9 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return type(t)(**{f.name: build(getattr(t, f.name))
+                              for f in dataclasses.fields(t)})
         if isinstance(t, dict):
             built = {k: build(t[k]) for k in sorted(t)}  # leaves in sorted-key order
             return {k: built[k] for k in t}

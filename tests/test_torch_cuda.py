@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.checkpoint.io import _flatten
 from repro_torch.core import NABackend
 from repro_torch.graphs import (
     dataset_target,
@@ -35,7 +34,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.launch import hgnn_train
 from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, prepare_data
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves_with_path, tree_map
 
 
 def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
@@ -230,7 +229,7 @@ def test_kernel_training_on_cuda_is_bitwise_repeatable(cuda):
     kw = dict(_RUN, steps=3, device="cuda")
     a, _, _ = hgnn_train.run_training(**kw)
     b, _, _ = hgnn_train.run_training(**kw)
-    for (ka, va), (kb, vb) in zip(_flatten(a), _flatten(b)):
+    for (ka, va), (kb, vb) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
         assert ka == kb and torch.equal(va, vb), ka
 
 
@@ -299,5 +298,5 @@ def test_rgat_training_on_cuda_matches_cpu_and_repeats(cuda):
     assert meta["model"] == "R-GAT" and meta["backend"] == "multigraph"
     for c, g in zip(cpu, hist):
         np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4, atol=1e-4)
-    for (ka, va), (kb, vb) in zip(_flatten(a), _flatten(b)):
+    for (ka, va), (kb, vb) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
         assert ka == kb and torch.equal(va, vb), ka

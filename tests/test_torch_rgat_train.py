@@ -45,6 +45,7 @@ from repro_torch.graphs import synthetic_labels
 from repro_torch.launch import hgnn_train
 from repro_torch.models.hgnn import MODELS, prepare_data
 from repro_torch.train import hgnn_loss_and_grads, make_hgnn_train_step
+from repro_torch.tree import tree_leaves_with_path
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 OPT = dict(lr=5e-3, weight_decay=0.0)
@@ -61,7 +62,7 @@ def _jax_leaves(tree):
 
 
 def _port_leaves(tree):
-    return {k: v.detach().numpy() for k, v in tckpt.io._flatten(tree)}
+    return {k: v.detach().numpy() for k, v in tree_leaves_with_path(tree)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,7 +155,7 @@ def test_rgat_checkpoints_cross_between_jax_and_the_port(problem, tmp_path):
         jstate)
     aux = {"data": {"step": 1, "seed": 0}}
     like = train_state_from_numpy(_np(jstate.params), _np(jstate.opt), 0, device="cpu")
-    assert any("[0]" in k for k, _ in tckpt.io._flatten(like))  # lists in the tree
+    assert any("[0]" in k for k, _ in tree_leaves_with_path(like))  # lists in the tree
 
     jckpt.save_checkpoint(str(tmp_path / "jax"), 1, js, aux=aux)
     restored, got_aux = tckpt.restore_checkpoint(str(tmp_path / "jax"), 1, like)

@@ -43,6 +43,7 @@ from repro_torch.data import SyntheticHGNNData
 from repro_torch.launch import hgnn_train
 from repro_torch.models.hgnn import cross_entropy, han_forward
 from repro_torch.train import make_hgnn_train_step
+from repro_torch.tree import tree_leaves_with_path
 
 PROBLEM = dict(scale=0.05, feat_scale=0.1, block=16, max_edges=20_000)
 WIDTH = dict(hidden=8, heads=2, att_dim=16)
@@ -129,7 +130,7 @@ def test_five_adamw_steps_track_jax(problem, backend):
 
 
 def _assert_same_leaves(tstate, jstate):
-    tleaves = dict(tckpt.io._flatten(tstate))
+    tleaves = dict(tree_leaves_with_path(tstate))
     jleaves = {"/".join(str(p) for p in path): np.asarray(v)
                for path, v in jax.tree_util.tree_flatten_with_path(jstate)[0]}
     assert list(tleaves) == list(jleaves)  # the same keys, in the same order
@@ -174,7 +175,7 @@ def test_crash_at_step_k_resume_bit_identical(tmp_path):
         hgnn_train.run_training(ckpt_dir=crashed, crash_at=5, **kw)
     resumed, hist, _ = hgnn_train.run_training(ckpt_dir=crashed, **kw)
     assert hist[0]["step"] == 4  # resumed from the step-4 checkpoint
-    for a, b in zip(tckpt.io._flatten(ref), tckpt.io._flatten(resumed)):
+    for a, b in zip(tree_leaves_with_path(ref), tree_leaves_with_path(resumed)):
         assert a[0] == b[0] and torch.equal(a[1], b[1]), a[0]
 
 
