@@ -59,18 +59,43 @@ Phases, each fatal on failure:
    c. R-GAT training through ``run_training(model_name="R-GAT")``: the
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
       20 steps, #1 and #2 six times a step, and the loss falls.
-6. Print the ``kernels`` JSON line (#1-#5; each row's ``ms_per`` says
+6. The LM slice: llama3.2-3b at full width (28 layers, d_model 3072, 24/8
+   heads of 128, d_ff 8192, vocab 128,256, float32 weights from a seeded
+   ``torch.Generator``, bfloat16 compute):
+   a. kernel #7 against its plain version at the layer's shape (B = 2,
+      S = 4096) in bfloat16 (atol=rtol=3e-2, one rounding of the output)
+      and float32 (1e-4), and on Sq < Sk, Sq > Sk (rows that see no key
+      must be exact zeros), a 2048 window with MQA at Dh = 256 and
+      ``causal=False``; twice bitwise equal; timed with CUDA events beside
+      its bound, the plain version and ``scaled_dot_product_attention``;
+   b. the main path: ``LMApi.forward(impl="flash")`` at B = 2, S = 4096,
+      counters zeroed just before: #7 launches 28 times, nothing else;
+      cold and steady times, peak memory, idle share; against impl="xla"
+      in bf16 (top-1 agreement and max |d| printed) and both against the
+      float32-compute forward (flash's root-mean-square distance to it at
+      most xla's); at float32 compute and S = 2048, flash against xla at
+      atol=rtol=1e-3;
+   c. serving: 4 prompts of 8 tokens, 16 new tokens each, through
+      ``make_prefill`` + ``make_serve_step`` with bfloat16 caches;
+      ``greedy_generate`` refuses the bfloat16 config (as the reference
+      fails) and serves the float32-compute variant twice with the same
+      tokens; a decode step twice from one state is bitwise equal; the
+      prefill's last logits equal ``forward(impl="flash")``'s at 1e-3; the
+      launcher's ``--smoke`` run on the card.
+7. Print the ``kernels`` JSON line (#1-#5 and #7; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` are False): every number is float32.
+``torch.backends.cudnn.allow_tf32`` are False): every float32 number is
+float32.
 Full results go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -950,6 +975,261 @@ def rgat_training(counters) -> dict:
     return res
 
 
+# -- phase 6: the LM slice, llama3.2-3b at full width, kernel #7 -------------------
+
+LM_ARCH = "llama3.2-3b"
+LM_BATCH, LM_SEQ, LM_SEQ_F32 = 2, 4096, 2048
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (printed beside the bound)
+FLASH_MAIN = (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 128, True, None)  # llama3.2-3b's layer
+FLASH_EDGES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
+    (1, 24, 8, 1024, 3072, 128, True, None),   # Sq < Sk (a continuation)
+    (1, 24, 8, 2048, 1024, 128, True, None),   # Sq > Sk: the first 1024 rows see no key
+    (1, 16, 1, 4096, 4096, 256, True, 2048),   # recurrentgemma's MQA local attention
+    (LM_BATCH, 24, 8, 1024, 1024, 128, False, None),  # bidirectional
+]
+
+
+def flash_cost(B, Hq, Hkv, Sq, Sk, Dh, causal, window, itemsize) -> tuple[int, int]:
+    """(bytes, flops) attention needs on these shapes: q, k, v read once and
+    out written once; 4·Dh flops (q·k and p·v) per visible (query, key)
+    pair, counted from the mask."""
+    qpos = np.arange(Sq) + (Sk - Sq)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(Sq, np.int64)
+    visible = int(np.clip(hi - lo + 1, 0, None).sum())
+    nbytes = itemsize * (2 * B * Hq * Sq * Dh + 2 * B * Hkv * Sk * Dh)
+    return nbytes, 4 * B * Hq * visible * Dh
+
+
+def flash_operands(case, dtype, seed=0):
+    B, Hq, Hkv, Sq, Sk, Dh, _, _ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dh))]
+
+
+def flash_phase(fa_mod) -> dict:
+    """#7 against its plain version on llama3.2-3b's layer shape (bf16 and
+    float32) and the edge cases; twice bitwise equal; timed with CUDA
+    events beside its bound, the plain version and SDPA."""
+    err = 0.0
+    for case in [FLASH_MAIN, *FLASH_EDGES]:
+        B, Hq, Hkv, Sq, Sk, Dh, causal, window = case
+        for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+            q, k, v = flash_operands(case, dtype)
+            got = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+            again = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa_mod.flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            name = f"flash_attention {case} {str(dtype)[6:]}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two runs on the same inputs differ")
+            if Sq > Sk and causal and not (got[:, :, : Sq - Sk] == 0).all():
+                raise AssertionError(f"{name}: rows that see no key are not exact zeros")
+            d = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                                       msg=lambda m: f"{name}: {m}")
+            log(f"[check] {name}: max_abs_err={d:.3e} (atol=rtol={tol}), twice bitwise equal")
+            err = max(err, d) if dtype == torch.bfloat16 and case == FLASH_MAIN else err
+            del q, k, v, got, again, want
+    B, Hq, Hkv, Sq, Sk, Dh, causal, window = FLASH_MAIN
+    q, k, v = flash_operands(FLASH_MAIN, torch.bfloat16)
+    out = torch.empty_like(q)
+    scale = Dh ** -0.5
+    ms = cuda_ms(lambda: fa_mod.launch(q, k, v, out, causal=True, window=None, scale=scale), reps=10)
+    plain_ms = cuda_ms(lambda: fa_mod.flash_attention_plain(q, k, v), reps=3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    of = torch.empty_like(qf)
+    ms_f32 = cuda_ms(lambda: fa_mod.launch(qf, kf, vf, of, causal=True, window=None, scale=scale),
+                     reps=5)
+    nbytes, flops = flash_cost(*FLASH_MAIN, itemsize=2)
+    bound, by = bound_ms(nbytes, flops)
+    bound_tc = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+    log(f"[time] flash_attention {FLASH_MAIN} bf16: kernel {ms:.4f} ms (float32 operands "
+        f"{ms_f32:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {bound:.4f} ms "
+        f"({by}; {nbytes:.4e} B, {flops:.4e} flops at 67 TFLOP/s float32), bf16 tensor-core "
+        f"bound {bound_tc:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, ms_float32=ms_f32, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, bound_tensor_core_ms=bound_tc, bytes=nbytes,
+                flops=flops)
+
+
+def timed(fn) -> tuple[object, float]:
+    """(result, host-clock ms) of ``fn()`` ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def top1_agreement(a, b, vocab) -> float:
+    return float((a[..., :vocab].argmax(-1) == b[..., :vocab].argmax(-1)).float().mean())
+
+
+def lm_phase(counters, fa_mod) -> dict:
+    """Phases 6b and 6c: llama3.2-3b's forward with impl="flash" and its
+    greedy server, at full width with random weights (seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models.lm.api import build
+    from repro_torch.serve import engine
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config(LM_ARCH)
+    api = build(cfg)
+    res = {}
+    params, res["init_ms"] = timed(
+        lambda: api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters ({cfg.param_dtype}), compute {cfg.dtype}; init {res['init_ms']:.1f} ms")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device="cuda")
+
+    # b. the main path: counters zeroed just before the forward, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    (logits, _), cold_ms = timed(lambda: api.forward(params, toks, impl="flash"))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counters} | {"flash_attention": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"LM forward launches {launches}, expected {want}")
+    if logits.shape != (LM_BATCH, LM_SEQ, 128256) or not torch.isfinite(logits).all():
+        raise AssertionError(f"LM logits {tuple(logits.shape)} or non-finite")
+    steady = [timed(lambda: api.forward(params, toks, impl="flash"))[1] for _ in range(3)]
+    prof = profiled(lambda: api.forward(params, toks, impl="flash"), 2)
+    res["forward"] = dict(launches=launches, cold_ms=cold_ms, steady_ms=steady, peak_mem_bytes=peak,
+                          profiled=prof)
+    tokens_s = LM_BATCH * LM_SEQ / (float(np.median(steady)) / 1e3)
+    log(f"[lm forward] flash, B={LM_BATCH} S={LM_SEQ}: launches={json.dumps(launches)}; ms cold "
+        f"{cold_ms:.3f}, steady median {float(np.median(steady)):.3f} "
+        f"({['%.3f' % t for t in steady]}), {tokens_s:.1f} tokens/s, peak mem {peak / 2**30:.3f} GiB")
+    log(f"[lm forward] 2 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} ms, "
+        f"device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    for k in prof["top_kernels"][:6]:
+        log(f"[lm forward]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    (xla, _), xla_ms = timed(lambda: api.forward(params, toks, impl="xla"))
+    agree = top1_agreement(logits, xla, cfg.vocab_size)
+    dmax = float((logits.float() - xla.float()).abs().max())
+    # Random weights give near-flat logits, so bf16 rounding alone moves many
+    # top-1 tokens; the float32-compute forward (impl "xla", the plain path)
+    # is the yardstick both bf16 paths are held against: flash's logits must
+    # be at least as close to it (root-mean-square) as the plain path's.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    api32 = build(cfg32)
+    exact, _ = api32.forward(params, toks, impl="xla")
+    to_exact = {name: dict(top1_agreement=top1_agreement(lg, exact, cfg.vocab_size),
+                           max_abs_diff=float((lg.float() - exact).abs().max()),
+                           rms_diff=float((lg.float() - exact).square().mean().sqrt()))
+                for name, lg in (("flash", logits), ("xla", xla))}
+    res["flash_vs_xla_bf16"] = dict(top1_agreement=agree, max_abs_diff=dmax, xla_ms=xla_ms,
+                                    vs_float32=to_exact)
+    log(f"[check] LM forward flash vs xla, bf16: top-1 agreement {agree:.6f}, max |d| {dmax:.4e}; "
+        f"xla forward {xla_ms:.3f} ms")
+    for name, d in to_exact.items():
+        log(f"[check] {name} (bf16) against the float32-compute forward: top-1 agreement "
+            f"{d['top1_agreement']:.6f}, max |d| {d['max_abs_diff']:.4e}, rms {d['rms_diff']:.4e}")
+    if not to_exact["flash"]["rms_diff"] <= to_exact["xla"]["rms_diff"]:
+        raise AssertionError(f"the flash forward is further from float32 than xla's: {to_exact}")
+    del logits, xla, exact
+
+    (f32, _), f32_ms = timed(lambda: api32.forward(params, toks[:, :LM_SEQ_F32], impl="flash"))
+    x32, _ = api32.forward(params, toks[:, :LM_SEQ_F32], impl="xla")
+    d32 = float((f32 - x32).abs().max())
+    torch.testing.assert_close(f32, x32, atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"float32 forward flash vs xla: {m}")
+    res["flash_vs_xla_f32"] = dict(max_abs_diff=d32, flash_ms=f32_ms)
+    log(f"[check] LM forward flash vs xla, float32 compute, S={LM_SEQ_F32}: max |d| {d32:.4e} "
+        f"(atol=rtol=1e-3); flash forward {f32_ms:.3f} ms")
+    del f32, x32
+
+    # c. serving: 4 prompts of 8 tokens, 16 new tokens each
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)),
+                              dtype=torch.int32, device="cuda")
+    steps, cache_len = 16, 8 + 16 + 1
+    before = fa_mod.flash_attention.launches
+    # room for two more steps under the profiler after the 16
+    state = engine.init_serve_state(api, 4, cache_len + 2, dtype=torch.bfloat16, device="cuda")
+    prefill, step = engine.make_prefill(api), engine.make_serve_step(api)
+    (lg, state), prefill_ms = timed(lambda: prefill(params, state, prompts))
+    toks_out, step_ms = [], []
+    for _ in range(steps):
+        tok = lg[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+        toks_out.append(tok)
+        (lg, state), ms = timed(lambda: step(params, state, tok[:, None]))
+        step_ms.append(ms)
+    gen = torch.stack(toks_out, 1)
+    if not torch.isfinite(lg).all() or gen.shape != (4, steps) or state.cache_pos != cache_len - 1:
+        raise AssertionError("bf16 serving: non-finite logits or wrong shapes")
+    flash_launches = fa_mod.flash_attention.launches - before
+    box = [state]
+
+    def one_step():
+        box[0] = step(params, box[0], gen[:, -1:])[1]
+
+    prof = profiled(one_step, 2)
+    res["serve_bf16"] = dict(prefill_ms=prefill_ms, step_ms=step_ms,
+                             tokens_s=4 * steps / (sum(step_ms) / 1e3),
+                             flash_launches=flash_launches, profiled=prof, tokens=gen.tolist())
+    log(f"[lm serve bf16] 4 prompts x 8 tokens, 16 new each, bf16 caches: prefill {prefill_ms:.3f} "
+        f"ms, decode step median {float(np.median(step_ms)):.3f} ms, "
+        f"{res['serve_bf16']['tokens_s']:.1f} tokens/s; #7 launches {flash_launches}")
+    log(f"[lm serve bf16] 2 decode steps under the profiler: {['%.3f' % t for t in prof['steps_ms']]} "
+        f"ms, device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle "
+        f"share {prof['device_idle_share']:.4f}")
+    for k in prof["top_kernels"][:4]:
+        log(f"[lm serve bf16]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+
+    try:
+        engine.greedy_generate(api, params, prompts, steps=1, cache_len=10)
+    except ValueError as e:
+        log(f"[lm serve] greedy_generate at bf16 refuses, as the reference's fails: {str(e)[:90]}...")
+    else:
+        raise AssertionError("greedy_generate accepted a bfloat16-compute config")
+    outs = []
+    for _ in range(2):
+        out, ms = timed(lambda: engine.greedy_generate(api32, params, prompts, steps=steps,
+                                                       cache_len=cache_len))
+        outs.append((out, ms))
+    if not torch.equal(outs[0][0], outs[1][0]):
+        raise AssertionError("greedy_generate (float32) twice gave different tokens")
+    state = engine.init_serve_state(api32, 4, cache_len, dtype=torch.float32, device="cuda")
+    (last, state), _ = timed(lambda: engine.make_prefill(api32)(params, state, prompts))
+    ref, _ = api32.forward(params, prompts, impl="flash")
+    ddf = float((last - ref[:, -1]).abs().max())
+    torch.testing.assert_close(last, ref[:, -1], atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"decode == forward (float32, full width): {m}")
+    twin = engine.ServeState(tree_unflatten(state.caches, [t.clone() for t in tree_leaves(state.caches)]),
+                             state.cache_pos)
+    nxt = outs[0][0][:, :1]
+    a, _ = engine.make_serve_step(api32)(params, state, nxt)
+    b, _ = engine.make_serve_step(api32)(params, twin, nxt)
+    if not torch.equal(a, b):
+        raise AssertionError("a float32 decode step twice from one state differs")
+    res["greedy_f32"] = dict(ms=[o[1] for o in outs], tokens_s=4 * steps / (outs[1][1] / 1e3),
+                             decode_vs_forward_max_abs_diff=ddf, tokens=outs[0][0].tolist())
+    log(f"[lm serve f32] greedy_generate (float32 compute, float32 caches): {outs[1][1]:.3f} ms "
+        f"for 4 x {steps} tokens after an 8-token prefill, {res['greedy_f32']['tokens_s']:.1f} "
+        f"tokens/s; twice the same tokens; a decode step twice from one state bitwise equal")
+    log(f"[check] decode == forward, float32, full width: prefill's last logits vs forward(flash) "
+        f"max |d| {ddf:.4e} (atol=rtol=1e-3)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lm_launch.main(["--arch", LM_ARCH, "--smoke"])
+    lines = buf.getvalue().splitlines()
+    if not lines or not lines[0].startswith(f"{LM_ARCH}: 64 tokens in"):
+        raise AssertionError(f"launcher: {lines}")
+    log(f"[launcher] serve --smoke on the card: {lines[0]}")
+    return res
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -1187,6 +1467,16 @@ def main() -> int:
     ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
     rgat_train = rgat_training(all_counters)
 
+    # phase 6: the LM slice
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    train_kernels["flash_attention"] = flash_phase(fa_mod)
+    lm = lm_phase(dict(all_counters, flash_attention=fa_mod.flash_attention), fa_mod)
+    launches["flash_attention"] = lm["forward"]["launches"]["flash_attention"]
+    by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
+                                  "lm_serve": lm["serve_bf16"]["flash_launches"]}
+    ms_per["flash_attention"] = (f"one launch at {LM_ARCH}'s layer shape (B={LM_BATCH}, "
+                                 f"S={LM_SEQ}, heads 24/8, Dh=128, bf16)")
+
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
                        "src/repro/kernels/seg_gat_agg_multigraph.py:180"),
@@ -1199,6 +1489,8 @@ def main() -> int:
                          "src/repro/kernels/seg_gat_agg_fused_fp.py:331"),
         "seg_gat_agg": ("seg_gat_agg", "src/repro_torch/csrc/seg_gat_agg.cu",
                         "src/repro/kernels/seg_gat_agg.py:97"),
+        "flash_attention": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:95"),
     }
     line = {"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
@@ -1211,7 +1503,7 @@ def main() -> int:
     ]}
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
                 train_kernels=train_kernels, training=train, inference=infer,
-                rgat_training=rgat_train,
+                rgat_training=rgat_train, lm=lm,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
                 serve_max_abs_err=serve_err, launcher=cli)

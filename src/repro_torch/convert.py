@@ -12,6 +12,9 @@ numpy::
     port_params = params_from_numpy(params, device="cuda")
     state = train_state_from_numpy(params, jax.tree.map(np.asarray, opt), step)
 
+    params = jax.tree.map(np.asarray, repro.models.lm.api.build(cfg).init(key))
+    lm_params = lm_params_from_numpy(params, device="cuda")   # dtypes kept
+
 This module imports nothing of JAX: it takes numpy arrays.
 """
 from __future__ import annotations
@@ -26,6 +29,23 @@ from .tree import tree_map
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _tensor_keep_dtype(a, device) -> torch.Tensor:
+    """``a`` as a tensor of its own dtype.  A bfloat16 array (numpy holds it
+    as ``ml_dtypes.bfloat16``, which torch cannot read) crosses bit for bit
+    as int16 viewed as ``torch.bfloat16``."""
+    a = np.array(a)  # a writable copy: arrays from JAX are read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(params, device: str | torch.device = "cuda"):
+    """An LM params tree given as numpy (``params["scan"]["pos0"]["attn"]
+    ["wq"]`` …) as the same tree of tensors on ``device``, each leaf in its
+    own dtype: float32 stays float32, bfloat16 stays bfloat16."""
+    return tree_map(lambda a: _tensor_keep_dtype(a, device), params)
 
 
 def engine_params_from_numpy(

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version beside it.  Importing this package builds nothing: a kernel is
 compiled (``kernels/build.py``) the first time a CUDA tensor reaches it."""
+from .flash_attention import flash_attention, flash_attention_plain
 from .seg_gat_agg import seg_gat_agg, seg_gat_agg_plain
 from .seg_gat_agg_fused_fp import (
     seg_gat_agg_fused_fp,
@@ -18,6 +19,8 @@ from .seg_gat_agg_multigraph import (
 )
 
 __all__ = [
+    "flash_attention",
+    "flash_attention_plain",
     "seg_gat_agg",
     "seg_gat_agg_plain",
     "seg_gat_agg_fused_fp",

@@ -1,1 +1,2 @@
-"""HGNN models of the port."""
+"""Models of the port: the HGNNs (``models.hgnn``) and the LM decoder
+(``models.lm``)."""

@@ -1,0 +1,107 @@
+"""Shared LM building blocks: parameter specs, RMS norm, RoPE.
+
+The counterpart of ``repro/models/lm/layers.py``.  ``mrope_angles``,
+``layer_norm`` and ``sinusoidal_positions`` wait for the families that
+use them (ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ...tree import tree_map
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string ("bfloat16", "float32")."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+# ---------------------------------------------------------------------------
+# Spec-driven parameters: one source of truth for shape and initializer.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Parameter spec: shape, logical sharding axes, initializer."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # stddev; default fan-in
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in length")
+
+
+def is_spec(x: Any) -> bool:
+    return isinstance(x, P)
+
+
+def init_from_specs(specs, generator: torch.Generator, param_dtype=torch.float32,
+                    device: torch.device | str | None = None):
+    """A tree of tensors of ``specs``' structure (nested dicts and lists
+    of :class:`P`).  ``normal`` leaves are drawn from ``generator`` on its
+    device, in float32, times the spec's scale or 1/sqrt(fan-in), then cast
+    to ``param_dtype``; ``zeros`` and ``ones`` are constant.  The tensors
+    land on ``device`` (default: the generator's).  The draws are not
+    JAX's: parity tests carry the reference's weights across instead
+    (``convert.lm_params_from_numpy``)."""
+    device = torch.device(device) if device is not None else generator.device
+
+    def mk(spec: P):
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=param_dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=param_dtype, device=device)
+        if spec.init != "normal":
+            raise ValueError(f"unknown initializer {spec.init!r}")
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale if spec.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * std).to(device=device, dtype=param_dtype)
+
+    return tree_map(mk, specs)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """positions [..., S] -> angles [..., S, head_dim//2] (float32)."""
+    half = head_dim // 2
+    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                             device=positions.device) / half))
+    return positions.float()[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, Dh]; angles [B, S, Dh//2] -> rotated x (llama-style
+    rotate-half layout).  cos and sin are cast to ``x``'s dtype before the
+    products, as in the reference."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

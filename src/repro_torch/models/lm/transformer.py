@@ -1,0 +1,280 @@
+"""The decoder stack, the counterpart of ``repro/models/lm/transformer.py``.
+
+Parameters keep the reference's tree: layers are grouped into
+*superblocks* (one period of ``cfg.block_pattern``) whose weights stack
+on a leading ``[n_super]`` axis under ``params["scan"]["pos{i}"]``, and
+remainder layers sit in the ``params["tail"]`` list.  A Python loop over
+the stacked axis takes the place of ``jax.lax.scan``.
+
+  * forward()      — full sequence (prefill / scoring), returns logits
+  * decode_step()  — one token against carried caches (serving)
+
+This slice ports the dense family ("attn" and "local" blocks with a dense
+MLP).  MoE, SSM and RG-LRU blocks, M-RoPE and visual embeddings raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ...tree import tree_map
+from .attention import AttnCache, attention_decode, attention_forward, attention_specs, init_attn_cache
+from .config import LMConfig
+from .layers import P, init_from_specs, rms_norm, rope_angles, torch_dtype
+from .mlp import mlp_forward, mlp_specs
+
+_UNPORTED = {
+    "moe": "ROADMAP Queue 1 item 7b (MoE blocks: dbrx-132b, grok-1-314b)",
+    "ssm": "ROADMAP Queue 1 item 7c (SSM blocks: mamba2-2.7b)",
+    "rglru": "ROADMAP Queue 1 item 7d (RG-LRU blocks: recurrentgemma-9b)",
+    "m_rope": "ROADMAP Queue 1 item 7e (M-RoPE and visual embeddings: qwen2-vl-7b)",
+    "encdec": "ROADMAP Queue 1 item 7f (encoder-decoder: whisper-large-v3)",
+}
+
+
+def unported(what: str, cfg: LMConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: {what} is not ported to repro_torch yet; see {_UNPORTED[what]}")
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise ``NotImplementedError`` for a config this slice cannot run."""
+    if cfg.is_encoder_decoder:
+        raise unported("encdec", cfg)
+    if cfg.is_moe:
+        raise unported("moe", cfg)
+    for pat in cfg.block_pattern:
+        if pat in ("ssm", "rglru"):
+            raise unported(pat, cfg)
+        if pat not in ("attn", "local"):
+            raise ValueError(pat)
+    if cfg.m_rope:
+        raise unported("m_rope", cfg)
+
+
+def vocab_padded(cfg: LMConfig) -> int:
+    return ((cfg.vocab_size + 255) // 256) * 256
+
+
+def _block_specs(cfg: LMConfig, pat: str, layers: int | None) -> dict:
+    d = cfg.d_model
+    lead = () if layers is None else (layers,)
+    lx = () if layers is None else ("layers",)
+    norm = lambda: P(lead + (d,), lx + (None,), init="ones")  # noqa: E731
+    return {"norm1": norm(), "attn": attention_specs(cfg, layers=layers),
+            "norm2": norm(), "mlp": mlp_specs(cfg, layers=layers)}
+
+
+def _layout(cfg: LMConfig) -> tuple[int, int]:
+    period = len(cfg.block_pattern)
+    return cfg.num_layers // period, cfg.num_layers % period
+
+
+def decoder_specs(cfg: LMConfig) -> dict:
+    check_supported(cfg)
+    n_super, rem = _layout(cfg)
+    vp = vocab_padded(cfg)
+    specs: dict[str, Any] = {
+        "embed": P((vp, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "final_norm": P((cfg.d_model,), (None,), init="ones"),
+    }
+    if n_super > 0:
+        specs["scan"] = {
+            f"pos{i}": _block_specs(cfg, pat, n_super)
+            for i, pat in enumerate(cfg.block_pattern)
+        }
+    if rem:
+        specs["tail"] = [
+            _block_specs(cfg, cfg.block_pattern[i], None) for i in range(rem)
+        ]
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P((cfg.d_model, vp), ("embed", "vocab"), scale=0.02)
+    return specs
+
+
+def init_decoder(cfg: LMConfig, generator: torch.Generator, device=None):
+    return init_from_specs(decoder_specs(cfg), generator, torch_dtype(cfg.param_dtype), device)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked (``[n_super, ...]``) tree, as views."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _angles(cfg: LMConfig, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.m_rope:
+        raise unported("m_rope", cfg)
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, impl: str):
+    """One block, full-sequence."""
+    win = cfg.window if pat == "local" else None
+    a = attention_forward(
+        p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+        angles=angles, window=win, impl=impl,
+    )
+    h = h + a
+    return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg)
+
+
+def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos):
+    """One block, single token.  Returns (h, cache)."""
+    win = cfg.window if pat == "local" else None
+    a, cache = attention_decode(
+        p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+        cache, cache_pos, angles=angles, window=win,
+    )
+    h = h + a
+    return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill / scoring)
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    h = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    return h
+
+
+def logits_from_hidden(params, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].t().to(h.dtype)
+    return h @ params["lm_head"].to(h.dtype)
+
+
+def forward(
+    params: dict,
+    cfg: LMConfig,
+    tokens: torch.Tensor,                  # [B, S] int
+    *,
+    positions: torch.Tensor | None = None,  # [B, S]
+    visual_embeds: torch.Tensor | None = None,
+    impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, S, vocab_padded], aux_loss) — the aux loss is
+    the MoE balance term, zero for the dense family."""
+    check_supported(cfg)
+    if visual_embeds is not None:
+        raise unported("m_rope", cfg)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    angles = _angles(cfg, positions)
+
+    h = embed_tokens(params, cfg, tokens)
+    n_super, rem = _layout(cfg)
+    for layer in range(n_super):
+        sp = _layer(params["scan"], layer)
+        for i, pat in enumerate(cfg.block_pattern):
+            h = _block_forward(cfg, pat, sp[f"pos{i}"], h, angles, impl)
+    for i in range(rem):
+        h = _block_forward(cfg, cfg.block_pattern[i], params["tail"][i], h, angles, impl)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits_from_hidden(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+def _cache_for(cfg: LMConfig, pat: str, batch: int, cache_len: int, dtype, device,
+               lead: tuple[int, ...] = ()) -> AttnCache:
+    """An empty cache of one block: the full context for "attn", a ring
+    buffer of ``cfg.window`` slots for "local"; ``lead`` stacks it."""
+    eff_cfg = cfg if pat == "local" else dataclasses.replace(cfg, window=None)
+    c = init_attn_cache(eff_cfg, batch, cache_len, dtype, device)
+    return AttnCache(*(t.expand(lead + t.shape).clone() for t in (c.k, c.v, c.pos)))
+
+
+def init_caches(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                device="cuda"):
+    """Stacked caches matching the parameter layout: ``scan`` (a leading
+    ``[n_super]`` axis) and the ``tail`` list."""
+    check_supported(cfg)
+    n_super, rem = _layout(cfg)
+    caches: dict[str, Any] = {}
+    if n_super > 0:
+        caches["scan"] = {
+            f"pos{i}": _cache_for(cfg, pat, batch, cache_len, dtype, device, (n_super,))
+            for i, pat in enumerate(cfg.block_pattern)
+        }
+    if rem:
+        caches["tail"] = [
+            _cache_for(cfg, cfg.block_pattern[i], batch, cache_len, dtype, device)
+            for i in range(rem)
+        ]
+    return caches
+
+
+def _attn_caches(caches):
+    for c in caches.get("scan", {}).values():
+        yield c
+    yield from caches.get("tail", [])
+
+
+def mark_cache_filled(caches, cache_pos: int):
+    """Mark attention cache slots [0, cache_pos) as holding real history
+    (in place; returns ``caches``)."""
+    for c in _attn_caches(caches):
+        n = c.pos.shape[-1]
+        pos = torch.arange(n, dtype=torch.int32, device=c.pos.device).expand(c.pos.shape)
+        c.pos.copy_(torch.where(pos < cache_pos, pos, -1))
+    return caches
+
+
+def check_cache_dtype(cfg: LMConfig, dtype: torch.dtype) -> None:
+    """Raise unless decode keeps the hidden state in ``cfg.dtype`` with
+    caches of ``dtype``.  Attention against the caches computes in the
+    promoted type of the two; where that is wider than ``cfg.dtype``
+    (bfloat16 compute, float32 caches) the reference's scan over layers
+    refuses the wider carry with a TypeError, so the port refuses it too
+    rather than produce a result the reference cannot."""
+    compute = torch_dtype(cfg.dtype)
+    if torch.promote_types(compute, dtype) != compute:
+        raise ValueError(
+            f"{cfg.name}: decode with {dtype} caches at compute dtype {cfg.dtype} is outside "
+            f"the reference's domain (its scan carry would turn "
+            f"{torch.promote_types(compute, dtype)}); see ROADMAP Queue 3")
+
+
+def decode_step(
+    params: dict,
+    cfg: LMConfig,
+    tokens: torch.Tensor,            # [B, 1]
+    cache_pos: int | torch.Tensor,   # a position, or [B] per-slot positions
+    caches,
+) -> tuple[torch.Tensor, Any]:
+    """One decode step: returns (logits [B, 1, vocab_padded], caches),
+    the caches updated in place."""
+    check_supported(cfg)
+    for c in _attn_caches(caches):
+        check_cache_dtype(cfg, c.k.dtype)
+    b = tokens.shape[0]
+    # on the device once: each layer then reads it without a host copy
+    cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=tokens.device).expand(b)
+    angles = _angles(cfg, cache_pos[:, None])
+
+    h = embed_tokens(params, cfg, tokens)
+    n_super, rem = _layout(cfg)
+    for layer in range(n_super):
+        sp = _layer(params["scan"], layer)
+        sc = {k: AttnCache(c.k[layer], c.v[layer], c.pos[layer])
+              for k, c in caches["scan"].items()}
+        for i, pat in enumerate(cfg.block_pattern):
+            h, _ = _block_decode(cfg, pat, sp[f"pos{i}"], h, angles, sc[f"pos{i}"], cache_pos)
+    for i in range(rem):
+        h, _ = _block_decode(cfg, cfg.block_pattern[i], params["tail"][i], h, angles,
+                             caches["tail"][i], cache_pos)
+    return logits_from_hidden(params, cfg, h), caches

@@ -1,6 +1,19 @@
-"""HGNN serving tier of the port: stepped slot batching, similarity
-admission and the cross-request FP cache."""
+"""Serving tier of the port: the HGNN engine (stepped slot batching,
+similarity admission, the cross-request FP cache) and the LM engine
+(prefill and greedy decode against KV caches)."""
+from .engine import ServeState, greedy_generate, init_serve_state, make_prefill, make_serve_step
 from .fp_cache import FPCache, FPCacheStats
 from .hgnn_engine import GraphRequest, HGNNEngine, make_request_mix
 
-__all__ = ["FPCache", "FPCacheStats", "GraphRequest", "HGNNEngine", "make_request_mix"]
+__all__ = [
+    "ServeState",
+    "greedy_generate",
+    "init_serve_state",
+    "make_prefill",
+    "make_serve_step",
+    "FPCache",
+    "FPCacheStats",
+    "GraphRequest",
+    "HGNNEngine",
+    "make_request_mix",
+]

@@ -1,0 +1,93 @@
+"""LM serving engine, the counterpart of ``repro/serve/engine.py``:
+prefill as a loop of decode steps, then decode against carried caches.
+
+``ServeState.cache_pos`` is a Python int (the host always knows the
+position, so no step reads the device for it); caches are updated in
+place by each step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..models.lm.api import LMApi
+from ..models.lm.layers import torch_dtype
+from ..models.lm.transformer import mark_cache_filled
+
+GREEDY_CACHE_DTYPE = torch.float32  # the reference's greedy_generate builds float32 caches
+
+
+@dataclasses.dataclass
+class ServeState:
+    caches: Any
+    cache_pos: int
+
+
+def init_serve_state(
+    api: LMApi, batch: int, cache_len: int, *, dtype=torch.bfloat16, filled: int = 0,
+    device: str | torch.device = "cuda",
+) -> ServeState:
+    caches = api.init_caches(batch, cache_len, dtype, device)
+    if filled:
+        caches = mark_cache_filled(caches, filled)
+    return ServeState(caches=caches, cache_pos=filled)
+
+
+def make_serve_step(api: LMApi) -> Callable:
+    """(params, state, tokens [B,1]) -> (logits [B, vocab_pad], state)."""
+
+    def serve_step(params, state: ServeState, tokens: torch.Tensor):
+        logits, caches = api.decode(params, tokens, state.cache_pos, state.caches)
+        return logits[:, 0], ServeState(caches=caches, cache_pos=state.cache_pos + 1)
+
+    return serve_step
+
+
+def make_prefill(api: LMApi) -> Callable:
+    """(params, state, tokens [B,S]) -> (last logits, state) — fills the
+    caches by running decode steps, one token at a time."""
+    serve_step = make_serve_step(api)
+
+    def prefill(params, state: ServeState, tokens: torch.Tensor):
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits, state = serve_step(params, state, tokens[:, t:t + 1])
+        return logits, state
+
+    return prefill
+
+
+def check_greedy_domain(cfg) -> None:
+    """Raise ``ValueError`` for a config the reference's ``greedy_generate``
+    cannot run: it builds float32 caches (``repro/serve/engine.py:100``),
+    and at a bfloat16 compute dtype decode then promotes the hidden state
+    to float32, which the reference's scan over layers refuses (a
+    TypeError on its carry).  ROADMAP Queue 3 records this property of the
+    reference.  ``make_prefill`` and ``make_serve_step`` with bfloat16
+    caches serve such configs in both packages."""
+    if torch_dtype(cfg.dtype) != GREEDY_CACHE_DTYPE:
+        raise ValueError(
+            f"{cfg.name}: the reference's greedy_generate cannot run compute dtype {cfg.dtype}: "
+            f"it builds float32 caches (repro/serve/engine.py:100) and its scan over layers "
+            f"refuses the float32 hidden state that attention against them returns (see "
+            f"ROADMAP Queue 3).  Serve it through make_prefill / make_serve_step with "
+            f"bfloat16 caches, or use a float32 compute dtype.")
+
+
+def greedy_generate(api: LMApi, params, prompt: torch.Tensor, steps: int, cache_len: int):
+    """Simple batched greedy decoding; tokens [B, steps] int32."""
+    check_greedy_domain(api.cfg)
+    b = prompt.shape[0]
+    state = init_serve_state(api, b, cache_len, dtype=GREEDY_CACHE_DTYPE, device=prompt.device)
+    prefill = make_prefill(api)
+    serve_step = make_serve_step(api)
+    logits, state = prefill(params, state, prompt)
+    out = []
+    tok = torch.argmax(logits[:, : api.cfg.vocab_size], dim=-1).to(torch.int32)
+    for _ in range(steps):
+        out.append(tok)
+        logits, state = serve_step(params, state, tok[:, None])
+        tok = torch.argmax(logits[:, : api.cfg.vocab_size], dim=-1).to(torch.int32)
+    return torch.stack(out, dim=1)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
 from repro_torch.core import NABackend
 from repro_torch.graphs import (
     dataset_target,
@@ -23,6 +24,8 @@ from repro_torch.graphs import (
     synthetic_labels,
 )
 from repro_torch.kernels import (
+    flash_attention,
+    flash_attention_plain,
     seg_gat_agg,
     seg_gat_agg_fused_fp_bwd,
     seg_gat_agg_fused_fp_bwd_plain,
@@ -33,7 +36,9 @@ from repro_torch.kernels import (
     seg_gat_agg_plain,
 )
 from repro_torch.launch import hgnn_train
+from repro_torch.models.lm.api import build as build_lm
 from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, prepare_data
+from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
 
@@ -300,3 +305,58 @@ def test_rgat_training_on_cuda_matches_cpu_and_repeats(cuda):
         np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4, atol=1e-4)
     for (ka, va), (kb, vb) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
         assert ka == kb and torch.equal(va, vb), ka
+
+
+# -- kernel #7 and the LM decoder ---------------------------------------------
+
+FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
+    (2, 4, 2, 32, 32, 16, True, None),     # tests/test_kernels.py's sweep
+    (1, 4, 4, 16, 48, 16, True, None),
+    (1, 2, 1, 32, 32, 16, True, 8),
+    (1, 2, 2, 32, 32, 16, False, None),
+    (2, 8, 2, 64, 64, 32, True, None),
+    (1, 2, 1, 48, 16, 8, True, None),      # Sq > Sk: rows that see no key
+    (1, 24, 8, 1024, 1024, 128, True, None),  # llama3.2-3b's heads
+    (1, 4, 1, 512, 512, 256, True, 128),   # recurrentgemma's MQA local attention
+    (1, 2, 2, 130, 130, 64, True, None),   # ragged tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain_on_cuda(cuda, case, dtype):
+    B, Hq, Hkv, Sq, Sk, Dh, causal, window = case
+    rng = np.random.default_rng(Sq + Sk + Dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda, getattr(torch, dtype)) for s in ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dh)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(got, again)
+    tol = 1e-4 if dtype == "float32" else 3e-2  # float32 sum order; one bf16 rounding
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if Sq > Sk:
+        assert (got[:, :, : Sq - Sk] == 0).all()
+
+
+@pytest.mark.cuda
+def test_lm_forward_and_greedy_on_cuda_match_cpu(cuda):
+    """llama3.2-3b's smoke config (float32): flash forward (#7 once per
+    layer) and xla forward against the CPU at 1e-4, greedy tokens equal."""
+    cfg = smoke_config("llama3.2-3b")
+    api = build_lm(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    for impl in ("xla", "flash"):
+        before = flash_attention.launches
+        got, _ = api.forward(on_card, toks.to(cuda), impl=impl)
+        want, _ = api.forward(params, toks, impl=impl)
+        assert flash_attention.launches - before == (cfg.num_layers if impl == "flash" else 0)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
+    assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))

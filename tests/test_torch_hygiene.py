@@ -19,7 +19,10 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph_fwd,
     seg_gat_agg_multigraph_plain,
 )
+from repro_torch.configs import smoke_config
 from repro_torch.launch import hgnn_serve
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models.lm.api import build as build_lm
 from repro_torch.models.hgnn import prepare_data
 from repro_torch.serve import GraphRequest, HGNNEngine
 
@@ -52,6 +55,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     sg = build_semantic_graph(g, ("movie", "director", "movie"), max_edges=2000)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_data(g, [sg], "movie", 3)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_serve.main(["--arch", "llama3.2-3b", "--smoke"])
+    api = build_lm(smoke_config("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_caches(1, 4)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
