@@ -51,14 +51,24 @@ Phases, each fatal on failure:
       Ns_pad < Nd_pad and Ns_pad > Nd_pad), at atol=rtol=1e-4; twice
       bitwise equal; against #1 at G = 1 on the same operands; the six
       launches of one layer timed with CUDA events beside their bound;
-   b. inference, under no_grad: R-GAT and S-HGN on KERNEL (#5 once per
-      relation and layer, 18 and 12 launches; counters zeroed just before
-      each model's first forward and read just after) and R-GCN (mean NA);
-      logits against BLOCK on the card (R-GAT, S-HGN) or the CPU (R-GCN)
-      at 1e-4; cold and steady forward times, peak memory;
-   c. R-GAT training through ``run_training(model_name="R-GAT")``: the
+   b. inference, under no_grad: R-GAT and S-HGN on KERNEL (per relation
+      and layer #6 twice, the src and dst side's FP+θ, and #5 once: 36 and
+      18 launches for R-GAT, 24 and 12 for S-HGN; counters zeroed just
+      before each model's first forward and read just after) and R-GCN
+      (mean NA, no kernel); logits against BLOCK on the card (R-GAT,
+      S-HGN) or the CPU (R-GCN) at 1e-4; cold and steady forward times,
+      peak memory;
+   c. (run before b) kernel #6 against its plain version at each distinct
+      layer-0 projection of R-GAT (actor 6,124 × 3,341, movie 4,932 ×
+      3,489, director 2,393 × 3,341, keyword 7,971 × 64, each → 4 × 64,
+      with a nonzero bias), layer 1's 4,932 × 256 → 256 and a ragged
+      1,001 × 37 → 4 × 16 in float32 at atol=rtol=1e-4, and the actor
+      case in bfloat16 (h within one bf16 rounding, θ at 1e-4); twice
+      bitwise equal; each float32 case timed with CUDA events beside its
+      bound, the plain version and ``torch.addmm`` + the two einsums;
+   d. R-GAT training through ``run_training(model_name="R-GAT")``: the
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
-      20 steps, #1 and #2 six times a step, and the loss falls.
+      20 steps, #1 and #2 six times a step, #6 never, and the loss falls.
 6. The LM slice: llama3.2-3b at full width (28 layers, d_model 3072, 24/8
    heads of 128, d_ff 8192, vocab 128,256, float32 weights from a seeded
    ``torch.Generator``, bfloat16 compute):
@@ -82,7 +92,7 @@ Phases, each fatal on failure:
       tokens; a decode step twice from one state is bitwise equal; the
       prefill's last logits equal ``forward(impl="flash")``'s at 1e-3; the
       launcher's ``--smoke`` run on the card.
-7. Print the ``kernels`` JSON line (#1-#5 and #7; each row's ``ms_per`` says
+7. Print the ``kernels`` JSON line (#1-#7; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -703,7 +713,7 @@ def training(data, counters, fusion_mod) -> dict:
     return res
 
 
-# -- phase 5: the per-graph models, kernel #5 -----------------------------------------
+# -- phase 5: the per-graph models, kernels #5 and #6 --------------------------------
 
 RELATION = dict(dataset="imdb", block=16)  # full IMDB (the graph of phase 3), its six relations
 MODEL_WIDTHS = {  # the init_* defaults of the JAX package, the widths benchmarks/breakdown.py runs
@@ -856,8 +866,100 @@ def kernel5_phase(data, params, fusion, k5_mod, mg_mod) -> dict:
                 live_pairs=live, per_graph=per_graph)
 
 
+def kernel6_cases(data, params) -> list[tuple[str, tuple]]:
+    """(name, (x, w, b, a_src, a_dst)) for kernel #6: each distinct layer-0
+    projection R-GAT makes on full IMDB's relations (the vertex type's own
+    features and the first relation weight that projects them), the layer-1
+    shape, the actor case in bfloat16 and a ragged odd shape; a nonzero
+    bias (the models pass zeros) so that the bias path is checked too."""
+    dev = data.labels.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *s, sc=1.0: sc * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    lp0, lp1 = params["layers"][0], params["layers"][1]
+    cases, seen = [], set()
+    for i, b in enumerate(data.graphs):
+        rp = lp0["rel"][f"g{i}"]
+        for t, w in ((b.src_type, rp["w_src"]), (b.dst_type, rp["w_dst"])):
+            if t in seen:
+                continue
+            seen.add(t)
+            x = data.features[t]
+            cases.append((f"layer 0 {t} {x.shape[0]}x{x.shape[1]}->{w.shape[1]}",
+                          (x, w, rnd(w.shape[1], sc=0.1), rp["a_src"], rp["a_dst"])))
+    rp1 = lp1["rel"]["g0"]
+    n_movie, c = data.features["movie"].shape[0], rp1["w_src"].shape[1]
+    cases.append((f"layer 1 movie {n_movie}x{c}->{c}",
+                  (rnd(n_movie, c), rp1["w_src"], rnd(c, sc=0.1), rp1["a_src"], rp1["a_dst"])))
+    actor = next(ops for name, ops in cases if " actor " in name)
+    cases.append(("bf16 " + next(name for name, _ in cases if " actor " in name),
+                  tuple(t.to(torch.bfloat16) for t in actor)))
+    cases.append(("ragged 1001x37->4x16", (rnd(1001, 37), rnd(37, 64, sc=0.2), rnd(64, sc=0.1),
+                                           rnd(4, 16), rnd(4, 16))))
+    return cases
+
+
+def kernel6_cost(x, w, a_src) -> tuple[int, int]:
+    """(bytes, flops) of kernel #6 on these operands: x, w, b, a_src, a_dst
+    read once, h and both thetas written once; 2·Din flops per entry of h,
+    one for its bias, 2 per entry for each theta."""
+    (n, din), (c, (heads, _)) = x.shape, (w.shape[1], a_src.shape)
+    size = x.element_size()
+    nbytes = size * (n * din + din * c + c + 2 * c + n * c) + 4 * 2 * n * heads
+    return nbytes, 2 * n * din * c + n * c + 4 * n * c
+
+
+def kernel6_phase(data, params, k6_mod) -> dict:
+    """#6 against its plain version at R-GAT's shapes on full IMDB, in
+    bfloat16 and on a ragged shape; twice bitwise equal; each float32 case
+    timed with CUDA events beside the plain version and ``torch.addmm`` +
+    the two einsums; the actor projection's times make the table row."""
+    err = 0.0
+    per_case = {}
+    for name, ops in kernel6_cases(data, params):
+        got = k6_mod.fused_fp_coeff(*ops)
+        again = k6_mod.fused_fp_coeff(*ops)
+        want = k6_mod.fused_fp_coeff_plain(*ops)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"fused_fp_coeff {name}: two runs on the same inputs differ")
+        if ops[0].dtype == torch.bfloat16:  # h within one bf16 rounding; theta from the f32 h
+            h_err = float((got[0].float() - want[0].float()).abs().max())
+            torch.testing.assert_close(got[0].float(), want[0].float(), atol=1e-5, rtol=8e-3,
+                                       msg=lambda m: f"fused_fp_coeff {name} h: {m}")
+            log(f"[check] fused_fp_coeff {name} h: max_abs_err={h_err:.3e} (one bf16 rounding: "
+                f"atol=1e-5, rtol=8e-3)")
+            err = max(err, compare(f"fused_fp_coeff {name} theta", got[1:], want[1:]))
+            continue
+        err = max(err, compare(f"fused_fp_coeff {name}", got, want))
+        x, w, b, a_s, a_d = ops
+        n, (heads, dh) = x.shape[0], a_s.shape
+        h = torch.empty_like(got[0])
+        ts, td = torch.empty_like(got[1]), torch.empty_like(got[2])
+
+        def library():  # one PyTorch call for the product, then the coefficients
+            hh = torch.addmm(b, x, w).reshape(n, heads, dh)
+            return torch.einsum("nhd,hd->nh", hh, a_s), torch.einsum("nhd,hd->nh", hh, a_d)
+
+        nbytes, flops = kernel6_cost(x, w, a_s)
+        bound, by = bound_ms(nbytes, flops)
+        per_case[name] = dict(
+            shape=f"{n} × {x.shape[1]} → {heads} × {dh}",
+            ms=cuda_ms(lambda: k6_mod.launch(x, w, b, a_s, a_d, h, ts, td), reps=20),
+            plain_ms=cuda_ms(lambda: k6_mod.fused_fp_coeff_plain(x, w, b, a_s, a_d), reps=20),
+            library_ms=cuda_ms(library, reps=20), bound_ms=bound, bound_by=by, bytes=nbytes,
+            flops=flops)
+        t = per_case[name]
+        log(f"[time] fused_fp_coeff {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, addmm + einsums {t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; "
+            f"{nbytes:.4e} B, {flops:.4e} flops)")
+    log("[check] fused_fp_coeff: every case twice bitwise equal")
+    row = next(t for name, t in per_case.items() if name.startswith("layer 0 actor"))
+    return dict(row, max_abs_err=err, per_case=per_case)
+
+
 def inference(graph, counters, NAB) -> dict:
-    """R-GAT and S-HGN on KERNEL (#5 once per relation and layer) and R-GCN
+    """R-GAT and S-HGN on KERNEL (#6 twice and #5 once per relation and
+    layer) and R-GCN
     (mean NA) on full IMDB's relation graphs, forward under no_grad: each
     model's first forward with the counters zeroed just before and read just
     after, then steady forwards; logits against BLOCK on the card (R-GAT,
@@ -902,10 +1004,12 @@ def inference(graph, counters, NAB) -> dict:
                 ref = model.forward(params, data, backend=NAB.BLOCK)
                 against = "BLOCK on the card"
         err = compare(f"{name} logits {backend.value} vs {against}", (logits,), (ref,))
-        expect = 0 if name == "R-GCN" else width["layers"] * len(data.graphs)
-        if launches["seg_gat_agg"] != expect or any(v for k, v in launches.items()
-                                                    if k != "seg_gat_agg"):
-            raise AssertionError(f"{name} forward launches {launches}, expected {expect} of #5")
+        expect = {k: 0 for k in launches}
+        if name != "R-GCN":  # per relation and layer: #6 on the src and dst side, #5 once
+            expect |= {"seg_gat_agg": width["layers"] * len(data.graphs),
+                       "fused_fp_coeff": 2 * width["layers"] * len(data.graphs)}
+        if launches != expect:
+            raise AssertionError(f"{name} forward launches {launches}, expected {expect}")
         res[name] = dict(launches=launches, cold_ms=cold_ms, steady_ms=steady,
                          peak_mem_bytes=peak, max_abs_err=err, profiled=prof)
         log(f"[infer {name}] {backend.value}: launches={json.dumps(launches)} forward ms cold "
@@ -1311,6 +1415,7 @@ def main() -> int:
     ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
     mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
     k5_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg")
+    k6_mod = importlib.import_module("repro_torch.kernels.fused_fp_coeff")
     from repro_torch.launch import hgnn_serve
     from repro_torch import serve as serve_mod
 
@@ -1449,11 +1554,15 @@ def main() -> int:
         f"{tuple(b.col_index.shape)}" for b in rdata.graphs))
     rgat0 = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), rdata, **MODEL_WIDTHS["R-GAT"])
     train_kernels["seg_gat_agg"] = kernel5_phase(rdata, rgat0, fusion, k5_mod, mg_mod)
+    # c. (run before b, so that a fault of #6 shows here first)
+    train_kernels["fused_fp_coeff"] = kernel6_phase(rdata, rgat0, k6_mod)
     del rdata, rgat0
-    all_counters = dict(train_counters, seg_gat_agg=k5_mod.seg_gat_agg)
+    all_counters = dict(train_counters, seg_gat_agg=k5_mod.seg_gat_agg,
+                        fused_fp_coeff=k6_mod.fused_fp_coeff)
     infer = inference(graph, all_counters, NABackend)
-    # #5's count comes from the inference runs that launch it (R-GAT, then S-HGN)
-    launches["seg_gat_agg"] = sum(infer[m]["launches"]["seg_gat_agg"] for m in ("R-GAT", "S-HGN"))
+    # #5's and #6's counts come from the inference runs that launch them (R-GAT, then S-HGN)
+    for k in ("seg_gat_agg", "fused_fp_coeff"):
+        launches[k] = sum(infer[m]["launches"][k] for m in ("R-GAT", "S-HGN"))
     # which run each count comes from, and what one `ms` covers
     by_path = {
         "multigraph": {"HAN training, 20 steps": launches["multigraph"]},
@@ -1462,9 +1571,13 @@ def main() -> int:
         "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"]},
         "seg_gat_agg": {f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
                         for m in ("R-GAT", "S-HGN")},
+        "fused_fp_coeff": {f"{m} forward": infer[m]["launches"]["fused_fp_coeff"]
+                           for m in ("R-GAT", "S-HGN")},
     }
     ms_per = {k: "one launch at the HAN training shapes" for k in by_path}
     ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
+    ms_per["fused_fp_coeff"] = ("one launch at R-GAT layer 0's actor projection "
+                                f"({train_kernels['fused_fp_coeff']['shape']})")
     rgat_train = rgat_training(all_counters)
 
     # phase 6: the LM slice
@@ -1489,6 +1602,8 @@ def main() -> int:
                          "src/repro/kernels/seg_gat_agg_fused_fp.py:331"),
         "seg_gat_agg": ("seg_gat_agg", "src/repro_torch/csrc/seg_gat_agg.cu",
                         "src/repro/kernels/seg_gat_agg.py:97"),
+        "fused_fp_coeff": ("fused_fp_coeff", "src/repro_torch/csrc/fused_fp_coeff.cu",
+                           "src/repro/kernels/fused_fp_coeff.py:75"),
         "flash_attention": ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:95"),
     }
@@ -1509,7 +1624,9 @@ def main() -> int:
                 serve_max_abs_err=serve_err, launcher=cli)
     (OUT / "chip_smoke.json").write_text(json.dumps(full, indent=1, default=str))
     for k in line["kernels"]:
-        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
+        nums = [k[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")]
+        nums += [] if k["library_ms"] is None else [k["library_ms"]]
+        if not all(math.isfinite(v) for v in nums):
             raise AssertionError(f"non-finite number in {k}")
     log(card_line())
     print(json.dumps(line), flush=True)

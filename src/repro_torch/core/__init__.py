@@ -10,6 +10,7 @@ from .fusion import (
     mean_aggregate,
     neighbor_aggregate,
     neighbor_aggregate_multi,
+    project_coefficients,
 )
 from .reuse import FPTraffic, fp_buffer_traffic
 from .scheduling import shortest_hamilton_path, similarity_matrix, similarity_schedule
@@ -24,6 +25,7 @@ __all__ = [
     "mean_aggregate",
     "neighbor_aggregate",
     "neighbor_aggregate_multi",
+    "project_coefficients",
     "FPTraffic",
     "fp_buffer_traffic",
     "shortest_hamilton_path",

@@ -10,7 +10,9 @@ Five interchangeable NA backends with identical semantics:
 * ``KERNEL``     — the per-graph kernel #5 (``kernels/seg_gat_agg``): one
   launch per semantic graph, forward only (no gradient, as in the JAX
   package; an operand that requires one raises).  R-GAT's and S-HGN's
-  inference path.
+  inference path, whose FP+θ of each relation also runs on a kernel there:
+  :func:`project_coefficients` launches kernel #6
+  (``kernels/fused_fp_coeff``) once per projected side.
 * ``MULTIGRAPH`` — ALL semantic graphs of a step in one launch of the
   multigraph kernel (``kernels/seg_gat_agg_multigraph``): the paper's
   multi-lane datapath; for one graph it is the differentiable per-graph
@@ -40,6 +42,7 @@ import torch
 
 from ..graphs.formats import to_block_csr, to_padded_edges
 from ..graphs.hetgraph import SemanticGraph
+from ..kernels.fused_fp_coeff import fused_fp_coeff
 from ..kernels.seg_gat_agg import bias_vector, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph
@@ -185,6 +188,30 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
         row,
         masks.reshape(g_n * n_rows, w_max, b, b),
     )
+
+
+def project_coefficients(
+    x: torch.Tensor,      # [N, Din]
+    w: torch.Tensor,      # [Din, H*Dh]
+    a_src: torch.Tensor,  # [H, Dh]
+    a_dst: torch.Tensor,  # [H, Dh]
+    *,
+    backend: NABackend = NABackend.SEGMENT,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FP of one vertex table fused with its attention coefficients (paper
+    Alg. 2 lines 7-8): ``(h [N, H, Dh], theta_src [N, H], theta_dst [N, H])``
+    with h = x @ w and theta = <h, a> per head.
+
+    KERNEL launches kernel #6 with a zero bias (no gradient); every other
+    backend is the plain product and two einsums, differentiable by
+    autograd."""
+    heads = a_src.shape[0]
+    if backend is NABackend.KERNEL:
+        h, th_s, th_d = fused_fp_coeff(x.contiguous(), w.contiguous(), x.new_zeros(w.shape[1]),
+                                       a_src.contiguous(), a_dst.contiguous())
+        return h.reshape(x.shape[0], heads, -1), th_s, th_d
+    h = (x @ w).reshape(x.shape[0], heads, -1)
+    return h, torch.einsum("nhd,hd->nh", h, a_src), torch.einsum("nhd,hd->nh", h, a_dst)
 
 
 def neighbor_aggregate(

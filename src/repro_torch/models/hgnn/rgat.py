@@ -7,16 +7,17 @@ destination endpoints are projected with relation-specific weights (they
 may have different raw dims at layer 0), and the GAT logits use the
 decomposed theta_src/theta_dst form.
 
-Backends: SEGMENT and BLOCK (plain PyTorch, plain autograd), KERNEL (one
-launch of kernel #5 per relation and layer; inference only) and
-MULTIGRAPH (kernels #1/#2 at G = 1 per relation; the trainer's path).
+Backends: SEGMENT and BLOCK (plain PyTorch, plain autograd), KERNEL
+(inference only: per relation and layer two launches of kernel #6, the
+src and the dst side's FP+θ, and one of kernel #5 for NA) and MULTIGRAPH
+(kernels #1/#2 at G = 1 per relation; the trainer's path).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ...core.fusion import NABackend, neighbor_aggregate
+from ...core.fusion import NABackend, neighbor_aggregate, project_coefficients
 from ...tree import tree_map
 from .common import HGNNData, HGNNModel, glorot
 
@@ -61,16 +62,15 @@ def init_rgat(
 
 def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
     h = dict(data.features)
-    heads = params["layers"][0]["rel"]["g0"]["a_src"].shape[0]
     for lp in params["layers"]:
         agg: dict[str, list[torch.Tensor]] = {}
         for i, batch in enumerate(data.graphs):
             rp = lp["rel"][f"g{i}"]
             # FP (relation-specific) fused with coefficient computation
-            hs = (h[batch.src_type] @ rp["w_src"]).reshape(batch.num_src, heads, -1)
-            hd = (h[batch.dst_type] @ rp["w_dst"]).reshape(batch.num_dst, heads, -1)
-            th_s = torch.einsum("nhd,hd->nh", hs, rp["a_src"])
-            th_d = torch.einsum("nhd,hd->nh", hd, rp["a_dst"])
+            hs, th_s, _ = project_coefficients(h[batch.src_type], rp["w_src"], rp["a_src"],
+                                               rp["a_dst"], backend=backend)
+            _, _, th_d = project_coefficients(h[batch.dst_type], rp["w_dst"], rp["a_src"],
+                                              rp["a_dst"], backend=backend)
             z = neighbor_aggregate(batch, th_s, th_d, hs, backend=backend)
             agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
         h_new = {}

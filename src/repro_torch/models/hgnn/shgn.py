@@ -7,15 +7,17 @@ enters the decomposed NA as the per-head ``edge_bias`` (computed on the
 device and handed to the kernel as a pointer), residual connections, and
 no separate SF stage (relations fuse inside NA layers).
 
-Backends: as R-GAT's; on KERNEL each relation and layer is one launch of
-kernel #5 with its ``edge_bias[H]``.
+Backends: as R-GAT's; on KERNEL each relation and layer is two launches
+of kernel #6 (the src and the dst side's FP+θ through the layer's shared
+``w``) and one of kernel #5 with its ``edge_bias[H]``.  The input FP,
+done once per vertex type with no θ, stays a plain product.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ...core.fusion import NABackend, neighbor_aggregate
+from ...core.fusion import NABackend, neighbor_aggregate, project_coefficients
 from ...tree import tree_map
 from .common import HGNNData, HGNNModel, glorot
 
@@ -58,16 +60,15 @@ def init_shgn(
 
 
 def shgn_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
-    heads = params["layers"][0]["a_src"].shape[0]
     # FP: each vertex type projected exactly once
     h = {t: data.features[t] @ params["fp"][t] for t in data.features}
     for lp in params["layers"]:
         agg: dict[str, list[torch.Tensor]] = {}
         for i, batch in enumerate(data.graphs):
-            hs = (h[batch.src_type] @ lp["w"]).reshape(batch.num_src, heads, -1)
-            hd = (h[batch.dst_type] @ lp["w"]).reshape(batch.num_dst, heads, -1)
-            th_s = torch.einsum("nhd,hd->nh", hs, lp["a_src"])
-            th_d = torch.einsum("nhd,hd->nh", hd, lp["a_dst"])
+            hs, th_s, _ = project_coefficients(h[batch.src_type], lp["w"], lp["a_src"],
+                                               lp["a_dst"], backend=backend)
+            _, _, th_d = project_coefficients(h[batch.dst_type], lp["w"], lp["a_src"],
+                                              lp["a_dst"], backend=backend)
             # edge-type attention term: one number per (relation, head)
             r = lp["r_emb"][i] @ lp["w_r"]  # [edge_dim]
             edge_bias = lp["a_edge"] @ r    # [heads]

@@ -9,7 +9,10 @@ Backward kernels #2 and #4 against their plain versions (atol=rtol=1e-4,
 float32 sums in another order), each run twice and bitwise equal; kernel
 #5 against its plain version for B in {8, 16, 32} and its edge cases; the
 trainer (HAN and R-GAT) on the card against the CPU; kernel training
-bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU.
+bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU;
+kernel #6 against its plain version (float32, bfloat16, a ragged shape)
+and R-GAT on KERNEL launching it twice per relation and layer; kernel #7
+and the LM decoder.
 Every test carries the ``cuda`` marker and skips without a card."""
 import numpy as np
 import pytest
@@ -26,6 +29,8 @@ from repro_torch.graphs import (
 from repro_torch.kernels import (
     flash_attention,
     flash_attention_plain,
+    fused_fp_coeff,
+    fused_fp_coeff_plain,
     seg_gat_agg,
     seg_gat_agg_fused_fp_bwd,
     seg_gat_agg_fused_fp_bwd_plain,
@@ -360,3 +365,57 @@ def test_lm_forward_and_greedy_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
     assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))
+
+
+# -- kernel #6, the KERNEL backend's FP+θ -----------------------------------------
+
+KERNEL6_CASES = {  # (N, Din, H, Dh, dtype)
+    "f32 R-GAT heads": (300, 517, 4, 64, "float32"),
+    "bf16 Dh=128": (257, 130, 2, 128, "bfloat16"),
+    "f32 ragged": (1001, 37, 4, 16, "float32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL6_CASES))
+def test_kernel6_matches_plain_on_cuda(cuda, name):
+    N, Din, H, Dh, dtype = KERNEL6_CASES[name]
+    rng = np.random.default_rng(N + Din)
+    x, w, b, a_s, a_d = (
+        torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(
+            cuda, getattr(torch, dtype))
+        for s, sc in (((N, Din), 0.5), ((Din, H * Dh), 0.1), ((H * Dh,), 0.1), ((H, Dh), 1.0),
+                      ((H, Dh), 1.0)))
+    before = fused_fp_coeff.launches
+    got = fused_fp_coeff(x, w, b, a_s, a_d)
+    again = fused_fp_coeff(x, w, b, a_s, a_d)
+    want = fused_fp_coeff_plain(x, w, b, a_s, a_d)
+    torch.cuda.synchronize()
+    assert fused_fp_coeff.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    h_tol = dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=1e-5, rtol=8e-3)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **h_tol)  # bf16: one rounding
+    for g, w_ in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rgat_kernel_backend_launches_kernel6_per_relation_and_layer(cuda):
+    """R-GAT (3 layers) on small IMDB's six relation graphs: #6 launches 36
+    times a forward (src and dst side of each relation and layer), #5 18
+    times, and the logits match the CPU."""
+    g = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.02, seed=0)
+    cpu, card = (prepare_data(g, relation_semantic_graphs(g), "movie", 3,
+                              synthetic_labels(g, "imdb"), block=16, device=d)
+                 for d in ("cpu", cuda))
+    params = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), cpu, hidden=8, heads=2,
+                                  layers=3)
+    before6, before5 = fused_fp_coeff.launches, seg_gat_agg.launches
+    with torch.no_grad():
+        got = MODELS["R-GAT"].forward(tree_map(lambda t: t.to(cuda), params), card,
+                                      backend=NABackend.KERNEL)
+        want = MODELS["R-GAT"].forward(params, cpu, backend=NABackend.KERNEL)
+    assert len(card.graphs) == 6
+    assert fused_fp_coeff.launches - before6 == 36
+    assert seg_gat_agg.launches - before5 == 18
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
