@@ -73,18 +73,28 @@ Phases, each fatal on failure:
    heads of 128, d_ff 8192, vocab 128,256, float32 weights from a seeded
    ``torch.Generator``, bfloat16 compute):
    a. kernel #7 against its plain version at the layer's shape (B = 2,
-      S = 4096) in bfloat16 (atol=rtol=3e-2, one rounding of the output)
-      and float32 (1e-4), and on Sq < Sk, Sq > Sk (rows that see no key
-      must be exact zeros), a 2048 window with MQA at Dh = 256 and
-      ``causal=False``; twice bitwise equal; timed with CUDA events beside
-      its bound, the plain version and ``scaled_dot_product_attention``;
+      S = 4096) in bfloat16 (atol=rtol=3e-2, and within one rounding of
+      the float32 result, atol=1e-4, rtol=8e-3) and float32 (1e-4), and
+      on Sq < Sk, Sq > Sk (rows that see no key must be exact zeros), a
+      2048 window with MQA at Dh = 256 and ``causal=False``; each case on
+      the route the wrapper picks (bf16 at Dh 64 or 128 on ``wgmma``, the
+      rest on ``cuda_cores``), its launches counted by route; twice
+      bitwise equal; on the wgmma route at least ``BITWISE_SHARE_MIN`` of
+      the bf16 outputs equal the rounded float32 result bitwise, a limit
+      that the route's numerics in plain PyTorch pass with p split and
+      fail with p rounded once (both read at the layer's shape); the wgmma
+      route timed with CUDA events beside its bound (4·Dh flops a visible
+      pair at the bf16 tensor-core peak; the split's 6·Dh printed beside
+      it), the CUDA-core route on float32 operands, the plain version and
+      ``scaled_dot_product_attention``;
    b. the main path: ``LMApi.forward(impl="flash")`` at B = 2, S = 4096,
-      counters zeroed just before: #7 launches 28 times, nothing else;
+      counters zeroed just before: #7 launches 28 times, all on the wgmma
+      route, nothing else;
       cold and steady times, peak memory, idle share; against impl="xla"
       in bf16 (top-1 agreement and max |d| printed) and both against the
       float32-compute forward (flash's root-mean-square distance to it at
-      most xla's); at float32 compute and S = 2048, flash against xla at
-      atol=rtol=1e-3;
+      most xla's); at float32 compute and S = 2048 (#7 28 times on the
+      cuda_cores route), flash against xla at atol=rtol=1e-3;
    c. serving: 4 prompts of 8 tokens, 16 new tokens each, through
       ``make_prefill`` + ``make_serve_step`` with bfloat16 caches;
       ``greedy_generate`` refuses the bfloat16 config (as the reference
@@ -1093,16 +1103,18 @@ FLASH_EDGES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
 ]
 
 
-def flash_cost(B, Hq, Hkv, Sq, Sk, Dh, causal, window, itemsize) -> tuple[int, int]:
+def flash_cost(B, Hq, Hkv, Sq, Sk, Dh, causal, window, itemsize,
+               flops_per_pair=4) -> tuple[int, int]:
     """(bytes, flops) attention needs on these shapes: q, k, v read once and
-    out written once; 4·Dh flops (q·k and p·v) per visible (query, key)
-    pair, counted from the mask."""
+    out written once; ``flops_per_pair``·Dh flops per visible (query, key)
+    pair, counted from the mask: 4 for q·k and p·v, 6 for the tensor-core
+    route, whose p·v runs twice (p_hi and p_lo)."""
     qpos = np.arange(Sq) + (Sk - Sq)
     hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(Sq, np.int64)
     visible = int(np.clip(hi - lo + 1, 0, None).sum())
     nbytes = itemsize * (2 * B * Hq * Sq * Dh + 2 * B * Hkv * Sk * Dh)
-    return nbytes, 4 * B * Hq * visible * Dh
+    return nbytes, flops_per_pair * B * Hq * visible * Dh
 
 
 def flash_operands(case, dtype, seed=0):
@@ -1114,18 +1126,28 @@ def flash_operands(case, dtype, seed=0):
 
 def flash_phase(fa_mod) -> dict:
     """#7 against its plain version on llama3.2-3b's layer shape (bf16 and
-    float32) and the edge cases; twice bitwise equal; timed with CUDA
-    events beside its bound, the plain version and SDPA."""
+    float32) and the edge cases, each case on the route the wrapper picks;
+    twice bitwise equal; on the wgmma route also the share of outputs equal
+    to the rounded float32 result, with its controls at the main shape;
+    timed with CUDA events beside its bounds, the CUDA-core route on
+    float32 operands, the plain version and SDPA."""
     err = 0.0
+    routes, shares = {}, {}
     for case in [FLASH_MAIN, *FLASH_EDGES]:
         B, Hq, Hkv, Sq, Sk, Dh, causal, window = case
         for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
             q, k, v = flash_operands(case, dtype)
+            before = dict(fa_mod.flash_attention.launches_by_route)
             got = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
             again = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
             want = fa_mod.flash_attention_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            name = f"flash_attention {case} {str(dtype)[6:]}"
+            route = fa_mod.route(dtype, Dh)
+            name = f"flash_attention {case} {str(dtype)[6:]} [{route}]"
+            ran = {r: n - before[r] for r, n in fa_mod.flash_attention.launches_by_route.items()}
+            if ran != {r: 2 * (r == route) for r in ran}:
+                raise AssertionError(f"{name}: launches by route {ran}")
+            routes[f"{case} {str(dtype)[6:]}"] = route
             if not torch.equal(got, again):
                 raise AssertionError(f"{name}: two runs on the same inputs differ")
             if Sq > Sk and causal and not (got[:, :, : Sq - Sk] == 0).all():
@@ -1133,31 +1155,74 @@ def flash_phase(fa_mod) -> dict:
             d = float((got.float() - want.float()).abs().max())
             torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
                                        msg=lambda m: f"{name}: {m}")
-            log(f"[check] {name}: max_abs_err={d:.3e} (atol=rtol={tol}), twice bitwise equal")
+            checks = f"atol=rtol={tol}"
+            if dtype == torch.bfloat16:  # one rounding of the float32 result
+                torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=8e-3,
+                                           msg=lambda m: f"{name}, one rounding: {m}")
+                checks += " and atol=1e-4, rtol=8e-3"
+            if route == "wgmma":  # p split: nearly every output is that rounding itself
+                share = float((got == want).float().mean())
+                if share < fa_mod.BITWISE_SHARE_MIN:
+                    raise AssertionError(f"{name}: {share:.6f} of the outputs equal the rounded "
+                                         f"float32 result, under {fa_mod.BITWISE_SHARE_MIN}")
+                checks += f"; {share:.6f} bitwise equal to it (>= {fa_mod.BITWISE_SHARE_MIN})"
+                if case == FLASH_MAIN:
+                    shares = dict(kernel=share, **control_shares(fa_mod, q, k, v, want, case))
+            log(f"[check] {name}: max_abs_err={d:.3e} ({checks}), twice bitwise equal")
             err = max(err, d) if dtype == torch.bfloat16 and case == FLASH_MAIN else err
             del q, k, v, got, again, want
     B, Hq, Hkv, Sq, Sk, Dh, causal, window = FLASH_MAIN
     q, k, v = flash_operands(FLASH_MAIN, torch.bfloat16)
     out = torch.empty_like(q)
     scale = Dh ** -0.5
-    ms = cuda_ms(lambda: fa_mod.launch(q, k, v, out, causal=True, window=None, scale=scale), reps=10)
+
+    def run(qq, kk, vv, oo):
+        return lambda: fa_mod.launch(qq, kk, vv, oo, causal=True, window=None, scale=scale)
+
+    ms = cuda_ms(run(q, k, v, out), reps=20)
     plain_ms = cuda_ms(lambda: fa_mod.flash_attention_plain(q, k, v), reps=3)
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+        q, k, v, is_causal=True, enable_gqa=True), reps=20)
+    ms2 = cuda_ms(run(q, k, v, out), reps=20)
     qf, kf, vf = q.float(), k.float(), v.float()
-    of = torch.empty_like(qf)
-    ms_f32 = cuda_ms(lambda: fa_mod.launch(qf, kf, vf, of, causal=True, window=None, scale=scale),
-                     reps=5)
+    ms_f32 = cuda_ms(run(qf, kf, vf, torch.empty_like(qf)), reps=5)
     nbytes, flops = flash_cost(*FLASH_MAIN, itemsize=2)
-    bound, by = bound_ms(nbytes, flops)
-    bound_tc = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
-    log(f"[time] flash_attention {FLASH_MAIN} bf16: kernel {ms:.4f} ms (float32 operands "
-        f"{ms_f32:.4f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {bound:.4f} ms "
-        f"({by}; {nbytes:.4e} B, {flops:.4e} flops at 67 TFLOP/s float32), bf16 tensor-core "
-        f"bound {bound_tc:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, ms_float32=ms_f32, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=by, bound_tensor_core_ms=bound_tc, bytes=nbytes,
-                flops=flops)
+    _, flops_split = flash_cost(*FLASH_MAIN, itemsize=2, flops_per_pair=6)
+    bound_f32, _ = bound_ms(nbytes, flops)
+    bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+    by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+    bound_split = max(nbytes / PEAK_HBM_BYTES, flops_split / PEAK_BF16_FLOPS) * 1e3
+    log(f"[time] flash_attention {FLASH_MAIN} bf16: wgmma kernel {ms:.4f} ms (again after SDPA "
+        f"{ms2:.4f}), float32 operands (cuda_cores) {ms_f32:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA {lib_ms:.4f} ms")
+    log(f"[bound] flash_attention {FLASH_MAIN}: {nbytes:.4e} B, {flops:.4e} flops (4·Dh a "
+        f"visible pair): bf16 tensor cores at 989 TFLOP/s {bound:.4f} ms ({by}), float32 CUDA "
+        f"cores {bound_f32:.4f} ms; with the split's second p·v ({flops_split:.4e} flops, 6·Dh "
+        f"a pair, work of this design, not of the function) {bound_split:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, ms_again=ms2, ms_float32=ms_f32, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, bound_split_ms=bound_split,
+                bound_float32_ms=bound_f32, bytes=nbytes, flops=flops, flops_split=flops_split,
+                routes=routes, bitwise_shares=shares)
+
+
+def control_shares(fa_mod, q, k, v, want, case) -> dict:
+    """The bitwise check's controls on the same operands: the share of bf16
+    outputs equal to the rounded float32 result for the wgmma route's
+    numerics in plain PyTorch, with p split (must pass the limit) and with
+    p rounded once to bf16 (must fall below it)."""
+    _, _, _, _, _, _, causal, window = case
+    shares = {}
+    for split in (True, False):
+        emu = fa_mod.tensor_core_emulation(q, k, v, causal=causal, window=window, split=split)
+        shares["split" if split else "single"] = float((emu.bfloat16() == want).float().mean())
+        del emu
+    log(f"[check] flash_attention {case} bitwise-share controls (emulation): p split "
+        f"{shares['split']:.6f}, p rounded once {shares['single']:.6f}; limit "
+        f"{fa_mod.BITWISE_SHARE_MIN}")
+    if not shares["split"] >= fa_mod.BITWISE_SHARE_MIN > shares["single"]:
+        raise AssertionError(f"the bitwise-share limit does not separate split from single "
+                             f"p: {shares}")
+    return shares
 
 
 def timed(fn) -> tuple[object, float]:
@@ -1195,23 +1260,29 @@ def lm_phase(counters, fa_mod) -> dict:
                            dtype=torch.int32, device="cuda")
 
     # b. the main path: counters zeroed just before the forward, read just after
+    by_route = fa_mod.flash_attention.launches_by_route
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    for r in by_route:
+        by_route[r] = 0
     (logits, _), cold_ms = timed(lambda: api.forward(params, toks, impl="flash"))
     launches = {k: fn.launches for k, fn in counters.items()}
+    routes = dict(by_route)
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counters} | {"flash_attention": cfg.num_layers}
-    if launches != want:
-        raise AssertionError(f"LM forward launches {launches}, expected {want}")
+    if launches != want or routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
+        raise AssertionError(f"LM forward launches {launches}, by route {routes}; expected "
+                             f"{want}, all {cfg.num_layers} on the wgmma route")
     if logits.shape != (LM_BATCH, LM_SEQ, 128256) or not torch.isfinite(logits).all():
         raise AssertionError(f"LM logits {tuple(logits.shape)} or non-finite")
     steady = [timed(lambda: api.forward(params, toks, impl="flash"))[1] for _ in range(3)]
     prof = profiled(lambda: api.forward(params, toks, impl="flash"), 2)
-    res["forward"] = dict(launches=launches, cold_ms=cold_ms, steady_ms=steady, peak_mem_bytes=peak,
-                          profiled=prof)
+    res["forward"] = dict(launches=launches, launches_by_route=routes, cold_ms=cold_ms,
+                          steady_ms=steady, peak_mem_bytes=peak, profiled=prof)
     tokens_s = LM_BATCH * LM_SEQ / (float(np.median(steady)) / 1e3)
-    log(f"[lm forward] flash, B={LM_BATCH} S={LM_SEQ}: launches={json.dumps(launches)}; ms cold "
+    log(f"[lm forward] flash, B={LM_BATCH} S={LM_SEQ}: launches={json.dumps(launches)}, #7 by "
+        f"route {json.dumps(routes)}; ms cold "
         f"{cold_ms:.3f}, steady median {float(np.median(steady)):.3f} "
         f"({['%.3f' % t for t in steady]}), {tokens_s:.1f} tokens/s, peak mem {peak / 2**30:.3f} GiB")
     log(f"[lm forward] 2 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} ms, "
@@ -1244,14 +1315,19 @@ def lm_phase(counters, fa_mod) -> dict:
         raise AssertionError(f"the flash forward is further from float32 than xla's: {to_exact}")
     del logits, xla, exact
 
+    before = dict(by_route)
     (f32, _), f32_ms = timed(lambda: api32.forward(params, toks[:, :LM_SEQ_F32], impl="flash"))
+    f32_routes = {r: by_route[r] - before[r] for r in by_route}
+    if f32_routes != {"wgmma": 0, "cuda_cores": cfg.num_layers}:
+        raise AssertionError(f"float32 LM forward: #7 by route {f32_routes}, expected all "
+                             f"{cfg.num_layers} on cuda_cores")
     x32, _ = api32.forward(params, toks[:, :LM_SEQ_F32], impl="xla")
     d32 = float((f32 - x32).abs().max())
     torch.testing.assert_close(f32, x32, atol=1e-3, rtol=1e-3,
                                msg=lambda m: f"float32 forward flash vs xla: {m}")
-    res["flash_vs_xla_f32"] = dict(max_abs_diff=d32, flash_ms=f32_ms)
+    res["flash_vs_xla_f32"] = dict(max_abs_diff=d32, flash_ms=f32_ms, launches_by_route=f32_routes)
     log(f"[check] LM forward flash vs xla, float32 compute, S={LM_SEQ_F32}: max |d| {d32:.4e} "
-        f"(atol=rtol=1e-3); flash forward {f32_ms:.3f} ms")
+        f"(atol=rtol=1e-3); flash forward {f32_ms:.3f} ms; #7 by route {json.dumps(f32_routes)}")
     del f32, x32
 
     # c. serving: 4 prompts of 8 tokens, 16 new tokens each
@@ -1588,7 +1664,8 @@ def main() -> int:
     by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
                                   "lm_serve": lm["serve_bf16"]["flash_launches"]}
     ms_per["flash_attention"] = (f"one launch at {LM_ARCH}'s layer shape (B={LM_BATCH}, "
-                                 f"S={LM_SEQ}, heads 24/8, Dh=128, bf16)")
+                                 f"S={LM_SEQ}, heads 24/8, Dh=128, bf16): the wgmma route; "
+                                 "ms_float32: the cuda_cores route on float32 operands")
 
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
@@ -1616,6 +1693,10 @@ def main() -> int:
          "launches_by_path": by_path[k], "ms_per": ms_per[k]}
         for k in sources
     ]}
+    fa_row = next(r for r in line["kernels"] if r["name"] == "flash_attention")
+    fa_row["ms_float32"] = train_kernels["flash_attention"]["ms_float32"]
+    fa_row["bound_split_ms"] = train_kernels["flash_attention"]["bound_split_ms"]
+    fa_row["launches_by_route"] = lm["forward"]["launches_by_route"]
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
                 train_kernels=train_kernels, training=train, inference=infer,
                 rgat_training=rgat_train, lm=lm,

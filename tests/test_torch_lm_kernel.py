@@ -1,10 +1,17 @@
 """Kernel #7 (flash attention): the port's plain version against the JAX
-package's Pallas kernel in interpret mode and its dense oracle.
+package's Pallas kernel in interpret mode and its dense oracle; the
+routing rule between the two CUDA kernels; and a CPU emulation of the
+tensor-core route's numerics against the Pallas kernel.
 
 The inputs are made with numpy from a seed and cast to each framework's
 dtype (bfloat16 rounds to nearest even in both, so both see the same
 bits).  Tolerances are ``tests/test_kernels.py``'s ``TOL``: float32 3e-5
-(sum order), bfloat16 3e-2 (one rounding of the output)."""
+(sum order), bfloat16 3e-2 (one rounding of the output); the tensor-core
+emulation in bfloat16 at ``ONE_ROUNDING`` (atol=1e-4, rtol=8e-3: the
+float32 results agree to about 1e-6, so the bf16 outputs differ by at most
+one rounding, 2^-8 relative)."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +21,10 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import ref_flash_attention
 from repro_torch.kernels import flash_attention, flash_attention_plain
 
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+ONE_ROUNDING = dict(atol=1e-4, rtol=8e-3)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 # tests/test_kernels.py:test_flash_attention_sweep
@@ -89,3 +99,82 @@ def test_flash_wrapper_keeps_the_reference_preconditions():
         flash_attention(q, k.double(), v)
     with pytest.raises(NotImplementedError, match="no gradient"):
         flash_attention(q.requires_grad_(), k, v)
+
+
+# -- the two routes on the card -------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,Dh,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 8, "cuda_cores"), (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 32, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores"),
+])
+def test_flash_route_by_dtype_and_head_width(dtype, Dh, want):
+    assert fa_mod.route(dtype, Dh) == want
+
+
+def test_flash_shared_memory_check_reads_each_routes_layout(monkeypatch):
+    """wgmma: bf16 Q [128][Dh] + 2 stages of K and V [128][Dh] + 7 mbarriers
+    + 1 KiB of alignment; cuda_cores: float32 q, K/V and p tiles of 64."""
+    assert fa_mod.smem_bytes(128, "wgmma") == 2 * 128 * (128 + 4 * 128) + 8 * 7 + 1024
+    assert fa_mod.smem_bytes(64, "wgmma") == 2 * 64 * (128 + 4 * 128) + 8 * 7 + 1024
+    assert fa_mod.smem_bytes(128, "cuda_cores") == 87_040
+    for dh in fa_mod.HEAD_DIMS:
+        assert fa_mod.smem_bytes(dh, fa_mod.route(torch.bfloat16, dh)) <= fa_mod.SMEM_OPTIN
+    with pytest.raises(ValueError, match="unknown route"):
+        fa_mod.smem_bytes(128, "tensor")
+    # a limit between the two layouts at Dh = 128: only the wgmma route is refused
+    monkeypatch.setattr(fa_mod, "SMEM_OPTIN", 100_000)
+    assert fa_mod.card_route(torch.float32, 128) == "cuda_cores"
+    with pytest.raises(ValueError, match="on the wgmma route needs 164920 B"):
+        fa_mod.card_route(torch.bfloat16, 128)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fa_mod.card_route(torch.bfloat16, 48)
+
+
+# -- the tensor-core route's numerics, emulated on the CPU ------------------------
+
+
+@pytest.mark.parametrize("block_k", [16, 128])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window", SWEEP)
+def test_tensor_core_numerics_match_pallas(B, Hq, Hkv, Sq, Sk, Dh, causal, window, block_k):
+    """The emulation in bf16 against the Pallas kernel (interpret mode) at
+    the sweep's shapes, within one bf16 rounding."""
+    (q, k, v), (tq, tk, tv) = _operands(B, Hq, Hkv, Sq, Sk, Dh, "bfloat16")
+    want = jax_flash(q, k, v, causal=causal, window=window, block_q=16, block_k=16,
+                     interpret=True)
+    got = fa_mod.tensor_core_emulation(tq, tk, tv, causal=causal, window=window, block_k=block_k)
+    np.testing.assert_allclose(_np(got.bfloat16()), _np(want), **ONE_ROUNDING)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window",
+                         SWEEP + [(1, 4, 2, 256, 256, 128, True, None)])
+def test_tensor_core_split_of_p_keeps_float32_fidelity(B, Hq, Hkv, Sq, Sk, Dh, causal, window):
+    """Why p is split: against the float32 ``flash_attention_plain`` of the
+    same bf16 operands, one bf16 rounding of p lands at least 10x further
+    off than ``p_hi + p_lo`` (float32 outputs, before the final cast)."""
+    _, (tq, tk, tv) = _operands(B, Hq, Hkv, Sq, Sk, Dh, "bfloat16")
+    ref = flash_attention_plain(tq.float(), tk.float(), tv.float(), causal=causal, window=window)
+    split = fa_mod.tensor_core_emulation(tq, tk, tv, causal=causal, window=window)
+    single = fa_mod.tensor_core_emulation(tq, tk, tv, causal=causal, window=window, split=False)
+    err_split = float((split - ref).abs().max())
+    err_single = float((single - ref).abs().max())
+    assert err_single >= 10 * err_split, (err_single, err_split)
+    np.testing.assert_allclose(split.numpy(), ref.numpy(), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window",
+                         SWEEP + [(1, 4, 2, 256, 256, 128, True, None)])
+def test_bitwise_share_limit_separates_split_from_single_rounding(
+        B, Hq, Hkv, Sq, Sk, Dh, causal, window):
+    """The card's check on the wgmma route: the split emulation's bf16
+    outputs equal the one rounding of the float32 result at least
+    ``BITWISE_SHARE_MIN`` of the time, p rounded once to bf16 falls below."""
+    _, (tq, tk, tv) = _operands(B, Hq, Hkv, Sq, Sk, Dh, "bfloat16")
+    want = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    share = {split: float((fa_mod.tensor_core_emulation(
+        tq, tk, tv, causal=causal, window=window, split=split).bfloat16() == want).float().mean())
+        for split in (True, False)}
+    assert share[True] >= fa_mod.BITWISE_SHARE_MIN > share[False], share
