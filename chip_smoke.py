@@ -6,7 +6,10 @@
 Phases, each fatal on failure:
 
 1. Build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all together) and print the build seconds.
+   source, all together) and print the build seconds and the ptxas
+   reports; the tensor-core kernels (#6, #7) must not spill, nor have
+   their wgmma instructions serialised for want of registers (ptxas
+   warning C7512).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (full-scale synthetic IMDB, HAN at
    heads=8, hidden=64) and on edge cases (an all-padding unit, fully
@@ -53,8 +56,9 @@ Phases, each fatal on failure:
       launches of one layer timed with CUDA events beside their bound;
    b. inference, under no_grad: R-GAT and S-HGN on KERNEL (per relation
       and layer #6 twice, the src and dst side's FP+θ, and #5 once: 36 and
-      18 launches for R-GAT, 24 and 12 for S-HGN; counters zeroed just
-      before each model's first forward and read just after) and R-GCN
+      18 launches for R-GAT, 24 and 12 for S-HGN, every #6 launch on the
+      wgmma route; counters zeroed just before each model's first forward
+      and read just after) and R-GCN
       (mean NA, no kernel); logits against BLOCK on the card (R-GAT,
       S-HGN) or the CPU (R-GCN) at 1e-4; cold and steady forward times,
       peak memory;
@@ -63,9 +67,18 @@ Phases, each fatal on failure:
       3,489, director 2,393 × 3,341, keyword 7,971 × 64, each → 4 × 64,
       with a nonzero bias), layer 1's 4,932 × 256 → 256 and a ragged
       1,001 × 37 → 4 × 16 in float32 at atol=rtol=1e-4, and the actor
-      case in bfloat16 (h within one bf16 rounding, θ at 1e-4); twice
-      bitwise equal; each float32 case timed with CUDA events beside its
-      bound, the plain version and ``torch.addmm`` + the two einsums;
+      case in bfloat16 (h within one bf16 rounding, θ at 1e-4); each case
+      on the route the wrapper picks (float32 on wgmma, split TF32; bf16
+      on cuda_cores), every float32 case also forced on cuda_cores; twice
+      bitwise equal; the float32 cases' split error max |h - h64| /
+      (|x|·|w| + |b|) at most ``SPLIT_ERROR_MAX`` (the plain float32
+      product's printed beside); each float32 case timed with CUDA events
+      on both routes beside its bounds (the product at the TF32 tensor-core
+      peak or the bytes; the split's three products; the CUDA cores), the
+      plain version and ``torch.addmm`` + the two einsums; the split error
+      also where split-K leaves K whole (17,000 × 2,048 and × 3,341 → 4 ×
+      64).  Alone:
+      ``python3 -c 'import chip_smoke as c; c.kernel6_alone()'``;
    d. R-GAT training through ``run_training(model_name="R-GAT")``: the
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
       20 steps, #1 and #2 six times a step, #6 never, and the loss falls.
@@ -109,7 +122,8 @@ Phases, each fatal on failure:
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): every float32 number is
-float32.
+float32.  Kernel #6's wgmma route reaches float32 by three TF32 products
+(split TF32), held to ``SPLIT_ERROR_MAX``.
 Full results go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -177,6 +191,26 @@ def compare(name: str, got, want) -> float:
         torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL, msg=lambda m: f"{name}: {m}")
     log(f"[check] {name}: max_abs_err={err:.3e} (atol={ATOL}, rtol={RTOL})")
     return err
+
+
+def check_ptxas(reports: dict[str, str]) -> None:
+    """Write each ptxas report to chiprun_out/ptxas_<name>.txt and print its
+    register and spill lines; the tensor-core kernels (#6's and #7's wgmma
+    kernels) must not spill, and ptxas must not serialise their wgmma
+    instructions for want of registers (warning C7512)."""
+    for name, text in reports.items():
+        (OUT / f"ptxas_{name}.txt").write_text(text)
+        function = None
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                function = line.split("Function properties for")[-1].strip()
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+            if ("spill" in line and "wgmma" in (function or "")
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"{name}: {function} spills registers: {line.strip()}")
+            if "C7512" in line:  # wgmma serialised for want of registers
+                raise AssertionError(f"{name}: {line.strip()}")
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -908,31 +942,57 @@ def kernel6_cases(data, params) -> list[tuple[str, tuple]]:
     return cases
 
 
-def kernel6_cost(x, w, a_src) -> tuple[int, int]:
-    """(bytes, flops) of kernel #6 on these operands: x, w, b, a_src, a_dst
-    read once, h and both thetas written once; 2·Din flops per entry of h,
-    one for its bias, 2 per entry for each theta."""
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, dense TF32 tensor cores
+
+
+def kernel6_cost(x, w, a_src) -> dict:
+    """Bytes and bounds of kernel #6 on these operands: x, w, b, a_src, a_dst
+    read once, h and both thetas written once.  ``bound_ms``: the function's
+    2·N·Din·C product flops at the TF32 tensor-core peak, or the bytes;
+    ``bound_split_ms``: the split's three products (work of the wgmma
+    design, not of the function); ``bound_cuda_cores_ms``: the product plus
+    the bias and thetas (1 + 4 flops an entry of h) on the float32 CUDA
+    cores, the cuda_cores route's bound."""
     (n, din), (c, (heads, _)) = x.shape, (w.shape[1], a_src.shape)
-    size = x.element_size()
-    nbytes = size * (n * din + din * c + c + 2 * c + n * c) + 4 * 2 * n * heads
-    return nbytes, 2 * n * din * c + n * c + 4 * n * c
+    nbytes = x.element_size() * (n * din + din * c + 3 * c + n * c) + 4 * 2 * n * heads
+    product = 2 * n * din * c
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = product / PEAK_TF32_FLOPS * 1e3
+    cc, cc_by = bound_ms(nbytes, product + 5 * n * c)
+    return dict(bytes=nbytes, flops=product, bound_ms=max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_split_ms=max(t_bytes, 3 * t_ops), bound_cuda_cores_ms=cc,
+                bound_cuda_cores_by=cc_by)
 
 
 def kernel6_phase(data, params, k6_mod) -> dict:
     """#6 against its plain version at R-GAT's shapes on full IMDB, in
-    bfloat16 and on a ragged shape; twice bitwise equal; each float32 case
-    timed with CUDA events beside the plain version and ``torch.addmm`` +
-    the two einsums; the actor projection's times make the table row."""
+    bfloat16 and on a ragged shape, each case on the route the wrapper
+    picks (float32 on wgmma, bfloat16 on cuda_cores) and every float32 case
+    also forced on cuda_cores; twice bitwise equal; the float32 cases under
+    ``SPLIT_ERROR_MAX`` (the plain float32 product's error printed beside);
+    each float32 case timed with CUDA events on both routes beside its
+    bounds, the plain version and ``torch.addmm`` + the two einsums; the
+    actor projection's times make the table row."""
     err = 0.0
     per_case = {}
+    fn = k6_mod.fused_fp_coeff
     for name, ops in kernel6_cases(data, params):
-        got = k6_mod.fused_fp_coeff(*ops)
-        again = k6_mod.fused_fp_coeff(*ops)
+        x, w, b, a_s, a_d = ops
+        n, (heads, dh) = x.shape[0], a_s.shape
+        route = k6_mod.route(x.dtype, dh)
+        before = dict(fn.launches_by_route)
+        got = fn(*ops)
+        again = fn(*ops)
         want = k6_mod.fused_fp_coeff_plain(*ops)
         torch.cuda.synchronize()
+        ran = {r: k - before[r] for r, k in fn.launches_by_route.items()}
+        name = f"{name} [{route}]"
+        if ran != {r: 2 * (r == route) for r in ran}:
+            raise AssertionError(f"fused_fp_coeff {name}: launches by route {ran}")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"fused_fp_coeff {name}: two runs on the same inputs differ")
-        if ops[0].dtype == torch.bfloat16:  # h within one bf16 rounding; theta from the f32 h
+        if x.dtype == torch.bfloat16:  # h within one bf16 rounding; theta from the f32 h
             h_err = float((got[0].float() - want[0].float()).abs().max())
             torch.testing.assert_close(got[0].float(), want[0].float(), atol=1e-5, rtol=8e-3,
                                        msg=lambda m: f"fused_fp_coeff {name} h: {m}")
@@ -941,30 +1001,91 @@ def kernel6_phase(data, params, k6_mod) -> dict:
             err = max(err, compare(f"fused_fp_coeff {name} theta", got[1:], want[1:]))
             continue
         err = max(err, compare(f"fused_fp_coeff {name}", got, want))
-        x, w, b, a_s, a_d = ops
-        n, (heads, dh) = x.shape[0], a_s.shape
+        e_kernel = k6_mod.split_error(got[0], x, w, b)
+        e_plain = k6_mod.split_error(want[0], x, w, b)
+        log(f"[check] fused_fp_coeff {name}: split error {e_kernel:.3e} (plain float32 product "
+            f"{e_plain:.3e}; limit {k6_mod.SPLIT_ERROR_MAX})")
+        if not e_kernel <= k6_mod.SPLIT_ERROR_MAX:
+            raise AssertionError(f"fused_fp_coeff {name}: split error {e_kernel} above "
+                                 f"SPLIT_ERROR_MAX {k6_mod.SPLIT_ERROR_MAX}")
         h = torch.empty_like(got[0])
         ts, td = torch.empty_like(got[1]), torch.empty_like(got[2])
+        # the CUDA-core kernel, forced, on the same float32 operands
+        outs = []
+        for _ in range(2):
+            k6_mod.launch(x, w, b, a_s, a_d, h, ts, td, route_="cuda_cores")
+            torch.cuda.synchronize()
+            outs.append((h.clone(), ts.clone(), td.clone()))
+        if not all(torch.equal(g, a) for g, a in zip(*outs)):
+            raise AssertionError(f"fused_fp_coeff {name} [cuda_cores]: two runs differ")
+        err = max(err, compare(f"fused_fp_coeff {name} forced [cuda_cores]", outs[0], want))
+        del outs
 
         def library():  # one PyTorch call for the product, then the coefficients
             hh = torch.addmm(b, x, w).reshape(n, heads, dh)
             return torch.einsum("nhd,hd->nh", hh, a_s), torch.einsum("nhd,hd->nh", hh, a_d)
 
-        nbytes, flops = kernel6_cost(x, w, a_s)
-        bound, by = bound_ms(nbytes, flops)
-        per_case[name] = dict(
-            shape=f"{n} × {x.shape[1]} → {heads} × {dh}",
+        cost = kernel6_cost(x, w, a_s)
+        t = per_case[name] = dict(
+            cost, shape=f"{n} × {x.shape[1]} → {heads} × {dh}", route=route,
+            split_k=k6_mod.split_k(n, x.shape[1], heads * dh),
+            split_error=e_kernel, split_error_plain=e_plain,
             ms=cuda_ms(lambda: k6_mod.launch(x, w, b, a_s, a_d, h, ts, td), reps=20),
+            ms_cuda_cores=cuda_ms(lambda: k6_mod.launch(x, w, b, a_s, a_d, h, ts, td,
+                                                        route_="cuda_cores"), reps=20),
             plain_ms=cuda_ms(lambda: k6_mod.fused_fp_coeff_plain(x, w, b, a_s, a_d), reps=20),
-            library_ms=cuda_ms(library, reps=20), bound_ms=bound, bound_by=by, bytes=nbytes,
-            flops=flops)
-        t = per_case[name]
-        log(f"[time] fused_fp_coeff {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-            f"ms, addmm + einsums {t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; "
-            f"{nbytes:.4e} B, {flops:.4e} flops)")
-    log("[check] fused_fp_coeff: every case twice bitwise equal")
+            library_ms=cuda_ms(library, reps=20))
+        t["ms_again"] = cuda_ms(lambda: k6_mod.launch(x, w, b, a_s, a_d, h, ts, td), reps=20)
+        log(f"[time] fused_fp_coeff {name} S={t['split_k']}: kernel {t['ms']:.4f} ms (again "
+            f"{t['ms_again']:.4f}), cuda_cores {t['ms_cuda_cores']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, addmm + einsums {t['library_ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']:.4e} B, {t['flops']:.4e} "
+            f"product flops at 494.7 TFLOP/s), with the split's three products "
+            f"{t['bound_split_ms']:.4f} ms, CUDA cores {t['bound_cuda_cores_ms']:.4f} ms")
+    log("[check] fused_fp_coeff: every case twice bitwise equal on its route and on cuda_cores")
+    # the tensor cores' error grows with one accumulator's K chain, which the
+    # kernel cuts every CHAIN_TILES tiles: hold it where split-K does not cut
+    # K (17,000 rows fill a wave of blocks)
+    deepest = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for din in (2048, 3341):
+        x = 0.1 * torch.randn(17_000, din, generator=gen, device="cuda")
+        w = 0.0236 * torch.randn(din, 256, generator=gen, device="cuda")
+        b, a = 0.1 * torch.randn(256, generator=gen, device="cuda"), torch.ones(4, 64, device="cuda")
+        e = k6_mod.split_error(fn(x, w, b, a, a)[0], x, w, b)
+        deepest[din] = dict(split_k=k6_mod.split_k(17_000, din, 256), split_error=e)
+        log(f"[check] fused_fp_coeff 17000x{din}->4x64 (S={deepest[din]['split_k']}): split "
+            f"error {e:.3e} (limit {k6_mod.SPLIT_ERROR_MAX})")
+        if not e <= k6_mod.SPLIT_ERROR_MAX:
+            raise AssertionError(f"fused_fp_coeff 17000x{din}: split error {e} above the limit")
+        del x, w
     row = next(t for name, t in per_case.items() if name.startswith("layer 0 actor"))
-    return dict(row, max_abs_err=err, per_case=per_case)
+    return dict(row, max_abs_err=err, per_case=per_case, deepest_slices=deepest)
+
+
+def kernel6_alone() -> dict:
+    """Phase 5c on its own (``python3 -c 'import chip_smoke as c;
+    c.kernel6_alone()'``): builds #6 (and #7, which shares csrc/hopper.cuh),
+    writes their ptxas reports, runs the phase on full IMDB and writes
+    chiprun_out/kernel6.json."""
+    from repro_torch.graphs import synthetic_hetgraph
+    from repro_torch.kernels import build
+    from repro_torch.models.hgnn import MODELS
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(card_line())
+    OUT.mkdir(exist_ok=True)
+    check_ptxas(build.build(("fused_fp_coeff", "flash_attention")))
+    graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
+    rdata = relation_data(graph, "cuda")
+    rgat0 = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), rdata, **MODEL_WIDTHS["R-GAT"])
+    res = kernel6_phase(rdata, rgat0, importlib.import_module("repro_torch.kernels.fused_fp_coeff"))
+    res["card"] = card_line()
+    (OUT / "kernel6.json").write_text(json.dumps(res, indent=1, default=str))
+    log(res["card"])
+    return res
 
 
 def inference(graph, counters, NAB) -> dict:
@@ -987,12 +1108,15 @@ def inference(graph, counters, NAB) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        k6 = counters["fused_fp_coeff"]
+        k6.launches_by_route = dict.fromkeys(k6.launches_by_route, 0)
         t0 = time.perf_counter()
         with torch.no_grad():
             logits = model.forward(params, data, backend=backend)
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         launches = {k: fn.launches for k, fn in counters.items()}
+        k6_routes = dict(k6.launches_by_route)
         steady = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1020,9 +1144,14 @@ def inference(graph, counters, NAB) -> dict:
                        "fused_fp_coeff": 2 * width["layers"] * len(data.graphs)}
         if launches != expect:
             raise AssertionError(f"{name} forward launches {launches}, expected {expect}")
-        res[name] = dict(launches=launches, cold_ms=cold_ms, steady_ms=steady,
+        if k6_routes != {"wgmma": expect["fused_fp_coeff"], "cuda_cores": 0}:
+            raise AssertionError(f"{name}: #6 launches by route {k6_routes}, expected all "
+                                 f"{expect['fused_fp_coeff']} on wgmma")
+        res[name] = dict(launches=launches, fused_fp_coeff_by_route=k6_routes, cold_ms=cold_ms,
+                         steady_ms=steady,
                          peak_mem_bytes=peak, max_abs_err=err, profiled=prof)
-        log(f"[infer {name}] {backend.value}: launches={json.dumps(launches)} forward ms cold "
+        log(f"[infer {name}] {backend.value}: launches={json.dumps(launches)}, #6 by route "
+            f"{json.dumps(k6_routes)}; forward ms cold "
             f"{cold_ms:.3f}, steady median {float(np.median(steady)):.3f} "
             f"({['%.3f' % s for s in steady]}), peak mem {peak / 2**30:.3f} GiB")
         log(f"[infer {name}] 3 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} "
@@ -1504,11 +1633,7 @@ def main() -> int:
     reports = build.build()
     build_s = time.perf_counter() - t0
     log(f"[build] {len(build.KERNELS)} kernels in {build_s:.1f} s")
-    for name, text in reports.items():
-        (OUT / f"ptxas_{name}.txt").write_text(text)
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
+    check_ptxas(reports)
 
     t0 = time.perf_counter()
     graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
@@ -1653,7 +1778,9 @@ def main() -> int:
     ms_per = {k: "one launch at the HAN training shapes" for k in by_path}
     ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
     ms_per["fused_fp_coeff"] = ("one launch at R-GAT layer 0's actor projection "
-                                f"({train_kernels['fused_fp_coeff']['shape']})")
+                                f"({train_kernels['fused_fp_coeff']['shape']}, float32): the "
+                                "wgmma route, w's split included; ms_cuda_cores: the cuda_cores "
+                                "route on the same operands")
     rgat_train = rgat_training(all_counters)
 
     # phase 6: the LM slice
@@ -1697,6 +1824,13 @@ def main() -> int:
     fa_row["ms_float32"] = train_kernels["flash_attention"]["ms_float32"]
     fa_row["bound_split_ms"] = train_kernels["flash_attention"]["bound_split_ms"]
     fa_row["launches_by_route"] = lm["forward"]["launches_by_route"]
+    k6_row = next(r for r in line["kernels"] if r["name"] == "fused_fp_coeff")
+    k6 = train_kernels["fused_fp_coeff"]
+    k6_row.update(ms_cuda_cores=k6["ms_cuda_cores"], bound_split_ms=k6["bound_split_ms"],
+                  bound_cuda_cores_ms=k6["bound_cuda_cores_ms"], split_error=k6["split_error"],
+                  launches_by_route={
+                      r: sum(infer[m]["fused_fp_coeff_by_route"][r] for m in ("R-GAT", "S-HGN"))
+                      for r in k6_mod.ROUTES})
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
                 train_kernels=train_kernels, training=train, inference=infer,
                 rgat_training=rgat_train, lm=lm,

@@ -91,9 +91,10 @@
 //   * The new tile's p @ v is summed apart and then added to acc * alpha,
 //     in the reference's order.
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -339,6 +340,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // ===========================================================================
 namespace tc {
 
+using namespace hopper;
+
 constexpr int kBQ = 128;       // query rows a block: two consumer warpgroups of 64
 constexpr int kBK = 128;       // keys a tile
 constexpr int kStages = 2;     // depth of the K / V ring
@@ -346,7 +349,6 @@ constexpr int kThreads = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
 constexpr int kSpan = 128;     // bytes of one swizzled row of a box: 64 bf16 columns
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 <= 65,536
 constexpr float kNegBig = -1e30f;                        // m's start, the reference's NEG_INF
-constexpr int kTmaEncodeError = 100000;  // + CUresult: cuTensorMapEncodeTiled refused a map
 
 // Dynamic shared memory of one block: Q [Dh/64][kBQ][64], then kStages K
 // tiles and kStages V tiles [Dh/64][kBK][64] (bf16, 128-byte swizzled, each
@@ -361,90 +363,11 @@ struct Layout {
   static constexpr int kBytes = kQBytes + 2 * kStages * kTileBytes + kBarBytes + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits until the phase of `parity` has completed.  Seconds of waiting mean
-// a lost arrival, never a slow tile: trap, so the launch fails, not hangs.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-// One box of a 3-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that wgmma reads or writes asynchronously to their place
-// between the fences: the compiler may not move their uses across.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
@@ -722,44 +645,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A [heads, S, Dh] bf16 tensor in boxes of 64 columns x `rows` rows of one
 // head, 128-byte swizzle; rows past S read as zeros.
 int tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int Dh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)S, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)Dh * 2, (cuuint64_t)S * Dh * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTmaEncodeError + (int)r;
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int Dh>
@@ -803,8 +696,4 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   }
 }
 
-extern "C" const char* repro_cuda_error_string(int err) {
-  if (err >= tc::kTmaEncodeError)
-    return "cuTensorMapEncodeTiled refused a tensor map (the code less 100000 is its CUresult)";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* repro_cuda_error_string(int err) { return hopper::error_string(err); }

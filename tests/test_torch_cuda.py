@@ -10,8 +10,12 @@ float32 sums in another order), each run twice and bitwise equal; kernel
 #5 against its plain version for B in {8, 16, 32} and its edge cases; the
 trainer (HAN and R-GAT) on the card against the CPU; kernel training
 bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU;
-kernel #6 against its plain version (float32, bfloat16, a ragged shape)
-and R-GAT on KERNEL launching it twice per relation and layer; kernel #7
+kernel #6 against its plain version (float32, bfloat16, a ragged shape),
+its tensor-core route at R-GAT's layer-0 and layer-1 shapes and on ragged
+ones at the main path's operand scale (also under SPLIT_ERROR_MAX, which
+is checked at a larger scale too; twice bitwise equal; launches by
+route), the CUDA-core route forced on float32, and R-GAT on KERNEL
+launching it twice per relation and layer, all on the tensor cores; kernel #7
 on both routes (bf16 also within one rounding, atol=1e-4, rtol=8e-3; on
 the wgmma route at least BITWISE_SHARE_MIN of the outputs that rounding
 bitwise) and the LM decoder.
@@ -43,6 +47,9 @@ from repro_torch.kernels import (
     seg_gat_agg_plain,
 )
 from repro_torch.kernels.flash_attention import BITWISE_SHARE_MIN
+from repro_torch.kernels.fused_fp_coeff import SPLIT_ERROR_MAX, split_error
+from repro_torch.kernels.fused_fp_coeff import launch as kernel6_launch
+from repro_torch.kernels.fused_fp_coeff import route as kernel6_route
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.launch import hgnn_train
 from repro_torch.models.lm.api import build as build_lm
@@ -415,16 +422,19 @@ KERNEL6_CASES = {  # (N, Din, H, Dh, dtype)
 }
 
 
+def kernel6_operands(N, Din, H, Dh, dtype, device):
+    rng = np.random.default_rng(N + Din)
+    return [torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(
+                device, getattr(torch, dtype))
+            for s, sc in (((N, Din), 0.5), ((Din, H * Dh), 0.1), ((H * Dh,), 0.1), ((H, Dh), 1.0),
+                          ((H, Dh), 1.0))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNEL6_CASES))
 def test_kernel6_matches_plain_on_cuda(cuda, name):
     N, Din, H, Dh, dtype = KERNEL6_CASES[name]
-    rng = np.random.default_rng(N + Din)
-    x, w, b, a_s, a_d = (
-        torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(
-            cuda, getattr(torch, dtype))
-        for s, sc in (((N, Din), 0.5), ((Din, H * Dh), 0.1), ((H * Dh,), 0.1), ((H, Dh), 1.0),
-                      ((H, Dh), 1.0)))
+    x, w, b, a_s, a_d = kernel6_operands(N, Din, H, Dh, dtype, cuda)
     before = fused_fp_coeff.launches
     got = fused_fp_coeff(x, w, b, a_s, a_d)
     again = fused_fp_coeff(x, w, b, a_s, a_d)
@@ -436,6 +446,99 @@ def test_kernel6_matches_plain_on_cuda(cuda, name):
     torch.testing.assert_close(got[0].float(), want[0].float(), **h_tol)  # bf16: one rounding
     for g, w_ in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+
+
+KERNEL6_WGMMA_CASES = {  # (N, Din, H, Dh): R-GAT's layer-0 projections, layer 1, ragged ones
+    "actor": (6124, 3341, 4, 64),
+    "movie": (4932, 3489, 4, 64),
+    "director": (2393, 3341, 4, 64),
+    "keyword": (7971, 64, 4, 64),
+    "layer 1": (4932, 256, 4, 64),
+    "ragged Dh=16": (1001, 37, 4, 16),
+    "ragged Dh=8 C=96": (130, 1030, 12, 8),
+    "Dh=128 C=384": (700, 600, 3, 128),
+    "a full wave, K=2048": (17_000, 2048, 4, 64),  # S = 1: two accumulator chains of 1,024
+    "a full wave, K=3341": (17_000, 3341, 4, 64),  # S = 1: four chains
+}
+
+
+def main_path_operands(N, Din, H, Dh, device):
+    """Operands at the scale R-GAT's KERNEL path gives #6: x ~ N(0, 0.1²)
+    as the synthetic graphs' features, w and a Glorot-uniform as
+    ``init_rgat`` draws them, and a bias ~ N(0, 0.1²)."""
+    rng = np.random.default_rng(N + Din)
+    lim_w, lim_a = np.sqrt(6 / (Din + H * Dh)), np.sqrt(6 / (H + Dh))
+    arrays = (rng.standard_normal((N, Din)) * 0.1, rng.uniform(-lim_w, lim_w, (Din, H * Dh)),
+              rng.standard_normal(H * Dh) * 0.1, rng.uniform(-lim_a, lim_a, (H, Dh)),
+              rng.uniform(-lim_a, lim_a, (H, Dh)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL6_WGMMA_CASES))
+def test_kernel6_tensor_core_route_matches_plain_on_cuda(cuda, name):
+    """float32 takes the wgmma route: at the main path's operand scale the
+    plain version's tolerance; twice bitwise equal; the split's error limit
+    (scale-free); both launches on that route."""
+    N, Din, H, Dh = KERNEL6_WGMMA_CASES[name]
+    x, w, b, a_s, a_d = main_path_operands(N, Din, H, Dh, cuda)
+    assert kernel6_route(x.dtype, Dh) == "wgmma"
+    before = dict(fused_fp_coeff.launches_by_route)
+    got = fused_fp_coeff(x, w, b, a_s, a_d)
+    again = fused_fp_coeff(x, w, b, a_s, a_d)
+    want = fused_fp_coeff_plain(x, w, b, a_s, a_d)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fused_fp_coeff.launches_by_route.items()} == {
+        "wgmma": 2, "cuda_cores": 0}
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+    assert split_error(got[0], x, w, b) <= SPLIT_ERROR_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["actor", "layer 1", "ragged Dh=8 C=96", "a full wave, K=2048"])
+def test_kernel6_split_error_holds_at_a_larger_scale_on_cuda(cuda, name):
+    """x ~ N(0, 0.5²) and w ~ N(0, 0.1²) (the other kernel tests' operands):
+    |h| and |θ| grow about 10x, and the normalised error stays under
+    SPLIT_ERROR_MAX."""
+    N, Din, H, Dh = KERNEL6_WGMMA_CASES[name]
+    x, w, b, a_s, a_d = kernel6_operands(N, Din, H, Dh, "float32", cuda)
+    h, _, _ = fused_fp_coeff(x, w, b, a_s, a_d)
+    assert split_error(h, x, w, b) <= SPLIT_ERROR_MAX
+
+
+@pytest.mark.cuda
+def test_kernel6_cuda_core_route_forced_on_float32(cuda):
+    x, w, b, a_s, a_d = kernel6_operands(2393, 3341, 4, 64, "float32", cuda)
+    h = torch.empty(x.shape[0], 256, device=cuda)
+    ts, td = torch.empty(x.shape[0], 4, device=cuda), torch.empty(x.shape[0], 4, device=cuda)
+    before = dict(fused_fp_coeff.launches_by_route)
+    kernel6_launch(x, w, b, a_s, a_d, h, ts, td, route_="cuda_cores")
+    want = fused_fp_coeff_plain(x, w, b, a_s, a_d)
+    torch.cuda.synchronize()
+    assert fused_fp_coeff.launches_by_route["cuda_cores"] == before["cuda_cores"] + 1
+    for g, w_ in zip((h, ts, td), want):
+        torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rgat_kernel_backend_at_its_width_runs_kernel6_on_the_tensor_cores(cuda):
+    """R-GAT at its own width (4 heads of 64, 3 layers): 36 launches of #6
+    a forward, every one on the wgmma route; logits against BLOCK."""
+    g = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.5, seed=0)
+    data = prepare_data(g, relation_semantic_graphs(g), "movie", 3, synthetic_labels(g, "imdb"),
+                        block=16, device=cuda)
+    params = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), data, hidden=64, heads=4,
+                                  layers=3)
+    params = tree_map(lambda t: t.to(cuda), params)
+    before = dict(fused_fp_coeff.launches_by_route)
+    with torch.no_grad():
+        got = MODELS["R-GAT"].forward(params, data, backend=NABackend.KERNEL)
+        ran = {r: n - before[r] for r, n in fused_fp_coeff.launches_by_route.items()}
+        want = MODELS["R-GAT"].forward(params, data, backend=NABackend.BLOCK)
+    assert ran == {"wgmma": 36, "cuda_cores": 0}
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

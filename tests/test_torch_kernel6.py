@@ -12,8 +12,16 @@ ragged shape (N and Din no multiple of any tile) is held against
 ``ref_fused_fp_coeff``.  Like the JAX kernel it has no gradient; the
 wrapper raises on operands it does not take; and R-GAT and S-HGN on
 KERNEL run their FP+θ through #6 twice per relation and layer.
-tests/test_torch_cuda.py holds the CUDA kernel against the plain version
-on the card."""
+
+The tensor-core route's numerics (``tensor_core_emulation``: split TF32,
+three products into float32 accumulators restarted every ``CHAIN_TILES``
+K tiles, K slices summed in order) are
+held against the Pallas kernel at the sweep's shapes in float32 at
+atol=rtol=1e-5, and the limit ``SPLIT_ERROR_MAX`` is shown to pass the
+three-product split and fail one TF32 product, each by at least 10x, at
+Din = 3,341 and 256.  ``route`` and the split rule ``split_k`` are pinned
+on the shapes the main path gives them.  tests/test_torch_cuda.py holds
+both CUDA kernels against the plain version on the card."""
 import importlib
 
 import jax
@@ -31,6 +39,7 @@ from repro_torch.models.hgnn import MODELS
 from test_torch_models import relation_problem
 
 fusion = importlib.import_module("repro_torch.core.fusion")
+k6 = importlib.import_module("repro_torch.kernels.fused_fp_coeff")
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_H = dict(rtol=8e-3, atol=1e-5)  # one bf16 rounding of h
@@ -166,3 +175,69 @@ def test_kernel_backend_runs_fp_theta_through_kernel6(monkeypatch, name, width):
     assert len(calls) == 2 * width["layers"] * len(tdata.graphs)
     assert fused_fp_coeff.launches == 0
     torch.testing.assert_close(kernel, block, rtol=5e-4, atol=5e-4)
+
+
+# -- the tensor-core route's numerics, route and split rule ----------------------------
+
+
+@pytest.mark.parametrize("N,Din,H,Dh,bn,bk", SHAPES)
+def test_kernel6_tensor_core_emulation_matches_pallas_interpret(N, Din, H, Dh, bn, bk):
+    args = operands(N, Din, H, Dh)
+    want = jfused_fp_coeff(*map(jnp.asarray, args), block_n=bn, block_k=bk, interpret=True)
+    got = k6.tensor_core_emulation(*map(torch.from_numpy, args))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("Din", [3341, 256])  # R-GAT's actor projection; layers 1-2
+def test_split_error_limit_separates_three_products_from_one(Din):
+    """At R-GAT's width (4 heads of 64) the three-product split stays 10x
+    under SPLIT_ERROR_MAX and one TF32 product lands 10x over it."""
+    x, w, b, a_s, a_d = map(torch.from_numpy, operands(256, Din, 4, 64, seed=Din))
+    errs = {split: k6.split_error(k6.tensor_core_emulation(x, w, b, a_s, a_d, split=split)[0],
+                                  x, w, b)
+            for split in (True, False)}
+    assert errs[True] * 10 <= k6.SPLIT_ERROR_MAX, errs
+    assert errs[False] >= 10 * k6.SPLIT_ERROR_MAX, errs
+    # the plain float32 product meets the limit too
+    assert k6.split_error(x @ w + b, x, w, b) * 10 <= k6.SPLIT_ERROR_MAX
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", k6.HEAD_DIMS)
+def test_route_takes_float32_to_the_tensor_cores(dtype, Dh):
+    want = "wgmma" if dtype == "float32" else "cuda_cores"
+    assert k6.route(getattr(torch, dtype), Dh) == want
+
+
+@pytest.mark.parametrize("N,Din,C,S", [
+    (6124, 3341, 256, 2),   # layer 0: actor
+    (4932, 3489, 256, 3),   # movie
+    (2393, 3341, 256, 6),   # director
+    (7971, 64, 256, 1),     # keyword
+    (4932, 256, 256, 1),    # layers 1-2
+    (1001, 37, 64, 1),      # ragged
+    (64, 100_000, 256, 132),  # one tile: at most one wave of blocks
+    (17_000, 3341, 256, 1),   # a full wave of tiles: no split
+])
+def test_split_k_is_a_fixed_rule_of_the_shape(N, Din, C, S):
+    assert k6.split_k(N, Din, C) == S
+    blocks = -(-N // k6.BLOCK_M) * -(-C // k6.BLOCK_N) * S
+    assert S == 1 or blocks <= k6.SMS
+
+
+@pytest.mark.parametrize("N", [1, 128, 2393, 100_000])
+def test_split_k_leaves_k256_whole(N):
+    assert k6.split_k(N, 256, 256) == 1
+
+
+def test_emulation_sums_k_slices_in_order():
+    """Two slices give the one-slice sums up to float32 rounding, and the
+    slice order is fixed: the same call gives the same bits."""
+    x, w, b, a_s, a_d = map(torch.from_numpy, operands(64, 1100, 2, 32, seed=3))
+    one = k6.tensor_core_emulation(x, w, b, a_s, a_d, splits=1)
+    two = k6.tensor_core_emulation(x, w, b, a_s, a_d, splits=2)
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(two, k6.tensor_core_emulation(x, w, b, a_s, a_d, splits=2)))
+    for a, b_ in zip(one, two):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-5)
