@@ -7,16 +7,20 @@ Phases, each fatal on failure:
 
 1. Build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all together) and print the build seconds and the ptxas
-   reports; the tensor-core kernels (#6, #7) must not spill, nor have
-   their wgmma instructions serialised for want of registers (ptxas
-   warning C7512).
+   reports; the tensor-core kernels (#6, #7, and the projection phase of
+   #3 and #4) must not spill, nor have their wgmma instructions
+   serialised for want of registers (ptxas warning C7512).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (full-scale synthetic IMDB, HAN at
    heads=8, hidden=64) and on edge cases (an all-padding unit, fully
    masked rows, W = 1, a Din that is not a multiple of the K tile), at
-   atol=rtol=1e-4 (the float32 sum order differs).  Time kernel, plain
-   version and, for the fused kernel, ``x @ W`` plus the plain aggregation
-   as a yardstick, with CUDA events.
+   atol=rtol=1e-4 (the float32 sum order differs); the fused kernel's
+   projection phase (its workspace h, on the rows it lists) at the
+   serving operands under #6's ``SPLIT_ERROR_MAX``.  Time kernel, plain
+   version and, for the fused kernel, the MULTIGRAPH composition on the
+   same operands (cuBLAS ``x @ W`` + the θ einsums + #1) as the yardstick
+   fusion has to beat, with CUDA events; no single PyTorch call computes
+   fused FP+NA, so #3's and #4's ``library_ms`` are null.
 3. Serve the request mix of the three target metapaths (repeats=2) on
    full-scale IMDB with HAN at its own width (heads=8, hidden=64,
    att_dim=128), block=16, max_edges=20000, 3 slots, similarity
@@ -29,15 +33,24 @@ Phases, each fatal on failure:
    a. the backward kernels #2 and #4 (and #1, #3 once more) against their
       plain versions at the training shapes and on the edge cases, at
       atol=rtol=1e-4 (the fused kernels on exactly representable operands,
-      see ``exact_fused``); each backward runs twice and must be bitwise
-      equal; timed with CUDA events beside its bound;
+      see ``exact_fused``), and #3's projection phase on HAN's own
+      inexact operands under ``SPLIT_ERROR_MAX``; each backward, and #3,
+      runs twice and must be bitwise equal; timed with CUDA events beside
+      its bound (#3's and #4's, as #6's: the x·W product at the TF32
+      tensor-core peak, the rest on the CUDA cores; beside it the bound
+      with split TF32's three products and with all on the CUDA cores),
+      #3 and #4 also beside the MULTIGRAPH composition (#2 for the VJP)
+      and the flops they do: phase P's whole 128-row tiles, which must
+      come to at most 1.5× the rows the function needs.  Alone:
+      ``python3 -c 'import chip_smoke as c; c.fused_alone()'``;
    b. the main path: ``launch.hgnn_train.run_training`` with the kernel
       backend for 20 steps, counters zeroed just before: #1 and #2 launch
       once a step, #3 and #4 never, and the loss falls;
    c. FUSED_FP training, 3 steps from the same initial state through
-      ``make_hgnn_train_step(han_forward(FUSED_FP))``: #3 and #4 launch,
-      and the first step's loss and gradients agree with MULTIGRAPH's at
-      rtol=1e-3, atol=1e-5;
+      ``make_hgnn_train_step(han_forward(FUSED_FP))``: #3 and #4 launch
+      once a step, their projection on the tensor cores (counted by
+      route), and the first step's loss and gradients agree with
+      MULTIGRAPH's at rtol=1e-3, atol=1e-5;
    d. 3 MULTIGRAPH steps twice from the same state give bitwise-equal
       states; steady steps of both backends under ``torch.profiler`` give
       the device idle share;
@@ -294,29 +307,54 @@ def multigraph_cost(ops):
     return nbytes, flops, live
 
 
+def fused_projection(ops) -> dict:
+    """The projection of #3/#4 on these operands: ``blocks``, the (weight
+    table, block) pairs some live unit reads (the function projects each
+    once); ``tiles``, phase P's 128-row tiles (the kernels project each
+    whole); ``needed`` and ``done`` their flops, 2·rows·Din·H·Dh."""
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
+    U, W = col.shape
+    B = masks.shape[-1]
+    H, Dh = ops["a_src"].shape[1:]
+    din = x.shape[1]
+    nblk = x.shape[0] // B
+    live_mask = col >= 0
+    unit_live = live_mask.any(dim=1)
+    table = ops["wsel"].long()
+    g_of = gid.long()[:, None].expand(U, W)[live_mask]
+    blocks = torch.unique(torch.cat([table[g_of] * nblk + col.long()[live_mask],
+                                     table[gid.long()[unit_live]] * nblk
+                                     + row.long()[unit_live]])).numel()
+    tiles = int(ff_mod.row_tiles(col, gid, row, ops["wsel"], x.shape[0], B).numel())
+    per_row = 2 * din * H * Dh
+    return dict(blocks=blocks, tiles=tiles, needed=blocks * B * per_row,
+                done=tiles * ff_mod.ROW_TILE * per_row,
+                ratio=tiles * ff_mod.ROW_TILE / max(1, blocks * B))
+
+
 def fused_cost(ops):
-    """(bytes, flops, kernel_flops) of the fused forward on these inputs.
+    """(bytes, flops, kernel_flops, projection) of the fused forward on these
+    inputs.
 
     ``flops`` is the work the function needs: each (weight table, src or dst
     block) that some live unit reads projected once (2·B·Din·H·Dh), θs and
     θd of each (graph, block) read once (2·B·H·Dh each), then the multigraph
-    work per edge.  ``kernel_flops`` is the work this kernel does: it
-    re-projects the src tile of every live slot and the dst tile of every
-    unit, and runs NA on whole B×B blocks; it explains the kernel's time and
-    is not its bound."""
+    work per edge.  ``kernel_flops`` is the work the kernels do: phase P's
+    whole 128-row tiles, θd once per live unit and θs once per live slot,
+    and NA on whole B×B blocks; it explains the kernels' time and is not
+    their bound.  ``projection``: :func:`fused_projection`."""
     col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
     U, W = col.shape
     B = masks.shape[-1]
     G, H, Dh = ops["a_src"].shape
-    din = x.shape[1]
     live_mask = col >= 0
     live = int(live_mask.sum())
+    live_units = int(live_mask.any(dim=1).sum())
     nblk = x.shape[0] // B
     g_of = gid.long()[:, None].expand(U, W)[live_mask]
     src_blk = col.long()[live_mask]
-    table = ops["wsel"].long()
-    projected = torch.unique(torch.cat([table[g_of] * nblk + src_blk,
-                                        table[gid.long()] * nblk + row.long()])).numel()
+    proj = fused_projection(ops)
     theta_src = torch.unique(g_of * nblk + src_blk).numel()
     theta_dst = torch.unique(gid.long() * nblk + row.long()).numel()
     na = live_edges(col, masks) * H * (2 * Dh + 8)
@@ -324,14 +362,54 @@ def fused_cost(ops):
     nbytes = (col.numel() * 4 + 2 * U * 4 + G * 4 + live * B * B
               + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
               + 4 * U * B * H * (Dh + 1))
-    flops = (projected * 2 * B * din * H * Dh + (theta_src + theta_dst) * 2 * B * H * Dh + na)
-    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na_blocks
-    return nbytes, flops, kernel_flops
+    flops = proj["needed"] + (theta_src + theta_dst) * 2 * B * H * Dh + na
+    kernel_flops = proj["done"] + (live + live_units) * 2 * B * H * Dh + na_blocks
+    return nbytes, flops, kernel_flops, proj
+
+
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, dense TF32 tensor cores
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fused_bounds(nbytes: int, flops: int, projection: int) -> dict:
+    """The bounds of #3 or #4 on ``flops`` of work, ``projection`` of them
+    the x·W product, as #6's row has them: ``bound_ms``, the product at
+    the TF32 tensor-core peak (one product, the function's work) and the
+    rest on the float32 CUDA cores, or the bytes; ``bound_split_ms``, the
+    product as split TF32's three products (work of the design, not of the
+    function); ``bound_cuda_cores_ms``, all of it on the CUDA cores."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    rest = (flops - projection) / PEAK_FP32_FLOPS * 1e3
+    t_ops = projection / PEAK_TF32_FLOPS * 1e3 + rest
+    t_split = 3 * projection / PEAK_TF32_FLOPS * 1e3 + rest
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_split_ms=max(t_bytes, t_split),
+                bound_cuda_cores_ms=bound_ms(nbytes, flops)[0])
+
+
+def phase_p_split_error(ff_mod, ops: dict, index: dict, name: str) -> float:
+    """Phase P's split error on these (inexact) operands: #3 launched once,
+    its workspace h read on the listed rows (``projection_split_error``)
+    and held to #6's ``SPLIT_ERROR_MAX``; the plain float32 product's error
+    printed beside."""
+    k6_mod = importlib.import_module("repro_torch.kernels.fused_fp_coeff")
+    (U, _), B, (H, Dh) = ops["col_index"].shape, ops["masks"].shape[-1], ops["a_src"].shape[1:]
+    x, w, b = ops["x"], ops["w"], ops["b"]
+    out = torch.empty((U * B, H, Dh), device=x.device)
+    lse = torch.empty((U * B, H), device=x.device)
+    h = ff_mod.launch(**ops, out=out, lse=lse, leaky_slope=0.2, index=index)
+    err = ff_mod.projection_split_error(h, index["tiles"], x, w, b)
+    plain = ff_mod.projection_split_error(torch.einsum("nd,tdc->tnc", x, w) + b[:, None], index["tiles"],
+                                          x, w, b)
+    log(f"[check] fused_fp {name}: phase P [{ff_mod.route(H, Dh)}] split error {err:.3e} (plain "
+        f"float32 product {plain:.3e}; limit {k6_mod.SPLIT_ERROR_MAX})")
+    if not err <= k6_mod.SPLIT_ERROR_MAX:
+        raise AssertionError(f"fused_fp {name}: phase P's split error {err} above SPLIT_ERROR_MAX")
+    return err
 
 
 def kernel_phase(eng, fusion, mg_mod, ff_mod) -> dict:
@@ -363,38 +441,56 @@ def kernel_phase(eng, fusion, mg_mod, ff_mod) -> dict:
     B, H, Dh = eng.block, eng.heads, eng.hidden
     out = torch.empty((U * B, H, Dh), device=dev)
     lse = torch.empty((U * B, H), device=dev)
+    ff_idx = ff_index(ff_mod, slice_ff, backward=False)
+    ff_split_err = phase_p_split_error(ff_mod, slice_ff, ff_idx, "slice")
     mg_ms = cuda_ms(lambda: mg_mod.launch(**slice_mg, out=out, lse=lse, leaky_slope=0.2), reps=20)
     mg_plain_ms = cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_plain(**slice_mg), reps=3)
-    ff_ms = cuda_ms(lambda: ff_mod.launch(**slice_ff, out=out, lse=lse, leaky_slope=0.2), reps=3)
+    ff_ms = cuda_ms(lambda: ff_mod.launch(**slice_ff, out=out, lse=lse, leaky_slope=0.2,
+                                          index=ff_idx), reps=10)
     ff_plain_ms = cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**slice_ff), reps=3)
-
-    def xw_then_plain_na():
-        x, w, b = slice_ff["x"], slice_ff["w"][0], slice_ff["b"][0]
-        h = torch.addmm(b, x, w).reshape(x.shape[0], H, Dh)
-        return mg_mod.seg_gat_agg_multigraph_plain(
-            slice_mg["col_index"], slice_mg["graph_id"], slice_mg["dst_row"], slice_mg["masks"],
-            torch.einsum("nhd,ghd->gnh", h, slice_ff["a_src"]),
-            torch.einsum("nhd,ghd->gnh", h, slice_ff["a_dst"]), h, slice_mg["edge_bias"])
-
-    ff_lib_ms = cuda_ms(xw_then_plain_na, reps=3)
+    ff_mg_ms = cuda_ms(lambda: multigraph_composition(mg_mod, slice_mg, slice_ff, out, lse), reps=10)
     mg_bytes, mg_flops, live = multigraph_cost(slice_mg)
-    ff_bytes, ff_flops, ff_kernel_flops = fused_cost(slice_ff)
+    ff_bytes, ff_flops, ff_kernel_flops, proj = fused_cost(slice_ff)
     mg_bound, mg_by = bound_ms(mg_bytes, mg_flops)
-    ff_bound, ff_by = bound_ms(ff_bytes, ff_flops)
+    ff_bounds = fused_bounds(ff_bytes, ff_flops, proj["needed"])
     log(f"[time] multigraph kernel {mg_ms:.4f} ms, plain {mg_plain_ms:.4f} ms, "
         f"bound {mg_bound:.4f} ms ({mg_by}); live slots {live}")
-    log(f"[time] fused_fp kernel {ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms, "
-        f"x@W+plain NA {ff_lib_ms:.4f} ms, bound {ff_bound:.4f} ms ({ff_by}); "
-        f"function flops {ff_flops:.4e}, flops as the kernel does them {ff_kernel_flops:.4e}")
+    log(f"[time] fused_fp kernel {ff_ms:.4f} ms, plain {ff_plain_ms:.4f} ms, MULTIGRAPH "
+        f"composition (x@W + θ einsums + #1) {ff_mg_ms:.4f} ms, bound {ff_bounds['bound_ms']:.4f} "
+        f"ms ({ff_bounds['bound_by']}; split TF32 {ff_bounds['bound_split_ms']:.4f}, CUDA cores "
+        f"{ff_bounds['bound_cuda_cores_ms']:.4f}); function flops {ff_flops:.4e}, flops as the kernels do them "
+        f"{ff_kernel_flops:.4e}; projection {proj['tiles']} row tiles for {proj['blocks']} "
+        f"blocks, {proj['ratio']:.4f}x the needed rows")
     return {
         "multigraph": dict(max_abs_err=err_mg, ms=mg_ms, plain_ms=mg_plain_ms, library_ms=None,
                            bound_ms=mg_bound, bound_by=mg_by, bytes=mg_bytes, flops=mg_flops,
                            live_slots=live, units=U, width=W),
-        "fused_fp": dict(max_abs_err=err_ff, ms=ff_ms, plain_ms=ff_plain_ms, library_ms=ff_lib_ms,
-                         bound_ms=ff_bound, bound_by=ff_by, bytes=ff_bytes, flops=ff_flops,
-                         kernel_flops=ff_kernel_flops, live_slots=live, units=U,
-                         width=W),
+        "fused_fp": dict(max_abs_err=err_ff, ms=ff_ms, plain_ms=ff_plain_ms, library_ms=None,
+                         multigraph_ms=ff_mg_ms, **ff_bounds, bytes=ff_bytes, flops=ff_flops,
+                         kernel_flops=ff_kernel_flops, projection=proj,
+                         split_error=ff_split_err, live_slots=live, units=U, width=W),
     }
+
+
+def ff_index(ff_mod, ops: dict, *, backward: bool = True) -> dict:
+    """#3/#4's topology index of these fused operands."""
+    return ff_mod.fused_index(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["wsel"],
+                              ops["w"].shape[0], ops["x"].shape[0], ops["masks"].shape[-1],
+                              backward=backward)
+
+
+def multigraph_composition(mg_mod, mg, ff, out=None, lse=None):
+    """What FUSED_FP has to beat: the MULTIGRAPH path on the same operands,
+    cuBLAS ``x @ W + b`` and the θ einsums, then (given ``out``/``lse``)
+    kernel #1.  Returns (h, θs, θd)."""
+    H, Dh = ff["a_src"].shape[1:]
+    h = torch.addmm(ff["b"][0], ff["x"], ff["w"][0]).reshape(ff["x"].shape[0], H, Dh)
+    ths = torch.einsum("nhd,ghd->gnh", h, ff["a_src"]).contiguous()
+    thd = torch.einsum("nhd,ghd->gnh", h, ff["a_dst"]).contiguous()
+    if out is not None:
+        mg_mod.launch(mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd, h,
+                      mg["edge_bias"], out, lse, leaky_slope=0.2)
+    return h, ths, thd
 
 
 # -- phase 4: training -------------------------------------------------------------
@@ -441,13 +537,13 @@ def multigraph_bwd_cost(ops):
 
 
 def fused_bwd_cost(ops):
-    """(bytes, flops, kernel_flops) of the fused backward launch on these
-    inputs.  ``flops`` is the work the function needs: each (table, block)
-    a live unit reads projected once, θ of each (graph, block) once, then
-    the multigraph backward's work per edge.  ``kernel_flops`` is what this
-    kernel does: it re-projects the src tile of every live slot and the dst
-    tile of every unit, and runs NA on whole B×B blocks; it explains the
-    kernel's time and is not its bound."""
+    """(bytes, flops, kernel_flops, projection) of the fused backward launch
+    on these inputs.  ``flops`` is the work the function needs: each
+    (table, block) a live unit reads projected once, θ of each (graph,
+    block) once, then the multigraph backward's work per edge.
+    ``kernel_flops`` is what the kernels do: phase P's whole 128-row tiles,
+    θ once per live unit and live slot, and NA on whole B×B blocks; it
+    explains the kernels' time and is not their bound."""
     col, gid, row, masks, x = (ops[k] for k in ("col_index", "graph_id", "dst_row", "masks", "x"))
     U, W = col.shape
     B = masks.shape[-1]
@@ -455,12 +551,11 @@ def fused_bwd_cost(ops):
     T, din = ops["w"].shape[:2]
     live_mask = col >= 0
     live = int(live_mask.sum())
+    live_units = int(live_mask.any(dim=1).sum())
     nblk = x.shape[0] // B
     g_of = gid.long()[:, None].expand(U, W)[live_mask]
     src_blk = col.long()[live_mask]
-    table = ops["wsel"].long()
-    projected = torch.unique(torch.cat([table[g_of] * nblk + src_blk,
-                                        table[gid.long()] * nblk + row.long()])).numel()
+    proj = fused_projection(ops)
     thetas = (torch.unique(g_of * nblk + src_blk).numel()
               + torch.unique(gid.long() * nblk + row.long()).numel())
     na = live_edges(col, masks) * H * (4 * Dh + 10)
@@ -469,9 +564,9 @@ def fused_bwd_cost(ops):
               + 4 * (x.numel() + ops["w"].numel() + ops["b"].numel() + 2 * G * H * Dh + G * H)
               + 4 * U * B * H * (2 * Dh + 1)
               + 4 * (T * x.shape[0] * H * Dh + 2 * G * H * Dh + G * H))
-    flops = projected * 2 * B * din * H * Dh + thetas * 2 * B * H * Dh + na
-    kernel_flops = (live + U) * (2 * B * din * H * Dh + 2 * B * H * Dh) + na_blocks
-    return nbytes, flops, kernel_flops
+    flops = proj["needed"] + thetas * 2 * B * H * Dh + na
+    kernel_flops = proj["done"] + (live + live_units) * 2 * B * H * Dh + na_blocks
+    return nbytes, flops, kernel_flops, proj
 
 
 def check_bwd(name, fn, plain, ops, out, lse, g):
@@ -527,8 +622,11 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
             mg_mod.seg_gat_agg_multigraph_bwd_plain, mg, out, lse, g))
         ff = exact_fused(ff)
         out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
+        again = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
         want = ff_mod.seg_gat_agg_fused_fp_plain(**ff)
         torch.cuda.synchronize()
+        if not (torch.equal(out_f, again[0]) and torch.equal(lse_f, again[1])):
+            raise AssertionError(f"fused_fp {name}: two runs on the same inputs differ")
         errs["fused_fp"] = max(errs["fused_fp"], compare(f"fused_fp {name}", (out_f, lse_f), want))
         errs["fused_fp_bwd"] = max(errs["fused_fp_bwd"], check_bwd(
             f"fused_fp_bwd {name}", ff_mod.seg_gat_agg_fused_fp_bwd,
@@ -554,49 +652,83 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
         cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_bwd_plain(**mg, out=out, lse=lse, g_out=g),
                 reps=1), None)
 
-    def xw(opsf):
-        h = torch.addmm(opsf["b"][0], opsf["x"], opsf["w"][0]).reshape(opsf["x"].shape[0], H, Dh)
-        return (h, torch.einsum("nhd,ghd->gnh", h, opsf["a_src"]),
-                torch.einsum("nhd,ghd->gnh", h, opsf["a_dst"]))
-
-    def xw_then_plain_na():
-        h, ths, thd = xw(ff)
-        return mg_mod.seg_gat_agg_multigraph_plain(
-            mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd, h, mg["edge_bias"])
-
-    def xw_then_plain_vjp():
-        h, ths, thd = xw(ff)
-        return mg_mod.seg_gat_agg_multigraph_bwd_plain(
-            mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd, h,
-            mg["edge_bias"], out_f, lse_f, g)
-
-    t["fused_fp"] = (cuda_ms(lambda: ff_mod.launch(**ff, out=o, lse=lo, leaky_slope=0.2), reps=2),
-                     cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**ff), reps=1),
-                     cuda_ms(xw_then_plain_na, reps=1))
-    fidx = ff_mod.bwd_index(ff["col_index"], ff["graph_id"], ff["dst_row"], ff["wsel"], G,
-                            ff["w"].shape[0], ff["x"].shape[0] // B)
+    fidx = ff_index(ff_mod, ff)
+    split_err = phase_p_split_error(ff_mod, tr_ff, fidx, "train")  # HAN's own, inexact operands
     delta_f = (g * out_f).sum(-1)
+
+    def composition_vjp():  # x @ W + b and θ as the MULTIGRAPH path has them, then #2
+        h, ths, thd = multigraph_composition(mg_mod, mg, ff)
+        mg_mod.launch_bwd(mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths, thd,
+                          h, mg["edge_bias"], g, lse_f, delta_f, idx, 0.2)
+
+    t["fused_fp"] = (
+        cuda_ms(lambda: ff_mod.launch(**ff, out=o, lse=lo, leaky_slope=0.2, index=fidx), reps=10),
+        cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**ff), reps=1), None,
+        cuda_ms(lambda: multigraph_composition(mg_mod, mg, ff, o, lo), reps=10))
     t["fused_fp_bwd"] = (
         cuda_ms(lambda: ff_mod.launch_bwd(**ff, g_out=g, lse=lse_f, delta=delta_f, index=fidx,
-                                          leaky_slope=0.2), reps=2),
+                                          leaky_slope=0.2), reps=10),
         cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_bwd_plain(**ff, out=out_f, lse=lse_f, g_out=g,
-                                                               need_dx=False), reps=1),
-        cuda_ms(xw_then_plain_vjp, reps=1))
+                                                               need_dx=False), reps=1), None,
+        cuda_ms(composition_vjp, reps=10))
+    fwd_cost, bwd_cost = fused_cost(ff), fused_bwd_cost(ff)
     costs = {"multigraph": multigraph_cost(mg)[:2], "multigraph_bwd": multigraph_bwd_cost(mg)[:2],
-             "fused_fp": fused_cost(ff)[:2], "fused_fp_bwd": fused_bwd_cost(ff)[:2]}
-    kernel_flops = {"fused_fp": fused_cost(ff)[2], "fused_fp_bwd": fused_bwd_cost(ff)[2]}
+             "fused_fp": fwd_cost[:2], "fused_fp_bwd": bwd_cost[:2]}
+    fused = {"fused_fp": fwd_cost, "fused_fp_bwd": bwd_cost}
     result = {}
-    for k, (ms, plain_ms, lib_ms) in t.items():
+    for k, (ms, plain_ms, lib_ms, *comp) in t.items():
         nbytes, flops = costs[k]
         bound, by = bound_ms(nbytes, flops)
         result[k] = dict(max_abs_err=errs[k], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
-                         kernel_flops=kernel_flops.get(k))
-        lib = "" if lib_ms is None else f", x@W + plain {lib_ms:.4f} ms"
-        extra = "" if k not in kernel_flops else f", flops as the kernel does them {kernel_flops[k]:.4e}"
-        log(f"[train time] {k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
-            f"{bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops{extra})")
+                         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+        extra = ""
+        if k in fused:
+            _, _, kernel_flops, proj = fused[k]
+            result[k].update(fused_bounds(nbytes, flops, proj["needed"]), multigraph_ms=comp[0],
+                             kernel_flops=kernel_flops, projection=proj, split_error=split_err)
+            bound, by = result[k]["bound_ms"], result[k]["bound_by"]
+            extra = (f"; flops as the kernels do them {kernel_flops:.4e}, projection "
+                     f"{proj['tiles']} row tiles for {proj['blocks']} blocks = "
+                     f"{proj['ratio']:.4f}x the needed rows; bound with split TF32 "
+                     f"{result[k]['bound_split_ms']:.4f} ms, all on the CUDA cores "
+                     f"{result[k]['bound_cuda_cores_ms']:.4f} ms; MULTIGRAPH composition "
+                     f"{comp[0]:.4f} ms")
+            if proj["ratio"] > 1.5:
+                raise AssertionError(f"{k}: phase P projects {proj['ratio']:.3f}x the rows the "
+                                     "function needs (limit 1.5)")
+        log(f"[train time] {k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops){extra}")
     return result
+
+
+def fused_alone() -> dict:
+    """Phase 4a on its own (``python3 -c 'import chip_smoke as c;
+    c.fused_alone()'``): builds #1-#4 and #6 (whose product #3 and #4
+    share), writes their ptxas reports, runs the training-shape kernel phase
+    on full IMDB and writes fused.json to the output directory."""
+    from repro_torch.core import fusion
+    from repro_torch.kernels import build
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import HAN
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(card_line())
+    OUT.mkdir(exist_ok=True)
+    check_ptxas(build.build(("seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd",
+                             "seg_gat_agg_fused_fp", "seg_gat_agg_fused_fp_bwd",
+                             "fused_fp_coeff")))
+    _, tdata = hgnn_train.build_problem(device="cuda", **TRAIN)
+    params0 = HAN.init(torch.Generator().manual_seed(0), tdata, **TRAIN_WIDTH,
+                       att_dim=2 * TRAIN_WIDTH["hidden"])
+    res = train_kernel_phase(tdata, params0, fusion,
+                             importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph"),
+                             importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp"))
+    res["card"] = card_line()
+    (OUT / "fused.json").write_text(json.dumps(res, indent=1, default=str))
+    log(res["card"])
+    return res
 
 
 def profiled(run, n) -> dict:
@@ -677,21 +809,29 @@ def training(data, counters, fusion_mod) -> dict:
     step_ff = make_hgnn_train_step(lambda p: han_forward(p, data, backend=NAB.FUSED_FP), data, opt)
     step_mg = make_hgnn_train_step(lambda p: han_forward(p, data, backend=NAB.MULTIGRAPH), data, opt)
     torch.cuda.reset_peak_memory_stats()
+    fused_fns = (counters["fused_fp"], counters["fused_fp_bwd"])
     for fn in counters.values():
         fn.launches = 0
+    for fn in fused_fns:
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     t0 = time.perf_counter()
     st, m0 = step_ff(state0, {"idx": idx})
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     st, prof_ff = profiled_steps(step_ff, st, idx, 2)
     launches = {k: fn.launches for k, fn in counters.items()}
-    res["fused_fp_run"] = dict(launches=launches, cold_ms=cold_ms, steady=prof_ff,
-                               peak_mem_bytes=torch.cuda.max_memory_allocated(), first_loss=float(m0["loss"]))
-    log(f"[train fused_fp] launches={json.dumps(launches)} step ms cold {cold_ms:.3f}, steady "
+    by_route = {k: dict(fn.launches_by_route) for k, fn in zip(("fused_fp", "fused_fp_bwd"), fused_fns)}
+    res["fused_fp_run"] = dict(launches=launches, launches_by_route=by_route, cold_ms=cold_ms,
+                               steady=prof_ff, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                               first_loss=float(m0["loss"]))
+    log(f"[train fused_fp] launches={json.dumps(launches)} by projection route "
+        f"{json.dumps(by_route)} step ms cold {cold_ms:.3f}, steady "
         f"{['%.3f' % s for s in prof_ff['steps_ms']]}, idle share {prof_ff['device_idle_share']:.4f}, "
         f"peak mem {res['fused_fp_run']['peak_mem_bytes'] / 2**30:.3f} GiB")
     if launches != {"multigraph": 0, "multigraph_bwd": 0, "fused_fp": 3, "fused_fp_bwd": 3}:
         raise AssertionError(f"FUSED_FP training launches are not 0/0/3/3 over 3 steps: {launches}")
+    if any(r["cuda_cores"] for r in by_route.values()):
+        raise AssertionError(f"FUSED_FP at H·Dh = 512 projected on the CUDA cores: {by_route}")
     if abs(float(m0["loss"]) - hist[0]["loss"]) > 1e-3 * abs(hist[0]["loss"]):
         raise AssertionError(f"FUSED_FP first loss {float(m0['loss'])} vs the main path's {hist[0]['loss']}")
     grads = {}
@@ -940,9 +1080,6 @@ def kernel6_cases(data, params) -> list[tuple[str, tuple]]:
     cases.append(("ragged 1001x37->4x16", (rnd(1001, 37), rnd(37, 64, sc=0.2), rnd(64, sc=0.1),
                                            rnd(4, 16), rnd(4, 16))))
     return cases
-
-
-PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, dense TF32 tensor cores
 
 
 def kernel6_cost(x, w, a_src) -> dict:
@@ -1776,6 +1913,10 @@ def main() -> int:
                            for m in ("R-GAT", "S-HGN")},
     }
     ms_per = {k: "one launch at the HAN training shapes" for k in by_path}
+    for k in ("fused_fp", "fused_fp_bwd"):
+        ms_per[k] += (" (phase P and the NA pass: one call, two kernels; multigraph_ms: x @ W + "
+                      "the θ einsums + #1 (#2 for the VJP) on the same operands, as MULTIGRAPH "
+                      "runs them; library_ms null: no PyTorch call computes fused FP+NA)")
     ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
     ms_per["fused_fp_coeff"] = ("one launch at R-GAT layer 0's actor projection "
                                 f"({train_kernels['fused_fp_coeff']['shape']}, float32): the "
@@ -1831,6 +1972,14 @@ def main() -> int:
                   launches_by_route={
                       r: sum(infer[m]["fused_fp_coeff_by_route"][r] for m in ("R-GAT", "S-HGN"))
                       for r in k6_mod.ROUTES})
+    for k in ("fused_fp", "fused_fp_bwd"):  # #3 and #4: no library call computes fused FP+NA
+        row = next(r for r in line["kernels"] if r["source"].endswith(f"seg_gat_agg_{k}.cu"))
+        tk = train_kernels[k]
+        row.update(multigraph_ms=tk["multigraph_ms"], bound_split_ms=tk["bound_split_ms"],
+                   bound_cuda_cores_ms=tk["bound_cuda_cores_ms"], split_error=tk["split_error"],
+                   kernel_flops=tk["kernel_flops"], flops=tk["flops"],
+                   projection_ratio=tk["projection"]["ratio"],
+                   launches_by_route=train["fused_fp_run"]["launches_by_route"][k])
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
                 train_kernels=train_kernels, training=train, inference=infer,
                 rgat_training=rgat_train, lm=lm,

@@ -18,10 +18,12 @@ Five interchangeable NA backends with identical semantics:
   multi-lane datapath; for one graph it is the differentiable per-graph
   route (kernels #1/#2 at G = 1).
 * ``FUSED_FP``   — the multigraph launch with the FP stage pulled inside
-  (``kernels/seg_gat_agg_fused_fp``): raw features are projected on chip
-  against per-graph weight tables and h' never goes to device memory
-  (paper Alg. 2, DESIGN.md §10).  Takes ``fp=FusedFPInputs`` in place of
-  the theta/h operands.
+  (``kernels/seg_gat_agg_fused_fp``): raw features and per-graph weight
+  tables go in (paper Alg. 2).  On the card each (table, row tile) a live
+  unit reads is projected once into an L2-sized workspace that the NA
+  sweep reads, where the reference keeps h' out of device memory (DESIGN.md
+  §10; the port's reason is in the kernel module).  Takes
+  ``fp=FusedFPInputs`` in place of the theta/h operands.
 
 On CUDA tensors the kernel backends launch the hand-written kernels; on
 CPU tensors the kernel wrappers take their plain PyTorch versions.
@@ -125,7 +127,11 @@ class FusedFPInputs:
 
     ``w``/``b`` are stacked per weight *table* and ``wsel`` maps each
     semantic graph to its table — graphs sharing a projection (HAN: all of
-    them) share one table.
+    them) share one table.  ``index`` is the topology index of kernels #3
+    and #4 (``kernels.seg_gat_agg_fused_fp.fused_index`` over
+    :func:`build_unit_tables` and :func:`fused_fp_rows`): None builds it in
+    every call; a caller that runs many steps on one batch set builds it
+    once.
     """
 
     x: torch.Tensor       # [N, Din]       raw features (shared src/dst space)
@@ -134,9 +140,10 @@ class FusedFPInputs:
     a_src: torch.Tensor   # [G, H, Dh]
     a_dst: torch.Tensor   # [G, H, Dh]
     wsel: torch.Tensor    # int32 [G]      graph -> weight-table row
+    index: dict | None = None
 
     @classmethod
-    def shared(cls, x, w, b, a_src, a_dst) -> "FusedFPInputs":
+    def shared(cls, x, w, b, a_src, a_dst, *, index: dict | None = None) -> "FusedFPInputs":
         """All graphs project through ONE weight table (HAN's layout)."""
         return cls(
             x=x,
@@ -145,6 +152,7 @@ class FusedFPInputs:
             a_src=a_src,
             a_dst=a_dst,
             wsel=torch.zeros((a_src.shape[0],), dtype=torch.int32, device=x.device),
+            index=index,
         )
 
 
@@ -188,6 +196,13 @@ def build_unit_tables(batches: list[SemanticGraphBatch]):
         row,
         masks.reshape(g_n * n_rows, w_max, b, b),
     )
+
+
+def fused_fp_rows(batches: list[SemanticGraphBatch]) -> int:
+    """Rows of the padded raw-feature table FUSED_FP streams: the src and dst
+    block rows of the batches, whichever reach further."""
+    b0 = batches[0]
+    return max(-(-b0.num_src // b0.block) * b0.block, b0.num_dst_pad)
 
 
 def project_coefficients(
@@ -271,6 +286,7 @@ def neighbor_aggregate_multi(
     backend: NABackend = NABackend.MULTIGRAPH,
     leaky_slope: float = 0.2,
     edge_bias: torch.Tensor | None = None,  # [G, H]
+    unit_tables: tuple | None = None,
     fp: FusedFPInputs | None = None,
 ) -> torch.Tensor:
     """NA for ALL semantic graphs of a step at once.  Returns
@@ -281,7 +297,9 @@ def neighbor_aggregate_multi(
     KERNEL are a per-graph loop of :func:`neighbor_aggregate` with the same
     semantics (KERNEL: one launch of kernel #5 per graph).  With FUSED_FP,
     pass ``fp=FusedFPInputs(...)`` and leave theta_src/theta_dst/h_src as
-    None.
+    None.  ``unit_tables`` (from :func:`build_unit_tables` on these
+    batches) may be passed to skip rebuilding them, as in the reference;
+    FUSED_FP's topology index goes in ``fp.index``.
 
     Spans (obs.trace, DESIGN.md §12): the multigraph backends emit one
     ``stage=NA`` span for the whole launch; the per-graph loop emits one
@@ -321,8 +339,10 @@ def neighbor_aggregate_multi(
                 "fused FP+NA streams ONE raw-feature table for both src and dst "
                 "tiles; src and dst must share the vertex space"
             )
-        col, gid, row, masks = build_unit_tables(batches)
-        x_pad = _pad_rows(fp.x, max(ns_pad, nd_pad)).contiguous()
+        if unit_tables is None:
+            unit_tables = build_unit_tables(batches)
+        col, gid, row, masks = unit_tables
+        x_pad = _pad_rows(fp.x, fused_fp_rows(batches)).contiguous()
         operands = (col, gid, row, fp.wsel, masks, x_pad, fp.w, fp.b, fp.a_src, fp.a_dst,
                     edge_bias)
         with trace_span(
@@ -331,12 +351,15 @@ def neighbor_aggregate_multi(
             graph_names=[bb.name for bb in batches],
         ) as sp:
             # [G*R*B, H, Dh] — units are g-major, rows in order
-            out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope))
+            out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope,
+                                               index=fp.index))
         return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
     if backend is not NABackend.MULTIGRAPH:
         raise ValueError(f"unknown NA backend {backend}")
-    col, gid, row, masks = build_unit_tables(batches)
+    if unit_tables is None:
+        unit_tables = build_unit_tables(batches)
+    col, gid, row, masks = unit_tables
     th_s = _pad_rows(theta_src.transpose(0, 1), ns_pad).transpose(0, 1).contiguous()
     th_d = _pad_rows(theta_dst.transpose(0, 1), nd_pad).transpose(0, 1).contiguous()
     hs = _pad_rows(h_src, ns_pad).contiguous()

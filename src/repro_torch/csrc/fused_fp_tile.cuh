@@ -1,7 +1,8 @@
-// The on-chip FP stage shared by the fused-FP forward and backward kernels
-// (seg_gat_agg_fused_fp.cu, seg_gat_agg_fused_fp_bwd.cu): a B x Din tile of
-// raw features projected through one weight table, and the tile's attention
-// coefficients.
+// The CUDA-core projection and the tile coefficients of the fused-FP
+// forward and backward kernels (seg_gat_agg_fused_fp.cu,
+// seg_gat_agg_fused_fp_bwd.cu): a B x Din tile of raw features projected
+// through one weight table (the CUDA-core route of their projection phase,
+// fused_fp_project.cuh), and the attention coefficients of a projected tile.
 //
 // The table does not fit in shared memory (7.1 MB at Din=3489, H*Dh=512,
 // against 227 KB a block), so the projection is K-tiled: x rows stream
@@ -67,7 +68,10 @@ __device__ void project_tile(const float* __restrict__ x, size_t row0, int Din,
   __syncthreads();
 }
 
-// theta[r, h] = <tile[r, h*Dh : (h+1)*Dh], a[h]> for r < B, h < H.
+// theta[r, h] = <tile[r, h*Dh : (h+1)*Dh], a[h]> for r < B, h < H, the
+// tile in shared memory.  Each thread starts its dot product at d = k mod
+// Dh (a fixed order per (r, h)), so that the threads of a warp, whose rows
+// lie H*Dh apart, read from different banks.
 template <int B>
 __device__ void tile_coefficients(const float* tile, const float* __restrict__ a,
                                   int H, int Dh, float* theta) {
@@ -76,7 +80,11 @@ __device__ void tile_coefficients(const float* tile, const float* __restrict__ a
     const float* t = tile + (size_t)r * H * Dh + h * Dh;
     const float* av = a + h * Dh;
     float s = 0.f;
-    for (int d = 0; d < Dh; ++d) s = fmaf(t[d], av[d], s);
+    int d = k % Dh;
+    for (int n = 0; n < Dh; ++n) {
+      s = fmaf(t[d], av[d], s);
+      d = (d + 1 == Dh) ? 0 : d + 1;
+    }
     theta[k] = s;
   }
 }

@@ -151,6 +151,24 @@ def tensor_core_emulation(x, w, b, a_src, a_dst, *, split: bool = True,
             torch.einsum("nhd,hd->nh", hh, a_dst.float()))
 
 
+def split_scratch(rows: int, K: int, C: int, T: int, S: int, device) -> tuple:
+    """The wgmma route's scratch (``csrc/split_tf32_gemm.cuh``'s layout) for
+    ``rows`` rows of x against ``T`` tables of w [K, C] in ``S`` K slices,
+    in one float32 buffer: w's split [2, T·C, Kp] (Kp = K rounded up to 4),
+    the slices' partials [S, rows, C], the chains' sums each slice stores
+    before its last [S, M, rows, C], the row tiles' split-K tickets.
+    Returns (the buffer, the four addresses); the buffer must stay
+    referenced until the launch is enqueued."""
+    n_wt = T * 2 * C * (-(-K // 4) * 4)
+    n_part = S * rows * C if S > 1 else 0
+    n_chain = S * ((-(-K // BLOCK_K // S) - 1) // CHAIN_TILES) * rows * C
+    n_tickets = -(-rows // BLOCK_M) * -(-C // BLOCK_N) if S > 1 else 0
+    scratch = torch.empty(n_wt + n_part + n_chain + n_tickets, dtype=torch.float32, device=device)
+    at = scratch.data_ptr()
+    return scratch, (at, at + 4 * n_wt, at + 4 * (n_wt + n_part),
+                     at + 4 * (n_wt + n_part + n_chain))
+
+
 def _kernel_fn(route_: str):
     lib = build.load(_NAME)
     if route_ == "wgmma":
@@ -166,9 +184,8 @@ def _kernel_fn(route_: str):
 def launch(x, w, b, a_src, a_dst, h, theta_src, theta_dst, *, route_: str | None = None) -> None:
     """Launch the kernel of ``route_`` (default :func:`route`) on checked
     operands into ``h``, ``theta_src`` and ``theta_dst``, on the current
-    stream.  The wgmma route allocates its scratch here: w's split and
-    transposed copy and, where needed, the slices' partials, the chains' sums
-    and the tiles' split-K tickets.  Counts one launch, in total and by
+    stream.  The wgmma route allocates its scratch here
+    (:func:`split_scratch`).  Counts one launch, in total and by
     route."""
     N, K = x.shape
     H, Dh = a_src.shape
@@ -179,20 +196,10 @@ def launch(x, w, b, a_src, a_dst, h, theta_src, theta_dst, *, route_: str | None
     p, dev = build.ptr, x.device
     with torch.cuda.device(dev):
         if route_ == "wgmma":
-            C, S = H * Dh, split_k(N, K, H * Dh)
-            # one scratch buffer: w's split [2, C, Kp] (Kp = K rounded up to 4),
-            # the slices' partials [S, N, C], the chains' sums each slice
-            # stores before its last [S, M, N, C], the tiles' split-K tickets
-            n_wt = 2 * C * (-(-K // 4) * 4)
-            n_part = S * N * C if S > 1 else 0
-            n_chain = S * ((-(-K // BLOCK_K // S) - 1) // CHAIN_TILES) * N * C
-            n_tickets = -(-N // BLOCK_M) * -(-C // BLOCK_N) if S > 1 else 0
-            scratch = torch.empty(n_wt + n_part + n_chain + n_tickets, dtype=torch.float32,
-                                  device=dev)
-            at = scratch.data_ptr()
+            S = split_k(N, K, H * Dh)
+            scratch, addresses = split_scratch(N, K, H * Dh, 1, S, dev)
             err = fn(p(x), p(w), p(b), p(a_src), p(a_dst), p(h), p(theta_src), p(theta_dst),
-                     at, at + 4 * n_wt, at + 4 * (n_wt + n_part),
-                     at + 4 * (n_wt + n_part + n_chain), N, K, H, Dh, S, build.stream_of(x))
+                     *addresses, N, K, H, Dh, S, build.stream_of(x))
         else:
             err = fn(p(x), p(w), p(b), p(a_src), p(a_dst), p(h), p(theta_src), p(theta_dst),
                      N, K, H, Dh, int(x.dtype == torch.bfloat16), build.stream_of(x))

@@ -1,28 +1,38 @@
-"""Stage-fusion megakernel, forward and backward: FP+NA in one launch (paper Alg. 2).
+"""Stage-fusion megakernel, forward and backward: FP+NA in one call (paper Alg. 2).
 
 The multigraph NA of ``seg_gat_agg_multigraph`` with the FP stage pulled
-inside: the kernel streams **raw** feature tiles, projects them on chip
-through the unit's weight table ``W[wsel[gid]]``, takes the attention
-coefficients from the projected tile while it is on chip, and feeds it
-straight into the online-softmax aggregation.  Projected features never
-go to device memory.  The dst tile of a unit is projected once and its
-theta_dst kept for the whole sweep; each live src slot's tile is
-projected where it is used.
+inside: the call takes **raw** features and the weight tables, projects
+``h = x·W[t] + b[t]`` (t = ``wsel[graph]``), takes the attention
+coefficients from the float32 h and feeds it into the online-softmax
+aggregation.
 
-:func:`seg_gat_agg_fused_fp_fwd` is the wrapper: CUDA tensors launch the
-hand-written kernel ``csrc/seg_gat_agg_fused_fp.cu``; CPU tensors take
+On the card each call runs two kernels back to back, counted as one
+launch.  Phase P projects every (weight table, 128-row tile) that a live
+unit reads exactly once (:func:`row_tiles`, from the topology alone) into
+a workspace ``h [T, N_pad, H·Dh]`` in device memory: on the tensor cores
+by split TF32 (kernel #6's product, ``csrc/split_tf32_gemm.cuh``) or, on
+the widths that route does not take, on the CUDA cores (:func:`route`).
+Phase A runs the NA sweep per unit, copying its B × H·Dh tiles from h.
+Unlike the TPU kernel, which re-projects a src tile for every (unit, slot)
+and keeps h in VMEM, projected features do go to device memory: a src
+tile is read by hundreds of units spread over every SM, and only L2 (50
+MB; h is 10.1 MB at HAN's full-IMDB shape) is shared by all of them.
+
+:func:`seg_gat_agg_fused_fp_fwd` is the wrapper: CUDA tensors launch
+``csrc/seg_gat_agg_fused_fp.cu``; CPU tensors take
 :func:`seg_gat_agg_fused_fp_plain`, which projects every vertex once and
 then aggregates (the plain version, and the oracle the kernel is held
 against).
 
-The backward (:func:`seg_gat_agg_fused_fp_bwd`) recomputes both
-projections and p on chip: CUDA tensors launch
-``csrc/seg_gat_agg_fused_fp_bwd.cu`` (per-live-slot and per-unit
-projection-space partials, then deterministic segmented sums by weight
-table and by graph); the chain through ``h = x·W[t] + b[t]`` is two plain
-products.  CPU tensors take :func:`seg_gat_agg_fused_fp_bwd_plain`.
+The backward (:func:`seg_gat_agg_fused_fp_bwd`) recomputes h by phase P
+and p from ``lse``: CUDA tensors launch ``csrc/seg_gat_agg_fused_fp_bwd.cu``
+(per-live-slot and per-unit projection-space partials, then deterministic
+segmented sums by weight table and by graph); the chain through h is two
+plain products.  CPU tensors take :func:`seg_gat_agg_fused_fp_bwd_plain`.
 :func:`seg_gat_agg_fused_fp` is the differentiable entry point (a
-``torch.autograd.Function`` around kernels #3 and #4).
+``torch.autograd.Function`` around kernels #3 and #4).  The topology index
+both directions read (:func:`fused_index`) may be built once per batch set
+and passed in.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import ctypes
 import torch
 
 from . import build
+from .fused_fp_coeff import BLOCK_M, split_error, split_k, split_scratch
 from .seg_gat_agg_multigraph import (
     check_smem,
     csr,
@@ -39,7 +50,10 @@ from .seg_gat_agg_multigraph import (
     unit_softmax_aggregate_vjp,
 )
 
-K_TILE = 32  # Din columns staged per step of the K-tiled projection, as in the .cu source
+ROW_TILE = BLOCK_M  # rows of x a tile of phase P covers (csrc/fused_fp_project.cuh: kRowTile)
+ROUTES = ("wgmma", "cuda_cores")  # phase P's projection: tensor cores, CUDA cores
+_ROUTE_CODE = {"wgmma": 0, "cuda_cores": 1}
+_TOPOLOGY = ("col_index", "graph_id", "dst_row", "wsel")  # what fused_index reads
 _NAME = "seg_gat_agg_fused_fp"
 _BWD_NAME = "seg_gat_agg_fused_fp_bwd"
 
@@ -101,13 +115,62 @@ def seg_gat_agg_fused_fp_bwd_plain(
 
 
 def smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block of the forward (mirrors the .cu layout)."""
-    return 4 * (2 * B * H * Dh + H * B * B + K_TILE * B + 5 * B * H) + B * B
+    """Dynamic shared memory of one block of the forward's phase A (mirrors
+    the .cu layout)."""
+    return 4 * (2 * B * H * Dh + H * B * B + 5 * B * H) + B * B
 
 
 def bwd_smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block of the backward (mirrors the .cu layout)."""
-    return 4 * (3 * B * H * Dh + 2 * H * B * B + K_TILE * B + H * Dh + 6 * B * H) + B * B
+    """Dynamic shared memory of one block of the backward's pass 1 (mirrors
+    the .cu layout)."""
+    return 4 * (2 * B * H * Dh + 2 * H * B * B + H * Dh + 6 * B * H) + B * B
+
+
+def route(H: int, Dh: int) -> str:
+    """Which kernel projects in phase P on the card: ``"wgmma"`` (split TF32
+    on the tensor cores, kernel #6's product) wherever that kernel takes
+    the width, H·Dh a multiple of 8 (``csrc/fused_fp_project.cuh``), else
+    ``"cuda_cores"`` (float32 FMAs)."""
+    return "wgmma" if (H * Dh) % 8 == 0 else "cuda_cores"
+
+
+def row_tiles(col_index, graph_id, dst_row, wsel, n_pad: int, block: int) -> torch.Tensor:
+    """The tiles phase P projects: int32 ids ``t·R + r`` (R = ceil(N_pad /
+    ROW_TILE) row tiles a table), sorted, each once.  Tile (t, r) is listed
+    iff a live unit reads a block of rows ``r·ROW_TILE ..`` through table t:
+    the src block of one of its live slots, or its dst block (a unit with
+    no live slot reads nothing).  Depends on the topology only."""
+    per = ROW_TILE // block
+    R = -(-n_pad // ROW_TILE)
+    live = col_index >= 0
+    table = wsel.long()[graph_id.long()]
+    src = table[:, None].expand_as(col_index)[live] * R + col_index.long()[live] // per
+    unit_live = live.any(dim=1)
+    dst = table[unit_live] * R + dst_row.long()[unit_live] // per
+    return torch.unique(torch.cat([src, dst])).int().contiguous()
+
+
+def tile_rows(tiles, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows phase P writes for the listed ``tiles``: (table, row), two
+    int64 tensors, tile by tile."""
+    R = -(-n_pad // ROW_TILE)
+    ids = tiles.long()
+    rows = (ids % R)[:, None] * ROW_TILE + torch.arange(ROW_TILE, device=ids.device)
+    keep = rows < n_pad
+    return (ids // R)[:, None].expand_as(rows)[keep], rows[keep]
+
+
+def projection_split_error(h, tiles, x, w, b) -> float:
+    """``fused_fp_coeff.split_error`` of phase P's workspace ``h [T, N_pad,
+    C]`` (:func:`launch` returns it) over the rows of the listed ``tiles``
+    (:func:`tile_rows`), table by table, against ``x·W[t] + b[t]``: what
+    ``SPLIT_ERROR_MAX`` holds the wgmma route to."""
+    table, rows = tile_rows(tiles, x.shape[0])
+    err = 0.0
+    for t in torch.unique(table).tolist():
+        r = rows[table == t]
+        err = max(err, split_error(h[t, r], x[r], w[t], b[t]))
+    return err
 
 
 def bwd_index(col_index, graph_id, dst_row, wsel, n_graphs: int, n_tables: int,
@@ -125,10 +188,68 @@ def bwd_index(col_index, graph_id, dst_row, wsel, n_graphs: int, n_tables: int,
                 table=csr(keys, n_tables * nblk), graph=csr(graph_id, n_graphs))
 
 
+def fused_index(col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int, block: int,
+                *, backward: bool = True) -> dict:
+    """The topology index kernels #3 and #4 read, on the topology's device:
+    ``tiles`` (:func:`row_tiles`) and, with ``backward``, :func:`bwd_index`'s
+    live-slot numbering and CSRs.  It takes a device sort and host syncs, so
+    a caller that runs many steps on one batch set builds it once and passes
+    it to every call.  ``built_for`` records what it was built for, which
+    :func:`check_index` holds each call to: (U, W, B, T, N_pad) and the four
+    topology tensors, each with its version counter and a copy of its
+    values."""
+    topology = (col_index, graph_id, dst_row, wsel)
+    index = dict(tiles=row_tiles(col_index, graph_id, dst_row, wsel, n_pad, block),
+                 built_for=dict(shape=(*col_index.shape, block, n_tables, n_pad),
+                                operands={k: (t, t._version, t.clone())
+                                          for k, t in zip(_TOPOLOGY, topology)}))
+    if backward:
+        index.update(bwd_index(col_index, graph_id, dst_row, wsel, int(wsel.numel()), n_tables,
+                               n_pad // block))
+    return index
+
+
+def check_index(index: dict, col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int,
+                block: int) -> None:
+    """Raise unless ``index`` is :func:`fused_index` of this topology: the
+    same (U, W, B, T, N_pad) and the same values of col_index, graph_id,
+    dst_row and wsel.  Phase A reads only the rows of h that phase P wrote,
+    so an index of another topology gives wrong numbers, not an error.  A
+    tensor the index was built from, unchanged since (its version counter),
+    passes without reading the device; any other is compared by value."""
+    built = index.get("built_for")
+    if built is None:
+        raise ValueError(f"{_NAME}: index is not one of fused_index")
+    shape = (*col_index.shape, block, n_tables, n_pad)
+    if built["shape"] != shape:
+        raise ValueError(f"{_NAME}: the index was built for (U, W, B, T, N_pad) = "
+                         f"{built['shape']}, the operands have {shape}")
+    for name, t in zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)):
+        ref, version, values = built["operands"][name]
+        if t is ref and t._version == version:
+            continue
+        if t.shape != values.shape or not torch.equal(t, values.to(t.device)):
+            raise ValueError(f"{_NAME}: the index was built for another {name}")
+
+
+def _projection_scratch(route_: str, n_tiles: int, T: int, n_pad: int, din: int, C: int,
+                        device) -> tuple:
+    """Phase P's workspace ``h [T, N_pad, C]`` and, on the wgmma route, its
+    scratch (``fused_fp_coeff.split_scratch`` over the listed tiles' rows).
+    Returns (h, scratch, S, the four scratch addresses)."""
+    h = torch.empty((T, n_pad, C), dtype=torch.float32, device=device)
+    if route_ == "cuda_cores" or n_tiles == 0:
+        return h, None, 1, (0, 0, 0, 0)
+    S = split_k(n_tiles * ROW_TILE, din, C)
+    scratch, addresses = split_scratch(n_tiles * ROW_TILE, din, C, T, S, device)
+    return h, scratch, S, addresses
+
+
 def _kernel_fn():
     lib = build.load(_NAME)
     fn = lib.seg_gat_agg_fused_fp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -136,45 +257,68 @@ def _kernel_fn():
 def _bwd_kernel_fn():
     lib = build.load(_BWD_NAME)
     fn = lib.seg_gat_agg_fused_fp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 33 + [ctypes.c_int] * 14
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-           edge_bias, out, lse, leaky_slope: float) -> None:
-    """Launch the CUDA kernel on checked operands into ``out``/``lse``, on
-    the current stream.  Counts one launch."""
+           edge_bias, out, lse, leaky_slope: float, index: dict) -> torch.Tensor:
+    """Launch phase P (on :func:`route`) and phase A on checked operands and
+    :func:`fused_index`'s ``index`` (held to them by :func:`check_index`)
+    into ``out``/``lse``, on the current stream.  Returns phase P's
+    workspace ``h [T, N_pad, H·Dh]``: the rows of the listed tiles hold
+    ``x·W[t] + b[t]``, the others are undefined.  Counts one launch, in
+    total and by projection route."""
     U, W = col_index.shape
     B = masks.shape[-1]
     H, Dh = a_src.shape[1:]
-    din = w.shape[1]
+    T, din = w.shape[:2]
+    n_pad = x.shape[0]
+    check_index(index, col_index, graph_id, dst_row, wsel, T, n_pad, B)
+    route_ = route(H, Dh)
+    tiles = index["tiles"]
+    L = int(tiles.numel())
+    # h and the scratch buffer stay referenced until the launch is enqueued
+    h, scratch, S, (wt, part, chains, tickets) = _projection_scratch(
+        route_, L, T, n_pad, din, H * Dh, x.device)
     lib, fn = _kernel_fn()
+    p = build.ptr
     with torch.cuda.device(x.device):
         err = fn(
-            build.ptr(col_index), build.ptr(graph_id), build.ptr(dst_row), build.ptr(wsel),
-            build.ptr(masks), build.ptr(x), build.ptr(w), build.ptr(b),
-            build.ptr(a_src), build.ptr(a_dst), build.ptr(edge_bias),
-            build.ptr(out), build.ptr(lse),
-            U, W, B, din, H, Dh, leaky_slope, build.stream_of(x),
+            p(col_index), p(graph_id), p(dst_row), p(wsel), p(masks), p(x), p(w), p(b),
+            p(a_src), p(a_dst), p(edge_bias), p(tiles), p(h), wt, part, chains, tickets,
+            p(out), p(lse),
+            U, W, B, T, n_pad, din, H, Dh, L, -(-n_pad // ROW_TILE), _ROUTE_CODE[route_], S,
+            leaky_slope, build.stream_of(x),
         )
     build.check_error(lib, _NAME, err)
     seg_gat_agg_fused_fp_fwd.launches += 1
+    seg_gat_agg_fused_fp_fwd.launches_by_route[route_] += 1
+    return h
 
 
 def launch_bwd(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
                g_out, lse, delta, index: dict, leaky_slope: float):
-    """Launch the backward kernel (pass 1 and its reductions) on checked
-    operands and :func:`bwd_index`'s ``index``, on the current stream.
-    Returns (dh_t [T, N_pad, H·Dh], d_a_src, d_a_dst, d_edge_bias).
-    Counts one launch."""
+    """Launch the backward (phase P on :func:`route`, then pass 1 and its
+    reductions) on checked operands and :func:`fused_index`'s ``index``
+    (with its backward part; held to them by :func:`check_index`), on the
+    current stream.  Returns (dh_t [T, N_pad, H·Dh], d_a_src, d_a_dst,
+    d_edge_bias).  Counts one launch, in total and by projection route."""
     U, W = col_index.shape
     B = masks.shape[-1]
     G, H, Dh = a_src.shape
     T, din = w.shape[:2]
     n_pad = x.shape[0]
+    check_index(index, col_index, graph_id, dst_row, wsel, T, n_pad, B)
+    route_ = route(H, Dh)
     n_live = index["n_live"]
+    tiles = index["tiles"]
+    L = int(tiles.numel())
     f32 = dict(dtype=torch.float32, device=x.device)
+    h, scratch, S, (wt, part, chains, tickets) = _projection_scratch(
+        route_, L, T, n_pad, din, H * Dh, x.device)
     dh_part = torch.empty((n_live + U, B, H * Dh), **f32)
     dthd_units = torch.empty((U, B * H), **f32)
     das_units = torch.empty((U, H * Dh), **f32)
@@ -189,13 +333,16 @@ def launch_bwd(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
         err = fn(
             p(col_index), p(index["pair_of"]), p(graph_id), p(dst_row), p(wsel), p(masks),
             p(x), p(w), p(b), p(a_src), p(a_dst), p(edge_bias), p(g_out), p(lse), p(delta),
+            p(tiles), p(h), wt, part, chains, tickets,
             p(dh_part), p(dthd_units), p(das_units), p(dad_units),
             *(p(t) for key in ("table", "graph") for t in index[key]),
             p(dh_t), p(d_a_src), p(d_a_dst), p(dthd_g),
-            U, W, n_live, B, G, T, n_pad, din, H, Dh, leaky_slope, build.stream_of(x),
+            U, W, n_live, B, G, T, n_pad, din, H, Dh, L, -(-n_pad // ROW_TILE),
+            _ROUTE_CODE[route_], S, leaky_slope, build.stream_of(x),
         )
     build.check_error(lib, _BWD_NAME, err)
     seg_gat_agg_fused_fp_bwd.launches += 1
+    seg_gat_agg_fused_fp_bwd.launches_by_route[route_] += 1
     return dh_t, d_a_src, d_a_dst, dthd_g.sum(dim=1)
 
 
@@ -252,26 +399,35 @@ def seg_gat_agg_fused_fp_fwd(
     edge_bias: torch.Tensor | None = None,  # f32 [G, H]
     *,
     leaky_slope: float = 0.2,
+    index: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused FP+NA: per-unit aggregates ``out [U·B, H, Dh]`` (same contract
     as ``seg_gat_agg_multigraph_fwd``) and ``lse [U·B, H]``.  ``x`` must
     cover every block index in ``col_index``/``dst_row`` (N_pad = n_blocks·B).
 
     CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only."""
+    float32 only.  ``index``: :func:`fused_index` of these operands, built
+    here when None; one built for another topology raises
+    (:func:`check_index`)."""
     w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
                                       a_src, a_dst, edge_bias)
     if x.device.type == "cpu":
+        if index is not None:
+            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0],
+                        masks.shape[-1])
         return seg_gat_agg_fused_fp_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
             edge_bias, leaky_slope=leaky_slope,
         )
     U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape[1:]
     check_smem(_NAME, B, H, Dh, smem_bytes(B, H, Dh))
+    if index is None:
+        index = fused_index(col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B,
+                            backward=False)
     out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=x.device)
     lse = torch.empty((U * B, H), dtype=torch.float32, device=x.device)
     launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-           edge_bias, out, lse, float(leaky_slope))
+           edge_bias, out, lse, float(leaky_slope), index)
     return out, lse
 
 
@@ -283,13 +439,16 @@ def seg_gat_agg_fused_fp_bwd(
     *,
     leaky_slope: float = 0.2,
     need_dx: bool = True,
+    index: dict | None = None,
 ):
     """The VJP of :func:`seg_gat_agg_fused_fp_fwd`: (d_x or None, d_w
     [T, Din, H·Dh], d_b [T, H·Dh], d_a_src, d_a_dst, d_edge_bias), bitwise
     repeatable on the card.  ``need_dx=False`` skips the ``d_x`` product.
 
     CUDA operands launch the backward kernel; CPU operands take the plain
-    version.  float32 only."""
+    version.  float32 only.  ``index``: :func:`fused_index` of these
+    operands with its backward part, built here when None or without it;
+    one built for another topology raises (:func:`check_index`)."""
     w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
                                       a_src, a_dst, edge_bias)
     dev = x.device
@@ -298,12 +457,15 @@ def seg_gat_agg_fused_fp_bwd(
     build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
     build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
     if dev.type == "cpu":
+        if index is not None:
+            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B)
         return seg_gat_agg_fused_fp_bwd_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
             out, lse, g_out, leaky_slope=leaky_slope, need_dx=need_dx,
         )
     check_smem(_BWD_NAME, B, H, Dh, bwd_smem_bytes(B, H, Dh))
-    index = bwd_index(col_index, graph_id, dst_row, wsel, G, w.shape[0], x.shape[0] // B)
+    if index is None or "pair_of" not in index:
+        index = fused_index(col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B)
     delta = (g_out * out).sum(dim=-1)
     dh_t, d_a_src, d_a_dst, d_bias = launch_bwd(
         col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
@@ -313,21 +475,25 @@ def seg_gat_agg_fused_fp_bwd(
 
 
 seg_gat_agg_fused_fp_fwd.launches = 0
+seg_gat_agg_fused_fp_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 seg_gat_agg_fused_fp_bwd.launches = 0
+seg_gat_agg_fused_fp_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class FusedFPNA(torch.autograd.Function):
-    """Forward kernel #3 keeping ``out`` and ``lse``; backward kernel #4."""
+    """Forward kernel #3 keeping ``out`` and ``lse``; backward kernel #4,
+    both reading the same topology index."""
 
     @staticmethod
     def forward(ctx, col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-                edge_bias, leaky_slope):
+                edge_bias, leaky_slope, index):
         out, lse = seg_gat_agg_fused_fp_fwd(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
-            leaky_slope=leaky_slope)
+            leaky_slope=leaky_slope, index=index)
         ctx.save_for_backward(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src,
                               a_dst, edge_bias, out, lse)
         ctx.leaky_slope = leaky_slope
+        ctx.index = index
         return out
 
     @staticmethod
@@ -335,18 +501,21 @@ class FusedFPNA(torch.autograd.Function):
         *operands, out, lse = ctx.saved_tensors
         grads = seg_gat_agg_fused_fp_bwd(*operands, out, lse, g_out.contiguous(),
                                          leaky_slope=ctx.leaky_slope,
-                                         need_dx=ctx.needs_input_grad[5])
-        return (None, None, None, None, None, *grads, None)
+                                         need_dx=ctx.needs_input_grad[5], index=ctx.index)
+        return (None, None, None, None, None, *grads, None, None)
 
 
 def seg_gat_agg_fused_fp(
     col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
     edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
+    index: dict | None = None,
 ) -> torch.Tensor:
     """Differentiable fused FP+NA ``[U·B, H, Dh]`` (the counterpart of
     ``repro``'s ``seg_gat_agg_fused_fp``): gradients flow to x, w, b,
     a_src, a_dst and edge_bias through kernel #4.  A 2-D ``w`` / 1-D ``b``
-    is one shared table."""
+    is one shared table.  ``index``: :func:`fused_index` of the topology,
+    built once by a caller that runs many steps on it (else each call
+    builds what it needs)."""
     if w.dim() == 2:
         w = w[None]
     if b.dim() == 1:
@@ -355,4 +524,4 @@ def seg_gat_agg_fused_fp(
         G, H, _ = a_src.shape
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=x.device)
     return FusedFPNA.apply(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-                           edge_bias, float(leaky_slope))
+                           edge_bias, float(leaky_slope), index)

@@ -17,7 +17,14 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ...core.fusion import NABackend, SemanticGraphBatch, batch_semantic_graph
+from ...core.fusion import (
+    NABackend,
+    SemanticGraphBatch,
+    batch_semantic_graph,
+    build_unit_tables,
+    fused_fp_rows,
+)
+from ...kernels.seg_gat_agg_fused_fp import fused_index
 from ...graphs.hetgraph import HetGraph, SemanticGraph
 from ...runtime import resolve_device
 
@@ -31,10 +38,43 @@ class HGNNData:
     target_type: str
     num_classes: int
     labels: torch.Tensor | None = None       # int64 [N_target]
+    _topology: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
 
     @property
     def feature_dims(self) -> dict[str, int]:
         return {t: int(x.shape[1]) for t, x in self.features.items()}
+
+    def _topology_cache(self) -> dict:
+        """What is built from ``graphs`` once, emptied when ``graphs`` no
+        longer holds the batches it was built from."""
+        built_from = self._topology.get("graphs")
+        if built_from is None or len(built_from) != len(self.graphs) or any(
+                a is not b for a, b in zip(built_from, self.graphs)):
+            self._topology.clear()
+            self._topology["graphs"] = tuple(self.graphs)
+        return self._topology
+
+    def unit_tables(self) -> tuple:
+        """``build_unit_tables(self.graphs)``, built on first use and kept
+        while ``graphs`` holds the same batches: the topology is the same in
+        every step."""
+        cache = self._topology_cache()
+        if "unit_tables" not in cache:
+            cache["unit_tables"] = build_unit_tables(self.graphs)
+        return cache["unit_tables"]
+
+    def shared_table_index(self) -> dict:
+        """FUSED_FP's topology index (kernels #3 and #4's ``fused_index``)
+        of all graphs through one shared weight table (HAN's layout), built
+        on first use and kept as :meth:`unit_tables` is."""
+        cache = self._topology_cache()
+        if "shared_table_index" not in cache:
+            col, gid, row, _ = self.unit_tables()
+            wsel = torch.zeros(len(self.graphs), dtype=torch.int32, device=col.device)
+            cache["shared_table_index"] = fused_index(
+                col, gid, row, wsel, 1, fused_fp_rows(self.graphs), self.graphs[0].block)
+        return cache["shared_table_index"]
 
 
 def prepare_data(

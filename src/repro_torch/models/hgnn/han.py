@@ -84,11 +84,15 @@ def _han_embed(params, data: HGNNData, backend: NABackend):
     n = x.shape[0]
 
     if backend is NABackend.FUSED_FP:
-        # FP happens inside the NA launch: raw x streams through the fused
-        # kernel and h' never goes to device memory (DESIGN.md §10)
+        # FP happens inside the NA call: raw x goes to the fused kernels,
+        # which project each (table, row tile) the units read once; the
+        # unit tables and the kernels' topology index are built once per
+        # data set, not per step
         fp = FusedFPInputs.shared(
-            x, params["w_fp"], params["b_fp"], params["a_src"], params["a_dst"])
-        z_all = neighbor_aggregate_multi(data.graphs, None, None, None, backend=backend, fp=fp)
+            x, params["w_fp"], params["b_fp"], params["a_src"], params["a_dst"],
+            index=data.shared_table_index())
+        z_all = neighbor_aggregate_multi(data.graphs, None, None, None, backend=backend,
+                                         unit_tables=data.unit_tables(), fp=fp)
         return _fuse(z_all, params, n)
 
     h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
@@ -97,7 +101,8 @@ def _han_embed(params, data: HGNNData, backend: NABackend):
         # all relations' theta in one einsum, all relations' NA in ONE launch
         th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
         th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
-        z_all = neighbor_aggregate_multi(data.graphs, th_s, th_d, hh, backend=backend)
+        z_all = neighbor_aggregate_multi(data.graphs, th_s, th_d, hh, backend=backend,
+                                         unit_tables=data.unit_tables())
         return _fuse(z_all, params, n)
 
     z_all = []

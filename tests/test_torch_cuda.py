@@ -6,7 +6,13 @@ host with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Backward kernels #2 and #4 against their plain versions (atol=rtol=1e-4,
-float32 sums in another order), each run twice and bitwise equal; kernel
+float32 sums in another order), each run twice and bitwise equal; #3 and
+#4 on both routes of their projection phase (tensor cores at H·Dh = 8
+and 256, CUDA cores at H·Dh = 9) on a ragged Din, row counts that are
+not a multiple of its 128-row tile, two tables and units that read a
+subset of the blocks, twice bitwise equal and counted by route, and the
+tensor-core route's projection on inexact operands under
+SPLIT_ERROR_MAX; kernel
 #5 against its plain version for B in {8, 16, 32} and its edge cases; the
 trainer (HAN and R-GAT) on the card against the CPU; kernel training
 bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU;
@@ -20,6 +26,8 @@ on both routes (bf16 also within one rounding, atol=1e-4, rtol=8e-3; on
 the wgmma route at least BITWISE_SHARE_MIN of the outputs that rounding
 bitwise) and the LM decoder.
 Every test carries the ``cuda`` marker and skips without a card."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +49,7 @@ from repro_torch.kernels import (
     seg_gat_agg_fused_fp_bwd,
     seg_gat_agg_fused_fp_bwd_plain,
     seg_gat_agg_fused_fp_fwd,
+    seg_gat_agg_fused_fp_plain,
     seg_gat_agg_multigraph_bwd,
     seg_gat_agg_multigraph_bwd_plain,
     seg_gat_agg_multigraph_fwd,
@@ -56,6 +65,9 @@ from repro_torch.models.lm.api import build as build_lm
 from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, prepare_data
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
+
+# the module, not the differentiable function the package exports by the same name
+fused_ffp = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
 
 
 def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
@@ -105,14 +117,17 @@ MULTI_CASES = {
 
 
 def fused_case(seed, *, units=6, width=3, nblk=5, graphs=3, tables=2, din=12, B=8, H=2, DH=4,
-                degenerate=False):
+                degenerate=False, reach=None, a_scale=1.0):
     """tests/test_fused_fp.py:_rand_tables, with an all-padding unit and a
-    fully masked row when ``degenerate``."""
+    fully masked row when ``degenerate``; the units read blocks below
+    ``reach`` (default all ``nblk``) only; a_src and a_dst times
+    ``a_scale``."""
     rng = np.random.default_rng(seed)
-    col = rng.integers(-1, nblk, (units, width)).astype(np.int32)
+    reach = nblk if reach is None else reach
+    col = rng.integers(-1, reach, (units, width)).astype(np.int32)
     col[:, 0] = np.maximum(col[:, 0], 0)
     gid = rng.integers(0, graphs, (units,)).astype(np.int32)
-    row = rng.integers(0, nblk, (units,)).astype(np.int32)
+    row = rng.integers(0, reach, (units,)).astype(np.int32)
     wsel = rng.integers(0, tables, (graphs,)).astype(np.int32)
     masks = rng.random((units, width, B, B)) < 0.6
     masks[:, 0, 0, 0] = True
@@ -123,18 +138,38 @@ def fused_case(seed, *, units=6, width=3, nblk=5, graphs=3, tables=2, din=12, B=
     x = rng.standard_normal((n, din)).astype(np.float32)
     w = (rng.standard_normal((tables, din, H * DH)) / np.sqrt(din)).astype(np.float32)
     b = rng.standard_normal((tables, H * DH)).astype(np.float32) * 0.1
-    a_s = rng.standard_normal((graphs, H, DH)).astype(np.float32)
-    a_d = rng.standard_normal((graphs, H, DH)).astype(np.float32)
+    a_s = (rng.standard_normal((graphs, H, DH)) * a_scale).astype(np.float32)
+    a_d = (rng.standard_normal((graphs, H, DH)) * a_scale).astype(np.float32)
     bias = rng.standard_normal((graphs, H)).astype(np.float32) * 0.3
     return col, gid, row, wsel, masks, x, w, b, a_s, a_d, bias
 
 
-FUSED_CASES = {
+FUSED_CASES = {  # every N_pad here is not a multiple of the 128-row tile of phase P
     "seed2": lambda: fused_case(2),
     "seed1-one-table-degenerate": lambda: fused_case(1, tables=1, degenerate=True),
     "seed3-degenerate": lambda: fused_case(3, degenerate=True),
     "W=1-din=37": lambda: fused_case(4, units=4, width=1, din=37),
+    # two tables over 3 row tiles, the units reading blocks 0..9 only: tile 2 unread
+    "T=2-B=16-subset": lambda: fused_case(11, units=8, nblk=24, B=16, reach=10,
+                                          degenerate=True),
+    "B=32-din=37": lambda: fused_case(12, units=5, width=2, nblk=5, B=32, din=37),
+    # H·Dh = 9: phase P on the CUDA cores, tiles copied by 4-byte cp.async
+    "C=9-T=2-B=16-subset-din=37": lambda: fused_case(16, units=8, nblk=24, B=16, reach=10,
+                                                     din=37, H=3, DH=3, degenerate=True),
+    "C=9-B=32": lambda: fused_case(17, units=5, width=2, nblk=5, B=32, H=3, DH=3),
 }
+# The card's cases of #3 and #4 on both projection routes: FUSED_CASES (H·Dh = 8
+# on wgmma, 9 on cuda_cores) and one whole 256-column tile (on wgmma; a at
+# 1/sqrt(Dh), so that theta spreads as in the Dh = 4 cases).  Card only: its
+# d_a sums cancel to ~1e-2 from terms of ~10, below what the plain version and
+# the JAX interpret kernel agree on in float32 at atol 1e-5.
+FUSED_ROUTE_CASES = dict(
+    FUSED_CASES,
+    **{"C=256": lambda: fused_case(13, nblk=12, B=16, DH=128, din=40, a_scale=128 ** -0.5)})
+# Phase P's projection on inexact operands (x ~ N(0, 1)), the wgmma route at
+# 4 heads of 64 and Din 256: two tables of 3 row tiles (N_pad = 320), the
+# units reading blocks 0..13, so tiles 0 and 1 of each table
+SPLIT_CASE = dict(seed=16, units=10, width=4, nblk=20, B=16, H=4, DH=64, din=256, reach=14)
 
 
 def kernel5_case(seed, *, B=8, R=3, W=2, H=2, Dh=8, nblk_src=4, degenerate=False):
@@ -230,6 +265,72 @@ def test_fused_fp_bwd_kernel_matches_plain_on_cuda(cuda, name):
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_ROUTE_CASES))
+def test_fused_fp_kernels_match_plain_on_both_routes(cuda, name):
+    """#3 and #4 with phase P on the route their width takes (the cases
+    cover both): against their plain versions, twice bitwise equal, one
+    launch a call on that route."""
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in _exact(FUSED_ROUTE_CASES[name]())]
+    route = fused_ffp.route(*case[8].shape[1:])
+    before = (dict(seg_gat_agg_fused_fp_fwd.launches_by_route),
+              dict(seg_gat_agg_fused_fp_bwd.launches_by_route))
+    got = [seg_gat_agg_fused_fp_fwd(*case) for _ in range(2)]
+    want = seg_gat_agg_fused_fp_plain(*case)
+    g_out = torch.cos(want[0])
+    grads = [seg_gat_agg_fused_fp_bwd(*case, *want, g_out) for _ in range(2)]
+    want_grads = seg_gat_agg_fused_fp_bwd_plain(*case, *want, g_out)
+    torch.cuda.synchronize()
+    for g, a, w in zip(*got, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    for g, a, w in zip(*grads, want_grads):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    for fn, seen in zip((seg_gat_agg_fused_fp_fwd, seg_gat_agg_fused_fp_bwd), before):
+        assert {r: n - seen[r] for r, n in fn.launches_by_route.items()} == {
+            r: 2 * (r == route) for r in seen}
+
+
+@pytest.mark.cuda
+def test_fused_fp_default_route_follows_the_width(cuda):
+    """route(): the tensor cores wherever H·Dh is a multiple of 8 (8, 256),
+    else the CUDA cores (9, with 4-byte tile copies); each against the
+    plain version."""
+    odd = fused_case(14, nblk=6, H=3, DH=3, din=20)
+    for case, route in ((FUSED_ROUTE_CASES["C=256"](), "wgmma"),
+                        (FUSED_ROUTE_CASES["seed2"](), "wgmma"), (odd, "cuda_cores")):
+        case = [torch.from_numpy(np.array(a)).to(cuda) for a in _exact(case)]
+        before = dict(seg_gat_agg_fused_fp_fwd.launches_by_route)
+        got = seg_gat_agg_fused_fp_fwd(*case)
+        want = seg_gat_agg_fused_fp_plain(*case)
+        torch.cuda.synchronize()
+        assert seg_gat_agg_fused_fp_fwd.launches_by_route[route] == before[route] + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_fp_projection_meets_the_split_limit(cuda):
+    """Phase P on the wgmma route, on inexact operands: its workspace h over
+    the listed rows under SPLIT_ERROR_MAX, which one TF32 product misses
+    (tests/test_torch_fused_index.py shows both on these operands); twice
+    bitwise equal.  Forward only: h is the same projection in #4."""
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in fused_case(**SPLIT_CASE)]
+    col, gid, row, wsel, masks, x, w, b, a_s = case[:9]
+    (U, B), (H, Dh) = (col.shape[0], masks.shape[-1]), a_s.shape[1:]
+    assert fused_ffp.route(H, Dh) == "wgmma"
+    index = fused_ffp.fused_index(col, gid, row, wsel, w.shape[0], x.shape[0], B,
+                                  backward=False)
+    out, lse = torch.empty((U * B, H, Dh), device=cuda), torch.empty((U * B, H), device=cuda)
+    hs = [fused_ffp.launch(*case, out, lse, 0.2, index).clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    err = fused_ffp.projection_split_error(hs[0], index["tiles"], x, w, b)
+    assert err <= SPLIT_ERROR_MAX, err
+    table, rows = fused_ffp.tile_rows(index["tiles"], x.shape[0])
+    assert torch.equal(hs[0][table, rows], hs[1][table, rows])
 
 
 _RUN = dict(dataset="acm", hidden=8, heads=2, scale=0.05, block=16, max_edges=20_000,
