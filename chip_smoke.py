@@ -31,11 +31,17 @@ Phases, each fatal on failure:
 4. Training (HAN at heads=8, hidden=64, att_dim=128 on full-scale IMDB,
    block=16, max_edges=400000, full batch, AdamW lr=5e-3):
    a. the backward kernels #2 and #4 (and #1, #3 once more) against their
-      plain versions at the training shapes and on the edge cases, at
-      atol=rtol=1e-4 (the fused kernels on exactly representable operands,
-      see ``exact_fused``), and #3's projection phase on HAN's own
-      inexact operands under ``SPLIT_ERROR_MAX``; each backward, and #3,
-      runs twice and must be bitwise equal; timed with CUDA events beside
+      plain versions at the training shapes and on the edge cases (#1/#2
+      also at B = 64 and 128, at R-GAT's row width H·Dh = 256 and at phase
+      4f's B = 128 with HAN's width), at atol=rtol=1e-4 (the fused kernels on
+      exactly representable operands, see ``exact_fused``), and #3's
+      projection phase on HAN's own inexact operands under
+      ``SPLIT_ERROR_MAX``; each kernel runs twice and must be bitwise
+      equal; #1 and #2's two passes must visit exactly the live edges
+      (entries visited / live edges = 1.0, counted by #1 and read off the
+      edge index #2's passes walk) and
+      one backward must allocate no more than its gradients and O(E·H)
+      edge scratch (its peak memory printed); timed with CUDA events beside
       its bound (#3's and #4's, as #6's: the x·W product at the TF32
       tensor-core peak, the rest on the CUDA cores; beside it the bound
       with split TF32's three products and with all on the CUDA cores),
@@ -56,7 +62,11 @@ Phases, each fatal on failure:
       the device idle share;
    e. the card against the CPU on small acm (block=8), per-step losses at
       1e-4, and the training launcher as a user runs it, with a checkpoint
-      directory, resumed once.
+      directory, resumed once;
+   f. MULTIGRAPH training at block=128 (the JAX launcher's default, which
+      #1 and #2 take) for 5 steps: the loss falls, and every call of #1 and
+      #2 in the first step matches its plain version on the same operands
+      at atol=rtol=1e-4.
 5. The per-graph models on full IMDB's six relation graphs (AM, MA, KM,
    MK, DM, MD), block=16, at the JAX package's ``init_*`` widths (R-GAT
    hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
@@ -94,7 +104,9 @@ Phases, each fatal on failure:
       ``python3 -c 'import chip_smoke as c; c.kernel6_alone()'``;
    d. R-GAT training through ``run_training(model_name="R-GAT")``: the
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
-      20 steps, #1 and #2 six times a step, #6 never, and the loss falls.
+      20 steps, #1 and #2 six times a step, #6 never, and the loss falls;
+      then one more step whose six calls of #1 and of #2 each match their
+      plain version on the same operands at atol=rtol=1e-4.
 6. The LM slice: llama3.2-3b at full width (28 layers, d_model 3072, 24/8
    heads of 128, d_ff 8192, vocab 128,256, float32 weights from a seeded
    ``torch.Generator``, bfloat16 compute):
@@ -130,7 +142,9 @@ Phases, each fatal on failure:
       launcher's ``--smoke`` run on the card.
 7. Print the ``kernels`` JSON line (#1-#7; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
-   come from; bounds count NA work per edge, not per dense B×B block), the
+   come from; bounds count NA work per edge, not per dense B×B block; #1's
+   and #2's rows give the entries they visit an edge, #2's its peak
+   memory), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -581,6 +595,59 @@ def check_bwd(name, fn, plain, ops, out, lse, g):
     return compare(name, got, want)
 
 
+def na_calls_to_plain(name: str, run, first: int):
+    """Runs ``run()`` (training steps on the MULTIGRAPH path) with #1's and
+    #2's launches recording their operands and results, the first ``first``
+    of each, then holds each against the plain version on the same operands
+    at atol=rtol=1e-4: #1 against ``seg_gat_agg_multigraph_plain``, #2
+    against the plain VJP (``unit_softmax_aggregate_vjp``, given the
+    launch's own delta), each gradient over its largest magnitude (a
+    training step's gradients are far below the atol).  So every row width
+    and block size a path runs is checked at the path's own shapes.  The
+    recorded launches are the path's own; the plain versions launch no
+    kernel.  Returns (run's result, the max abs error, #2's relative to
+    each gradient's largest magnitude)."""
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    calls = {"launch": [], "launch_bwd": []}
+    kernels = {k: getattr(mg_mod, k) for k in calls}
+
+    def recording(k):
+        def call(*args):
+            res = kernels[k](*args)
+            if len(calls[k]) < first:
+                calls[k].append((args, res))
+            return res
+        return call
+
+    for k in calls:
+        setattr(mg_mod, k, recording(k))
+    try:
+        result = run()
+    finally:
+        for k, fn in kernels.items():
+            setattr(mg_mod, k, fn)
+    if any(len(c) < first for c in calls.values()):
+        raise AssertionError(f"{name}: fewer than {first} launches of #1 and #2 were recorded")
+    err = 0.0
+    for n, (args, _) in enumerate(calls["launch"]):
+        *ops, out, lse, slope = args
+        want = mg_mod.seg_gat_agg_multigraph_plain(*ops, leaky_slope=slope)
+        err = max(err, compare(f"{name} #1 launch {n}", (out, lse), want))
+    for n, (args, got) in enumerate(calls["launch_bwd"]):
+        col, gid, row, masks, ths, thd, h, bias, g_out, lse, delta, _, slope = args
+        d_ths, d_thd, d_h, _ = mg_mod.unit_softmax_aggregate_vjp(
+            col, gid, row, masks, ths, thd, h[None],
+            torch.zeros(ths.shape[0], dtype=torch.long, device=h.device), bias, slope, lse,
+            delta, g_out)
+        want = (d_ths, d_thd, d_h[0])
+        scale = [float(w.abs().max()) or 1.0 for w in want]
+        err = max(err, compare(f"{name} #2 launch {n} (over each gradient's largest magnitude "
+                               f"{', '.join('%.3e' % c for c in scale)})",
+                               [g / c for g, c in zip(got, scale)],
+                               [w / c for w, c in zip(want, scale)]))
+    return result, err
+
+
 def exact_fused(ops: dict) -> dict:
     """The fused operands rounded to small dyadic values (x to 1/16, W and b
     to 1/64, a and the bias to 1/16, clipped) so that every projection and
@@ -598,28 +665,100 @@ def exact_fused(ops: dict) -> dict:
                 edge_bias=q(ops["edge_bias"], 1 / 16, 8))
 
 
+def mg_index(mg_mod, ops: dict) -> dict:
+    """#2's edge index of these multigraph operands."""
+    ths, thd = ops["theta_src"], ops["theta_dst"]
+    return mg_mod.edge_index(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["masks"],
+                             ths.shape[0], ths.shape[1], thd.shape[1])
+
+
+def edge_visits(mg_mod, ops: dict, idx: dict, out, lse) -> dict:
+    """The mask entries #1 and #2's two passes visit on these operands over
+    the live edges (set mask entries of live slots), each of which must be
+    1.0: #1's counted by the kernel (it takes no index); each pass of #2's
+    from the edge index it walks (pass A: the edges of the unit rows of
+    every (graph, dst block), pass B: the src-major CSR's).  The dense
+    kernels before visited every entry of every live slot,
+    ``dense_per_edge`` of them an edge."""
+    edges = live_edges(ops["col_index"], ops["masks"])
+    fwd = torch.zeros(1, dtype=torch.int32, device=out.device)
+    mg_mod.launch(**ops, out=torch.empty_like(out), lse=torch.empty_like(lse), leaky_slope=0.2,
+                  visits=fwd)
+    B = ops["masks"].shape[-1]
+    units = idx["gdst"][1].long()
+    rows = (units[:, None] * B + torch.arange(B, device=units.device)).reshape(-1)
+    row_off = idx["row_off"].long()
+    pass_a = int((row_off[rows + 1] - row_off[rows]).sum())
+    pass_b = int(idx["src_off"][-1] - idx["src_off"][0])
+    dense = int((ops["col_index"] >= 0).sum()) * B * B
+    res = dict(live_edges=edges, index_edges=idx["E"], fwd=int(fwd) / max(edges, 1),
+               pass_a=pass_a / max(edges, 1), pass_b=pass_b / max(edges, 1),
+               dense_per_edge=dense / max(edges, 1))
+    if not (res["fwd"] == res["pass_a"] == res["pass_b"] == 1.0 and idx["E"] == edges):
+        raise AssertionError(f"#1/#2 visit other entries than the edges: {res}")
+    return res
+
+
+def bwd_peak_memory(mg_mod, ops: dict, idx: dict, out, lse, g) -> dict:
+    """Device memory one backward launch allocates at its peak, against
+    what it must hold: its three gradients and its O(E·H) edge scratch.
+    It must hold no per-(unit, slot) buffer (the dense kernel's partials
+    were ``per_slot_bytes``)."""
+    G, ns_pad, H = ops["theta_src"].shape
+    nd_pad = ops["theta_dst"].shape[1]
+    Dh = ops["h_src"].shape[-1]
+    delta = (g * out).sum(-1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = mg_mod.launch_bwd(**ops, g_out=g, lse=lse, delta=delta, index=idx, leaky_slope=0.2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    need = 4 * (ns_pad * H * Dh + G * (ns_pad + nd_pad) * H + 2 * idx["E"] * H)
+    B = ops["masks"].shape[-1]
+    res = dict(peak_bytes=peak, outputs_and_edge_scratch_bytes=need,
+               per_slot_bytes=int((ops["col_index"] >= 0).sum()) * B * (H * Dh + H) * 4)
+    if peak > need + (1 << 20):
+        raise AssertionError(f"#2 allocates more than its gradients and edge scratch: {res}")
+    return res
+
+
 def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
     dev = data.labels.device
     tr_mg, tr_ff = train_operands(data, params, fusion)
     U, W = tr_mg["col_index"].shape
     log(f"[train slice] U={U} W={W} live pairs={int((tr_mg['col_index'] >= 0).sum())} "
         f"B={data.graphs[0].block} H={params['a_src'].shape[1]} Dh={params['a_src'].shape[2]} "
-        f"Din={tr_ff['x'].shape[1]} N_pad={tr_ff['x'].shape[0]}")
+        f"Din={tr_ff['x'].shape[1]} N_pad={tr_ff['x'].shape[0]} "
+        f"edges={live_edges(tr_mg['col_index'], tr_mg['masks'])}")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [("train", tr_mg, tr_ff)]
     cases.append(("edge B=16 W=6 Din=100", *edge_operands(1, dev)))
     cases.append(("edge W=1", *edge_operands(2, dev, W=1)))
     cases.append(("edge B=8 H=2 Dh=8 Din=37", *edge_operands(3, dev, B=8, H=2, Dh=8, din=37)))
+    # block sizes only #1/#2 take: their fused counterparts refuse B > 32
+    cases.append(("edge B=64", edge_operands(4, dev, B=64, U=12, W=4)[0], None))
+    cases.append(("edge B=128 H=4 Dh=32", edge_operands(5, dev, B=128, U=8, W=3, H=4, Dh=32)[0],
+                  None))
+    # the row widths of the other paths #1/#2 run: R-GAT's (H·Dh = 256) and phase 4f's B = 128
+    cases.append(("edge H=4 Dh=64", edge_operands(6, dev, H=4, Dh=64)[0], None))
+    cases.append(("edge B=128 H=8 Dh=64", edge_operands(7, dev, B=128, U=8, W=3)[0], None))
     errs = dict(multigraph=0.0, multigraph_bwd=0.0, fused_fp=0.0, fused_fp_bwd=0.0)
     for name, mg, ff in cases:
         out, lse = mg_mod.seg_gat_agg_multigraph_fwd(**mg)
+        again = mg_mod.seg_gat_agg_multigraph_fwd(**mg)
         want = mg_mod.seg_gat_agg_multigraph_plain(**mg)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"multigraph {name}: two runs on the same inputs differ")
         errs["multigraph"] = max(errs["multigraph"], compare(f"multigraph {name}", (out, lse), want))
         g = torch.randn(out.shape, generator=gen, device=dev)
         errs["multigraph_bwd"] = max(errs["multigraph_bwd"], check_bwd(
             f"multigraph_bwd {name}", mg_mod.seg_gat_agg_multigraph_bwd,
             mg_mod.seg_gat_agg_multigraph_bwd_plain, mg, out, lse, g))
+        if ff is None:
+            continue
         ff = exact_fused(ff)
         out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
         again = ff_mod.seg_gat_agg_fused_fp_fwd(**ff)
@@ -637,18 +776,25 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
     # timing at the training shapes, straight on the launches (no argument checks)
     mg, ff = tr_mg, exact_fused(tr_ff)
     out, lse, out_f, lse_f, g = (res[k] for k in ("out", "lse", "out_f", "lse_f", "g"))
-    B, (G, H, Dh) = data.graphs[0].block, ff["a_src"].shape
     o = torch.empty_like(out)
     lo = torch.empty_like(lse)
     t = {}
-    t["multigraph"] = (cuda_ms(lambda: mg_mod.launch(**mg, out=o, lse=lo, leaky_slope=0.2), reps=10),
+    t["multigraph"] = (cuda_ms(lambda: mg_mod.launch(**mg, out=o, lse=lo, leaky_slope=0.2), reps=20),
                        cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_plain(**mg), reps=2), None)
-    idx = mg_mod.bwd_index(mg["col_index"], mg["graph_id"], mg["dst_row"], G,
-                           mg["theta_src"].shape[1] // B, mg["theta_dst"].shape[1] // B)
+    idx = mg_index(mg_mod, mg)
+    visits = edge_visits(mg_mod, mg, idx, out, lse)
+    log(f"[check] #1/#2 entries visited / live edges at the training shape: forward "
+        f"{visits['fwd']}, pass A {visits['pass_a']}, pass B {visits['pass_b']} "
+        f"({visits['live_edges']} edges; the dense kernels visited {visits['dense_per_edge']:.2f} "
+        f"entries an edge)")
+    peak = bwd_peak_memory(mg_mod, mg, idx, out, lse, g)
+    log(f"[check] #2 one backward's peak memory {peak['peak_bytes'] / 2**20:.3f} MiB (gradients "
+        f"and edge scratch {peak['outputs_and_edge_scratch_bytes'] / 2**20:.3f} MiB; the dense "
+        f"kernel's per-slot partials were {peak['per_slot_bytes'] / 2**30:.3f} GiB)")
     delta = (g * out).sum(-1)
     t["multigraph_bwd"] = (
         cuda_ms(lambda: mg_mod.launch_bwd(**mg, g_out=g, lse=lse, delta=delta, index=idx,
-                                          leaky_slope=0.2), reps=5),
+                                          leaky_slope=0.2), reps=20),
         cuda_ms(lambda: mg_mod.seg_gat_agg_multigraph_bwd_plain(**mg, out=out, lse=lse, g_out=g),
                 reps=1), None)
 
@@ -698,6 +844,8 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
                                      "function needs (limit 1.5)")
         log(f"[train time] {k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops){extra}")
+    result["multigraph"]["visits"] = result["multigraph_bwd"]["visits"] = visits
+    result["multigraph_bwd"]["peak_memory"] = peak
     return result
 
 
@@ -894,6 +1042,19 @@ def training(data, counters, fusion_mod) -> dict:
     log(f"[launcher] hgnn_train: {outs[0].strip().splitlines()[-1]}; resumed at step 4: "
         f"{outs[1].strip().splitlines()[-1]}")
     res["small_losses"] = losses
+
+    # f. MULTIGRAPH at the reference trainer's block size, which #1/#2 take
+    lines = []
+    (_, hist, _), err = na_calls_to_plain("B=128 step", lambda: hgnn_train.run_training(
+        steps=5, backend="kernel", log_every=1, log=lines.append, device="cuda",
+        **dict(TRAIN, block=128), **TRAIN_WIDTH), first=1)
+    res["block128"] = dict(loss=[h["loss"] for h in hist], steps_ms=[h["sec"] * 1e3 for h in hist],
+                           first_step_max_abs_err=err)
+    log(f"[train multigraph B=128] {lines[0]}")
+    log(f"[train multigraph B=128] loss {hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f} in 5 steps, "
+        f"step ms {['%.3f' % t for t in res['block128']['steps_ms']]}")
+    if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the B=128 loss did not fall: {res['block128']['loss']}")
     return res
 
 
@@ -1344,7 +1505,9 @@ def rgat_training(counters) -> dict:
     step = make_hgnn_train_step(
         lambda p: RGAT.forward(p, data, backend=NABackend.MULTIGRAPH), data, opt)
     idx = torch.arange(data.labels.shape[0])
-    state, _ = step(state, {"idx": idx})
+    # the first step's six calls of #1 and #2 (H·Dh = 256) against their plain versions
+    (state, _), res["first_step_max_abs_err"] = na_calls_to_plain(
+        "R-GAT step", lambda: step(state, {"idx": idx}), first=6)
     _, res["steady"] = profiled_steps(step, state, idx, 3)
     pr = res["steady"]
     log(f"[train R-GAT steady] steps_ms={['%.3f' % t for t in pr['steps_ms']]} busy "
@@ -1972,6 +2135,13 @@ def main() -> int:
                   launches_by_route={
                       r: sum(infer[m]["fused_fp_coeff_by_route"][r] for m in ("R-GAT", "S-HGN"))
                       for r in k6_mod.ROUTES})
+    for k in ("multigraph", "multigraph_bwd"):  # #1 and #2 visit the live edges only
+        row = next(r for r in line["kernels"] if r["source"].endswith(f"seg_gat_agg_{k}.cu"))
+        v = train_kernels[k]["visits"]
+        row["visited_per_edge"] = (v["fwd"] if k == "multigraph"
+                                   else {"pass_a": v["pass_a"], "pass_b": v["pass_b"]})
+    bwd_row = next(r for r in line["kernels"] if r["name"] == "seg_gat_agg_multigraph_bwd")
+    bwd_row["peak_mem_bytes"] = train_kernels["multigraph_bwd"]["peak_memory"]["peak_bytes"]
     for k in ("fused_fp", "fused_fp_bwd"):  # #3 and #4: no library call computes fused FP+NA
         row = next(r for r in line["kernels"] if r["source"].endswith(f"seg_gat_agg_{k}.cu"))
         tk = train_kernels[k]

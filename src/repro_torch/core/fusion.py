@@ -47,7 +47,7 @@ from ..graphs.hetgraph import SemanticGraph
 from ..kernels.fused_fp_coeff import fused_fp_coeff
 from ..kernels.seg_gat_agg import bias_vector, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
-from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph
+from ..kernels.seg_gat_agg_multigraph import edge_index, seg_gat_agg_multigraph
 from ..obs.trace import trace_span
 from . import stages
 
@@ -96,6 +96,16 @@ class SemanticGraphBatch:
         dev = self.col_index.device
         return (torch.as_tensor(pe.src, device=dev), torch.as_tensor(pe.dst, device=dev),
                 torch.as_tensor(pe.valid, device=dev))
+
+    @functools.cached_property
+    def multigraph_topology(self) -> tuple[tuple, dict]:
+        """The batch alone as MULTIGRAPH work units (``build_unit_tables([self])``)
+        and their edge index (kernel #2's ``edge_index``), read by the
+        per-graph MULTIGRAPH path (R-GAT runs it per relation, layer and
+        step on the same topology): built the first time it runs, then
+        kept."""
+        tables = build_unit_tables([self])
+        return tables, build_edge_index([self], tables)
 
 
 def batch_semantic_graph(
@@ -162,6 +172,15 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.shape[0] > n:
         raise ValueError(f"{x.shape[0]} rows do not fit in {n}")
     return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
+
+
+def build_edge_index(batches: list[SemanticGraphBatch], unit_tables: tuple) -> dict:
+    """MULTIGRAPH's edge index (kernel #2's ``edge_index``) of these
+    batches' :func:`build_unit_tables`, padded as
+    :func:`neighbor_aggregate_multi` pads θ and h."""
+    b0 = batches[0]
+    ns_pad = -(-b0.num_src // b0.block) * b0.block
+    return edge_index(*unit_tables, len(batches), ns_pad, b0.num_dst_pad)
 
 
 def build_unit_tables(batches: list[SemanticGraphBatch]):
@@ -248,9 +267,11 @@ def neighbor_aggregate(
     ``edge_bias`` is a number, a 0-d or an [H] tensor."""
     edge_bias = bias_vector(edge_bias, theta_src.shape[-1], h_src.device)
     if backend is NABackend.MULTIGRAPH:
+        tables, index = batch.multigraph_topology
         return neighbor_aggregate_multi(
             [batch], theta_src[None], theta_dst[None], h_src,
             backend=backend, leaky_slope=leaky_slope, edge_bias=edge_bias[None],
+            unit_tables=tables, index=index,
         )[0]
     if backend is NABackend.SEGMENT:
         return stages.segment_softmax_aggregate(
@@ -288,6 +309,7 @@ def neighbor_aggregate_multi(
     edge_bias: torch.Tensor | None = None,  # [G, H]
     unit_tables: tuple | None = None,
     fp: FusedFPInputs | None = None,
+    index: dict | None = None,
 ) -> torch.Tensor:
     """NA for ALL semantic graphs of a step at once.  Returns
     [G, num_dst, H, Dh].
@@ -299,7 +321,9 @@ def neighbor_aggregate_multi(
     pass ``fp=FusedFPInputs(...)`` and leave theta_src/theta_dst/h_src as
     None.  ``unit_tables`` (from :func:`build_unit_tables` on these
     batches) may be passed to skip rebuilding them, as in the reference;
-    FUSED_FP's topology index goes in ``fp.index``.
+    MULTIGRAPH's edge index (``kernels.seg_gat_agg_multigraph.edge_index``
+    of those tables, which its backward reads) in ``index``, FUSED_FP's
+    topology index in ``fp.index``; None builds either in the call.
 
     Spans (obs.trace, DESIGN.md §12): the multigraph backends emit one
     ``stage=NA`` span for the whole launch; the per-graph loop emits one
@@ -329,6 +353,8 @@ def neighbor_aggregate_multi(
     g_n = len(batches)
 
     if backend is NABackend.FUSED_FP:
+        if index is not None:
+            raise ValueError("index= is MULTIGRAPH's edge index; FUSED_FP's goes in fp.index")
         if fp is None:
             raise ValueError(
                 "FUSED_FP takes fp=FusedFPInputs (raw features + weight tables) "
@@ -369,7 +395,7 @@ def neighbor_aggregate_multi(
         units=int(col.shape[0]), graph_names=[bb.name for bb in batches],
     ) as sp:
         # [G*R*B, H, Dh] — units are g-major, rows in order
-        out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope))
+        out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope, index=index))
     return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
 

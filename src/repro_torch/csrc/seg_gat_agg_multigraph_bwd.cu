@@ -6,45 +6,53 @@
 //   written for every (unit, slot), padding included), and the segment sums
 //   of `_multigraph_bwd` that scatter those partials.
 //
-// What bounds it on this card: arithmetic.  Each live (unit, slot) and head
-//   recomputes p from lse (B*B exps) and does two B x B x Dh products
-//   (dp = g_out . h_src^T and p^T . g_out), about 4*B*B*Dh + 10*B*B flops,
-//   in float32 on the CUDA cores.  The partials it writes (one B x H*Dh
-//   tile per live slot, 32 KB at B=16, H*Dh=512) and the reduction that
-//   reads them back are the largest memory traffic.
+// What bounds it on this card: the bytes of the edges.  Per set mask entry
+//   (an edge e: unit u, dst row i, src vertex s) and head the backward
+//   recomputes p from lse and does two length-Dh dot products; under 1% of
+//   the mask entries of live slots are set at HAN's shape, so the work and
+//   the traffic follow the E edges: one h_src row and one g_out row (H*Dh
+//   floats each, mostly from L2) an edge and pass.
 //
-// Design:
-//   * Pass 1, one thread block per work unit, all heads together (as the
-//     forward): the W axis is a loop inside the block, padding slots are
-//     skipped.  The unit's g_out, theta_dst, lse and delta stay in shared
-//     memory for the sweep; d_theta_dst is accumulated there and written
-//     once per unit.  Per live slot the block stages the mask, theta_src and
-//     the h_src tile, recomputes p and dpre (na_backward.cuh) and writes
-//     d_theta_src [B, H] and d_h_src [B, H*Dh] partials for that slot only:
-//     the host numbers the live slots (`pair_of`), so padding costs no
-//     memory (the dense layout of the TPU kernel would be 9.2 GB at the
-//     training shape, the live one 2.4 GB).
-//   * Pass 2, the scatters, as segmented sums in a fixed order over CSRs
-//     the host builds by (key, unit, slot): d_h_src by src block (shared by
-//     every graph), d_theta_src by (graph, src block), d_theta_dst by
-//     (graph, dst block) over the units.  No atomics anywhere, so the
-//     gradients are bitwise repeatable for a fixed topology.
-//   * No wgmma, TMA or pipelining yet: simple and right first.
-#include "na_backward.cuh"
-#include "online_softmax_na.cuh"
+// Design: two passes over the edges, both on `stream`, no atomics, each
+//   output row written once, so the gradients are bitwise repeatable for
+//   a fixed topology.  The host builds the edge index once per topology
+//   (kernels/seg_gat_agg_multigraph.py: edge_index):
+//   * edges are numbered dst-major, in the forward's order: by (unit u,
+//     dst row i, slot w, src j); row_off[u*B + i] is where row (u, i)'s
+//     edges start and e_src[e] = col[u, w]*B + j is edge e's src vertex;
+//   * src_off / src_edge / src_row are the src-major CSR: the edges sorted
+//     by (src vertex s, graph, unit, slot, i), one segment a (s, graph);
+//   * gdst_off / gdst_items list the units of each (graph, dst block), in
+//     unit order.
+//   Pass A, one warp per (graph g, dst vertex row), all heads (the lanes
+//     own columns of H*Dh as in edge_na.cuh, lane h head h's scalars):
+//     for each unit of (g, row's block) in gdst order, with that unit row's
+//     g_out, lse and delta in registers, for each of its edges in dst-major
+//     order: pre = theta_dst + theta_src[s] + bias, p = exp(LeakyReLU(pre) -
+//     lse), dp_h = <g_out, h_src[s]> per head (each lane's per-group dot,
+//     then lane h sums its head's groups in column order through shared
+//     memory), dpre = LeakyReLU'(pre) * p * (dp - delta); it writes p and
+//     dpre to the edge arrays [E, H] and sums dpre into d_theta_dst[g, row]
+//     in that order.  The next edge's src index, theta_src and h_src row
+//     are loaded while an edge is reduced (two dependent L2 round trips an
+//     edge, in flight for two edges at a time).
+//   Pass B, one warp per src vertex s: for each graph g in order, over
+//     the edges of segment (s, g) in CSR order, d_h_src[s] += p_e[h(c)] *
+//     g_out[u*B + i, c] (one sum over every graph) and d_theta_src[g, s]
+//     = sum of dpre_e.  Scratch is the two edge arrays, O(E*H); no
+//     per-(unit, slot) buffer.
+#include "edge_na.cuh"
 
 namespace {
 
-using online_softmax_na::kThreads;
-using namespace na_backward;
+using namespace edge_na;
 
-template <int B>
-__global__ void __launch_bounds__(kThreads) multigraph_bwd_kernel(
-    const int* __restrict__ col_index,    // [U, W]
-    const int* __restrict__ pair_of,      // [U, W]  live-slot number, -1 for padding
-    const int* __restrict__ graph_id,     // [U]
-    const int* __restrict__ dst_row,      // [U]
-    const uint8_t* __restrict__ masks,    // [U, W, B, B]
+template <int V, int NK>
+__global__ void __launch_bounds__(kThreads) edge_pass_a(
+    const int* __restrict__ gdst_off,     // [G*nd_pad/B + 1]
+    const int* __restrict__ gdst_items,   // [U]
+    const int* __restrict__ row_off,      // [U*B + 1]
+    const int* __restrict__ e_src,        // [E]
     const float* __restrict__ theta_src,  // [G, ns_pad, H]
     const float* __restrict__ theta_dst,  // [G, nd_pad, H]
     const float* __restrict__ h_src,      // [ns_pad, H, Dh]
@@ -52,124 +60,193 @@ __global__ void __launch_bounds__(kThreads) multigraph_bwd_kernel(
     const float* __restrict__ g_out,      // [U*B, H, Dh]
     const float* __restrict__ lse,        // [U*B, H]
     const float* __restrict__ delta,      // [U*B, H]
-    float* __restrict__ dths_part,        // [P, B, H]
-    float* __restrict__ dhs_part,         // [P, B, H*Dh]
-    float* __restrict__ dthd_units,       // [U*B, H]
-    int W, int ns_pad, int nd_pad, int H, int Dh, float slope) {
-  extern __shared__ __align__(16) float smem[];
+    float* __restrict__ p_e,              // [E, H]
+    float* __restrict__ dpre_e,           // [E, H]
+    float* __restrict__ d_theta_dst,      // [G, nd_pad, H]
+    int G, int B, int ns_pad, int nd_pad, int H, int Dh, float slope) {
+  // per warp: the lane groups' dot products, group q at q + head(q) (a gap
+  // a head, so lane h's reads of its head's run hit distinct banks)
+  __shared__ float red[kWarps][32 * NK + 32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kWarps + warp;  // g * nd_pad + dst vertex
+  if (k >= G * nd_pad) return;  // warp-uniform
+  const int g = k / nd_pad, rr = k % nd_pad;
+  const int blk = rr / B, i = rr % B;
   const int HDh = H * Dh;
-  float* gout_s = smem;                // [B, HDh]
-  float* src_s = gout_s + B * HDh;     // [B, HDh]
-  float* p_s = src_s + B * HDh;        // [H, B, B]
-  float* dpre_s = p_s + H * B * B;     // [H, B, B]
-  float* thd_s = dpre_s + H * B * B;   // [B, H]
-  float* ths_s = thd_s + B * H;        // [B, H]
-  float* lse_s = ths_s + B * H;        // [B, H]
-  float* delta_s = lse_s + B * H;      // [B, H]
-  float* dthd_s = delta_s + B * H;     // [B, H]
-  float* dths_s = dthd_s + B * H;      // [B, H]
-  uint8_t* mask_s = reinterpret_cast<uint8_t*>(dths_s + B * H);  // [B, B]
+  const int hl = lane < H ? lane : 0;
+  const int per_head = Dh / V;  // groups of one head
+  const float* ths_g = theta_src + (size_t)g * ns_pad * H + hl;
+  const float td = theta_dst[(size_t)k * H + hl];
+  const float bh = edge_bias[g * H + hl];
+  int head[NK];
+  group_heads<V, NK>(lane, HDh, Dh, head);
+  float* red_w = red[warp];
+  const float* run = red_w + hl * (per_head + 1);  // lane h's head: per_head values
 
-  const int u = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int g = graph_id[u];
-  const float* ths_g = theta_src + (size_t)g * ns_pad * H;
-  const float* thd_u = theta_dst + ((size_t)g * nd_pad + (size_t)dst_row[u] * B) * H;
-  const float* bias = edge_bias + g * H;
-
-  for (int k = tid; k < B * HDh; k += kThreads) gout_s[k] = g_out[(size_t)u * B * HDh + k];
-  for (int k = tid; k < B * H; k += kThreads) {
-    thd_s[k] = thd_u[k];
-    lse_s[k] = lse[(size_t)u * B * H + k];
-    delta_s[k] = delta[(size_t)u * B * H + k];
-    dthd_s[k] = 0.f;
+  float dthd = 0.f;
+  const int q1 = gdst_off[g * (nd_pad / B) + blk + 1];
+  for (int q = gdst_off[g * (nd_pad / B) + blk]; q < q1; ++q) {
+    const int R = gdst_items[q] * B + i;  // the unit's row
+    float go[NK][V];
+    load_row<V, NK>(g_out + (size_t)R * HDh, lane, HDh, go);
+    const float ls = lse[(size_t)R * H + hl];
+    const float dl = delta[(size_t)R * H + hl];
+    const int e0 = row_off[R], e1 = row_off[R + 1];
+    if (e0 == e1) continue;  // warp-uniform
+    // the next edge's src row and theta_src are loaded while this edge is
+    // reduced, so a warp has two dependent L2 round trips in flight
+    int s = e_src[e0];
+    float ths = ths_g[(size_t)s * H];
+    float hv[NK][V];
+    load_row<V, NK>(h_src + (size_t)s * HDh, lane, HDh, hv);
+    for (int e = e0; e < e1; ++e) {
+      int s_next = s;
+      float ths_next = ths;
+      float hn[NK][V];
+      if (e + 1 < e1) {  // warp-uniform
+        s_next = e_src[e + 1];
+        ths_next = ths_g[(size_t)s_next * H];
+        load_row<V, NK>(h_src + (size_t)s_next * HDh, lane, HDh, hn);
+      }
+#pragma unroll
+      for (int t = 0; t < NK; ++t) {
+        float part = 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) part = fmaf(go[t][v], hv[t][v], part);
+        const int grp = lane + 32 * t;
+        if (V * grp < HDh) red_w[grp + head[t]] = part;
+      }
+      __syncwarp();
+      if (lane < H) {
+        float dp = 0.f;
+        for (int n = 0; n < per_head; ++n) dp += run[n];
+        const float pre = td + ths + bh;
+        const float lg = pre >= 0.f ? pre : slope * pre;
+        const float p = expf(lg - ls);
+        const float dlg = p * (dp - dl);
+        const float dpr = pre >= 0.f ? dlg : slope * dlg;
+        dthd += dpr;
+        p_e[(size_t)e * H + lane] = p;
+        dpre_e[(size_t)e * H + lane] = dpr;
+      }
+      __syncwarp();  // red is read before the next edge writes it
+      s = s_next;
+      ths = ths_next;
+#pragma unroll
+      for (int t = 0; t < NK; ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) hv[t][v] = hn[t][v];
+    }
   }
-  __syncthreads();
-
-  for (int w = 0; w < W; ++w) {
-    const int c = col_index[(size_t)u * W + w];
-    if (c < 0) continue;  // padding slot: no partial, contributes nothing
-    const size_t pr = (size_t)pair_of[(size_t)u * W + w];
-    const uint8_t* mk = masks + ((size_t)u * W + w) * B * B;
-    for (int k = tid; k < B * B; k += kThreads) mask_s[k] = mk[k];
-    for (int k = tid; k < B * H; k += kThreads) ths_s[k] = ths_g[(size_t)c * B * H + k];
-    const float* hs = h_src + (size_t)c * B * HDh;
-    for (int k = tid; k < B * HDh; k += kThreads) src_s[k] = hs[k];
-    __syncthreads();
-    slot_backward<B>(thd_s, ths_s, lse_s, delta_s, mask_s, bias, H, Dh, slope,
-                     gout_s, src_s, p_s, dpre_s, dthd_s, dths_s);
-    for (int k = tid; k < B * H; k += kThreads) dths_part[pr * B * H + k] = dths_s[k];
-    slot_src_grad<B>(p_s, dths_s, gout_s, src_s, nullptr, H, Dh,
-                     dhs_part + pr * B * HDh, nullptr);
-    __syncthreads();  // the slot's scratch is consumed before the next is staged
-  }
-  for (int k = tid; k < B * H; k += kThreads) dthd_units[(size_t)u * B * H + k] = dthd_s[k];
+  if (lane < H) d_theta_dst[(size_t)k * H + lane] = dthd;
 }
 
-template <int B>
-int launch(const int* col_index, const int* pair_of, const int* graph_id, const int* dst_row,
-           const uint8_t* masks, const float* theta_src, const float* theta_dst,
-           const float* h_src, const float* edge_bias, const float* g_out, const float* lse,
-           const float* delta, float* dths_part, float* dhs_part, float* dthd_units,
-           int U, int W, int ns_pad, int nd_pad, int H, int Dh, float slope,
+template <int V, int NK>
+__global__ void __launch_bounds__(kThreads) edge_pass_b(
+    const int* __restrict__ src_off,    // [ns_pad*G + 1]
+    const int* __restrict__ src_edge,   // [E]  dst-major edge number
+    const int* __restrict__ src_row,    // [E]  the edge's unit row u*B + i
+    const float* __restrict__ p_e,      // [E, H]
+    const float* __restrict__ dpre_e,   // [E, H]
+    const float* __restrict__ g_out,    // [U*B, H, Dh]
+    float* __restrict__ d_h_src,        // [ns_pad, H, Dh]
+    float* __restrict__ d_theta_src,    // [G, ns_pad, H]
+    int G, int ns_pad, int H, int Dh) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= ns_pad) return;  // warp-uniform
+  const int HDh = H * Dh;
+  const int hl = lane < H ? lane : 0;
+  int head[NK];
+  group_heads<V, NK>(lane, HDh, Dh, head);
+  float acc[NK][V];
+#pragma unroll
+  for (int t = 0; t < NK; ++t)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[t][v] = 0.f;
+
+  const int* off = src_off + (size_t)s * G;
+  int q = off[0];
+  for (int g = 0; g < G; ++g) {
+    const int q1 = off[g + 1];
+    float dths = 0.f;
+    for (; q < q1; ++q) {
+      const int e = src_edge[q];
+      float go[NK][V];
+      load_row<V, NK>(g_out + (size_t)src_row[q] * HDh, lane, HDh, go);
+      const float p = p_e[(size_t)e * H + hl];
+      dths += dpre_e[(size_t)e * H + hl];
+#pragma unroll
+      for (int t = 0; t < NK; ++t) {
+        const float pt = __shfl_sync(kFull, p, head[t]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[t][v] = fmaf(pt, go[t][v], acc[t][v]);
+      }
+    }
+    if (lane < H) d_theta_src[((size_t)g * ns_pad + s) * H + lane] = dths;
+  }
+  store_row<V, NK>(d_h_src + (size_t)s * HDh, lane, HDh, acc);
+}
+
+template <int V, int NK>
+int launch(const int* gdst_off, const int* gdst_items, const int* row_off, const int* e_src,
+           const int* src_off, const int* src_edge, const int* src_row,
+           const float* theta_src, const float* theta_dst, const float* h_src,
+           const float* edge_bias, const float* g_out, const float* lse, const float* delta,
+           float* p_e, float* dpre_e, float* d_h_src, float* d_theta_src, float* d_theta_dst,
+           int G, int B, int ns_pad, int nd_pad, int H, int Dh, float slope,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)B * H * Dh + 2 * (size_t)H * B * B +
-                                       6 * (size_t)B * H) + B * B;
-  cudaError_t err = cudaFuncSetAttribute(
-      multigraph_bwd_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (U > 0) {
-    multigraph_bwd_kernel<B><<<U, kThreads, smem, stream>>>(
-        col_index, pair_of, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
-        g_out, lse, delta, dths_part, dhs_part, dthd_units, W, ns_pad, nd_pad, H, Dh, slope);
+  const long long rows_a = (long long)G * nd_pad;
+  if (rows_a > 0) {
+    edge_pass_a<V, NK><<<(unsigned)((rows_a + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+        gdst_off, gdst_items, row_off, e_src, theta_src, theta_dst, h_src, edge_bias, g_out,
+        lse, delta, p_e, dpre_e, d_theta_dst, G, B, ns_pad, nd_pad, H, Dh, slope);
+  }
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (ns_pad > 0) {
+    edge_pass_b<V, NK><<<(unsigned)((ns_pad + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+        src_off, src_edge, src_row, p_e, dpre_e, g_out, d_h_src, d_theta_src, G, ns_pad, H, Dh);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Pass 1 and the three reductions of pass 2, all on `stream`:
-//   d_h_src     [ns_pad/B, B*H*Dh]  from dhs_part   over (src_off, src_items)
-//   d_theta_src [G*ns_pad/B, B*H]   from dths_part  over (gsrc_off, gsrc_items)
-//   d_theta_dst [G*nd_pad/B, B*H]   from dthd_units over (gdst_off, gdst_items)
+// Pass A then pass B on `stream`: d_h_src [ns_pad, H, Dh], d_theta_src
+// [G, ns_pad, H] and d_theta_dst [G, nd_pad, H], each written whole;
+// p_e and dpre_e [E, H] are the passes' scratch.  Rows of H*Dh floats must be
+// 16-byte aligned when Dh % 4 == 0 (the wrapper sees to it).
 extern "C" int seg_gat_agg_multigraph_bwd(
-    const int* col_index, const int* pair_of, const int* graph_id, const int* dst_row,
-    const uint8_t* masks, const float* theta_src, const float* theta_dst, const float* h_src,
+    const int* gdst_off, const int* gdst_items, const int* row_off, const int* e_src,
+    const int* src_off, const int* src_edge, const int* src_row,
+    const float* theta_src, const float* theta_dst, const float* h_src,
     const float* edge_bias, const float* g_out, const float* lse, const float* delta,
-    float* dths_part, float* dhs_part, float* dthd_units,
-    const int* src_off, const int* src_items, const int* gsrc_off, const int* gsrc_items,
-    const int* gdst_off, const int* gdst_items,
-    float* d_h_src, float* d_theta_src, float* d_theta_dst,
-    int U, int W, int B, int G, int ns_pad, int nd_pad, int H, int Dh, float slope,
+    float* p_e, float* dpre_e, float* d_h_src, float* d_theta_src, float* d_theta_dst,
+    int G, int B, int ns_pad, int nd_pad, int H, int Dh, float slope,
     void* stream) {
+  if (B % 8 != 0 || B > kMaxBlock || H < 1 || H > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (B) {
-    case 8:
-      err = launch<8>(col_index, pair_of, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-                      edge_bias, g_out, lse, delta, dths_part, dhs_part, dthd_units,
-                      U, W, ns_pad, nd_pad, H, Dh, slope, s);
-      break;
-    case 16:
-      err = launch<16>(col_index, pair_of, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-                       edge_bias, g_out, lse, delta, dths_part, dhs_part, dthd_units,
-                       U, W, ns_pad, nd_pad, H, Dh, slope, s);
-      break;
-    case 32:
-      err = launch<32>(col_index, pair_of, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-                       edge_bias, g_out, lse, delta, dths_part, dhs_part, dthd_units,
-                       U, W, ns_pad, nd_pad, H, Dh, slope, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+#define REPRO_BWD_LAUNCH(V, NK)                                                               \
+  return launch<V, NK>(gdst_off, gdst_items, row_off, e_src, src_off, src_edge, src_row,      \
+                       theta_src, theta_dst, h_src, edge_bias, g_out, lse, delta, p_e, dpre_e, \
+                       d_h_src, d_theta_src, d_theta_dst, G, B, ns_pad, nd_pad, H, Dh, slope, s)
+  const int V = Dh % 4 == 0 ? 4 : 1;
+  const int groups = (H * Dh + 32 * V - 1) / (32 * V);  // groups a lane owns
+  if (V == 4) {
+    if (groups <= 1) REPRO_BWD_LAUNCH(4, 1);
+    if (groups <= 2) REPRO_BWD_LAUNCH(4, 2);
+    if (groups <= 4) REPRO_BWD_LAUNCH(4, 4);
+    if (groups <= 8) REPRO_BWD_LAUNCH(4, 8);
+  } else {
+    if (groups <= 1) REPRO_BWD_LAUNCH(1, 1);
+    if (groups <= 2) REPRO_BWD_LAUNCH(1, 2);
+    if (groups <= 4) REPRO_BWD_LAUNCH(1, 4);
+    if (groups <= 8) REPRO_BWD_LAUNCH(1, 8);
   }
-  if (err != 0) return err;
-  const int nblk_s = ns_pad / B, nblk_d = nd_pad / B;
-  err = segment_sum(dhs_part, src_off, src_items, d_h_src, nblk_s, B * H * Dh, s);
-  if (err != 0) return err;
-  err = segment_sum(dths_part, gsrc_off, gsrc_items, d_theta_src, G * nblk_s, B * H, s);
-  if (err != 0) return err;
-  return segment_sum(dthd_units, gdst_off, gdst_items, d_theta_dst, G * nblk_d, B * H, s);
+#undef REPRO_BWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

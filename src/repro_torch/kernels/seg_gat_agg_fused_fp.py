@@ -45,7 +45,6 @@ from .fused_fp_coeff import BLOCK_M, split_error, split_k, split_scratch
 from .seg_gat_agg_multigraph import (
     check_smem,
     csr,
-    live_slots,
     unit_softmax_aggregate,
     unit_softmax_aggregate_vjp,
 )
@@ -171,6 +170,17 @@ def projection_split_error(h, tiles, x, w, b) -> float:
         r = rows[table == t]
         err = max(err, split_error(h[t, r], x[r], w[t], b[t]))
     return err
+
+
+def live_slots(col_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos [P], pair_of int32 [U, W]): the flat (unit, slot) position of
+    every live slot in order, and each slot's number among them (-1 for
+    padding).  The backward writes partials for live slots only."""
+    live = (col_index >= 0).reshape(-1)
+    pos = live.nonzero().squeeze(1)
+    pair_of = torch.full((live.numel(),), -1, dtype=torch.int32, device=col_index.device)
+    pair_of[pos] = torch.arange(pos.numel(), dtype=torch.int32, device=col_index.device)
+    return pos, pair_of.reshape(col_index.shape)
 
 
 def bwd_index(col_index, graph_id, dst_row, wsel, n_graphs: int, n_tables: int,

@@ -16,13 +16,16 @@ the hand-written kernel ``csrc/seg_gat_agg_multigraph.cu``; CPU tensors
 take :func:`seg_gat_agg_multigraph_plain`, the plain PyTorch version of
 the same function (and the oracle the kernel is held against).
 
-The backward (:func:`seg_gat_agg_multigraph_bwd`) recomputes p from lse:
-CUDA tensors launch ``csrc/seg_gat_agg_multigraph_bwd.cu`` (per-live-slot
-partials, then deterministic segmented sums over CSRs built here by
-:func:`bwd_index`); CPU tensors take :func:`seg_gat_agg_multigraph_bwd_plain`.
-:func:`seg_gat_agg_multigraph` is the differentiable entry point: a
-``torch.autograd.Function`` whose forward launches the forward kernel and
-keeps ``out`` and ``lse``, and whose backward launches the backward kernel.
+Both kernels visit the set mask entries of live slots (the edges) only.
+The forward needs no index.  The backward (:func:`seg_gat_agg_multigraph_bwd`)
+recomputes p from lse: CUDA tensors launch ``csrc/seg_gat_agg_multigraph_bwd.cu``
+(a dst-major pass over the edges, then a src-major one, in fixed orders
+over the edge index :func:`edge_index` builds, which a caller that runs
+many steps on one topology builds once and passes in); CPU tensors take
+:func:`seg_gat_agg_multigraph_bwd_plain`.  :func:`seg_gat_agg_multigraph`
+is the differentiable entry point: a ``torch.autograd.Function`` whose
+forward launches the forward kernel and keeps ``out`` and ``lse``, and
+whose backward launches the backward kernel.
 """
 from __future__ import annotations
 
@@ -33,11 +36,14 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-SUPPORTED_BLOCKS = (8, 16, 32)  # the kernel is instantiated for these B
+SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3, #4 and #5 are instantiated for
 SMEM_OPTIN = 232_448            # bytes of shared memory a block may opt into (sm_90)
+EDGE_BLOCKS = (8, 16, 32, 64, 128)  # B that #1 and #2 take (csrc/edge_na.cuh: kMaxBlock)
+MAX_HEADS = 32                  # #1 and #2: lane h of a warp holds head h
 _PLAIN_CHUNK_BYTES = 64 << 20   # working set of one chunk of units in the plain version
 _NAME = "seg_gat_agg_multigraph"
 _BWD_NAME = "seg_gat_agg_multigraph_bwd"
+_TOPOLOGY = ("col_index", "graph_id", "dst_row", "masks")  # what edge_index reads
 
 
 def _gather_unit_chunk(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
@@ -177,17 +183,9 @@ def seg_gat_agg_multigraph_bwd_plain(
     return d_ths, d_thd, d_h[0], d_bias
 
 
-def smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block of the forward (mirrors the .cu layout)."""
-    return 4 * (B * H * Dh + H * B * B + 5 * B * H) + B * B
-
-
-def bwd_smem_bytes(B: int, H: int, Dh: int) -> int:
-    """Dynamic shared memory of one block of the backward (mirrors the .cu layout)."""
-    return 4 * (2 * B * H * Dh + 2 * H * B * B + 6 * B * H) + B * B
-
-
 def check_smem(name: str, B: int, H: int, Dh: int, nbytes: int) -> None:
+    """The block-size and shared-memory check of kernels #3, #4 and #5,
+    whose blocks hold whole B × B tiles."""
     if B not in SUPPORTED_BLOCKS:
         raise ValueError(f"{name}: block size B={B} not in {SUPPORTED_BLOCKS}")
     if nbytes > SMEM_OPTIN:
@@ -197,7 +195,37 @@ def check_smem(name: str, B: int, H: int, Dh: int, nbytes: int) -> None:
         )
 
 
-# -- indices of the backward's reductions -------------------------------------
+def lane_groups(H: int, Dh: int) -> tuple[int, int | None]:
+    """(V, NK): the instantiation of #1's and #2's kernels a row of H·Dh
+    floats takes (csrc/edge_na.cuh): V floats a lane group (4 when
+    Dh % 4 == 0, else 1) and NK in {1, 2, 4, 8}, the fewest groups a lane
+    that cover the row; NK is None where more than 8 would be needed."""
+    V = 4 if Dh % 4 == 0 else 1
+    groups = -(-H * Dh // (32 * V))
+    return V, next((nk for nk in (1, 2, 4, 8) if groups <= nk), None)
+
+
+def check_edge_shape(name: str, B: int, H: int, Dh: int) -> None:
+    """What #1 and #2 take (csrc/edge_na.cuh): a warp holds one row of H·Dh
+    floats in its lanes' registers, at most 8 groups a lane
+    (:func:`lane_groups`), and lane h holds head h."""
+    if B not in EDGE_BLOCKS:
+        raise ValueError(f"{name}: block size B={B} not in {EDGE_BLOCKS}")
+    if not 1 <= H <= MAX_HEADS:
+        raise ValueError(f"{name}: H={H} heads, the kernel takes 1 to {MAX_HEADS}")
+    V, nk = lane_groups(H, Dh)
+    if nk is None:
+        raise ValueError(f"{name}: H·Dh={H * Dh} is more than the {32 * 8 * V} floats a warp's "
+                         f"registers hold at Dh={Dh}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy when its data is not 16-byte aligned (the kernels
+    read rows as float4 and mask rows as 8 bytes)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# -- the topology index of the backward ---------------------------------------
 
 
 def csr(keys: torch.Tensor, n_keys: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -210,32 +238,68 @@ def csr(keys: torch.Tensor, n_keys: int) -> tuple[torch.Tensor, torch.Tensor]:
             order.int().contiguous())
 
 
-def live_slots(col_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(pos [P], pair_of int32 [U, W]): the flat (unit, slot) position of
-    every live slot in order, and each slot's number among them (-1 for
-    padding).  The backward writes partials for live slots only."""
-    live = (col_index >= 0).reshape(-1)
-    pos = live.nonzero().squeeze(1)
-    pair_of = torch.full((live.numel(),), -1, dtype=torch.int32, device=col_index.device)
-    pair_of[pos] = torch.arange(pos.numel(), dtype=torch.int32, device=col_index.device)
-    return pos, pair_of.reshape(col_index.shape)
+def edge_index(col_index, graph_id, dst_row, masks, n_graphs: int, ns_pad: int,
+               nd_pad: int) -> dict:
+    """The edge index #2 reads, on the topology's device.  The edges are
+    the set mask entries of live slots, numbered dst-major in the forward's
+    order, by (unit u, dst row i, slot w, src j):
 
+    * ``row_off`` int32 [U·B + 1]: unit row u·B + i's edges start there;
+    * ``e_src`` int32 [E]: each edge's src vertex col[u, w]·B + j;
+    * ``src_off`` int32 [Ns_pad·G + 1], ``src_edge`` and ``src_row`` int32
+      [E]: the src-major CSR, the edges sorted by (src vertex, graph, unit,
+      slot, i), one segment a (src vertex, graph): each edge's dst-major
+      number and unit row;
+    * ``gdst``: (offsets, units) of each (graph, dst block), in unit order;
+    * ``E``, and ``built_for``, what :func:`check_index` holds each call to:
+      (U, W, B, G, Ns_pad, Nd_pad) and the four topology tensors, each with
+      its version counter and a copy of its values.
 
-def bwd_index(col_index, graph_id, dst_row, n_graphs: int, nblk_src: int, nblk_dst: int) -> dict:
-    """The live-slot numbering and the three CSRs the backward reduces over:
-    slots by src block (d_h_src, shared by every graph), slots by (graph,
-    src block) (d_theta_src), units by (graph, dst block) (d_theta_dst).
-    Depends on the topology only."""
-    W = col_index.shape[1]
-    pos, pair_of = live_slots(col_index)
-    pcol = col_index.reshape(-1)[pos].long()
-    pgid = graph_id.long()[pos // W]
+    It depends on the topology only.  Building it takes a device sort and
+    host syncs, so a caller that runs many steps on one topology builds it
+    once (HAN: ``HGNNData.multigraph_index()``) and passes it to every
+    call."""
+    U, W, B, _ = masks.shape
+    nblk_d = nd_pad // B
+    _check_ranges(col_index, graph_id, dst_row, B, n_graphs, ns_pad, nd_pad)
+    live = masks & (col_index >= 0)[:, :, None, None]
+    u, i, w, j = live.permute(0, 2, 1, 3).nonzero(as_tuple=True)  # dst-major order
+    src = col_index.long()[u, w] * B + j
+    rows = u * B + i
+    row_off = torch.zeros(U * B + 1, dtype=torch.long, device=masks.device)
+    row_off[1:] = torch.cumsum(torch.bincount(rows, minlength=U * B), 0)
+    src_off, src_edge = csr(src * n_graphs + graph_id.long()[u], ns_pad * n_graphs)
+    topology = (col_index, graph_id, dst_row, masks)
     return dict(
-        n_live=int(pos.numel()), pair_of=pair_of,
-        src=csr(pcol, nblk_src),
-        gsrc=csr(pgid * nblk_src + pcol, n_graphs * nblk_src),
-        gdst=csr(graph_id.long() * nblk_dst + dst_row.long(), n_graphs * nblk_dst),
-    )
+        E=int(src.numel()), row_off=row_off.int(), e_src=src.int(), src_off=src_off,
+        src_edge=src_edge, src_row=rows[src_edge.long()].int(),
+        gdst=csr(graph_id.long() * nblk_d + dst_row.long(), n_graphs * nblk_d),
+        built_for=dict(shape=(U, W, B, n_graphs, ns_pad, nd_pad),
+                       operands={k: (t, t._version, t.clone())
+                                 for k, t in zip(_TOPOLOGY, topology)}))
+
+
+def check_index(index: dict, col_index, graph_id, dst_row, masks, n_graphs: int, ns_pad: int,
+                nd_pad: int) -> None:
+    """Raise unless ``index`` is :func:`edge_index` of this topology: the
+    same (U, W, B, G, Ns_pad, Nd_pad) and the same values of col_index,
+    graph_id, dst_row and masks (an index of another topology would give
+    wrong gradients, not an error).  A tensor the index was built from,
+    unchanged since (its version counter), passes without reading the
+    device; any other is compared by value."""
+    built = index.get("built_for")
+    if built is None or "src_off" not in index:
+        raise ValueError(f"{_BWD_NAME}: index is not one of edge_index")
+    shape = (*masks.shape[:3], n_graphs, ns_pad, nd_pad)
+    if built["shape"] != shape:
+        raise ValueError(f"{_BWD_NAME}: the index was built for (U, W, B, G, Ns_pad, Nd_pad) = "
+                         f"{built['shape']}, the operands have {shape}")
+    for name, t in zip(_TOPOLOGY, (col_index, graph_id, dst_row, masks)):
+        ref, version, values = built["operands"][name]
+        if t is ref and t._version == version:
+            continue
+        if t.shape != values.shape or not torch.equal(t, values.to(t.device)):
+            raise ValueError(f"{_BWD_NAME}: the index was built for another {name}")
 
 
 # -- the CUDA kernels -------------------------------------------------------------
@@ -244,7 +308,7 @@ def bwd_index(col_index, graph_id, dst_row, n_graphs: int, nblk_src: int, nblk_d
 def _kernel_fn():
     lib = build.load(_NAME)
     fn = lib.seg_gat_agg_multigraph_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -252,26 +316,28 @@ def _kernel_fn():
 def _bwd_kernel_fn():
     lib = build.load(_BWD_NAME)
     fn = lib.seg_gat_agg_multigraph_bwd
-    fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-           edge_bias, out, lse, leaky_slope: float) -> None:
+           edge_bias, out, lse, leaky_slope: float, visits: torch.Tensor | None = None) -> None:
     """Launch the CUDA kernel on checked operands into ``out``/``lse``, on
-    the current stream.  Counts one launch."""
+    the current stream.  ``visits`` (int32 [1] on the card, or None) gains
+    the set mask entries the kernel visited.  Counts one launch."""
     U, W = col_index.shape
     B = masks.shape[-1]
     ns_pad, H = theta_src.shape[1:]
     nd_pad = theta_dst.shape[1]
     Dh = h_src.shape[-1]
+    masks, h_src = _aligned(masks), _aligned(h_src)
     lib, fn = _kernel_fn()
     with torch.cuda.device(h_src.device):
         err = fn(
             build.ptr(col_index), build.ptr(graph_id), build.ptr(dst_row), build.ptr(masks),
             build.ptr(theta_src), build.ptr(theta_dst), build.ptr(h_src), build.ptr(edge_bias),
-            build.ptr(out), build.ptr(lse),
+            build.ptr(out), build.ptr(lse), None if visits is None else build.ptr(visits),
             U, W, B, ns_pad, nd_pad, H, Dh, leaky_slope, build.stream_of(h_src),
         )
     build.check_error(lib, _NAME, err)
@@ -280,20 +346,20 @@ def launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
 
 def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
                g_out, lse, delta, index: dict, leaky_slope: float):
-    """Launch the backward kernel (pass 1 and its reductions) on checked
-    operands and :func:`bwd_index`'s ``index``, on the current stream.
-    Returns (d_theta_src, d_theta_dst, d_h_src).  Counts one launch."""
-    U, W = col_index.shape
+    """Launch the backward kernel (passes A and B) on checked operands and
+    :func:`edge_index`'s ``index`` of them (the caller holds it to them:
+    :func:`seg_gat_agg_multigraph_bwd` builds it or runs :func:`check_index`),
+    on the current stream.  Returns (d_theta_src, d_theta_dst, d_h_src).
+    Counts one launch."""
     B = masks.shape[-1]
     G, ns_pad, H = theta_src.shape
     nd_pad = theta_dst.shape[1]
     Dh = h_src.shape[-1]
-    n_live = index["n_live"]
     dev = h_src.device
     f32 = dict(dtype=torch.float32, device=dev)
-    dths_part = torch.empty((n_live, B, H), **f32)
-    dhs_part = torch.empty((n_live, B, H * Dh), **f32)
-    dthd_units = torch.empty((U * B, H), **f32)
+    h_src, g_out = _aligned(h_src), _aligned(g_out)
+    p_e = torch.empty((index["E"], H), **f32)
+    dpre_e = torch.empty((index["E"], H), **f32)
     d_h_src = torch.empty((ns_pad, H, Dh), **f32)
     d_theta_src = torch.empty((G, ns_pad, H), **f32)
     d_theta_dst = torch.empty((G, nd_pad, H), **f32)
@@ -301,21 +367,30 @@ def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     p = build.ptr
     with torch.cuda.device(dev):
         err = fn(
-            p(col_index), p(index["pair_of"]), p(graph_id), p(dst_row), p(masks),
+            *(p(t) for t in index["gdst"]),
+            *(p(index[k]) for k in ("row_off", "e_src", "src_off", "src_edge", "src_row")),
             p(theta_src), p(theta_dst), p(h_src), p(edge_bias), p(g_out), p(lse), p(delta),
-            p(dths_part), p(dhs_part), p(dthd_units),
-            *(p(t) for key in ("src", "gsrc", "gdst") for t in index[key]),
-            p(d_h_src), p(d_theta_src), p(d_theta_dst),
-            U, W, B, G, ns_pad, nd_pad, H, Dh, leaky_slope, build.stream_of(h_src),
+            p(p_e), p(dpre_e), p(d_h_src), p(d_theta_src), p(d_theta_dst),
+            G, B, ns_pad, nd_pad, H, Dh, leaky_slope, build.stream_of(h_src),
         )
     build.check_error(lib, _BWD_NAME, err)
     seg_gat_agg_multigraph_bwd.launches += 1
     return d_theta_src, d_theta_dst, d_h_src
 
 
+def _check_ranges(col_index, graph_id, dst_row, B: int, n_graphs: int, ns_pad: int,
+                  nd_pad: int) -> None:
+    """The topology's values in range (reads the device): the forward runs
+    it every call, the backward once per topology, in :func:`edge_index`."""
+    build.check_range("col_index", col_index, -1, ns_pad // B)
+    build.check_range("graph_id", graph_id, 0, n_graphs)
+    build.check_range("dst_row", dst_row, 0, nd_pad // B)
+
+
 def _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias):
-    """Check the operands of either direction; returns ``edge_bias`` (zeros
-    when None)."""
+    """Check the operands' dtypes, shapes and devices for either direction
+    (not the topology's values: :func:`_check_ranges`); returns
+    ``edge_bias`` (zeros when None)."""
     dev = h_src.device
     build.check_tensor("col_index", col_index, torch.int32, (None, None), dev)
     U, W = col_index.shape
@@ -334,9 +409,6 @@ def _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h
     nd_pad = theta_dst.shape[1]
     if ns_pad % B or nd_pad % B:
         raise ValueError(f"Ns_pad={ns_pad} and Nd_pad={nd_pad} must be multiples of B={B}")
-    build.check_range("col_index", col_index, -1, ns_pad // B)
-    build.check_range("graph_id", graph_id, 0, G)
-    build.check_range("dst_row", dst_row, 0, nd_pad // B)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{_NAME}: unsupported device {dev}")
     return edge_bias
@@ -361,13 +433,15 @@ def seg_gat_agg_multigraph_fwd(
     float32 only."""
     edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
                                 h_src, edge_bias)
+    _check_ranges(col_index, graph_id, dst_row, masks.shape[-1], *theta_src.shape[:2],
+                  theta_dst.shape[1])
     if h_src.device.type == "cpu":
         return seg_gat_agg_multigraph_plain(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
             edge_bias, leaky_slope=leaky_slope,
         )
     U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], h_src.shape[1:]
-    check_smem(_NAME, B, H, Dh, smem_bytes(B, H, Dh))
+    check_edge_shape(_NAME, B, H, Dh)
     out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=h_src.device)
     lse = torch.empty((U * B, H), dtype=torch.float32, device=h_src.device)
     launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
@@ -382,28 +456,36 @@ def seg_gat_agg_multigraph_bwd(
     g_out: torch.Tensor,  # f32 [U·B, H, Dh]  cotangent of out
     *,
     leaky_slope: float = 0.2,
+    index: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The VJP of :func:`seg_gat_agg_multigraph_fwd`: (d_theta_src,
     d_theta_dst, d_h_src, d_edge_bias), bitwise repeatable on the card.
 
     CUDA operands launch the backward kernel; CPU operands take the plain
-    version.  float32 only."""
+    version.  float32 only.  ``index``: :func:`edge_index` of these
+    operands, built once by a caller that runs many steps on one topology
+    (None builds it in the call, on either device: its build checks the
+    topology's values); one built for another topology raises
+    (:func:`check_index`, which reads the device only for tensors other
+    than those the index was built from, or changed since)."""
+    dev = h_src.device
     edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
                                 h_src, edge_bias)
-    dev = h_src.device
-    U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], h_src.shape[1:]
+    U, B, (G, ns_pad, H), Dh = col_index.shape[0], masks.shape[-1], theta_src.shape, h_src.shape[-1]
+    nd_pad = theta_dst.shape[1]
     build.check_tensor("out", out, torch.float32, (U * B, H, Dh), dev)
     build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
     build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
+    if index is None:
+        index = edge_index(col_index, graph_id, dst_row, masks, G, ns_pad, nd_pad)
+    else:
+        check_index(index, col_index, graph_id, dst_row, masks, G, ns_pad, nd_pad)
     if dev.type == "cpu":
         return seg_gat_agg_multigraph_bwd_plain(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
             out, lse, g_out, leaky_slope=leaky_slope,
         )
-    check_smem(_BWD_NAME, B, H, Dh, bwd_smem_bytes(B, H, Dh))
-    G = theta_src.shape[0]
-    index = bwd_index(col_index, graph_id, dst_row, G, theta_src.shape[1] // B,
-                      theta_dst.shape[1] // B)
+    check_edge_shape(_BWD_NAME, B, H, Dh)
     delta = (g_out * out).sum(dim=-1)
     d_ths, d_thd, d_hs = launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
                                     h_src, edge_bias, g_out, lse, delta, index,
@@ -416,36 +498,41 @@ seg_gat_agg_multigraph_bwd.launches = 0
 
 
 class MultigraphNA(torch.autograd.Function):
-    """Forward kernel #1 keeping ``out`` and ``lse``; backward kernel #2."""
+    """Forward kernel #1 keeping ``out`` and ``lse``; backward kernel #2,
+    reading the edge index the caller passed (or one built in the call)."""
 
     @staticmethod
     def forward(ctx, col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-                edge_bias, leaky_slope):
+                edge_bias, leaky_slope, index):
         out, lse = seg_gat_agg_multigraph_fwd(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
             leaky_slope=leaky_slope)
         ctx.save_for_backward(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
                               h_src, edge_bias, out, lse)
         ctx.leaky_slope = leaky_slope
+        ctx.index = index
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         *operands, out, lse = ctx.saved_tensors
         grads = seg_gat_agg_multigraph_bwd(*operands, out, lse, g_out.contiguous(),
-                                           leaky_slope=ctx.leaky_slope)
-        return (None, None, None, None, *grads, None)
+                                           leaky_slope=ctx.leaky_slope, index=ctx.index)
+        return (None, None, None, None, *grads, None, None)
 
 
 def seg_gat_agg_multigraph(
     col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
+    index: dict | None = None,
 ) -> torch.Tensor:
     """Differentiable per-unit aggregates ``[U·B, H, Dh]`` (the counterpart
     of ``repro``'s ``seg_gat_agg_multigraph``): gradients flow to
-    theta_src, theta_dst, h_src and edge_bias through kernel #2."""
+    theta_src, theta_dst, h_src and edge_bias through kernel #2.
+    ``index``: :func:`edge_index` of the topology, built once per topology
+    by the caller (None: the backward builds it)."""
     if edge_bias is None:
         G, _, H = theta_src.shape
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=h_src.device)
     return MultigraphNA.apply(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                              h_src, edge_bias, float(leaky_slope))
+                              h_src, edge_bias, float(leaky_slope), index)

@@ -158,7 +158,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--batch", type=int, default=0, help="labeled minibatch (0 = full)")
     ap.add_argument("--block", type=int, default=16,
-                    help="dst block size (the CUDA kernels take 8, 16 or 32)")
+                    help="dst block size (the kernel backend's #1/#2 take 8, 16, 32, 64 or "
+                         "128; the reference trainer's default is 128)")
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--feat-scale", type=float, default=0.1)
     ap.add_argument("--max-edges", type=int, default=400_000)

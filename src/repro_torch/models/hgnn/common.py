@@ -21,6 +21,7 @@ from ...core.fusion import (
     NABackend,
     SemanticGraphBatch,
     batch_semantic_graph,
+    build_edge_index,
     build_unit_tables,
     fused_fp_rows,
 )
@@ -75,6 +76,15 @@ class HGNNData:
             cache["shared_table_index"] = fused_index(
                 col, gid, row, wsel, 1, fused_fp_rows(self.graphs), self.graphs[0].block)
         return cache["shared_table_index"]
+
+    def multigraph_index(self) -> dict:
+        """MULTIGRAPH's edge index (kernel #2's ``edge_index``) of all
+        graphs' :meth:`unit_tables`, built on first use and kept as they
+        are."""
+        cache = self._topology_cache()
+        if "multigraph_index" not in cache:
+            cache["multigraph_index"] = build_edge_index(self.graphs, self.unit_tables())
+        return cache["multigraph_index"]
 
 
 def prepare_data(

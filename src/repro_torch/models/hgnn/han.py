@@ -98,11 +98,13 @@ def _han_embed(params, data: HGNNData, backend: NABackend):
     h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
     hh = h.reshape(n, heads, -1)
     if backend is NABackend.MULTIGRAPH:
-        # all relations' theta in one einsum, all relations' NA in ONE launch
+        # all relations' theta in one einsum, all relations' NA in ONE launch; the
+        # unit tables and the backward's edge index are built once per data set
         th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
         th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
         z_all = neighbor_aggregate_multi(data.graphs, th_s, th_d, hh, backend=backend,
-                                         unit_tables=data.unit_tables())
+                                         unit_tables=data.unit_tables(),
+                                         index=data.multigraph_index())
         return _fuse(z_all, params, n)
 
     z_all = []

@@ -5,8 +5,13 @@ host with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Backward kernels #2 and #4 against their plain versions (atol=rtol=1e-4,
-float32 sums in another order), each run twice and bitwise equal; #3 and
+Kernels #1 and #2 against their plain versions on every multigraph case
+(block sizes up to 128, a Dh that is not a multiple of 4, H·Dh = 1024),
+each run twice and bitwise equal, each visiting exactly the edges (the
+kernels' own counts), #2 with its index passed in giving the bits of one
+built in the call, and #1 equal to #5 at G = 1 bit for bit; backward
+kernel #4 against its plain version (atol=rtol=1e-4, float32 sums in
+another order), run twice and bitwise equal; #3 and
 #4 on both routes of their projection phase (tensor cores at H·Dh = 8
 and 256, CUDA cores at H·Dh = 9) on a ragged Din, row counts that are
 not a multiple of its 128-row tile, two tables and units that read a
@@ -53,6 +58,7 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph_bwd,
     seg_gat_agg_multigraph_bwd_plain,
     seg_gat_agg_multigraph_fwd,
+    seg_gat_agg_multigraph_plain,
     seg_gat_agg_plain,
 )
 from repro_torch.kernels.flash_attention import BITWISE_SHARE_MIN
@@ -66,8 +72,9 @@ from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, pre
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
-# the module, not the differentiable function the package exports by the same name
+# the modules, not the differentiable functions the package exports by the same names
 fused_ffp = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
 
 
 def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
@@ -113,7 +120,25 @@ MULTI_CASES = {
     "W=1": lambda: multigraph_case(5, W=1, U=3),
     "B=16-Dh=4": lambda: multigraph_case(13, B=16, U=3, W=2, Dh=4, H=3, nblk=3,
                                           degenerate=True),
+    # a width whose lane groups in #1/#2 are single floats (Dh % 4 != 0),
+    # and the block sizes 64 and 128, which only #1/#2 of the CUDA kernels take
+    "H=3-Dh=3": lambda: multigraph_case(29, B=16, U=3, W=3, H=3, Dh=3, nblk=3),
+    "B=64": lambda: multigraph_case(17, B=64, U=2, W=2, nblk=3, degenerate=True),
+    "B=128": lambda: multigraph_case(19, B=128, U=2, W=2, nblk=2),
 }
+# units that share their (graph, dst row): #2 sums their d_theta_dst in unit order
+REPEATED_UNITS = {"repeated-units": lambda: multigraph_case(31, U=6, W=2, G=1, nblk=2)}
+# the card's cases of #1/#2 add a case for each of their kernels' instantiations
+# (mg_mod.lane_groups) up to the widest row a warp holds (H·Dh = 1024): among them
+# R-GAT's row (H·Dh = 256) and HAN's at the reference trainer's B = 128
+CARD_MULTI_CASES = dict(MULTI_CASES, **REPEATED_UNITS, **{
+    "H=8-Dh=128": lambda: multigraph_case(23, B=8, U=3, W=2, H=8, Dh=128),
+    "H=4-Dh=64": lambda: multigraph_case(43, B=16, U=4, W=3, H=4, Dh=64, degenerate=True),
+    "B=128-H=8-Dh=64": lambda: multigraph_case(47, B=128, U=3, W=2, H=8, Dh=64, nblk=3),
+    "H=4-Dh=15": lambda: multigraph_case(53, B=16, U=3, W=3, H=4, Dh=15, nblk=3),
+    "H=8-Dh=15": lambda: multigraph_case(59, B=8, U=4, W=2, H=8, Dh=15),
+    "H=8-Dh=25": lambda: multigraph_case(61, B=32, U=3, W=2, H=8, Dh=25, nblk=3,
+                                         degenerate=True)})
 
 
 def fused_case(seed, *, units=6, width=3, nblk=5, graphs=3, tables=2, din=12, B=8, H=2, DH=4,
@@ -223,6 +248,20 @@ KERNEL5_CASES = {  # the shapes of tests/test_kernels.py:test_seg_gat_agg_shapes
 
 
 @pytest.fixture
+def one_thread():
+    """PyTorch on one intra-op thread.  On the CPU, torch.exp of a tensor
+    large enough to be split across intra-op worker threads has been seen
+    to come out within only ~1.5e-4 relative on the workers' share, in
+    some processes and not others (the multigraph plain versions' p at
+    B = 64 and 128); on one thread it keeps float32 accuracy, so the parity
+    tests at those block sizes hold to their tolerances every run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -237,10 +276,75 @@ def _exact(case):
     return [np.round(a * 16) / 16 if a.dtype == np.float32 else a for a in case]
 
 
+def _live_edges(col, masks) -> int:
+    return int(masks[col >= 0].sum())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(MULTI_CASES))
+@pytest.mark.parametrize("name", sorted(CARD_MULTI_CASES))
+def test_multigraph_fwd_kernel_matches_plain_on_cuda(cuda, name):
+    """#1 twice bitwise equal, against its plain version, visiting exactly
+    the set mask entries of live slots (padding slots' masks hold set bits
+    here too)."""
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in CARD_MULTI_CASES[name]()]
+    visits = torch.zeros(1, dtype=torch.int32, device=cuda)
+    col, gid, row, masks, ths, thd, hs, bias = case
+    out, lse = (torch.empty((col.shape[0] * masks.shape[-1], *hs.shape[1:]), device=cuda),
+                torch.empty((col.shape[0] * masks.shape[-1], hs.shape[1]), device=cuda))
+    mg_mod.launch(*case, out, lse, 0.2, visits=visits)
+    again = seg_gat_agg_multigraph_fwd(*case)
+    want = seg_gat_agg_multigraph_plain(*case)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    torch.testing.assert_close(out, want[0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-4)
+    assert int(visits) == _live_edges(col, masks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_MULTI_CASES))
+def test_multigraph_bwd_passes_visit_only_the_edges_on_cuda(cuda, name):
+    """The edge index #2's passes walk lists each edge once: pass A the
+    unit rows' edges of every (graph, dst block), pass B the src-major
+    CSR's; an index passed in gives the bits of one built in the call."""
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in CARD_MULTI_CASES[name]()]
+    col, gid, row, masks, ths, thd, hs, bias = case
+    out, lse = seg_gat_agg_multigraph_fwd(*case)
+    g_out = torch.cos(out)
+    index = mg_mod.edge_index(col, gid, row, masks, ths.shape[0], ths.shape[1], thd.shape[1])
+    got = mg_mod.launch_bwd(*case, g_out, lse, (g_out * out).sum(-1), index, 0.2)
+    want = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)
+    torch.cuda.synchronize()
+    B = masks.shape[-1]
+    rows = (index["gdst"][1].long()[:, None] * B + torch.arange(B, device=cuda)).reshape(-1)
+    row_off = index["row_off"].long()
+    assert index["E"] == _live_edges(col, masks)
+    assert int((row_off[rows + 1] - row_off[rows]).sum()) == index["E"]
+    assert int(index["src_off"][-1] - index["src_off"][0]) == index["E"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL5_CASES))
+def test_kernel5_equals_the_multigraph_kernel_at_one_graph_on_cuda(cuda, name):
+    """#1 walks the set entries only and still gives the bits of the dense
+    online-softmax step #5 runs over whole blocks."""
+    col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)
+                                      for a in KERNEL5_CASES[name]())
+    R = col.shape[0]
+    got = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    mg, _ = seg_gat_agg_multigraph_fwd(
+        col, torch.zeros(R, dtype=torch.int32, device=cuda),
+        torch.arange(R, dtype=torch.int32, device=cuda), masks, ths[None], thd[None], hs,
+        bias[None].contiguous())
+    assert torch.equal(got, mg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_MULTI_CASES))
 def test_multigraph_bwd_kernel_matches_plain_on_cuda(cuda, name):
-    case = [torch.from_numpy(np.array(a)).to(cuda) for a in MULTI_CASES[name]()]
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in CARD_MULTI_CASES[name]()]
     out, lse = seg_gat_agg_multigraph_fwd(*case)
     g_out = torch.cos(out)
     got = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)

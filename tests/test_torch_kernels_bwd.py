@@ -32,7 +32,8 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph_plain,
 )
 
-from test_torch_cuda import FUSED_CASES, MULTI_CASES, fused_case, multigraph_case, single_graph_case
+from test_torch_cuda import (  # noqa: F401 (one_thread: a fixture)
+    FUSED_CASES, MULTI_CASES, fused_case, multigraph_case, one_thread, single_graph_case)
 
 jfused = importlib.import_module("repro.kernels.seg_gat_agg_fused_fp")
 jmulti = importlib.import_module("repro.kernels.seg_gat_agg_multigraph")
@@ -54,6 +55,7 @@ def _torch_leaves(arrays):
     return [torch.from_numpy(np.array(a)).requires_grad_() for a in arrays]
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("name", sorted(MULTI_CASES))
 def test_multigraph_vjp_matches_jax_grad(name):
     case = MULTI_CASES[name]()
@@ -66,6 +68,7 @@ def test_multigraph_vjp_matches_jax_grad(name):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=nm, **TOL)
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("name", sorted(MULTI_CASES))
 def test_multigraph_vjp_matches_autograd_of_plain_forward(name):
     case = [torch.from_numpy(np.array(a)) for a in MULTI_CASES[name]()]
