@@ -8,8 +8,8 @@ Phases, each fatal on failure:
 1. Build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all together) and print the build seconds and the ptxas
    reports; the tensor-core kernels (#6, #7, and the projection phase of
-   #3 and #4) must not spill, nor have their wgmma instructions
-   serialised for want of registers (ptxas warning C7512).
+   #3 and #4) and #5's edge walk must not spill, nor the wgmma
+   instructions be serialised for want of registers (ptxas warning C7512).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (full-scale synthetic IMDB, HAN at
    heads=8, hidden=64) and on edge cases (an all-padding unit, fully
@@ -72,11 +72,14 @@ Phases, each fatal on failure:
    hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
    edge_dim 64; R-GCN hidden 64, layers 3):
    a. kernel #5 against its plain version on every relation graph at
-      R-GAT's layer-0 operands with a nonzero edge bias, and on the edge
-      cases (an all-padding row, fully masked rows, W = 1, B = 8 and 32,
-      Ns_pad < Nd_pad and Ns_pad > Nd_pad), at atol=rtol=1e-4; twice
-      bitwise equal; against #1 at G = 1 on the same operands; the six
-      launches of one layer timed with CUDA events beside their bound;
+      R-GAT's layer-0 operands (H·Dh = 256) with a nonzero edge bias, and
+      on the edge cases (an all-padding row, fully masked rows, W = 1, B =
+      8, 32, 64 and 128, Dh = 15, Ns_pad < Nd_pad and Ns_pad > Nd_pad), at
+      atol=rtol=1e-4; twice bitwise equal; equal to #1 at G = 1 bit for
+      bit; visiting exactly the live edges (its own count); the six
+      launches of one layer, and each graph's, timed with CUDA events
+      beside their bound.  Alone:
+      ``python3 -c 'import chip_smoke as c; c.kernel5_alone()'``;
    b. inference, under no_grad: R-GAT and S-HGN on KERNEL (per relation
       and layer #6 twice, the src and dst side's FP+θ, and #5 once: 36 and
       18 launches for R-GAT, 24 and 12 for S-HGN, every #6 launch on the
@@ -106,7 +109,13 @@ Phases, each fatal on failure:
       launcher's layers=2 on the metapath graphs at heads 4, hidden 64,
       20 steps, #1 and #2 six times a step, #6 never, and the loss falls;
       then one more step whose six calls of #1 and of #2 each match their
-      plain version on the same operands at atol=rtol=1e-4.
+      plain version on the same operands at atol=rtol=1e-4;
+   e. (run after b's counts were read) R-GAT and S-HGN on KERNEL at
+      block=128 (the reference trainer's default): every #5 call of each
+      model's first forward matches ``seg_gat_agg_plain`` on the same
+      operands and the logits match BLOCK, at atol=rtol=1e-4; steady
+      forward times; #5's six launches of R-GAT's layer 0 timed, visiting
+      exactly the live edges.
 6. The LM slice: llama3.2-3b at full width (28 layers, d_model 3072, 24/8
    heads of 128, d_ff 8192, vocab 128,256, float32 weights from a seeded
    ``torch.Generator``, bfloat16 compute):
@@ -144,8 +153,12 @@ Phases, each fatal on failure:
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
    and #2's rows give the entries they visit an edge, #2's its peak
-   memory), the
+   memory; #5's the entries it visits an edge, its per-graph times and its
+   B = 128 layer time), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+
+``edge_walk_times()`` times #1 and #5 alone with their ptxas registers, for
+an A/B of two trees run in turns in one call (its docstring says how).
 
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): every float32 number is
@@ -161,6 +174,7 @@ import importlib
 import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -223,8 +237,8 @@ def compare(name: str, got, want) -> float:
 def check_ptxas(reports: dict[str, str]) -> None:
     """Write each ptxas report to chiprun_out/ptxas_<name>.txt and print its
     register and spill lines; the tensor-core kernels (#6's and #7's wgmma
-    kernels) must not spill, and ptxas must not serialise their wgmma
-    instructions for want of registers (warning C7512)."""
+    kernels) and #5's edge walk must not spill, and ptxas must not serialise
+    the wgmma instructions for want of registers (warning C7512)."""
     for name, text in reports.items():
         (OUT / f"ptxas_{name}.txt").write_text(text)
         function = None
@@ -233,7 +247,7 @@ def check_ptxas(reports: dict[str, str]) -> None:
                 function = line.split("Function properties for")[-1].strip()
             if "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
-            if ("spill" in line and "wgmma" in (function or "")
+            if ("spill" in line and ("wgmma" in (function or "") or name == "seg_gat_agg")
                     and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 raise AssertionError(f"{name}: {function} spills registers: {line.strip()}")
             if "C7512" in line:  # wgmma serialised for want of registers
@@ -1143,8 +1157,11 @@ def kernel5_cost(ops_list):
 
 def kernel5_phase(data, params, fusion, k5_mod, mg_mod) -> dict:
     """#5 against its plain version on every relation graph of full IMDB at
-    R-GAT's width and on the edge cases; twice bitwise equal; against #1 at
-    G = 1; timed with CUDA events beside its bound."""
+    R-GAT's width (H·Dh = 256) and on the edge cases (B = 8 to 128, a Dh
+    that is not a multiple of 4); twice bitwise equal; equal to #1 at
+    G = 1 bit for bit; visiting exactly the live edges (its own count);
+    timed with CUDA events beside its bound, one R-GAT layer and each
+    graph."""
     dev = data.labels.device
     ops_list = kernel5_operands(data, params, fusion)
     cases = [(f"{b.name} R={b.col_index.shape[0]} W={b.col_index.shape[1]} "
@@ -1155,10 +1172,18 @@ def kernel5_phase(data, params, fusion, k5_mod, mg_mod) -> dict:
               ("edge B=8 H=2 Dh=8", kernel5_edge(3, dev, B=8, H=2, Dh=8)),
               ("edge B=32 Dh=32", kernel5_edge(4, dev, B=32, Dh=32)),
               ("edge Ns_pad < Nd_pad", kernel5_edge(5, dev, R=20, nblk_src=3)),
-              ("edge Ns_pad > Nd_pad", kernel5_edge(6, dev, R=2, W=8, nblk_src=40))]
-    err = err_mg = 0.0
+              ("edge Ns_pad > Nd_pad", kernel5_edge(6, dev, R=2, W=8, nblk_src=40)),
+              ("edge B=64", kernel5_edge(7, dev, B=64, R=6, W=4, nblk_src=8)),
+              ("edge B=128", kernel5_edge(8, dev, B=128, R=4, W=3, nblk_src=6)),
+              ("edge H=4 Dh=15 (single-float lane groups)", kernel5_edge(9, dev, Dh=15))]
+    err = 0.0
+    visits = torch.zeros(1, dtype=torch.int32, device=dev)
+    visited = {}
     for name, ops in cases:
-        got = k5_mod.seg_gat_agg(**ops)
+        got = torch.empty((ops["theta_dst"].shape[0], *ops["h_src"].shape[1:]), device=dev)
+        visits.zero_()
+        k5_mod.launch(ops["col_index"], ops["masks"], ops["theta_src"], ops["theta_dst"],
+                      ops["h_src"], ops["edge_bias"], got, 0.2, visits=visits)
         again = k5_mod.seg_gat_agg(**ops)
         want = k5_mod.seg_gat_agg_plain(**ops)
         R = ops["col_index"].shape[0]
@@ -1170,45 +1195,81 @@ def kernel5_phase(data, params, fusion, k5_mod, mg_mod) -> dict:
         if not torch.equal(got, again):
             raise AssertionError(f"seg_gat_agg {name}: two runs on the same inputs differ")
         err = max(err, compare(f"seg_gat_agg {name}", (got,), (want,)))
-        d_mg = float((got - mg).abs().max())
-        err_mg = max(err_mg, d_mg)
-        compare(f"seg_gat_agg vs multigraph kernel at G=1, {name}", (got,), (mg,))
+        if not torch.equal(got, mg):
+            raise AssertionError(f"seg_gat_agg {name}: #5 and #1 at G = 1 differ by up to "
+                                 f"{float((got - mg).abs().max()):.3e}")
         B = ops["masks"].shape[-1]
         dead = (ops["col_index"] < 0).all(dim=1).repeat_interleave(B)
         if not (got[dead] == 0).all():
             raise AssertionError(f"seg_gat_agg {name}: an all-padding row is not exact zeros")
-    log(f"[check] seg_gat_agg: every case twice bitwise equal; max |#5 - #1 at G=1| = {err_mg:.3e}")
+        edges = live_edges(ops["col_index"], ops["masks"])
+        visited[name] = (int(visits), edges)
+        log(f"[check] seg_gat_agg {name}: visited {int(visits)} entries for {edges} live edges")
+        if int(visits) != edges:
+            raise AssertionError(f"seg_gat_agg {name}: visited {int(visits)} entries, the case "
+                                 f"has {edges} live edges")
+    log("[check] seg_gat_agg: every case twice bitwise equal, equal to #1 at G = 1 bit for bit, "
+        "visiting exactly the live edges")
 
     outs = [torch.empty((o["theta_dst"].shape[0], *o["h_src"].shape[1:]), device=dev)
             for o in ops_list]
 
-    def one_layer():  # the six launches of one R-GAT layer, straight on the launch
-        for o, out in zip(ops_list, outs):
-            k5_mod.launch(o["col_index"], o["masks"], o["theta_src"], o["theta_dst"], o["h_src"],
-                          o["edge_bias"], out, 0.2)
+    def one(o, out):  # one launch, straight on the kernel
+        k5_mod.launch(o["col_index"], o["masks"], o["theta_src"], o["theta_dst"], o["h_src"],
+                      o["edge_bias"], out, 0.2)
 
-    ms = cuda_ms(one_layer, reps=20)
+    ms = cuda_ms(lambda: [one(o, out) for o, out in zip(ops_list, outs)], reps=20)
     per_graph = {}
-    for b, o, out in zip(data.graphs, ops_list, outs):
+    for (name, _), b, o, out in zip(cases, data.graphs, ops_list, outs):
         col = o["col_index"]
         per_graph[b.name] = dict(
-            ms=cuda_ms(lambda: k5_mod.launch(o["col_index"], o["masks"], o["theta_src"],
-                                             o["theta_dst"], o["h_src"], o["edge_bias"], out, 0.2),
-                       reps=20),
-            rows=int(col.shape[0]), live=int((col >= 0).sum()),
-            max_live_per_row=int((col >= 0).sum(dim=1).max()))
+            ms=cuda_ms(lambda: one(o, out), reps=20), rows=int(col.shape[0]),
+            live=int((col >= 0).sum()), max_live_per_row=int((col >= 0).sum(dim=1).max()),
+            edges=visited[name][1], visited=visited[name][0])
         log(f"[time] seg_gat_agg {b.name}: {per_graph[b.name]['ms']:.4f} ms, rows "
             f"{per_graph[b.name]['rows']}, live (row, slot) pairs {per_graph[b.name]['live']}, "
-            f"most live slots in one row {per_graph[b.name]['max_live_per_row']}")
+            f"most live slots in one row {per_graph[b.name]['max_live_per_row']}, edges "
+            f"{per_graph[b.name]['edges']}")
     plain_ms = cuda_ms(lambda: [k5_mod.seg_gat_agg_plain(**o) for o in ops_list], reps=3)
     nbytes, flops, live = kernel5_cost(ops_list)
     bound, by = bound_ms(nbytes, flops)
+    n_visited = sum(g["visited"] for g in per_graph.values())
+    n_edges = sum(g["edges"] for g in per_graph.values())
     log(f"[time] seg_gat_agg, the six relations of one layer: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes:.4e} B, {flops:.4e} flops); "
-        f"live (row, slot) pairs {live}")
-    return dict(max_abs_err=err, max_abs_diff_vs_multigraph=err_mg, ms=ms, plain_ms=plain_ms,
+        f"live (row, slot) pairs {live}, edges {n_edges}, visited {n_visited / n_edges:.4f} an edge")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
-                live_pairs=live, per_graph=per_graph)
+                live_pairs=live, edges=n_edges, visited_per_edge=n_visited / n_edges,
+                per_graph=per_graph)
+
+
+def kernel5_alone() -> dict:
+    """Phase 5a on its own (``python3 -c 'import chip_smoke as c;
+    c.kernel5_alone()'``): builds #5 and #1 (its G = 1 twin), writes their
+    ptxas reports, runs the phase on full IMDB and writes kernel5.json to
+    the output directory."""
+    from repro_torch.core import fusion
+    from repro_torch.graphs import synthetic_hetgraph
+    from repro_torch.kernels import build
+    from repro_torch.models.hgnn import MODELS
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(card_line())
+    OUT.mkdir(exist_ok=True)
+    check_ptxas(build.build(("seg_gat_agg", "seg_gat_agg_multigraph")))
+    graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
+    rdata = relation_data(graph, "cuda")
+    rgat0 = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), rdata, **MODEL_WIDTHS["R-GAT"])
+    res = kernel5_phase(rdata, rgat0, fusion,
+                        importlib.import_module("repro_torch.kernels.seg_gat_agg"),
+                        importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph"))
+    res["card"] = card_line()
+    (OUT / "kernel5.json").write_text(json.dumps(res, indent=1, default=str))
+    log(res["card"])
+    return res
 
 
 def kernel6_cases(data, params) -> list[tuple[str, tuple]]:
@@ -1386,6 +1447,75 @@ def kernel6_alone() -> dict:
     return res
 
 
+def ptxas_registers(report: str) -> dict[str, str]:
+    """Each kernel's "registers, spills" from a ptxas -v report, by the
+    kernel's template arguments (``<V, NK>`` of the edge kernels)."""
+    regs, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+            m = re.search(r"ILi(\d+)ELi(\d+)E", fn)
+            head = fn[:m.start()] if m else fn
+            n = next((n for n in range(1, len(head)) if head[:-n].endswith(str(n))), len(head))
+            name = head[-n:] + (f"<{m[1]},{m[2]}>" if m else "")
+        elif "spill stores" in line and name:
+            regs[name] = line.strip().split(", ")[1]
+        elif "registers" in line and name:
+            regs[name] = line.split("Used ")[-1].split(",")[0] + ", " + regs.get(name, "")
+    return regs
+
+
+def edge_walk_times() -> dict:
+    """#1 at the HAN training shape (phase 4a's operands) and #5's six
+    launches of one R-GAT layer on full IMDB (phase 5a's), each timed with
+    CUDA events, beside both kernels' ptxas registers and spills; prints one
+    JSON line and returns it.  It times the ``repro_torch`` beside this
+    script, through calls (``launch`` of #1 and of #5) whose arguments are
+    those of the tree before #5's edge walk too, so an A/B of two trees
+    copies this script to each tree's root and runs it there in turns
+    (``python3 -c 'import chip_smoke as c; c.edge_walk_times()'``)."""
+    from repro_torch.core import fusion
+    from repro_torch.graphs import synthetic_hetgraph
+    from repro_torch.kernels import build
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import HAN, MODELS
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    k5_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg")
+    reports = build.build(("seg_gat_agg_multigraph", "seg_gat_agg"))
+    _, tdata = hgnn_train.build_problem(device="cuda", **TRAIN)
+    params = HAN.init(torch.Generator().manual_seed(0), tdata, **TRAIN_WIDTH,
+                      att_dim=2 * TRAIN_WIDTH["hidden"])
+    mg, _ = train_operands(tdata, params, fusion)
+    B, (H, Dh) = mg["masks"].shape[-1], mg["h_src"].shape[1:]
+    out = torch.empty((mg["col_index"].shape[0] * B, H, Dh), device="cuda")
+    lse = torch.empty(out.shape[:2], device="cuda")
+    ms1 = cuda_ms(lambda: mg_mod.launch(**mg, out=out, lse=lse, leaky_slope=0.2), reps=20)
+    del tdata, mg, out, lse
+    graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
+    rdata = relation_data(graph, "cuda")
+    rgat = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), rdata, **MODEL_WIDTHS["R-GAT"])
+    ops_list = kernel5_operands(rdata, rgat, fusion)
+    outs = [torch.empty((o["theta_dst"].shape[0], *o["h_src"].shape[1:]), device="cuda")
+            for o in ops_list]
+
+    def one(o, o_out):
+        k5_mod.launch(o["col_index"], o["masks"], o["theta_src"], o["theta_dst"], o["h_src"],
+                      o["edge_bias"], o_out, 0.2)
+
+    ms5 = cuda_ms(lambda: [one(o, o_out) for o, o_out in zip(ops_list, outs)], reps=20)
+    per_graph = {b.name: cuda_ms(lambda: one(o, o_out), reps=20)
+                 for b, o, o_out in zip(rdata.graphs, ops_list, outs)}
+    res = dict(card=card_line(), multigraph_ms=ms1, seg_gat_agg_layer_ms=ms5,
+               seg_gat_agg_per_graph_ms=per_graph,
+               registers={k: ptxas_registers(v) for k, v in reports.items()})
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def inference(graph, counters, NAB) -> dict:
     """R-GAT and S-HGN on KERNEL (#6 twice and #5 once per relation and
     layer) and R-GCN
@@ -1457,6 +1587,81 @@ def inference(graph, counters, NAB) -> dict:
             f"share {prof['device_idle_share']:.4f}")
         for k in prof["top_kernels"][:4]:
             log(f"[infer {name}]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    return res
+
+
+def inference_block128(graph, k5_mod, NAB) -> dict:
+    """Phase 5e: R-GAT and S-HGN inference on KERNEL at block=128 (the
+    reference trainer's default, which #5's edge walk takes) on full IMDB's
+    relation graphs: every #5 call of each model's first forward against
+    ``seg_gat_agg_plain`` on the same operands and the logits against
+    BLOCK, at atol=rtol=1e-4; steady forward times; #5's six launches of
+    R-GAT's layer 0 timed with CUDA events, with the entries they visit."""
+    from repro_torch.core import fusion
+    from repro_torch.graphs import relation_semantic_graphs, synthetic_labels
+    from repro_torch.models.hgnn import MODELS, prepare_data
+
+    data = prepare_data(graph, relation_semantic_graphs(graph), "movie", 3,
+                        synthetic_labels(graph, "imdb", seed=0), block=128, device="cuda")
+    log("[B=128] " + ", ".join(f"{b.name} block CSR {tuple(b.col_index.shape)}"
+                               for b in data.graphs))
+    res = {}
+    for name in ("R-GAT", "S-HGN"):
+        model, width = MODELS[name], MODEL_WIDTHS[name]
+        params = model.init(torch.Generator().manual_seed(0), data, **width)
+        calls, launch = [], k5_mod.launch
+
+        def recording(*args, **kw):
+            launch(*args, **kw)
+            calls.append(args)
+
+        k5_mod.launch = recording
+        try:
+            with torch.no_grad():
+                logits = model.forward(params, data, backend=NAB.KERNEL)
+        finally:
+            k5_mod.launch = launch
+        if len(calls) != width["layers"] * len(data.graphs):
+            raise AssertionError(f"{name} at B=128: {len(calls)} launches of #5, expected "
+                                 f"{width['layers'] * len(data.graphs)}")
+        err = 0.0
+        for n, (col, masks, ths, thd, hs, bias, out, slope) in enumerate(calls):
+            want = k5_mod.seg_gat_agg_plain(col, masks, ths, thd, hs, leaky_slope=slope,
+                                            edge_bias=bias)
+            err = max(err, compare(f"{name} B=128 #5 call {n}", (out,), (want,)))
+        with torch.no_grad():
+            ref = model.forward(params, data, backend=NAB.BLOCK)
+        err = max(err, compare(f"{name} B=128 logits kernel vs BLOCK", (logits,), (ref,)))
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.forward(params, data, backend=NAB.KERNEL)
+            torch.cuda.synchronize()
+            steady.append((time.perf_counter() - t0) * 1e3)
+        res[name] = dict(max_abs_err=err, na_calls=len(calls), steady_ms=steady)
+        log(f"[B=128 {name}] {len(calls)} calls of #5 and the logits match; steady forward ms "
+            f"{['%.3f' % t for t in steady]}")
+    rgat = MODELS["R-GAT"].init(torch.Generator().manual_seed(0), data, **MODEL_WIDTHS["R-GAT"])
+    ops_list = kernel5_operands(data, rgat, fusion)
+    outs = [torch.empty((o["theta_dst"].shape[0], *o["h_src"].shape[1:]), device="cuda")
+            for o in ops_list]
+    visits = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for o, out in zip(ops_list, outs):
+        k5_mod.launch(o["col_index"], o["masks"], o["theta_src"], o["theta_dst"], o["h_src"],
+                      o["edge_bias"], out, 0.2, visits=visits)
+    edges = sum(live_edges(o["col_index"], o["masks"]) for o in ops_list)
+    if int(visits) != edges:
+        raise AssertionError(f"#5 at B=128 visited {int(visits)} entries for {edges} edges")
+    ms = cuda_ms(lambda: [k5_mod.launch(o["col_index"], o["masks"], o["theta_src"],
+                                        o["theta_dst"], o["h_src"], o["edge_bias"], out, 0.2)
+                          for o, out in zip(ops_list, outs)], reps=20)
+    nbytes, flops, _ = kernel5_cost(ops_list)
+    bound, by = bound_ms(nbytes, flops)
+    res["seg_gat_agg_layer"] = dict(ms=ms, bound_ms=bound, bound_by=by, edges=edges,
+                                    visited_per_edge=int(visits) / edges)
+    log(f"[B=128 time] seg_gat_agg, R-GAT layer 0's six launches: {ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); visited {int(visits)} entries for {edges} edges")
     return res
 
 
@@ -2061,6 +2266,8 @@ def main() -> int:
     all_counters = dict(train_counters, seg_gat_agg=k5_mod.seg_gat_agg,
                         fused_fp_coeff=k6_mod.fused_fp_coeff)
     infer = inference(graph, all_counters, NABackend)
+    # e. the same models at block=128 (after the main path's counts were read)
+    infer["block128"] = inference_block128(graph, k5_mod, NABackend)
     # #5's and #6's counts come from the inference runs that launch them (R-GAT, then S-HGN)
     for k in ("seg_gat_agg", "fused_fp_coeff"):
         launches[k] = sum(infer[m]["launches"][k] for m in ("R-GAT", "S-HGN"))
@@ -2140,6 +2347,11 @@ def main() -> int:
         v = train_kernels[k]["visits"]
         row["visited_per_edge"] = (v["fwd"] if k == "multigraph"
                                    else {"pass_a": v["pass_a"], "pass_b": v["pass_b"]})
+    k5_row = next(r for r in line["kernels"] if r["name"] == "seg_gat_agg")
+    k5 = train_kernels["seg_gat_agg"]
+    k5_row.update(visited_per_edge=k5["visited_per_edge"],
+                  per_graph_ms={g: v["ms"] for g, v in k5["per_graph"].items()},
+                  block128_layer_ms=infer["block128"]["seg_gat_agg_layer"]["ms"])
     bwd_row = next(r for r in line["kernels"] if r["name"] == "seg_gat_agg_multigraph_bwd")
     bwd_row["peak_mem_bytes"] = train_kernels["multigraph_bwd"]["peak_memory"]["peak_bytes"]
     for k in ("fused_fp", "fused_fp_bwd"):  # #3 and #4: no library call computes fused FP+NA

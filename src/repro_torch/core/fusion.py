@@ -45,7 +45,7 @@ import torch
 from ..graphs.formats import to_block_csr, to_padded_edges
 from ..graphs.hetgraph import SemanticGraph
 from ..kernels.fused_fp_coeff import fused_fp_coeff
-from ..kernels.seg_gat_agg import bias_vector, seg_gat_agg
+from ..kernels.seg_gat_agg import bias_vector, range_check, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import edge_index, seg_gat_agg_multigraph
 from ..obs.trace import trace_span
@@ -106,6 +106,14 @@ class SemanticGraphBatch:
         kept."""
         tables = build_unit_tables([self])
         return tables, build_edge_index([self], tables)
+
+    @functools.cached_property
+    def kernel_range_check(self) -> dict:
+        """Kernel #5's range check of ``col_index`` (``kernels.seg_gat_agg.range_check``),
+        run the first time KERNEL aggregates the batch, then kept: later
+        calls skip its host sync while ``col_index`` is unchanged (its
+        version counter)."""
+        return range_check(self.col_index, -(-self.num_src // self.block))
 
 
 def batch_semantic_graph(
@@ -294,6 +302,7 @@ def neighbor_aggregate(
         out = seg_gat_agg(
             batch.col_index, batch.masks, th_s.contiguous(), th_d.contiguous(),
             hs.contiguous(), leaky_slope=leaky_slope, edge_bias=edge_bias,
+            checked=batch.kernel_range_check,
         )
     return out[: batch.num_dst]
 

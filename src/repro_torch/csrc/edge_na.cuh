@@ -1,5 +1,6 @@
-// Edge-walking helpers of the multigraph NA kernels #1 and #2
-// (seg_gat_agg_multigraph.cu, seg_gat_agg_multigraph_bwd.cu).
+// Edge-walking helpers of the NA kernels #1, #2 and #5
+// (seg_gat_agg_multigraph.cu, seg_gat_agg_multigraph_bwd.cu,
+// seg_gat_agg.cu), and the forward walk #1 and #5 share (aggregate_row).
 //
 // A warp owns one row of H*Dh floats (a dst row, or a src vertex in #2's
 // pass B), all heads.  Its lanes own the columns in NK groups of V
@@ -17,6 +18,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace edge_na {
 
@@ -117,6 +120,150 @@ __device__ __forceinline__ void for_each_bit(const uint32_t (&bits)[kMaskWords],
       body(j);
     }
   }
+}
+
+
+// One dst row's GAT NA over its block row, all heads, by one warp: the
+// forward of #1 (a unit row) and of #5 (a dst row of one graph).
+//
+// The warp walks the row's W slots 32 at a time: lane k reads slot
+// w0 + k's column and, for a live slot (col >= 0) only, its mask row as a
+// bit set; a ballot keeps the slots whose row has a set bit.  Padding
+// slots are skipped even where their masks hold set bits.  Per kept slot,
+// in ascending w, the online-softmax step of online_softmax_na.cuh
+// restricted to the set j, in ascending j: m_blk over the set j, then
+// sc = exp(m_old - m_new), l = l*sc + sum of p_j in j order, and per column
+// s = fmaf chain of p_j * h_src[col*B + j, c] from 0 in j order,
+// acc = acc*sc + s.  A masked entry adds exactly 0 there and a (row, slot)
+// with no set entry leaves m, l and acc as they are (sc = 1), so the row
+// gets the bits of that dense step over whole B x B blocks.  Writes
+// out_row = acc / max(l, 1e-9) (exact zeros for a row with no live edge),
+// lse_row[h] = m + log l where lse_row is not null, and adds the set
+// entries visited to *visits where visits is not null.
+template <int V, int NK>
+__device__ __forceinline__ void aggregate_row(
+    const int* __restrict__ col_row,       // [W] the row's src block columns, -1 padding
+    const uint8_t* __restrict__ mask_row,  // the row's mask row in slot 0; slot w's at w*B*B
+    const float* __restrict__ theta_src,   // [ns_pad, H] of the row's graph
+    const float* __restrict__ h_src,       // [ns_pad, H, Dh]
+    float td, float bh,                    // lane h: theta_dst and edge bias of head h
+    float* __restrict__ out_row,           // [H*Dh]
+    float* __restrict__ lse_row,           // [H], or null
+    int* __restrict__ visits,              // [1], or null
+    int W, int B, int H, int Dh, float slope) {
+  const int lane = threadIdx.x & 31;
+  const int HDh = H * Dh;
+  const int hl = lane < H ? lane : 0;  // lanes past H compute head 0's values, unused
+  const float* ths = theta_src + hl;
+  int head[NK];
+  group_heads<V, NK>(lane, HDh, Dh, head);
+
+  float m = kNegInf, l = 0.f;
+  float acc[NK][V];
+#pragma unroll
+  for (int t = 0; t < NK; ++t)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[t][v] = 0.f;
+  int visited = 0;
+
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    const int c = w < W ? col_row[w] : -1;
+    uint32_t bits[kMaskWords];
+    if (c >= 0) {
+      row_bits(mask_row + (size_t)w * B * B, B, bits);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kMaskWords; ++k) bits[k] = 0u;  // padding: never read its mask
+    }
+    unsigned kept = __ballot_sync(kFull, any_bit(bits));
+    while (kept != 0u) {  // kept slots in ascending w
+      const int from = __ffs(kept) - 1;
+      kept &= kept - 1u;
+      const int cb = __shfl_sync(kFull, c, from);
+      uint32_t set[kMaskWords];
+#pragma unroll
+      for (int k = 0; k < kMaskWords; ++k) set[k] = __shfl_sync(kFull, bits[k], from);
+      const float* ths_c = ths + (size_t)cb * B * H;
+      const float* hs_c = h_src + (size_t)cb * B * HDh;
+
+      float m_blk = kNegInf;
+      for_each_bit(set, [&](int j) {
+        const float pre = td + ths_c[j * H] + bh;
+        const float lg = pre >= 0.f ? pre : slope * pre;
+        m_blk = fmaxf(m_blk, lg);
+      });
+      const float m_new = fmaxf(m, m_blk);
+      const float sc = expf(m - m_new);
+      float sum = 0.f;
+      float s[NK][V];
+#pragma unroll
+      for (int t = 0; t < NK; ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) s[t][v] = 0.f;
+      for_each_bit(set, [&](int j) {
+        float hv[NK][V];
+        load_row<V, NK>(hs_c + (size_t)j * HDh, lane, HDh, hv);
+        const float pre = td + ths_c[j * H] + bh;
+        const float lg = pre >= 0.f ? pre : slope * pre;
+        const float pj = expf(lg - m_new);
+        sum += pj;
+#pragma unroll
+        for (int t = 0; t < NK; ++t) {
+          const float pt = __shfl_sync(kFull, pj, head[t]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) s[t][v] = fmaf(pt, hv[t][v], s[t][v]);
+        }
+        ++visited;
+      });
+      l = l * sc + sum;
+      m = m_new;
+#pragma unroll
+      for (int t = 0; t < NK; ++t) {
+        const float st = __shfl_sync(kFull, sc, head[t]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[t][v] = acc[t][v] * st + s[t][v];
+      }
+    }
+  }
+
+  float o[NK][V];
+#pragma unroll
+  for (int t = 0; t < NK; ++t) {
+    const float lt = __shfl_sync(kFull, l, head[t]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[t][v] = acc[t][v] / fmaxf(lt, 1e-9f);
+  }
+  store_row<V, NK>(out_row, lane, HDh, o);
+  if (lse_row != nullptr && lane < H) lse_row[lane] = m + logf(fmaxf(l, 1e-30f));
+  if (visits != nullptr && lane == 0) atomicAdd(visits, visited);
+}
+
+// launch(V, NK) for the instantiation a row of H*Dh floats takes, as
+// std::integral_constant values (kernels/seg_gat_agg_multigraph.py:
+// lane_groups): V = 4 when Dh % 4 == 0, else 1, and NK in {1, 2, 4, 8}
+// the fewest groups a lane that cover the row.  Returns launch's code, or
+// cudaErrorInvalidValue where a row needs more than 8 groups a lane.
+template <typename Launch>
+int with_lane_groups(int H, int Dh, Launch&& launch) {
+  using One = std::integral_constant<int, 1>;
+  using Two = std::integral_constant<int, 2>;
+  using Four = std::integral_constant<int, 4>;
+  using Eight = std::integral_constant<int, 8>;
+  const int V = Dh % 4 == 0 ? 4 : 1;
+  const int groups = (H * Dh + 32 * V - 1) / (32 * V);  // groups a lane owns
+  if (V == 4) {
+    if (groups <= 1) return launch(Four{}, One{});
+    if (groups <= 2) return launch(Four{}, Two{});
+    if (groups <= 4) return launch(Four{}, Four{});
+    if (groups <= 8) return launch(Four{}, Eight{});
+  } else {
+    if (groups <= 1) return launch(One{}, One{});
+    if (groups <= 2) return launch(One{}, Two{});
+    if (groups <= 4) return launch(One{}, Four{});
+    if (groups <= 8) return launch(One{}, Eight{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace edge_na

@@ -1,5 +1,6 @@
-// The online-softmax NA step shared by the multigraph and fused-FP forward
-// kernels (seg_gat_agg_multigraph.cu, seg_gat_agg_fused_fp.cu).
+// The online-softmax NA step of the fused-FP forward #3
+// (seg_gat_agg_fused_fp.cu; its backward #4 takes the constants); the edge
+// walk of #1 and #5 (edge_na.cuh) keeps its sums' order and expressions.
 //
 // A thread block owns one work unit: B dst rows, all H heads.  Its
 // on-chip state, in shared memory and float32 for the whole sweep over

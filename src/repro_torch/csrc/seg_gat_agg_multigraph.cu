@@ -18,19 +18,14 @@
 //     H*Dh (edge_na.cuh), lane h < H the row's softmax statistics m, l of
 //     head h.  Units are disjoint in their output rows: no atomics, and
 //     out and lse are written once.
-//   * The warp walks the unit's W slots 32 at a time: lane k reads slot
-//     w0 + k's column and, for a live slot (col >= 0) only, its mask row
-//     i as a bit set; a ballot keeps the slots whose row i has a set bit.
-//     Padding slots are skipped even where their masks hold set bits.
-//   * Per kept slot, the online-softmax step of online_softmax_na.cuh
-//     restricted to the set j, in ascending j: m_blk over the set j, then
-//     sc = exp(m_old - m_new), l = l*sc + sum of p_j in j order, and per
-//     column s = fmaf chain of p_j * h_src[col*B + j, c] from 0 in j order,
-//     acc = acc*sc + s.  A masked entry adds exactly 0 there (p = 0, fmaf(0,
-//     h, s) = s, sum + 0 = sum) and a (row, slot) with no set entry leaves
-//     m, l and acc as they are (sc = 1), so the output has the same bits as
-//     the dense step of the header over whole B x B blocks (the one kernel
-//     #5 runs): chip_smoke.py checks #5 == #1 at G = 1 bit for bit.
+//   * The row's walk is edge_na.cuh's aggregate_row, which #5
+//     (seg_gat_agg.cu) runs too: the warp reads 32 slots' mask rows i at
+//     a time as bit sets, a ballot keeps the live slots with a set bit,
+//     and it visits only those set entries, in ascending (w, j), with the
+//     sums in the order and expressions of online_softmax_na.cuh's dense
+//     step.  So the output has the bits of that step over whole B x B
+//     blocks, and #5 == #1 at G = 1 holds by construction (chip_smoke.py
+//     checks it bit for bit).
 //   * No host-built index: the serving engine's unit tables change every
 //     step.  Any B in {8, 16, 32, 64, 128}; H <= 32.
 #include "edge_na.cuh"
@@ -57,96 +52,13 @@ __global__ void __launch_bounds__(kThreads) multigraph_fwd_kernel(
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);  // unit row u*B + i
   if (r >= U * B) return;  // warp-uniform
   const int u = r / B, i = r % B;
-  const int HDh = H * Dh;
   const int g = graph_id[u];
-  const int hl = lane < H ? lane : 0;  // lanes past H compute head 0's values, unused
-  const float* ths_g = theta_src + (size_t)g * ns_pad * H;
-  const float td = theta_dst[((size_t)g * nd_pad + (size_t)dst_row[u] * B + i) * H + hl];
-  const float bh = edge_bias[g * H + hl];
-  int head[NK];
-  group_heads<V, NK>(lane, HDh, Dh, head);
-
-  float m = kNegInf, l = 0.f;
-  float acc[NK][V];
-#pragma unroll
-  for (int t = 0; t < NK; ++t)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[t][v] = 0.f;
-  int visited = 0;
-
-  const int* col_u = col_index + (size_t)u * W;
-  const uint8_t* mask_ui = masks + (size_t)u * W * B * B + (size_t)i * B;
-  for (int w0 = 0; w0 < W; w0 += 32) {
-    const int w = w0 + lane;
-    const int c = w < W ? col_u[w] : -1;
-    uint32_t bits[kMaskWords];
-    if (c >= 0) {
-      row_bits(mask_ui + (size_t)w * B * B, B, bits);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kMaskWords; ++k) bits[k] = 0u;  // padding: never read its mask
-    }
-    unsigned kept = __ballot_sync(kFull, any_bit(bits));
-    while (kept != 0u) {  // kept slots in ascending w
-      const int from = __ffs(kept) - 1;
-      kept &= kept - 1u;
-      const int cb = __shfl_sync(kFull, c, from);
-      uint32_t set[kMaskWords];
-#pragma unroll
-      for (int k = 0; k < kMaskWords; ++k) set[k] = __shfl_sync(kFull, bits[k], from);
-      const float* ths_c = ths_g + (size_t)cb * B * H + hl;
-      const float* hs_c = h_src + (size_t)cb * B * HDh;
-
-      float m_blk = kNegInf;
-      for_each_bit(set, [&](int j) {
-        const float pre = td + ths_c[j * H] + bh;
-        const float lg = pre >= 0.f ? pre : slope * pre;
-        m_blk = fmaxf(m_blk, lg);
-      });
-      const float m_new = fmaxf(m, m_blk);
-      const float sc = expf(m - m_new);
-      float sum = 0.f;
-      float s[NK][V];
-#pragma unroll
-      for (int t = 0; t < NK; ++t)
-#pragma unroll
-        for (int v = 0; v < V; ++v) s[t][v] = 0.f;
-      for_each_bit(set, [&](int j) {
-        float hv[NK][V];
-        load_row<V, NK>(hs_c + (size_t)j * HDh, lane, HDh, hv);
-        const float pre = td + ths_c[j * H] + bh;
-        const float lg = pre >= 0.f ? pre : slope * pre;
-        const float pj = expf(lg - m_new);
-        sum += pj;
-#pragma unroll
-        for (int t = 0; t < NK; ++t) {
-          const float pt = __shfl_sync(kFull, pj, head[t]);
-#pragma unroll
-          for (int v = 0; v < V; ++v) s[t][v] = fmaf(pt, hv[t][v], s[t][v]);
-        }
-        ++visited;
-      });
-      l = l * sc + sum;
-      m = m_new;
-#pragma unroll
-      for (int t = 0; t < NK; ++t) {
-        const float st = __shfl_sync(kFull, sc, head[t]);
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[t][v] = acc[t][v] * st + s[t][v];
-      }
-    }
-  }
-
-  float o[NK][V];
-#pragma unroll
-  for (int t = 0; t < NK; ++t) {
-    const float lt = __shfl_sync(kFull, l, head[t]);
-#pragma unroll
-    for (int v = 0; v < V; ++v) o[t][v] = acc[t][v] / fmaxf(lt, 1e-9f);
-  }
-  store_row<V, NK>(out + (size_t)r * HDh, lane, HDh, o);
-  if (lane < H) lse[(size_t)r * H + lane] = m + logf(fmaxf(l, 1e-30f));
-  if (visits != nullptr && lane == 0) atomicAdd(visits, visited);
+  const int hl = lane < H ? lane : 0;
+  aggregate_row<V, NK>(
+      col_index + (size_t)u * W, masks + (size_t)u * W * B * B + (size_t)i * B,
+      theta_src + (size_t)g * ns_pad * H, h_src,
+      theta_dst[((size_t)g * nd_pad + (size_t)dst_row[u] * B + i) * H + hl], edge_bias[g * H + hl],
+      out + (size_t)r * H * Dh, lse + (size_t)r * H, visits, W, B, H, Dh, slope);
 }
 
 template <int V, int NK>
@@ -177,24 +89,11 @@ extern "C" int seg_gat_agg_multigraph_fwd(
     void* stream) {
   if (B % 8 != 0 || B > kMaxBlock || H < 1 || H > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD_LAUNCH(V, NK)                                                              \
-  return launch<V, NK>(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,     \
-                       edge_bias, out, lse, visits, U, W, B, ns_pad, nd_pad, H, Dh, slope, s)
-  const int V = Dh % 4 == 0 ? 4 : 1;
-  const int groups = (H * Dh + 32 * V - 1) / (32 * V);  // groups a lane owns
-  if (V == 4) {
-    if (groups <= 1) REPRO_FWD_LAUNCH(4, 1);
-    if (groups <= 2) REPRO_FWD_LAUNCH(4, 2);
-    if (groups <= 4) REPRO_FWD_LAUNCH(4, 4);
-    if (groups <= 8) REPRO_FWD_LAUNCH(4, 8);
-  } else {
-    if (groups <= 1) REPRO_FWD_LAUNCH(1, 1);
-    if (groups <= 2) REPRO_FWD_LAUNCH(1, 2);
-    if (groups <= 4) REPRO_FWD_LAUNCH(1, 4);
-    if (groups <= 8) REPRO_FWD_LAUNCH(1, 8);
-  }
-#undef REPRO_FWD_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return with_lane_groups(H, Dh, [&](auto v, auto nk) {
+    return launch<decltype(v)::value, decltype(nk)::value>(
+        col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias, out, lse,
+        visits, U, W, B, ns_pad, nd_pad, H, Dh, slope, s);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -228,25 +228,12 @@ extern "C" int seg_gat_agg_multigraph_bwd(
     void* stream) {
   if (B % 8 != 0 || B > kMaxBlock || H < 1 || H > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_BWD_LAUNCH(V, NK)                                                               \
-  return launch<V, NK>(gdst_off, gdst_items, row_off, e_src, src_off, src_edge, src_row,      \
-                       theta_src, theta_dst, h_src, edge_bias, g_out, lse, delta, p_e, dpre_e, \
-                       d_h_src, d_theta_src, d_theta_dst, G, B, ns_pad, nd_pad, H, Dh, slope, s)
-  const int V = Dh % 4 == 0 ? 4 : 1;
-  const int groups = (H * Dh + 32 * V - 1) / (32 * V);  // groups a lane owns
-  if (V == 4) {
-    if (groups <= 1) REPRO_BWD_LAUNCH(4, 1);
-    if (groups <= 2) REPRO_BWD_LAUNCH(4, 2);
-    if (groups <= 4) REPRO_BWD_LAUNCH(4, 4);
-    if (groups <= 8) REPRO_BWD_LAUNCH(4, 8);
-  } else {
-    if (groups <= 1) REPRO_BWD_LAUNCH(1, 1);
-    if (groups <= 2) REPRO_BWD_LAUNCH(1, 2);
-    if (groups <= 4) REPRO_BWD_LAUNCH(1, 4);
-    if (groups <= 8) REPRO_BWD_LAUNCH(1, 8);
-  }
-#undef REPRO_BWD_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return with_lane_groups(H, Dh, [&](auto v, auto nk) {
+    return launch<decltype(v)::value, decltype(nk)::value>(
+        gdst_off, gdst_items, row_off, e_src, src_off, src_edge, src_row, theta_src, theta_dst,
+        h_src, edge_bias, g_out, lse, delta, p_e, dpre_e, d_h_src, d_theta_src, d_theta_dst, G,
+        B, ns_pad, nd_pad, H, Dh, slope, s);
+  });
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -13,9 +13,17 @@ head, ``out [R·B, H, Dh]``.  A row with no live edge gives exact zeros.
 :func:`seg_gat_agg` is the wrapper: CUDA tensors launch the hand-written
 kernel ``csrc/seg_gat_agg.cu``; CPU tensors take :func:`seg_gat_agg_plain`,
 the plain PyTorch version of the same function (and the oracle the kernel
-is held against).  Like the JAX package's kernel it has no gradient: an
+is held against).  The kernel is the multigraph forward's edge walk at one
+graph (``csrc/edge_na.cuh``: a warp a dst row visits the set mask entries
+of live slots only), so it takes every B in ``EDGE_BLOCKS`` and gives #1's
+bits at G = 1.  Like the JAX package's kernel it has no gradient: an
 operand that requires one raises, and MULTIGRAPH (kernels #1/#2 at G = 1)
 is the differentiable per-graph route.
+
+The wrapper checks ``col_index``'s values on every call (a host sync)
+unless it is given ``checked=``, the token :func:`range_check` returned for
+the same unchanged tensor: KERNEL's dispatch keeps one per graph
+(``core.fusion.SemanticGraphBatch.kernel_range_check``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import ctypes
 import torch
 
 from . import build
-from .seg_gat_agg_multigraph import check_smem
+from .seg_gat_agg_multigraph import check_edge_shape
 
 _NAME = "seg_gat_agg"
 
@@ -41,33 +49,46 @@ def seg_gat_agg_plain(
                                    leaky_slope=leaky_slope, edge_bias=edge_bias)
 
 
-def smem_bytes(B: int, Dh: int) -> int:
-    """Dynamic shared memory of one block (mirrors the .cu layout)."""
-    return 4 * (2 * B * Dh + B * B + 5 * B) + B * B
-
-
 def _kernel_fn():
     lib = build.load(_NAME)
     fn = lib.seg_gat_agg_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def launch(col_index, masks, theta_src, theta_dst, h_src, edge_bias, out,
-           leaky_slope: float) -> None:
+           leaky_slope: float, visits: torch.Tensor | None = None) -> None:
     """Launch the CUDA kernel on checked operands into ``out``, on the
-    current stream.  Counts one launch."""
+    current stream.  ``visits`` (int32 [1] on the card, or None) gains the
+    set mask entries the kernel visited.  Counts one launch."""
     R, W = col_index.shape
     B = masks.shape[-1]
     H, Dh = h_src.shape[1:]
+    masks, h_src = build.aligned(masks), build.aligned(h_src)
     lib, fn = _kernel_fn()
     p = build.ptr
     with torch.cuda.device(h_src.device):
         err = fn(p(col_index), p(masks), p(theta_src), p(theta_dst), p(h_src), p(edge_bias),
-                 p(out), R, W, B, H, Dh, leaky_slope, build.stream_of(h_src))
+                 p(out), None if visits is None else p(visits), R, W, B, H, Dh, leaky_slope,
+                 build.stream_of(h_src))
     build.check_error(lib, _NAME, err)
     seg_gat_agg.launches += 1
+
+
+def range_check(col_index: torch.Tensor, n_src_blocks: int) -> dict:
+    """Check that ``col_index`` lies in [-1, n_src_blocks) (reads the
+    device) and return the token :func:`seg_gat_agg` takes as ``checked=``:
+    the tensor, its version counter and the bound.  A later call on the
+    same tensor, unchanged since, skips the check and its host sync."""
+    build.check_range("col_index", col_index, -1, n_src_blocks)
+    return dict(col_index=col_index, version=col_index._version, n_src_blocks=n_src_blocks)
+
+
+def _range_checked(checked: dict | None, col_index: torch.Tensor, n_src_blocks: int) -> bool:
+    return (checked is not None and checked["col_index"] is col_index
+            and checked["version"] == col_index._version
+            and checked["n_src_blocks"] == n_src_blocks)
 
 
 def bias_vector(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
@@ -95,12 +116,15 @@ def seg_gat_agg(
     *,
     leaky_slope: float = 0.2,
     edge_bias: torch.Tensor | float = 0.0,  # a number, or f32 [H]
+    checked: dict | None = None,
 ) -> torch.Tensor:
     """The attention-aggregated features ``[R·B, H, Dh]`` of one graph (the
     counterpart of ``repro.kernels.seg_gat_agg``).
 
     CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only; no gradient."""
+    float32 only; no gradient.  ``checked``: :func:`range_check` of this
+    ``col_index``, which skips its range check while the tensor is
+    unchanged; None (or a token of another tensor) checks in the call."""
     dev = h_src.device
     operands = (theta_src, theta_dst, h_src, edge_bias)
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
@@ -121,14 +145,15 @@ def seg_gat_agg(
     Dh = h_src.shape[-1]
     if ns_pad % B:
         raise ValueError(f"Ns_pad={ns_pad} must be a multiple of B={B}")
-    build.check_range("col_index", col_index, -1, ns_pad // B)
+    if not _range_checked(checked, col_index, ns_pad // B):
+        build.check_range("col_index", col_index, -1, ns_pad // B)
     bias = bias_vector(edge_bias, H, dev)
     if dev.type == "cpu":
         return seg_gat_agg_plain(col_index, masks, theta_src, theta_dst, h_src,
                                  leaky_slope=leaky_slope, edge_bias=bias)
     if dev.type != "cuda":
         raise ValueError(f"{_NAME}: unsupported device {dev}")
-    check_smem(_NAME, B, H, Dh, smem_bytes(B, Dh))
+    check_edge_shape(_NAME, B, H, Dh)
     out = torch.empty((R * B, H, Dh), dtype=torch.float32, device=dev)
     launch(col_index, masks, theta_src, theta_dst, h_src, bias, out, float(leaky_slope))
     return out

@@ -36,10 +36,10 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3, #4 and #5 are instantiated for
+SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3 and #4 are instantiated for
 SMEM_OPTIN = 232_448            # bytes of shared memory a block may opt into (sm_90)
-EDGE_BLOCKS = (8, 16, 32, 64, 128)  # B that #1 and #2 take (csrc/edge_na.cuh: kMaxBlock)
-MAX_HEADS = 32                  # #1 and #2: lane h of a warp holds head h
+EDGE_BLOCKS = (8, 16, 32, 64, 128)  # B that #1, #2 and #5 take (csrc/edge_na.cuh: kMaxBlock)
+MAX_HEADS = 32                  # #1, #2 and #5: lane h of a warp holds head h
 _PLAIN_CHUNK_BYTES = 64 << 20   # working set of one chunk of units in the plain version
 _NAME = "seg_gat_agg_multigraph"
 _BWD_NAME = "seg_gat_agg_multigraph_bwd"
@@ -184,8 +184,8 @@ def seg_gat_agg_multigraph_bwd_plain(
 
 
 def check_smem(name: str, B: int, H: int, Dh: int, nbytes: int) -> None:
-    """The block-size and shared-memory check of kernels #3, #4 and #5,
-    whose blocks hold whole B × B tiles."""
+    """The block-size and shared-memory check of kernels #3 and #4, whose
+    blocks hold whole B × B tiles."""
     if B not in SUPPORTED_BLOCKS:
         raise ValueError(f"{name}: block size B={B} not in {SUPPORTED_BLOCKS}")
     if nbytes > SMEM_OPTIN:
@@ -196,8 +196,8 @@ def check_smem(name: str, B: int, H: int, Dh: int, nbytes: int) -> None:
 
 
 def lane_groups(H: int, Dh: int) -> tuple[int, int | None]:
-    """(V, NK): the instantiation of #1's and #2's kernels a row of H·Dh
-    floats takes (csrc/edge_na.cuh): V floats a lane group (4 when
+    """(V, NK): the instantiation of #1's, #2's and #5's kernels a row of
+    H·Dh floats takes (csrc/edge_na.cuh): V floats a lane group (4 when
     Dh % 4 == 0, else 1) and NK in {1, 2, 4, 8}, the fewest groups a lane
     that cover the row; NK is None where more than 8 would be needed."""
     V = 4 if Dh % 4 == 0 else 1
@@ -206,7 +206,7 @@ def lane_groups(H: int, Dh: int) -> tuple[int, int | None]:
 
 
 def check_edge_shape(name: str, B: int, H: int, Dh: int) -> None:
-    """What #1 and #2 take (csrc/edge_na.cuh): a warp holds one row of H·Dh
+    """What #1, #2 and #5 take (csrc/edge_na.cuh): a warp holds one row of H·Dh
     floats in its lanes' registers, at most 8 groups a lane
     (:func:`lane_groups`), and lane h holds head h."""
     if B not in EDGE_BLOCKS:
@@ -217,12 +217,6 @@ def check_edge_shape(name: str, B: int, H: int, Dh: int) -> None:
     if nk is None:
         raise ValueError(f"{name}: H·Dh={H * Dh} is more than the {32 * 8 * V} floats a warp's "
                          f"registers hold at Dh={Dh}")
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy when its data is not 16-byte aligned (the kernels
-    read rows as float4 and mask rows as 8 bytes)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # -- the topology index of the backward ---------------------------------------
@@ -331,7 +325,7 @@ def launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     ns_pad, H = theta_src.shape[1:]
     nd_pad = theta_dst.shape[1]
     Dh = h_src.shape[-1]
-    masks, h_src = _aligned(masks), _aligned(h_src)
+    masks, h_src = build.aligned(masks), build.aligned(h_src)
     lib, fn = _kernel_fn()
     with torch.cuda.device(h_src.device):
         err = fn(
@@ -357,7 +351,7 @@ def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     Dh = h_src.shape[-1]
     dev = h_src.device
     f32 = dict(dtype=torch.float32, device=dev)
-    h_src, g_out = _aligned(h_src), _aligned(g_out)
+    h_src, g_out = build.aligned(h_src), build.aligned(g_out)
     p_e = torch.empty((index["E"], H), **f32)
     dpre_e = torch.empty((index["E"], H), **f32)
     d_h_src = torch.empty((ns_pad, H, Dh), **f32)

@@ -18,7 +18,10 @@ not a multiple of its 128-row tile, two tables and units that read a
 subset of the blocks, twice bitwise equal and counted by route, and the
 tensor-core route's projection on inexact operands under
 SPLIT_ERROR_MAX; kernel
-#5 against its plain version for B in {8, 16, 32} and its edge cases; the
+#5 against its plain version for B in {8, 16, 32, 64, 128}, each (V, NK)
+instantiation of its edge walk and its edge cases, visiting exactly the
+edges, equal to #1 at G = 1 bit for bit, giving the same bits on operands
+at unaligned addresses and refusing a B outside EDGE_BLOCKS; the
 trainer (HAN and R-GAT) on the card against the CPU; kernel training
 bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU;
 kernel #6 against its plain version (float32, bfloat16, a ragged shape),
@@ -75,6 +78,7 @@ from repro_torch.tree import tree_leaves_with_path, tree_map
 # the modules, not the differentiable functions the package exports by the same names
 fused_ffp = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
 mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+k5_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg")
 
 
 def multigraph_case(seed=7, B=8, U=4, W=3, G=3, H=2, Dh=8, nblk=4, degenerate=False):
@@ -244,6 +248,20 @@ KERNEL5_CASES = {  # the shapes of tests/test_kernels.py:test_seg_gat_agg_shapes
     "B32": lambda: kernel5_case(6, B=32, R=3, W=2, H=2, Dh=8, nblk_src=3, degenerate=True),
     "Ns<Nd": lambda: kernel5_case(7, B=8, R=6, W=2, H=2, Dh=8, nblk_src=2),
     "Ns>Nd": lambda: kernel5_case(8, B=8, R=1, W=5, H=3, Dh=4, nblk_src=6),
+    # the block sizes 64 and 128, which the edge walk takes, and a case for
+    # each (V, NK) instantiation #5 shares with #1 (mg_mod.lane_groups): among
+    # them R-GAT's row (H·Dh = 256) and rows of single-float lane groups
+    # (Dh % 4 != 0)
+    "B64": lambda: kernel5_case(9, B=64, R=2, W=2, H=2, Dh=8, nblk_src=3, degenerate=True),
+    "B128": lambda: kernel5_case(10, B=128, R=2, W=2, H=2, Dh=8, nblk_src=2),
+    "B16-H4-Dh64": lambda: kernel5_case(12, B=16, R=3, W=3, H=4, Dh=64, degenerate=True),
+    "B128-H8-Dh64": lambda: kernel5_case(14, B=128, R=2, W=2, H=8, Dh=64, nblk_src=3),
+    "B8-H8-Dh128": lambda: kernel5_case(15, B=8, R=3, W=2, H=8, Dh=128),
+    "B16-H3-Dh3": lambda: kernel5_case(16, B=16, R=3, W=3, H=3, Dh=3, nblk_src=3),
+    "B16-H4-Dh15": lambda: kernel5_case(17, B=16, R=3, W=3, H=4, Dh=15, nblk_src=3,
+                                        degenerate=True),
+    "B8-H8-Dh15": lambda: kernel5_case(18, B=8, R=4, W=2, H=8, Dh=15),
+    "B32-H8-Dh25": lambda: kernel5_case(19, B=32, R=3, W=2, H=8, Dh=25, nblk_src=3),
 }
 
 
@@ -473,6 +491,50 @@ def test_kernel5_matches_plain_on_cuda(cuda, name):
     B = masks.shape[-1]
     dead = (col < 0).all(dim=1).repeat_interleave(B)
     assert (got[dead] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(KERNEL5_CASES))
+def test_kernel5_visits_exactly_the_live_edges_on_cuda(cuda, name):
+    """#5's warps visit the set mask entries of live slots and nothing else
+    (padding slots' masks hold set bits here), counted by the kernel."""
+    col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)
+                                      for a in KERNEL5_CASES[name]())
+    visits = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty((thd.shape[0], *hs.shape[1:]), device=cuda)
+    k5_mod.launch(col, masks, ths, thd, hs, bias, out, 0.2, visits=visits)
+    want = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    torch.cuda.synchronize()
+    assert int(visits) == _live_edges(col, masks)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_kernel5_copies_operands_at_unaligned_addresses_on_cuda(cuda):
+    """The walk reads h_src rows as float4 and mask rows as 8 bytes: views
+    that start off a 16-byte boundary are copied to alignment, and give the
+    bits of the aligned operands."""
+    col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)
+                                      for a in KERNEL5_CASES["B16-H4-Dh64"]())
+    want = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    hs_buf = torch.empty(hs.numel() + 1, device=cuda)
+    hs_odd = hs_buf[1:].view(hs.shape)
+    hs_odd.copy_(hs)
+    m_buf = torch.empty(masks.numel() + 3, dtype=torch.bool, device=cuda)
+    m_odd = m_buf[3:].view(masks.shape)
+    m_odd.copy_(masks)
+    assert hs_odd.data_ptr() % 16 and m_odd.data_ptr() % 8
+    got = seg_gat_agg(col, m_odd, ths, thd, hs_odd, edge_bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel5_refuses_a_block_size_outside_edge_blocks_on_cuda(cuda):
+    col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)
+                                      for a in kernel5_case(3, B=4, R=2, W=2))
+    with pytest.raises(ValueError, match="block size"):
+        seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
 
 
 def _relation_data(device, block=16):

@@ -3,12 +3,14 @@
 On CPU tensors the port's wrapper takes its plain PyTorch version; it is
 held against the JAX package's Pallas kernel run in interpret mode on the
 reference tests' shapes (tests/test_kernels.py:test_seg_gat_agg_shapes),
-an all-padding row, fully masked rows, B = 32 and Ns ≠ Nd, each with a
-per-head edge bias, at atol=rtol=1e-5 (float32, the same online softmax in
-another sum order).  The cases are tests/test_torch_cuda.py's, which holds
-the CUDA kernel against the plain version on the card.  Like the JAX
-kernel it has no gradient; and the SEGMENT and KERNEL backends of
-``neighbor_aggregate`` agree with BLOCK."""
+an all-padding row, fully masked rows, B = 32, 64 and 128, Ns ≠ Nd and
+a case for each (V, NK) instantiation of the CUDA kernel's edge walk, each
+with a per-head edge bias, at atol=rtol=1e-5 (float32, the same online
+softmax in another sum order).  The cases are tests/test_torch_cuda.py's,
+which holds the CUDA kernel against the plain version on the card.  Like
+the JAX kernel it has no gradient; the SEGMENT and KERNEL backends of
+``neighbor_aggregate`` agree with BLOCK; and KERNEL checks a graph's
+columns once (its first call), not on every call."""
 import importlib
 
 import jax
@@ -18,12 +20,21 @@ import pytest
 import torch
 
 from repro_torch.core import NABackend, batch_semantic_graph, neighbor_aggregate, neighbor_aggregate_multi
-from repro_torch.graphs import build_semantic_graph, relation_semantic_graphs, synthetic_hetgraph
-from repro_torch.kernels import seg_gat_agg, seg_gat_agg_multigraph_plain
+from repro_torch.graphs import (
+    build_semantic_graph,
+    dataset_target,
+    relation_semantic_graphs,
+    synthetic_hetgraph,
+    synthetic_labels,
+)
+from repro_torch.kernels import build, seg_gat_agg, seg_gat_agg_multigraph_plain
+from repro_torch.models.hgnn import MODELS, prepare_data
 
-from test_torch_cuda import KERNEL5_CASES
+from test_torch_cuda import KERNEL5_CASES, one_thread  # noqa: F401 (one_thread: a fixture)
 
 jkernel = importlib.import_module("repro.kernels.seg_gat_agg")
+k5 = importlib.import_module("repro_torch.kernels.seg_gat_agg")
+mg = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -33,7 +44,7 @@ def _torch(case):
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL5_CASES))
-def test_kernel5_plain_matches_pallas_interpret(name):
+def test_kernel5_plain_matches_pallas_interpret(name, one_thread):
     case = KERNEL5_CASES[name]()
     col, masks, ths, thd, hs, bias = case
     want = jkernel.seg_gat_agg(*map(jnp.asarray, case[:5]), edge_bias=jnp.asarray(bias),
@@ -128,3 +139,61 @@ def test_segment_and_kernel_backends_agree_with_block(backend):
         multi = neighbor_aggregate_multi([batch], ths[None], thd[None], hs, backend=backend,
                                          edge_bias=bias[None])
         torch.testing.assert_close(multi[0], got, rtol=0, atol=0)
+
+
+def test_the_card_cases_reach_every_instantiation_of_the_edge_walk():
+    """#5 runs #1's edge walk, compiled once per (V, NK) (``lane_groups``):
+    KERNEL5_CASES, which the card tests hold against the plain version,
+    reach all eight, R-GAT's row (H·Dh = 256) and B = 64 and 128 among
+    them."""
+    reached = {}
+    for name, case in KERNEL5_CASES.items():
+        masks, hs = case()[1], case()[4]
+        mg.check_edge_shape(name, masks.shape[-1], *hs.shape[1:])
+        reached.setdefault(mg.lane_groups(*hs.shape[1:]), []).append((masks.shape[-1], *hs.shape[1:]))
+    assert set(reached) == {(v, nk) for v in (1, 4) for nk in (1, 2, 4, 8)}
+    assert (16, 4, 64) in reached[4, 2]
+    assert {b for b, _, _ in sum(reached.values(), [])} == set(mg.EDGE_BLOCKS)
+
+
+def test_a_range_check_token_holds_only_for_its_unchanged_tensor():
+    """``checked=`` skips the column check only for the tensor it was made
+    from, unchanged since (its version counter): a column written out of
+    range afterwards, or another tensor, is checked and raises."""
+    col, masks, ths, thd, hs, bias = _torch(KERNEL5_CASES["B8-R3-W2-H2-Dh16"]())
+    token = k5.range_check(col, ths.shape[0] // masks.shape[-1])
+    want = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
+    torch.testing.assert_close(seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias,
+                                           checked=token), want, rtol=0, atol=0)
+    bad = col.clone()
+    bad[0, 0] = ths.shape[0] // masks.shape[-1]
+    with pytest.raises(ValueError, match="col_index"):
+        seg_gat_agg(bad, masks, ths, thd, hs, edge_bias=bias, checked=token)
+    col[0, 0] = ths.shape[0] // masks.shape[-1]  # in place: the token's version is stale
+    with pytest.raises(ValueError, match="col_index"):
+        seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias, checked=token)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("R-GAT", dict(hidden=8, heads=2, layers=2)),
+    ("S-HGN", dict(hidden=8, heads=2, layers=2, edge_dim=8)),
+])
+def test_kernel_dispatch_checks_the_columns_once_per_graph(name, kw, monkeypatch):
+    """KERNEL's dispatch range-checks a graph's col_index on its first call
+    only (``SemanticGraphBatch.kernel_range_check``): during a second
+    forward neither ``build.check_range`` nor ``torch.aminmax`` (the host
+    sync) runs, and the logits are the first forward's."""
+    g = synthetic_hetgraph("acm", scale=0.05, feat_scale=0.1, seed=0)
+    target, ncls = dataset_target("acm")
+    data = prepare_data(g, relation_semantic_graphs(g), target, ncls, synthetic_labels(g, "acm"),
+                        block=16, device="cpu")
+    model = MODELS[name]
+    params = model.init(torch.Generator().manual_seed(0), data, **kw)
+    calls = []
+    with torch.no_grad():
+        first = model.forward(params, data, backend=NABackend.KERNEL)
+        monkeypatch.setattr(build, "check_range", lambda *a, **k: calls.append("check_range"))
+        monkeypatch.setattr(torch, "aminmax", lambda *a, **k: calls.append("aminmax"))
+        again = model.forward(params, data, backend=NABackend.KERNEL)
+    assert calls == []
+    torch.testing.assert_close(again, first, rtol=0, atol=0)
