@@ -63,10 +63,27 @@ Phases, each fatal on failure:
    e. the card against the CPU on small acm (block=8), per-step losses at
       1e-4, and the training launcher as a user runs it, with a checkpoint
       directory, resumed once;
-   f. MULTIGRAPH training at block=128 (the JAX launcher's default, which
-      #1 and #2 take) for 5 steps: the loss falls, and every call of #1 and
-      #2 in the first step matches its plain version on the same operands
-      at atol=rtol=1e-4.
+   f. the launcher's kernel path at block=128 (the JAX launcher's default,
+      which #1 and #2 take) for 5 steps: the loss falls, and every call of
+      #1 and #2 in the first step matches its plain version on the same
+      operands at atol=rtol=1e-4;
+   g. multi-lane HAN (paper §4.2) on the same problem at block=128: lane
+      plans of 1, 4 and 16 lanes (balanced) and 16 (naive), each one's
+      logits and loss bitwise MULTIGRAPH's, its gradients within
+      ``LANE_GRAD_REL`` of each gradient's largest magnitude of
+      MULTIGRAPH's and bitwise equal on a second run, one #1 and one #2
+      launch a step; the plans' imbalance and bytes; #1 and #2's passes
+      visiting exactly the 16-lane plan's edges; 5 steps of
+      ``run_training(plan_lanes=16, block=128)``, counters zeroed just
+      before (#1/#2 once a step, the loss falls); the 16-lane step and
+      MULTIGRAPH's timed in turns with CUDA events, then under the
+      profiler (idle share); ``fused_fp`` over a 4-lane plan at block=16
+      against ``kernel``: logits at 1e-4, one step's gradients at
+      rtol=1e-3, atol=1e-5, #3 and #4 once a step.  Alone:
+      ``python3 -c 'import chip_smoke as c; c.multilane_alone()'``.
+      The lane-sharded path (``multilane_na_sharded``, ``--lanes`` > 1)
+      needs several cards and runs apart: ``lanes_sharded()`` under
+      ``torchrun`` (its docstring says how).
 5. The per-graph models on full IMDB's six relation graphs (AM, MA, KM,
    MK, DM, MD), block=16, at the JAX package's ``init_*`` widths (R-GAT
    hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
@@ -1070,6 +1087,333 @@ def training(data, counters, fusion_mod) -> dict:
     if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"the B=128 loss did not fall: {res['block128']['loss']}")
     return res
+
+
+# -- phase 4g: multi-lane HAN (paper §4.2) -----------------------------------------
+
+LANE_PLANS = ((1, True), (4, True), (16, True), (16, False))  # (lanes, balanced) at B = 128
+LANE_GRAD_REL = 1e-5  # plan vs MULTIGRAPH gradients: max |Δ| over the leaf's largest magnitude
+FUSED_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)  # as phase 4c's fused_fp vs multigraph
+# and, on the leaves #4 computes (dW, db, da), max |Δ| over the leaf's largest
+# magnitude.  The leaves after NA see #3's output only, through the semantic
+# softmax, whose b_g gradient nearly cancels: the phase prints each leaf's
+# distance from a float64 SEGMENT run for both backends, to show it
+FUSED_GRAD_REL = 1e-4
+FUSED_LEAVES = ("w_fp", "b_fp", "a_src", "a_dst")
+
+
+def event_steps(step_fns: dict, states: dict, idx, n: int) -> tuple[dict, dict]:
+    """``n`` train steps of each step function in turns, each timed alone
+    with CUDA events (no profiler).  Returns (states, {name: [ms]})."""
+    times = {k: [] for k in step_fns}
+    for _ in range(n):
+        for k, fn in step_fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            states[k], _ = fn(states[k], {"idx": idx})
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return states, times
+
+
+def multilane_phase(tdata, counters, mg_mod) -> dict:
+    """Phase 4g: HAN over lane plans (``han_forward_multilane``) on the
+    phase-4 problem at B = 128, a 16-lane training run through the
+    launcher, and ``fused_fp`` over a plan at B = 16 (``tdata``)."""
+    from repro_torch.core import NABackend, build_multilane_plan
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import HAN, han_forward, han_forward_multilane
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import hgnn_loss_and_grads, init_hgnn_train_state, make_hgnn_train_step
+
+    res = {}
+    width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+    _, data = hgnn_train.build_problem(device="cuda", **dict(TRAIN, block=128))
+    params = HAN.init(torch.Generator().manual_seed(0), data, **width)
+    idx = torch.arange(data.labels.shape[0], device=data.labels.device)
+    fwd, bwd = counters["multigraph"], counters["multigraph_bwd"]
+
+    def loss_and_grads(forward):
+        return hgnn_loss_and_grads(forward, params, data, idx)
+
+    with torch.no_grad():
+        want = han_forward(params, data, backend=NABackend.MULTIGRAPH)
+    mg_loss, _, mg_grads = loss_and_grads(lambda p: han_forward(p, data, backend=NABackend.MULTIGRAPH))
+    plans = {}
+    for lanes, balanced in LANE_PLANS:
+        name = f"{lanes} lanes {'balanced' if balanced else 'naive'}"
+        t0 = time.perf_counter()
+        plan = plans[name] = build_multilane_plan(data.graphs, lanes, balanced=balanced)
+        build_s = time.perf_counter() - t0
+        units = plan.units()
+        lp = plan.lane_plan
+        forward = lambda p, plan=plan: han_forward_multilane(p, data, plan, backend="kernel")  # noqa: E731
+        with torch.no_grad():
+            logits = forward(params)
+        if not torch.equal(logits, want):
+            raise AssertionError(f"{name}: logits differ from MULTIGRAPH's at B = 128 "
+                                 f"(max |d| {float((logits - want).abs().max()):.3e})")
+        fwd.launches = bwd.launches = 0
+        loss, _, grads = loss_and_grads(forward)
+        torch.cuda.synchronize()
+        launches = (fwd.launches, bwd.launches)
+        if launches != (1, 1):
+            raise AssertionError(f"{name}: a step launched #1, #2 {launches} times, not once each")
+        if not torch.equal(loss, mg_loss):
+            raise AssertionError(f"{name}: loss {float(loss)!r} vs MULTIGRAPH's {float(mg_loss)!r}")
+        rel = 0.0
+        for k, g in grads.items():
+            scale = float(mg_grads[k].abs().max()) or 1.0
+            rel = max(rel, float((g - mg_grads[k]).abs().max()) / scale)
+        if rel > LANE_GRAD_REL:
+            raise AssertionError(f"{name}: gradients {rel:.3e} of their scale from MULTIGRAPH's")
+        _, _, again = loss_and_grads(forward)
+        if not all(torch.equal(again[k], g) for k, g in grads.items()):
+            raise AssertionError(f"{name}: two backward runs of one plan differ")
+        res[name] = dict(lanes=lanes, balanced=balanced, imbalance=lp.imbalance(),
+                         lane_load=lp.lane_load.tolist(), units=units.count,
+                         units_per_lane=int(plan.col_index.shape[1]),
+                         slots=int(plan.col_index.shape[2]), plan_host_bytes=plan.nbytes(),
+                         unit_table_bytes=units.nbytes(), build_s=build_s,
+                         grad_rel_err=rel, launches_a_step=launches)
+        log(f"[multilane {name}] imbalance {lp.imbalance():.4f} (lane loads max "
+            f"{lp.lane_load.max():.0f}, mean {lp.lane_load.mean():.1f}), {units.count} units, "
+            f"[L, U, W] = {tuple(plan.col_index.shape)}, padded tables "
+            f"{plan.nbytes() / 2**20:.1f} MiB on the host, unit tables on the card "
+            f"{units.nbytes() / 2**20:.1f} MiB, built in {build_s:.2f} s; logits and "
+            f"loss bitwise MULTIGRAPH's, gradients {rel:.3e} of their scale (limit "
+            f"{LANE_GRAD_REL}), repeat bitwise; #1/#2 launches a step {launches}")
+
+    # #1 and #2 on the 16-lane plan's lane-ordered units against their plain
+    # versions at the plan's own operands (the lane order sets #2's src-major CSR)
+    plan16 = plans["16 lanes balanced"]
+    _, res["plain_err_16_lanes"] = na_calls_to_plain(
+        "16 lanes balanced step",
+        lambda: loss_and_grads(lambda p: han_forward_multilane(p, data, plan16, backend="kernel")),
+        first=1)
+
+    # visits: #1 and #2's passes walk exactly the edges of the 16-lane plan's units
+    units = plans["16 lanes balanced"].units()
+    n_pad = data.graphs[0].num_dst_pad
+    H, Dh = params["a_src"].shape[1:]
+    x = data.features[data.target_type]
+    h = torch.nn.functional.pad(torch.addmm(params["b_fp"], x, params["w_fp"]),
+                                (0, 0, 0, n_pad - x.shape[0])).reshape(n_pad, H, Dh)
+    ops = dict(col_index=units.col_index, graph_id=units.graph_id, dst_row=units.dst_row,
+               masks=units.masks, theta_src=torch.einsum("nhd,ghd->gnh", h, params["a_src"]).contiguous(),
+               theta_dst=torch.einsum("nhd,ghd->gnh", h, params["a_dst"]).contiguous(),
+               h_src=h.contiguous(), edge_bias=torch.zeros((len(data.graphs), H), device=h.device))
+    out, lse = mg_mod.seg_gat_agg_multigraph_fwd(**ops)
+    idx_e = units.edge_index(len(data.graphs), n_pad, n_pad)
+    res["visits"] = edge_visits(mg_mod, ops, idx_e, out, lse)
+    log(f"[multilane 16 lanes balanced] entries visited an edge: #1 {res['visits']['fwd']}, "
+        f"#2 pass A {res['visits']['pass_a']}, pass B {res['visits']['pass_b']} "
+        f"({res['visits']['live_edges']} edges)")
+
+    # the launcher over a 16-lane plan, counters zeroed just before, read just after
+    lines = []
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, hist, meta = hgnn_train.run_training(model_name="HAN", plan_lanes=16, steps=5,
+                                            log_every=1, log=lines.append, device="cuda",
+                                            **dict(TRAIN, block=128), **TRAIN_WIDTH)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res["run"] = dict(launches=launches, meta=meta, wall_s=wall, loss=[h["loss"] for h in hist],
+                      steps_ms=[h["sec"] * 1e3 for h in hist])
+    log(f"[multilane train] {lines[0]}")
+    log(f"[multilane train] launches={json.dumps(launches)} loss {hist[0]['loss']:.6f} -> "
+        f"{hist[-1]['loss']:.6f} in 5 steps, host step ms "
+        f"{['%.3f' % t for t in res['run']['steps_ms']]}, wall {wall:.3f} s")
+    if launches != {"multigraph": 5, "multigraph_bwd": 5, "fused_fp": 0, "fused_fp_bwd": 0}:
+        raise AssertionError(f"the 16-lane run's launches are not 1/1/0/0 a step: {launches}")
+    if meta["plan_lanes"] != 16 or meta["backend"] != "kernel":
+        raise AssertionError(f"the 16-lane run's meta: {meta}")
+    if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the 16-lane loss did not fall: {res['run']['loss']}")
+
+    # step times against MULTIGRAPH's at B = 128, in turns, then under the profiler
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    step_fns = {
+        "plan16": make_hgnn_train_step(
+            lambda p: han_forward_multilane(p, data, plan16, backend="kernel"), data, opt),
+        "multigraph": make_hgnn_train_step(
+            lambda p: han_forward(p, data, backend=NABackend.MULTIGRAPH), data, opt)}
+    states = {k: init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt, **width)
+              for k in step_fns}
+    states, times = event_steps(step_fns, states, idx, 11)
+    res["steps"] = {}
+    for k, fn in step_fns.items():
+        _, prof = profiled_steps(fn, states[k], idx, 3)
+        med = float(np.median(times[k][1:]))
+        res["steps"][k] = dict(event_ms=times[k], median_ms=med, steady=prof)
+        log(f"[multilane step {k}] B=128 median {med:.3f} ms (CUDA events, 10 steps after the "
+            f"first, in turns), profiled {['%.3f' % t for t in prof['steps_ms']]}, busy "
+            f"{prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+            f"{prof['device_idle_share']:.4f}")
+
+    # fused_fp over a plan at B = 16 against the kernel backend
+    plan = build_multilane_plan(tdata.graphs, 4)
+    p16 = HAN.init(torch.Generator().manual_seed(0), tdata, **width)
+    idx16 = torch.arange(tdata.labels.shape[0], device=tdata.labels.device)
+    got = {}
+    for backend in ("kernel", "fused_fp"):
+        forward = lambda p, b=backend: han_forward_multilane(p, tdata, plan, backend=b)  # noqa: E731
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.no_grad():
+            logits = forward(p16)
+        loss, _, grads = hgnn_loss_and_grads(forward, p16, tdata, idx16)
+        torch.cuda.synchronize()
+        got[backend] = (logits, loss, grads, {k: fn.launches for k, fn in counters.items()})
+    launches = got["fused_fp"][3]
+    if launches != {"multigraph": 0, "multigraph_bwd": 0, "fused_fp": 2, "fused_fp_bwd": 1}:
+        raise AssertionError(f"fused_fp on the plan: a forward and a step launched {launches}, "
+                             "not #3 once and #3, #4 once each")
+    logit_err = compare("fused_fp vs kernel on a 4-lane plan at B=16, logits",
+                        (got["fused_fp"][0],), (got["kernel"][0],))
+    def rel(g, w):  # max |g - w| over w's largest magnitude
+        return float((g.double() - w.double()).abs().max() / (w.double().abs().max() or 1.0))
+
+    d64 = dataclasses.replace(tdata, features={k: v.double() for k, v in tdata.features.items()})
+    p64 = {k: v.double().requires_grad_() for k, v in p16.items()}
+    loss64 = torch.nn.functional.cross_entropy(han_forward(p64, d64, backend=NABackend.SEGMENT),
+                                               tdata.labels)
+    g64 = dict(zip(p64, torch.autograd.grad(loss64, list(p64.values()))))
+    err, rels, off64 = 0.0, {}, {}
+    for k, g in got["fused_fp"][2].items():
+        w = got["kernel"][2][k]
+        torch.testing.assert_close(g, w, **FUSED_GRAD_TOL, msg=lambda m: f"grad {k}: {m}")
+        err = max(err, float((g - w).abs().max()))
+        rels[k] = rel(g, w)
+        off64[k] = {b: rel(got[b][2][k], g64[k]) for b in got}
+    worst = max(rels[k] for k in FUSED_LEAVES)
+    res["fused_fp"] = dict(launches=launches, logits_max_abs_err=logit_err, grad_max_abs_err=err,
+                           grad_rel_err=rels, grad_rel_from_float64=off64,
+                           loss=(float(got["fused_fp"][1]), float(got["kernel"][1])))
+    log(f"[check] fused_fp vs kernel on a 4-lane plan at B=16: one step's gradients "
+        f"max_abs_err={err:.3e} ({FUSED_GRAD_TOL}); over each leaf's largest magnitude "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (limit {FUSED_GRAD_REL} on "
+        f"{', '.join(FUSED_LEAVES)}); launches {json.dumps(launches)} "
+        "(a no-grad forward, then a step)")
+    log("[multilane fused_fp] each float32 backend's gradients from a float64 SEGMENT run's, "
+        "over the leaf's largest magnitude: " + ", ".join(
+            f"{k} {v['fused_fp']:.3e}/{v['kernel']:.3e}" for k, v in off64.items()))
+    if worst > FUSED_GRAD_REL:
+        raise AssertionError(f"fused_fp on the plan: #4's gradients {worst:.3e} of their scale "
+                             f"from the kernel backend's (limit {FUSED_GRAD_REL})")
+    return res
+
+
+def multilane_alone() -> dict:
+    """Phase 4g alone: builds the kernels, runs the phase on the phase-4
+    problem and writes chiprun_out/multilane.json."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import hgnn_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    log(card_line())
+    build.build()
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    counters = {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
+                "multigraph_bwd": mg_mod.seg_gat_agg_multigraph_bwd,
+                "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
+                "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
+    _, tdata = hgnn_train.build_problem(device="cuda", **TRAIN)
+    res = multilane_phase(tdata, counters, mg_mod)
+    (OUT / "multilane.json").write_text(json.dumps(res, indent=1, default=str))
+    log(card_line())
+    return res
+
+
+def lanes_sharded() -> dict:
+    """The lane axis over several cards, run apart, one process a card:
+
+        torchrun --nproc-per-node 4 --no-python python3 -c 'import chip_smoke as c; c.lanes_sharded()'
+
+    HAN at its own width on the phase-4 problem at B = 128, a 16-lane plan
+    split over the lane group (NCCL): on every rank the sharded logits and
+    loss equal the one-process plan's bit for bit, the gradients are within
+    ``LANE_GRAD_REL`` of their scale of the one-process ones and the same
+    on every rank, and a sharded step launches #1 and #2 once each on a
+    rank that holds units; then
+    the sharded step and the one-process step (the whole plan on each
+    card) timed with CUDA events in turns.  Lane rank 0 prints the results
+    and writes chiprun_out/lanes_sharded.json."""
+    import torch.distributed as dist
+
+    from repro_torch.core import build_multilane_plan
+    from repro_torch.launch import hgnn_train
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.models.hgnn import HAN, han_forward_multilane
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import hgnn_loss_and_grads, init_hgnn_train_state, make_hgnn_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl")
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mesh = make_lane_mesh(world, 1)
+        mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+        _, data = hgnn_train.build_problem(device=dev, **dict(TRAIN, block=128))
+        params = HAN.init(torch.Generator().manual_seed(0), data, **width)
+        plan = build_multilane_plan(data.graphs, 16)
+        idx = torch.arange(data.labels.shape[0], device=dev)
+        forwards = {"one": lambda p: han_forward_multilane(p, data, plan, backend="kernel"),
+                    "sharded": lambda p: han_forward_multilane(p, data, plan, mesh=mesh,
+                                                               backend="kernel")}
+        fwd, bwd = mg_mod.seg_gat_agg_multigraph_fwd, mg_mod.seg_gat_agg_multigraph_bwd
+        got = {}
+        for k, forward in forwards.items():
+            with torch.no_grad():
+                logits = forward(params)
+            fwd.launches = bwd.launches = 0
+            loss, _, grads = hgnn_loss_and_grads(forward, params, data, idx)
+            torch.cuda.synchronize()
+            got[k] = (logits, loss, grads, (fwd.launches, bwd.launches))
+        per = plan.num_lanes // world
+        units = [plan.units((r * per, (r + 1) * per)).count for r in range(world)]
+        checks = {"logits_bitwise": torch.equal(got["one"][0], got["sharded"][0]),
+                  "loss_bitwise": torch.equal(got["one"][1], got["sharded"][1]),
+                  "launches_a_step": got["sharded"][3] == ((1, 1) if units[rank] else (0, 0))}
+        rel, same = 0.0, True
+        for name, g in got["sharded"][2].items():
+            w = got["one"][2][name]
+            rel = max(rel, float((g - w).abs().max()) / (float(w.abs().max()) or 1.0))
+            first = g.clone(memory_format=torch.contiguous_format)  # NCCL takes contiguous
+            dist.broadcast(first, src=0)
+            same &= torch.equal(first, g)
+        checks["grads_within_limit"] = rel <= LANE_GRAD_REL
+        checks["grads_same_on_every_rank"] = bool(same)
+        flags = torch.tensor([int(v) for v in checks.values()], device=dev)
+        dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+
+        opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+        step_fns = {k: make_hgnn_train_step(f, data, opt) for k, f in forwards.items()}
+        states = {k: init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt,
+                                           **width) for k in step_fns}
+        states, times = event_steps(step_fns, states, idx, 11)
+        res = dict(card=card_line(), world=world, plan_lanes=plan.num_lanes,
+                   units_per_rank=units,
+                   checks=dict(zip(checks, (bool(v) for v in flags.tolist()))),
+                   grad_rel_err=rel, launches_a_step=got["sharded"][3],
+                   median_ms={k: float(np.median(t[1:])) for k, t in times.items()},
+                   step_ms=times)
+        if rank == 0:
+            OUT.mkdir(exist_ok=True)
+            (OUT / "lanes_sharded.json").write_text(json.dumps(res, indent=1))
+            log(json.dumps(res))
+        if not all(res["checks"].values()):
+            raise AssertionError(f"rank {rank}: {res['checks']}")
+        return res
+    finally:
+        dist.destroy_process_group()
 
 
 # -- phase 5: the per-graph models, kernels #5 and #6 --------------------------------
@@ -2244,6 +2588,7 @@ def main() -> int:
                       "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
                       "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
     train = training(tdata, train_counters, fusion)
+    lanes = multilane_phase(tdata, train_counters, mg_mod)
     # each kernel's count comes from the training run of the path that launches it
     launches = {"multigraph": train["multigraph_run"]["launches"]["multigraph"],
                 "multigraph_bwd": train["multigraph_run"]["launches"]["multigraph_bwd"],
@@ -2273,8 +2618,12 @@ def main() -> int:
         launches[k] = sum(infer[m]["launches"][k] for m in ("R-GAT", "S-HGN"))
     # which run each count comes from, and what one `ms` covers
     by_path = {
-        "multigraph": {"HAN training, 20 steps": launches["multigraph"]},
-        "multigraph_bwd": {"HAN training, 20 steps": launches["multigraph_bwd"]},
+        "multigraph": {"HAN training, 20 steps": launches["multigraph"],
+                       "HAN training over a 16-lane plan at B = 128, 5 steps":
+                           lanes["run"]["launches"]["multigraph"]},
+        "multigraph_bwd": {"HAN training, 20 steps": launches["multigraph_bwd"],
+                           "HAN training over a 16-lane plan at B = 128, 5 steps":
+                               lanes["run"]["launches"]["multigraph_bwd"]},
         "fused_fp": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp"]},
         "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"]},
         "seg_gat_agg": {f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
@@ -2363,7 +2712,7 @@ def main() -> int:
                    projection_ratio=tk["projection"]["ratio"],
                    launches_by_route=train["fused_fp_run"]["launches_by_route"][k])
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
-                train_kernels=train_kernels, training=train, inference=infer,
+                train_kernels=train_kernels, training=train, multilane=lanes, inference=infer,
                 rgat_training=rgat_train, lm=lm,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,

@@ -1,3 +1,4 @@
-from .io import latest_step, restore_checkpoint, save_checkpoint
+from .io import latest_step, reshard_to, restore_checkpoint, save_checkpoint, writes_checkpoints
 
-__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]
+__all__ = ["latest_step", "reshard_to", "restore_checkpoint", "save_checkpoint",
+           "writes_checkpoints"]

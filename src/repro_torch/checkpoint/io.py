@@ -11,8 +11,9 @@ so a checkpoint of either package restores into the other: a field of a
 dataclass such as ``TrainState`` is ``[<flat index i>]`` (params, opt,
 step in order), a dict entry ``['name']`` with keys in sorted order, a
 list entry ``[i]``, joined by ``/``; None leaves (an unused ``master``) do
-not appear.  Leaves are logical (unsharded) arrays.  Placing them onto a
-lane mesh (``reshard_to``) waits for the multi-lane slice.
+not appear.  Leaves are logical (unsharded) arrays; :func:`reshard_to`
+places a restored state on a run's device and lane group, whatever lane
+count wrote it.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..tree import tree_leaves_with_path, tree_unflatten
+from ..tree import tree_leaves, tree_leaves_with_path, tree_unflatten
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state, aux: dict | None = None) -> str:
@@ -75,3 +77,30 @@ def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
         arr = np.load(os.path.join(path, by_key[k]["file"]))
         values.append(torch.from_numpy(arr).to(v.device))
     return tree_unflatten(like, values), manifest["aux"]
+
+
+def reshard_to(state, device: str | torch.device | None = None, *, mesh=None):
+    """Elastic restart: place a restored (host) state on this run's device,
+    replicated over the lane group of ``mesh`` (``launch.mesh.make_lane_mesh``).
+
+    Under the lanes posture every rank holds the whole state (params and
+    optimizer state are replicated; the multi-lane plan is rebuilt per
+    run), so a checkpoint written at L lanes restores bit-identically at
+    any L′: each leaf moves to ``device`` (kept where it is when None) and,
+    with a mesh, lane rank 0's copy is broadcast over the lane group, so
+    every rank starts from the same bits.  Only lane rank 0 reads and
+    writes checkpoints (``train.loop.train_loop``)."""
+    if device is not None:
+        state = tree_unflatten(state, [x.to(device) for x in tree_leaves(state)])
+    if mesh is not None:
+        group = mesh.get_group("lane")
+        src = dist.get_global_rank(group, 0)
+        for leaf in tree_leaves(state):
+            dist.broadcast(leaf, src=src, group=group)
+    return state
+
+
+def writes_checkpoints(mesh) -> bool:
+    """Whether this process writes checkpoints: the only process without a
+    mesh, lane rank 0 with one."""
+    return mesh is None or dist.get_rank(mesh.get_group("lane")) == 0

@@ -1,5 +1,7 @@
 """HiHGNN core of the port: stage ops, the NA dispatch with its kernel
-backends, similarity-aware scheduling and FP-traffic accounting."""
+backends, independency-aware parallel execution (multi-lane plans and
+workload-aware lane scheduling), similarity-aware scheduling and
+FP-traffic accounting."""
 from . import stages
 from .fusion import (
     FusedFPInputs,
@@ -12,8 +14,24 @@ from .fusion import (
     neighbor_aggregate_multi,
     project_coefficients,
 )
+from .multilane import (
+    MULTILANE_BACKENDS,
+    MultiLanePlan,
+    build_multilane_plan,
+    multilane_na,
+    multilane_na_sharded,
+    resolve_multilane_backend,
+)
 from .reuse import FPTraffic, fp_buffer_traffic
-from .scheduling import shortest_hamilton_path, similarity_matrix, similarity_schedule
+from .scheduling import (
+    LanePlan,
+    brute_force_hamilton_path,
+    lane_assignment,
+    naive_lane_assignment,
+    shortest_hamilton_path,
+    similarity_matrix,
+    similarity_schedule,
+)
 
 __all__ = [
     "stages",
@@ -26,8 +44,18 @@ __all__ = [
     "neighbor_aggregate",
     "neighbor_aggregate_multi",
     "project_coefficients",
+    "MULTILANE_BACKENDS",
+    "MultiLanePlan",
+    "build_multilane_plan",
+    "multilane_na",
+    "multilane_na_sharded",
+    "resolve_multilane_backend",
     "FPTraffic",
     "fp_buffer_traffic",
+    "LanePlan",
+    "brute_force_hamilton_path",
+    "lane_assignment",
+    "naive_lane_assignment",
     "shortest_hamilton_path",
     "similarity_matrix",
     "similarity_schedule",

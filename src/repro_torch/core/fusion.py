@@ -40,6 +40,7 @@ import dataclasses
 import enum
 import functools
 
+import numpy as np
 import torch
 
 from ..graphs.formats import to_block_csr, to_padded_edges
@@ -86,6 +87,10 @@ class SemanticGraphBatch:
     @property
     def num_dst_pad(self) -> int:
         return int(self.col_index.shape[0]) * self.block
+
+    def row_edge_counts(self) -> np.ndarray:
+        """#edges per dst-block row (workload units for lane scheduling)."""
+        return self.masks.sum(dim=(1, 2, 3)).cpu().numpy().astype(np.int64)
 
     @functools.cached_property
     def edges(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -251,7 +251,7 @@ def edge_index(col_index, graph_id, dst_row, masks, n_graphs: int, ns_pad: int,
 
     It depends on the topology only.  Building it takes a device sort and
     host syncs, so a caller that runs many steps on one topology builds it
-    once (HAN: ``HGNNData.multigraph_index()``) and passes it to every
+    once (HAN: ``MultiLanePlan.units().edge_index``) and passes it to every
     call."""
     U, W, B, _ = masks.shape
     nblk_d = nd_pad // B

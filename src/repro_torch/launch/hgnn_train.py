@@ -1,10 +1,12 @@
-"""HGNN training launcher of the port: HAN or R-GAT on one card.
+"""HGNN training launcher of the port: HAN or R-GAT, on one card or over a
+lane group of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --dataset imdb \\
-        --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 8 --steps 20
+        --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 8 --plan-lanes 16
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --model R-GAT \\
         --dataset imdb --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 4 --steps 20
-    PYTHONPATH=src python -m repro_torch.launch.hgnn_train --device cpu --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.hgnn_train --device cpu --steps 5 --plan-lanes 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 4 --plan-lanes 16
 
 Builds the named Table-5 HetGraph, its target-type semantic graphs in the
 similarity schedule's order (FP reuse), synthetic labels with planted
@@ -13,28 +15,36 @@ fault-tolerant ``train_loop``: atomic checkpoints in the reference's
 layout (``--ckpt``), counter-based data state, ``--crash-at`` fault
 injection.
 
-``--backend kernel`` (the default) runs HAN's NA of all semantic graphs in
-one launch of the multigraph kernel, forward and backward (kernels #1 and
-#2); R-GAT's relation-specific projections keep it off that one-launch
-plan, so it runs the same kernels once per semantic graph and layer
-(G = 1).  ``reference`` is the plain per-graph BLOCK path.  With one lane
-this is what ``repro``'s launcher runs (``han_forward_multilane`` with one
-lane is one multigraph launch over the units in graph-major order).
-``--device`` defaults to ``cuda`` and raises on a host without a card;
-``--device cpu`` runs the kernels' plain versions.
+HAN takes the reference launcher's path: a ``MultiLanePlan`` of
+``--plan-lanes`` lanes (default ``--lanes``) built by the workload-aware
+scheduler, and ``han_forward_multilane`` over it.  ``--backend kernel``
+(the default) is one launch of kernel #1 over all the plan's units a
+step and one of #2 in the backward; ``reference`` is the plain per-unit
+softmax; ``kernel_interpret`` is a spelling of ``kernel``.  ``--lanes``
+is the lane axis of the mesh, the ranks of a ``torch.distributed`` group
+(``torchrun --nproc-per-node``), over which the plan's lanes are split
+(``--plan-lanes`` a multiple of ``--lanes``); checkpoints restore at any
+lane count (elastic restart) and only lane rank 0 writes them.  R-GAT's
+relation-specific projections keep it off the plan: it runs kernels
+#1/#2 once per semantic graph and layer (MULTIGRAPH at G = 1), BLOCK on
+``reference``.  ``--device`` defaults to ``cuda`` and raises on a host
+without a card; ``--device cpu`` runs the kernels' plain versions.
 
-Not ported yet, and an error that names the ROADMAP slice: more than one
-lane (``--lanes``, ``--plan-lanes``, ``--model-split``), ``--trace`` and
-``--metrics``.
+Not ported yet, and an error that names the ROADMAP item: ``--model-split``
+> 1 (item 9) and ``--trace``/``--metrics`` (item 5).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
+import torch.distributed as dist
 
+from ..checkpoint import writes_checkpoints
 from ..core.fusion import NABackend
+from ..core.multilane import build_multilane_plan, resolve_multilane_backend
 from ..core.scheduling import similarity_schedule
 from ..data import SyntheticHGNNData
 from ..graphs import (
@@ -44,14 +54,18 @@ from ..graphs import (
     synthetic_hetgraph,
     synthetic_labels,
 )
-from ..models.hgnn import MODELS, prepare_data
+from ..models.hgnn import MODELS, han_forward_multilane, prepare_data
 from ..optim import AdamWConfig
 from ..runtime import resolve_device
 from ..train import init_hgnn_train_state, make_hgnn_train_step, train_loop
 from ..tree import tree_leaves
+from .mesh import make_lane_mesh
 
 DATASETS = ("acm", "imdb", "dblp")
-BACKENDS = {"reference": NABackend.BLOCK, "kernel": NABackend.MULTIGRAPH}
+BACKENDS = ("reference", "kernel", "kernel_interpret")
+# R-GAT's per-relation path: the kernel backends run #1/#2 per graph and layer
+_PER_GRAPH = {"reference": NABackend.BLOCK, "kernel": NABackend.MULTIGRAPH,
+              "kernel_interpret": NABackend.MULTIGRAPH}
 
 # model.init keyword vocabularies differ (HAN takes att_dim, R-GAT layers)
 _INIT_KW = {
@@ -69,7 +83,7 @@ def build_problem(
     *,
     scale: float = 0.1,
     feat_scale: float = 0.1,
-    block: int = 16,
+    block: int = 128,
     max_edges: int = 400_000,
     seed: int = 0,
     device: str | torch.device = "cuda",
@@ -92,12 +106,15 @@ def run_training(
     dataset: str = "acm",
     model_name: str = "HAN",
     steps: int = 100,
+    lanes: int = 1,
+    model_split: int = 1,
+    plan_lanes: int | None = None,
     backend: str = "kernel",
     hidden: int = 16,
     heads: int = 4,
     lr: float = 5e-3,
     batch: int = 0,  # labeled minibatch size; 0 = full batch
-    block: int = 16,
+    block: int = 128,
     scale: float = 0.1,
     feat_scale: float = 0.1,
     max_edges: int = 400_000,
@@ -110,56 +127,84 @@ def run_training(
     log=print,
     device: str | torch.device = "cuda",
 ):
-    """Train HAN or R-GAT on one dataset on one device.  Returns ``(state,
-    history, meta)``; meta records the model, the resolved backend and
-    sizes."""
+    """Train HAN or R-GAT on one dataset under the lanes posture: one
+    process, or one per rank of a lane mesh of ``lanes`` (an initialised
+    ``torch.distributed`` group).  Returns ``(state, history, meta)``;
+    meta records the model, the resolved backend, the mesh, the plan's
+    lanes and sizes."""
     if backend not in BACKENDS:
-        raise ValueError(f"backend={backend!r}, expected one of {sorted(BACKENDS)}")
+        raise ValueError(f"backend={backend!r}, expected one of {BACKENDS}")
     if model_name not in _INIT_KW:
         raise ValueError(f"model_name={model_name!r}, expected one of {sorted(_INIT_KW)}")
+    n_plan_lanes = plan_lanes or lanes
+    if n_plan_lanes % lanes:
+        raise ValueError(f"plan_lanes={n_plan_lanes} must be a multiple of lanes={lanes}")
     dev = resolve_device(device)
+    mesh = make_lane_mesh(lanes, model_split, device_type=dev.type)
+    if mesh is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if not writes_checkpoints(mesh):
+        log = lambda *_: None  # noqa: E731  (lane rank 0 reports)
     g, data = build_problem(dataset, scale=scale, feat_scale=feat_scale, block=block,
                             max_edges=max_edges, seed=seed, device=dev)
-    nab = BACKENDS[backend]
+    model = MODELS[model_name]
+    if model_name == "HAN":
+        # one NA call for all relations a step, over the plan's units in lane
+        # order, the plan's lanes split over the mesh's lane group
+        plan = build_multilane_plan(data.graphs, n_plan_lanes)
+        na_backend = resolve_multilane_backend(backend)
+        forward_fn = lambda p: han_forward_multilane(  # noqa: E731
+            p, data, plan, mesh=mesh, backend=na_backend)
+    else:
+        # per-relation projections: the kernels once per relation and layer,
+        # replicated on every lane rank
+        plan = None
+        nab = _PER_GRAPH[backend]
+        na_backend = nab.value
+        forward_fn = lambda p: model.forward(p, data, backend=nab)  # noqa: E731
     n_target = g.vertex_counts[data.target_type]
     opt = AdamWConfig(lr=lr, weight_decay=0.0)
     pipeline = SyntheticHGNNData(num_vertices=n_target,
                                  batch_size=batch if batch > 0 else n_target, seed=seed)
-    model = MODELS[model_name]
     state = init_hgnn_train_state(model, torch.Generator().manual_seed(seed), data, opt,
                                   **_INIT_KW[model_name](hidden, heads))
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     log(f"[hgnn_train] {model_name}/{dataset} params={n_params / 1e6:.2f}M "
-        f"edges={sum(b.num_edges for b in data.graphs)} device={dev} backend={nab.value}")
-    step_fn = make_hgnn_train_step(lambda p: model.forward(p, data, backend=nab), data, opt)
+        f"edges={sum(b.num_edges for b in data.graphs)} mesh=lane{lanes}xmodel{model_split} "
+        f"plan_lanes={None if plan is None else plan.num_lanes} device={dev} "
+        f"backend={na_backend}")
+    step_fn = make_hgnn_train_step(forward_fn, data, opt)
     state, history = train_loop(
         state=state, train_step=step_fn, data=pipeline, steps=steps,
         ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
-        crash_at=crash_at, log_every=log_every, log=log,
+        crash_at=crash_at, log_every=log_every, log=log, mesh=mesh,
     )
-    meta = dict(dataset=dataset, model=model_name, backend=nab.value, n_params=n_params,
-                n_target=n_target, device=str(dev))
+    meta = dict(dataset=dataset, model=model_name, backend=na_backend, lanes=lanes,
+                model_split=model_split, plan_lanes=None if plan is None else plan.num_lanes,
+                n_params=n_params, n_target=n_target, device=str(dev))
     return state, history, meta
 
 
-def main(argv: list[str] | None = None) -> None:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="acm", choices=DATASETS)
     ap.add_argument("--model", default="HAN", choices=sorted(_INIT_KW))
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--lanes", type=int, default=1, help="lane mesh axis size (1 only)")
+    ap.add_argument("--lanes", type=int, default=1,
+                    help="lane mesh axis size: the ranks of the process group (torchrun)")
     ap.add_argument("--model-split", type=int, default=1, help="model mesh axis size (1 only)")
-    ap.add_argument("--plan-lanes", type=int, default=None, help="work-unit partition lanes (1 only)")
-    ap.add_argument("--backend", default="kernel", choices=sorted(BACKENDS),
-                    help="kernel = the multigraph kernels #1/#2 (HAN: one launch per step; "
-                         "R-GAT: one per graph and layer); reference = plain per-graph BLOCK")
+    ap.add_argument("--plan-lanes", type=int, default=None,
+                    help="work-unit partition lanes (default: mesh lanes; must be a multiple)")
+    ap.add_argument("--backend", default="kernel", choices=BACKENDS,
+                    help="multilane NA executor: kernel = one launch of #1 (#2 backward) over "
+                         "the plan's units a step (kernel_interpret: the same); reference = "
+                         "the plain per-unit softmax")
     ap.add_argument("--hidden", type=int, default=16)
     ap.add_argument("--heads", type=int, default=4)
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--batch", type=int, default=0, help="labeled minibatch (0 = full)")
-    ap.add_argument("--block", type=int, default=16,
-                    help="dst block size (the kernel backend's #1/#2 take 8, 16, 32, 64 or "
-                         "128; the reference trainer's default is 128)")
+    ap.add_argument("--block", type=int, default=128,
+                    help="dst block size (paper: 128; #1/#2 take 8, 16, 32, 64 or 128)")
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--feat-scale", type=float, default=0.1)
     ap.add_argument("--max-edges", type=int, default=400_000)
@@ -173,20 +218,32 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--metrics", default=None, metavar="PATH", help="not ported yet")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (plain versions)")
-    args = ap.parse_args(argv)
-    if args.lanes > 1 or args.model_split > 1 or (args.plan_lanes or 1) > 1:
-        raise _not_ported("training on more than one lane", "3 (multi-lane execution)")
+    return ap.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = parse_args(argv)
     if args.trace or args.metrics:
         raise _not_ported("--trace/--metrics on the training launcher", "5 (observability)")
 
-    state, history, meta = run_training(
-        dataset=args.dataset, model_name=args.model, steps=args.steps, backend=args.backend,
-        hidden=args.hidden, heads=args.heads, lr=args.lr,
-        batch=args.batch, block=args.block, scale=args.scale,
-        feat_scale=args.feat_scale, max_edges=args.max_edges, seed=args.seed,
-        ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every, resume=not args.no_resume,
-        crash_at=args.crash_at, device=args.device,
-    )
+    # under torchrun (one process per rank) the launcher joins the group it sets up
+    joined = (args.lanes * args.model_split > 1 and "WORLD_SIZE" in os.environ
+              and not dist.is_initialized())
+    if joined:
+        dist.init_process_group("nccl" if args.device.startswith("cuda") else "gloo")
+    try:
+        state, history, meta = run_training(
+            dataset=args.dataset, model_name=args.model, steps=args.steps,
+            lanes=args.lanes, model_split=args.model_split, plan_lanes=args.plan_lanes,
+            backend=args.backend, hidden=args.hidden, heads=args.heads, lr=args.lr,
+            batch=args.batch, block=args.block, scale=args.scale,
+            feat_scale=args.feat_scale, max_edges=args.max_edges, seed=args.seed,
+            ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every, resume=not args.no_resume,
+            crash_at=args.crash_at, device=args.device,
+        )
+    finally:
+        if joined:
+            dist.destroy_process_group()
     if history:
         print(f"final loss {history[-1]['loss']:.4f} (start {history[0]['loss']:.4f}) "
               f"acc {history[-1]['acc']:.3f}")

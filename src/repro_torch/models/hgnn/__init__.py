@@ -1,5 +1,5 @@
 from .common import HGNNData, HGNNModel, cross_entropy, glorot, prepare_data
-from .han import HAN, han_forward, han_forward_staged, init_han
+from .han import HAN, han_forward, han_forward_multilane, han_forward_staged, init_han
 from .rgat import RGAT, init_rgat, rgat_forward
 from .rgcn import RGCN, init_rgcn, rgcn_forward
 from .shgn import SHGN, init_shgn, shgn_forward
@@ -18,6 +18,7 @@ __all__ = [
     "SHGN",
     "MODELS",
     "han_forward",
+    "han_forward_multilane",
     "han_forward_staged",
     "init_han",
     "init_rgat",

@@ -17,15 +17,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ...core.fusion import (
-    NABackend,
-    SemanticGraphBatch,
-    batch_semantic_graph,
-    build_edge_index,
-    build_unit_tables,
-    fused_fp_rows,
-)
-from ...kernels.seg_gat_agg_fused_fp import fused_index
+from ...core.fusion import NABackend, SemanticGraphBatch, batch_semantic_graph
+from ...core.multilane import MultiLanePlan, build_multilane_plan
 from ...graphs.hetgraph import HetGraph, SemanticGraph
 from ...runtime import resolve_device
 
@@ -39,52 +32,23 @@ class HGNNData:
     target_type: str
     num_classes: int
     labels: torch.Tensor | None = None       # int64 [N_target]
-    _topology: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
-                                        compare=False)
+    _plan: tuple | None = dataclasses.field(default=None, init=False, repr=False,
+                                            compare=False)
 
     @property
     def feature_dims(self) -> dict[str, int]:
         return {t: int(x.shape[1]) for t, x in self.features.items()}
 
-    def _topology_cache(self) -> dict:
-        """What is built from ``graphs`` once, emptied when ``graphs`` no
-        longer holds the batches it was built from."""
-        built_from = self._topology.get("graphs")
-        if built_from is None or len(built_from) != len(self.graphs) or any(
-                a is not b for a, b in zip(built_from, self.graphs)):
-            self._topology.clear()
-            self._topology["graphs"] = tuple(self.graphs)
-        return self._topology
-
-    def unit_tables(self) -> tuple:
-        """``build_unit_tables(self.graphs)``, built on first use and kept
-        while ``graphs`` holds the same batches: the topology is the same in
-        every step."""
-        cache = self._topology_cache()
-        if "unit_tables" not in cache:
-            cache["unit_tables"] = build_unit_tables(self.graphs)
-        return cache["unit_tables"]
-
-    def shared_table_index(self) -> dict:
-        """FUSED_FP's topology index (kernels #3 and #4's ``fused_index``)
-        of all graphs through one shared weight table (HAN's layout), built
-        on first use and kept as :meth:`unit_tables` is."""
-        cache = self._topology_cache()
-        if "shared_table_index" not in cache:
-            col, gid, row, _ = self.unit_tables()
-            wsel = torch.zeros(len(self.graphs), dtype=torch.int32, device=col.device)
-            cache["shared_table_index"] = fused_index(
-                col, gid, row, wsel, 1, fused_fp_rows(self.graphs), self.graphs[0].block)
-        return cache["shared_table_index"]
-
-    def multigraph_index(self) -> dict:
-        """MULTIGRAPH's edge index (kernel #2's ``edge_index``) of all
-        graphs' :meth:`unit_tables`, built on first use and kept as they
-        are."""
-        cache = self._topology_cache()
-        if "multigraph_index" not in cache:
-            cache["multigraph_index"] = build_edge_index(self.graphs, self.unit_tables())
-        return cache["multigraph_index"]
+    def plan(self) -> MultiLanePlan:
+        """The one-lane plan of ``graphs`` (``core.multilane``), which HAN's
+        MULTIGRAPH and FUSED_FP backends run over: it and the unit tables
+        and kernel indexes it keeps are built on first use and kept while
+        ``graphs`` holds the same batches, since the topology is the same
+        in every step."""
+        if self._plan is None or len(self._plan[0]) != len(self.graphs) or any(
+                a is not b for a, b in zip(self._plan[0], self.graphs)):
+            self._plan = (tuple(self.graphs), build_multilane_plan(self.graphs, 1))
+        return self._plan[1]
 
 
 def prepare_data(

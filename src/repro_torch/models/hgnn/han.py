@@ -9,11 +9,14 @@ features exactly once and every semantic graph gathers from it.
 Backends: SEGMENT and BLOCK (per-graph plain PyTorch, plain autograd),
 KERNEL (one launch of kernel #5 per graph; no gradient), MULTIGRAPH (all
 graphs' NA in one launch of kernel #1 forward and #2 backward) and
-FUSED_FP (FP inside the launch: kernels #3 and #4).  With one lane,
-``repro``'s ``han_forward_multilane`` is the same single multigraph launch
-over the units in graph-major order, which is what MULTIGRAPH runs here.
-:func:`han_forward_staged` is the staged baseline (Fig. 4(a)): each stage
-on its own with a device barrier after it.
+FUSED_FP (FP inside the launch: kernels #3 and #4).
+:func:`han_forward_multilane` runs the same layer over a multi-lane plan
+(``core.multilane``): all units in lane-major order in one launch, or the
+plan's lanes split over a ``torch.distributed`` lane group; the trainer
+takes it.  MULTIGRAPH and FUSED_FP are that path over the data set's
+one-lane plan (``HGNNData.plan``).  :func:`han_forward_staged` is the
+staged baseline (Fig. 4(a)): each stage on its own with a device barrier
+after it.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ import torch
 import torch.nn.functional as F
 
 from ...core import stages
-from ...core.fusion import (
-    FusedFPInputs,
-    NABackend,
-    neighbor_aggregate,
-    neighbor_aggregate_multi,
+from ...core.fusion import FusedFPInputs, NABackend, _pad_rows, neighbor_aggregate
+from ...core.multilane import (
+    MultiLanePlan,
+    multilane_na,
+    multilane_na_sharded,
+    resolve_multilane_backend,
 )
 from .common import HGNNData, HGNNModel, glorot
 
@@ -79,34 +83,19 @@ def _fuse(z_all: torch.Tensor, params, n: int):
 
 def _han_embed(params, data: HGNNData, backend: NABackend):
     """FP -> per-graph (theta, NA, LSF) -> GSF."""
+    if backend in (NABackend.MULTIGRAPH, NABackend.FUSED_FP):
+        # all relations' NA in ONE launch (#1, and #2 backward; FUSED_FP: #3
+        # and #4, FP inside the call) over the data set's one-lane plan, whose
+        # unit tables and kernel indexes are built once, not per step
+        return _han_embed_multilane(
+            params, data, data.plan(),
+            backend="kernel" if backend is NABackend.MULTIGRAPH else "fused_fp")
+
     x = data.features[data.target_type]
     heads = params["a_src"].shape[1]
     n = x.shape[0]
-
-    if backend is NABackend.FUSED_FP:
-        # FP happens inside the NA call: raw x goes to the fused kernels,
-        # which project each (table, row tile) the units read once; the
-        # unit tables and the kernels' topology index are built once per
-        # data set, not per step
-        fp = FusedFPInputs.shared(
-            x, params["w_fp"], params["b_fp"], params["a_src"], params["a_dst"],
-            index=data.shared_table_index())
-        z_all = neighbor_aggregate_multi(data.graphs, None, None, None, backend=backend,
-                                         unit_tables=data.unit_tables(), fp=fp)
-        return _fuse(z_all, params, n)
-
     h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
     hh = h.reshape(n, heads, -1)
-    if backend is NABackend.MULTIGRAPH:
-        # all relations' theta in one einsum, all relations' NA in ONE launch; the
-        # unit tables and the backward's edge index are built once per data set
-        th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
-        th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
-        z_all = neighbor_aggregate_multi(data.graphs, th_s, th_d, hh, backend=backend,
-                                         unit_tables=data.unit_tables(),
-                                         index=data.multigraph_index())
-        return _fuse(z_all, params, n)
-
     z_all = []
     for i, batch in enumerate(data.graphs):
         th_s, th_d = stages.attention_coefficients(hh, params["a_src"][i], params["a_dst"][i])
@@ -116,6 +105,67 @@ def _han_embed(params, data: HGNNData, backend: NABackend):
 
 def han_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
     fused, _ = _han_embed(params, data, backend)
+    return fused @ params["w_out"] + params["b_out"]
+
+
+def _han_embed_multilane(
+    params,
+    data: HGNNData,
+    plan: MultiLanePlan,
+    *,
+    mesh=None,
+    backend: str = "reference",
+):
+    """The consolidated HAN layer over a lane-partitioned work-unit plan.
+
+    One θ einsum for all relations and all NA units in one call, run
+    through ``core.multilane``: one launch over all lanes' units on one
+    device (``mesh=None``), or the plan's lanes split over the mesh's lane
+    group.  ``backend="kernel"`` is kernel #1 forward and #2 backward;
+    ``"fused_fp"`` projects inside the call (#3/#4) from the raw features.
+
+    Equivalence contract (the reference's): the forward is bit-identical
+    across lane counts and backends on the card, since each unit is
+    computed alone and lanes only move exact zeros through the placement
+    and the all-reduce.  The backward's cross-unit sums (d_h_src, d_theta_src
+    over all units that read a src vertex) run in the plan's unit order,
+    so gradients agree to float32 tolerance across plans and are
+    bit-deterministic for a fixed plan.
+    """
+    x = data.features[data.target_type]
+    heads = params["a_src"].shape[1]
+    n = x.shape[0]
+    n_pad = plan.n_dst_blocks * plan.block  # shared src/dst vertex space
+    backend = resolve_multilane_backend(backend)
+    kw = {} if mesh is None else dict(mesh=mesh)
+    na = multilane_na if mesh is None else multilane_na_sharded
+
+    if backend == "fused_fp":
+        fp = FusedFPInputs.shared(_pad_rows(x, n_pad), params["w_fp"], params["b_fp"],
+                                  params["a_src"], params["a_dst"])
+        z_all = na(plan, None, None, None, backend=backend, fp=fp, **kw)
+    else:
+        h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
+        hh = h.reshape(n, heads, -1)
+        th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
+        th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
+        th_s = _pad_rows(th_s.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
+        th_d = _pad_rows(th_d.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
+        z_all = na(plan, th_s, th_d, _pad_rows(hh, n_pad).contiguous(), backend=backend, **kw)
+    return _fuse(z_all[:, :n], params, n)
+
+
+def han_forward_multilane(
+    params,
+    data: HGNNData,
+    plan: MultiLanePlan,
+    *,
+    mesh=None,
+    backend: str = "reference",
+):
+    """HAN logits with NA dispatched through a multi-lane plan (see
+    ``_han_embed_multilane``)."""
+    fused, _ = _han_embed_multilane(params, data, plan, mesh=mesh, backend=backend)
     return fused @ params["w_out"] + params["b_out"]
 
 

@@ -12,13 +12,46 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
-from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from ..checkpoint import (
+    latest_step,
+    reshard_to,
+    restore_checkpoint,
+    save_checkpoint,
+    writes_checkpoints,
+)
 from ..data.pipeline import SyntheticHGNNData
 from ..obs.emit import Emitter
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import trace_span
 from .step import TrainState
+
+
+def _restore_latest(ckpt_dir: str, state: TrainState,
+                    mesh) -> tuple[int | None, TrainState, dict]:
+    """(step, state, aux) of the latest checkpoint, or (None, state, {}).
+
+    With a lane mesh, lane rank 0 alone reads the disk and decides; the
+    other ranks take its step and aux through a broadcast and its leaves
+    through ``reshard_to``.  So every rank starts from rank 0's step, also
+    where the others see another directory or none (no shared file
+    system), and no rank skips the collectives the others enter."""
+    found = [None, {}]
+    if writes_checkpoints(mesh):
+        last = latest_step(ckpt_dir)
+        if last is not None:
+            state, aux = restore_checkpoint(ckpt_dir, last, state)
+            found = [last, aux]
+    if mesh is not None:
+        group = mesh.get_group("lane")
+        dev = state.step.device
+        dist.broadcast_object_list(found, src=dist.get_global_rank(group, 0), group=group,
+                                   device=dev if dev.type == "cuda" else None)
+    last, aux = found
+    if last is not None:
+        state = reshard_to(state, mesh=mesh)
+    return last, state, aux
 
 
 def train_loop(
@@ -34,9 +67,15 @@ def train_loop(
     log_every: int = 10,
     log: Callable[[str], None] = print,
     registry: MetricsRegistry | None = None,
+    mesh=None,  # lane mesh: restored state replicated over it, lane rank 0 writes
 ) -> tuple[TrainState, list[dict]]:
     """Run train steps ``[start, steps)`` with checkpointing and structured
     logging; ``start`` is the latest checkpoint's step when resuming.
+
+    With a lane ``mesh`` (``launch.mesh.make_lane_mesh``) every rank runs
+    the loop in step: lane rank 0 alone reads and writes checkpoints, and
+    a restored state is placed by ``reshard_to`` over the lane group
+    (elastic restart: any lane count restores any checkpoint).
 
     Observability (DESIGN.md §12): every step increments ``train.steps``
     and lands its wall time in the ``train.step_ms`` histogram; logged steps
@@ -50,12 +89,12 @@ def train_loop(
     step_ms = reg.histogram("train.step_ms")
     steps_c = reg.counter("train.steps")
     dev = state.step.device
+    writer = bool(ckpt_dir) and writes_checkpoints(mesh)
 
     start = 0
     if ckpt_dir and resume:
-        last = latest_step(ckpt_dir)
+        last, state, aux = _restore_latest(ckpt_dir, state, mesh)
         if last is not None:
-            state, aux = restore_checkpoint(ckpt_dir, last, state)
             data.restore(aux["data"])
             start = last
             em.emit("resume", step=last)
@@ -83,9 +122,9 @@ def train_loop(
                 em.emit("train", step=step, loss=m["loss"], gnorm=m["grad_norm"], sec=dt)
             step_ms.observe(dt * 1e3)
             steps_c.inc()
-            if ckpt_dir and (step + 1) % ckpt_every == 0:
+            if writer and (step + 1) % ckpt_every == 0:
                 save_checkpoint(ckpt_dir, step + 1, state, aux={"data": data.state()})
-        if ckpt_dir:
+        if writer:
             save_checkpoint(ckpt_dir, steps, state, aux={"data": data.state()})
     finally:
         em.close()

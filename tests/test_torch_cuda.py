@@ -23,7 +23,10 @@ instantiation of its edge walk and its edge cases, visiting exactly the
 edges, equal to #1 at G = 1 bit for bit, giving the same bits on operands
 at unaligned addresses and refusing a B outside EDGE_BLOCKS; the
 trainer (HAN and R-GAT) on the card against the CPU; kernel training
-bitwise repeatable; R-GAT and S-HGN inference on KERNEL against the CPU;
+bitwise repeatable; HAN over lane plans of 1, 4 and 16 lanes equal to
+MULTIGRAPH bit for bit, one #1 and one #2 launch a step, its gradients
+repeatable and at 1e-4 of the CPU's, and the plans' dead units changing
+no bit; R-GAT and S-HGN inference on KERNEL against the CPU;
 kernel #6 against its plain version (float32, bfloat16, a ragged shape),
 its tensor-core route at R-GAT's layer-0 and layer-1 shapes and on ragged
 ones at the main path's operand scale (also under SPLIT_ERROR_MAX, which
@@ -41,7 +44,7 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
-from repro_torch.core import NABackend
+from repro_torch.core import NABackend, build_multilane_plan
 from repro_torch.graphs import (
     dataset_target,
     relation_semantic_graphs,
@@ -58,6 +61,7 @@ from repro_torch.kernels import (
     seg_gat_agg_fused_fp_bwd_plain,
     seg_gat_agg_fused_fp_fwd,
     seg_gat_agg_fused_fp_plain,
+    seg_gat_agg_multigraph,
     seg_gat_agg_multigraph_bwd,
     seg_gat_agg_multigraph_bwd_plain,
     seg_gat_agg_multigraph_fwd,
@@ -71,7 +75,13 @@ from repro_torch.kernels.fused_fp_coeff import route as kernel6_route
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.launch import hgnn_train
 from repro_torch.models.lm.api import build as build_lm
-from repro_torch.models.hgnn import MODELS, han_forward, han_forward_staged, prepare_data
+from repro_torch.models.hgnn import (
+    MODELS,
+    han_forward,
+    han_forward_multilane,
+    han_forward_staged,
+    prepare_data,
+)
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
@@ -588,6 +598,80 @@ def test_rgat_training_on_cuda_matches_cpu_and_repeats(cuda):
         np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4, atol=1e-4)
     for (ka, va), (kb, vb) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
         assert ka == kb and torch.equal(va, vb), ka
+
+
+# -- multi-lane execution: #1/#2 over a lane plan ------------------------------
+
+
+def _han_problem(device):
+    problem = dict(scale=0.05, feat_scale=0.1, block=16, max_edges=20_000)
+    data = hgnn_train.build_problem("acm", device=device, **problem)[1]
+    params = MODELS["HAN"].init(torch.Generator().manual_seed(0), data, hidden=8, heads=2,
+                                att_dim=16)
+    return data, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4, 16])
+def test_multilane_kernel_plan_on_cuda(cuda, lanes):
+    """HAN over a lane plan on the card: the logits equal MULTIGRAPH's bit
+    for bit (#1 computes each unit alone), one #1 and one #2 launch a step,
+    the gradients repeat bitwise and match the CPU's plain versions of
+    #1/#2 on the same plan (atol=rtol=1e-4)."""
+    data, params = _han_problem(cuda)
+    plan = build_multilane_plan(data.graphs, lanes)
+    cpu_data, _ = _han_problem("cpu")
+    cpu_plan = build_multilane_plan(cpu_data.graphs, lanes)
+    with torch.no_grad():
+        want = han_forward(params, data, backend=NABackend.MULTIGRAPH)
+    grads = []
+    fwd, bwd = mg_mod.seg_gat_agg_multigraph_fwd, mg_mod.seg_gat_agg_multigraph_bwd
+    for _ in range(2):
+        fwd.launches = bwd.launches = 0
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        logits = han_forward_multilane(leaves, data, plan, backend="kernel")
+        loss = logits.square().mean()
+        grads.append(torch.autograd.grad(loss, [leaves[k] for k in sorted(leaves)]))
+        torch.cuda.synchronize()
+        assert torch.equal(logits.detach(), want)
+        assert (fwd.launches, bwd.launches) == (1, 1)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    leaves = {k: v.detach().cpu().requires_grad_() for k, v in params.items()}
+    loss = han_forward_multilane(leaves, cpu_data, cpu_plan, backend="kernel").square().mean()
+    for got, w in zip(grads[0], torch.autograd.grad(loss, [leaves[k] for k in sorted(leaves)])):
+        torch.testing.assert_close(got.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_multilane_dead_units_change_no_bit_on_cuda(cuda):
+    """The plan's lane padding through #1 and #2 on the card: the valid
+    units' rows and the gradients are the same bits with the dead units in
+    the tables as without them."""
+    data, _ = _han_problem(cuda)
+    plan = build_multilane_plan(data.graphs, 16)
+    valid = torch.from_numpy(plan.valid.reshape(-1)).to(cuda)
+    assert not bool(valid.all())
+    B = plan.block
+    n_pad = plan.n_dst_blocks * B
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ops = (torch.randn(plan.num_graphs, n_pad, 2, generator=g, device=cuda),
+           torch.randn(plan.num_graphs, n_pad, 2, generator=g, device=cuda),
+           torch.randn(n_pad, 2, 8, generator=g, device=cuda))
+    lu = plan.units()
+    full = tuple(torch.from_numpy(a.reshape(-1, *a.shape[2:])).to(cuda) for a in
+                 (plan.col_index, plan.graph_id, plan.dst_row, plan.masks))
+    cot = torch.randn(lu.count * B, 2, 8, generator=g, device=cuda)
+    results = []
+    for tables, keep in ((full, valid), ((lu.col_index, lu.graph_id, lu.dst_row, lu.masks), None)):
+        leaves = [t.clone().requires_grad_() for t in ops]
+        out = seg_gat_agg_multigraph(*tables, *leaves).reshape(-1, B, 2, 8)
+        out = (out if keep is None else out[keep]).reshape(-1, 2, 8)
+        results.append((out.detach(), torch.autograd.grad((out * cot).sum(), leaves)))
+    torch.cuda.synchronize()
+    assert torch.equal(results[0][0], results[1][0])
+    for a, b in zip(results[0][1], results[1][1]):
+        assert torch.equal(a, b)
 
 
 # -- kernel #7 and the LM decoder ---------------------------------------------

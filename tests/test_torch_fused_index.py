@@ -14,8 +14,9 @@
   VJP at rtol 1e-4, atol 1e-5 in tests/test_torch_kernels_bwd.py);
 * ``neighbor_aggregate_multi(..., unit_tables=)`` and the FUSED_FP index
   built once per data set give the same bits as building both in the call,
-  forward and gradients, for HAN on FUSED_FP and MULTIGRAPH; the data
-  set's topology is rebuilt when its graphs change.
+  forward and gradients, for HAN on FUSED_FP and MULTIGRAPH; HAN's one-lane
+  plan keeps its unit tables and the FUSED_FP index, and is rebuilt when
+  the data set's graphs change.
 """
 import importlib
 
@@ -235,27 +236,35 @@ def test_unit_tables_and_index_once_give_the_same_bits(han_problem, backend):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+def _tables(units):
+    return units.col_index, units.graph_id, units.dst_row, units.masks
+
+
 def test_data_rebuilds_its_topology_when_its_graphs_change(han_problem):
     data, _ = han_problem
-    tables, index = data.unit_tables(), data.shared_table_index()
+    plan = data.plan()
     graphs = data.graphs
     try:
         data.graphs = graphs[:1]
-        sub = data.unit_tables()
-        assert sub is not tables
-        assert all(torch.equal(a, b) for a, b in zip(sub, build_unit_tables(graphs[:1])))
-        assert data.shared_table_index() is not index
+        sub = data.plan()
+        assert sub is not plan and sub.num_graphs == 1
+        assert all(torch.equal(a, b) for a, b in zip(_tables(sub.units()),
+                                                      build_unit_tables(graphs[:1])))
     finally:
         data.graphs = graphs
-    assert all(torch.equal(a, b) for a, b in zip(data.unit_tables(), tables))
+    assert all(torch.equal(a, b) for a, b in zip(_tables(data.plan().units()),
+                                                  build_unit_tables(graphs)))
 
 
 def test_han_builds_the_topology_once(han_problem):
     data, params = han_problem
     logits = han_forward(params, data, backend=NABackend.FUSED_FP)
-    tables, index = data.unit_tables(), data.shared_table_index()
-    assert data.unit_tables() is tables and data.shared_table_index() is index
+    plan = data.plan()
+    units = plan.units()
+    assert data.plan() is plan and plan.units() is units
+    (index,) = [v for k, v in units._indexes.items() if k[0] == "fused"]
     assert torch.equal(han_forward(params, data, backend=NABackend.FUSED_FP), logits)
+    assert [v for k, v in units._indexes.items() if k[0] == "fused"] == [index]
     assert torch.equal(index["tiles"], ffp.row_tiles(
-        *tables[:3], torch.zeros(len(data.graphs), dtype=torch.int32),
+        *_tables(units)[:3], torch.zeros(len(data.graphs), dtype=torch.int32),
         fused_fp_rows(data.graphs), data.graphs[0].block))

@@ -48,6 +48,7 @@ from test_torch_cuda import (  # noqa: F401 (one_thread: a fixture)
 
 mg = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
 fusion = importlib.import_module("repro_torch.core.fusion")
+multilane = importlib.import_module("repro_torch.core.multilane")
 pytestmark = pytest.mark.usefixtures("one_thread")  # the plain versions at B = 64 and 128
 
 SLOPE = 0.2
@@ -294,8 +295,8 @@ def test_an_index_changed_in_place_raises_and_equal_tensors_pass():
 
 @pytest.fixture
 def counted_builds(monkeypatch):
-    """Counts ``edge_index`` builds (``fusion.build_edge_index`` calls it
-    for HAN's data set and R-GAT's batches)."""
+    """Counts ``edge_index`` builds (HAN's one-lane plan calls it through
+    ``core.multilane``, R-GAT's batches through ``fusion.build_edge_index``)."""
     calls = []
 
     def counting(*args, **kw):
@@ -303,6 +304,7 @@ def counted_builds(monkeypatch):
         return mg.edge_index(*args, **kw)
 
     monkeypatch.setattr(fusion, "edge_index", counting)
+    monkeypatch.setattr(multilane, "edge_index", counting)
     return calls
 
 
@@ -327,9 +329,9 @@ def test_han_builds_the_edge_index_once_per_data_set(counted_builds):
                             device="cpu")
     losses = _train(HAN, data, 3, hidden=8, heads=2, att_dim=16)
     assert len(counted_builds) == 1 and losses[-1] < losses[0]
-    assert data.multigraph_index() is data.multigraph_index()
+    assert data.plan() is data.plan()
     data.graphs = list(data.graphs)[:1]  # another batch set: built anew
-    data.multigraph_index()
+    _train(HAN, data, 1, hidden=8, heads=2, att_dim=16)
     assert len(counted_builds) == 2
 
 

@@ -18,6 +18,7 @@ block=16, max_edges=20000), with weights made by
   ``--device cpu``.
 
 tests/test_torch_cuda.py runs the trainer on the card against the CPU."""
+import inspect
 import json
 
 import jax
@@ -36,6 +37,7 @@ from repro.models.hgnn import han_forward as jhan_forward
 from repro.train import init_hgnn_train_state as jinit_state
 from repro.train import make_hgnn_train_step as jmake_step
 from repro_torch import checkpoint as tckpt
+from repro_torch.checkpoint import reshard_to
 from repro_torch import optim as toptim
 from repro_torch.convert import params_from_numpy, train_state_from_numpy
 from repro_torch.core import NABackend
@@ -169,7 +171,7 @@ _RUN = dict(dataset="acm", hidden=8, heads=2, scale=0.05, block=16, max_edges=20
 def test_crash_at_step_k_resume_bit_identical(tmp_path):
     kw = dict(steps=6, ckpt_every=2, **_RUN)
     ref, ref_hist, meta = hgnn_train.run_training(ckpt_dir=str(tmp_path / "ref"), **kw)
-    assert meta["backend"] == "multigraph" and meta["device"] == "cpu"
+    assert meta["backend"] == "kernel" and meta["device"] == "cpu" and meta["plan_lanes"] == 1
     crashed = str(tmp_path / "crashed")
     with pytest.raises(RuntimeError, match="injected failure at step 5"):
         hgnn_train.run_training(ckpt_dir=crashed, crash_at=5, **kw)
@@ -224,19 +226,69 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
                      "--out", str(out)])
     assert "final loss" in capsys.readouterr().out
     run = json.loads(out.read_text())
-    assert run["meta"]["backend"] == "multigraph" and run["history"][-1]["step"] == 2
+    assert run["meta"]["backend"] == "kernel" and run["history"][-1]["step"] == 2
     assert tckpt.latest_step(str(tmp_path / "ck")) == 3
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--lanes", "2"], "Queue 1 item 3"),
-    (["--plan-lanes", "4"], "Queue 1 item 3"),
     (["--trace", "t.json"], "Queue 1 item 5"),
     (["--metrics", "m.json"], "Queue 1 item 5"),
+    (["--model-split", "2"], "Queue 1 item 9"),
 ])
 def test_launcher_rejects_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         hgnn_train.main(["--device", "cpu", "--steps", "1", *argv])
+
+
+_CLI = ["--device", "cpu", "--scale", "0.05", "--max-edges", "20000", "--hidden", "8",
+        "--heads", "2"]
+
+
+def test_launcher_plan_lanes_gives_the_same_first_loss(tmp_path):
+    """HAN over a 4-lane plan: the forward is the one-lane forward, bit for bit."""
+    runs = {}
+    for lanes in ("1", "4"):
+        out = tmp_path / f"plan{lanes}.json"
+        hgnn_train.main([*_CLI, "--steps", "2", "--plan-lanes", lanes, "--out", str(out)])
+        runs[lanes] = json.loads(out.read_text())
+    assert runs["4"]["meta"]["plan_lanes"] == 4 and runs["1"]["meta"]["plan_lanes"] == 1
+    assert runs["4"]["history"][0]["loss"] == runs["1"]["history"][0]["loss"]
+    assert runs["4"]["history"][-1]["loss"] < runs["4"]["history"][0]["loss"]
+
+
+def test_launcher_lanes_without_a_process_group_names_torchrun(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        hgnn_train.main([*_CLI, "--steps", "1", "--lanes", "2"])
+    with pytest.raises(ValueError, match="multiple of lanes"):
+        hgnn_train.run_training(lanes=2, plan_lanes=3, device="cpu")
+
+
+def test_launcher_block_defaults_to_the_papers_128():
+    assert hgnn_train.parse_args([]).block == 128
+    for fn in (hgnn_train.run_training, hgnn_train.build_problem):
+        assert inspect.signature(fn).parameters["block"].default == 128
+
+
+def test_checkpoint_restores_bitwise_at_any_plan_lane_count(tmp_path):
+    """Elastic restart (reference tests/test_hgnn_train.py): a checkpoint
+    written at plan lanes 2 restores bit for bit at 4 and at 1, and the run
+    continued on 4 lanes tracks the uninterrupted 2-lane run at 1e-4."""
+    ckpt = str(tmp_path / "ckpt")
+    kw = dict(ckpt_every=3, **_RUN)
+    state2, _, _ = hgnn_train.run_training(steps=6, plan_lanes=2, ckpt_dir=ckpt, **kw)
+    for lanes in (4, 1):  # restore-only relaunches: every step is done
+        restored, hist, meta = hgnn_train.run_training(steps=6, plan_lanes=lanes, ckpt_dir=ckpt,
+                                                       **kw)
+        assert hist == [] and meta["plan_lanes"] == lanes
+        for a, b in zip(tree_leaves_with_path(state2), tree_leaves_with_path(restored)):
+            assert a[0] == b[0] and torch.equal(a[1], b[1]), a[0]
+    cont4, _, _ = hgnn_train.run_training(steps=9, plan_lanes=4, ckpt_dir=ckpt, **kw)
+    ref9, _, _ = hgnn_train.run_training(steps=9, plan_lanes=2, ckpt_dir=str(tmp_path / "r9"),
+                                         **kw)
+    for a, b in zip(tree_leaves_with_path(ref9), tree_leaves_with_path(cont4)):
+        torch.testing.assert_close(b[1], a[1], rtol=1e-4, atol=1e-4, msg=a[0])
+    assert reshard_to(cont4, "cpu").step == cont4.step
 
 
 def test_launcher_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
