@@ -166,7 +166,31 @@ Phases, each fatal on failure:
       tokens; a decode step twice from one state is bitwise equal; the
       prefill's last logits equal ``forward(impl="flash")``'s at 1e-3; the
       launcher's ``--smoke`` run on the card.
-7. Print the ``kernels`` JSON line (#1-#7; each row's ``ms_per`` says
+7. Observability and the HGNN leftovers (run after 4g, on the phase-4
+   problem; its launch counts are read apart from the main path's):
+   a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
+      ``enable_tracing(sync=True)``, on BLOCK, KERNEL (#5 once a graph)
+      and MULTIGRAPH (#1 at G = 1), six passes each: the median of the
+      last five passes' ``stage_us`` (FP, θ, NA, FA) and
+      ``na_us_per_graph`` printed, every #5 and #1 call held against its
+      plain version at atol=rtol=1e-4, one ``char/na/<g>`` span on lane
+      ``sg/<g>`` a semantic graph;
+   b. ``launch.hgnn_train.run_training`` at the training example's width
+      (ACM scale 0.5, full features, 8 heads of 128: #1/#2's widest row,
+      B = 128) for 20 steps on the kernel backend with ``trace=`` and
+      ``metrics_out=``: the trace holds the ``char/*`` and ``train/step``
+      spans, the metrics ``char.stage_us`` for the four stages and
+      ``train.step_ms``, #1 and #2 launch once a step (the first call of
+      each held against its plain version), and the loss falls;
+   c. ``launch.hgnn_serve.main`` on ``--na-backend`` multigraph, segment,
+      fused-fp and fused_fp at phase 3's problem and width (full IMDB,
+      8 × 64, B = 16): every #1 and #3 call held against its plain version
+      at atol=rtol=1e-4 as it returns, fused_fp's outputs equal fused-fp's
+      bit for bit, multigraph's and fused_fp's agree with segment's at
+      1e-4; then ``examples_torch/serve_hgnn.py`` (every #1 call held
+      against plain) and ``quickstart.py`` at their defaults.  Alone:
+      ``python3 -c 'import chip_smoke as c; c.observability_alone()'``.
+8. Print the ``kernels`` JSON line (#1-#7; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
    and #2's rows give the entries they visit an edge, #2's its peak
@@ -188,6 +212,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import io
 import json
 import math
@@ -626,7 +651,7 @@ def check_bwd(name, fn, plain, ops, out, lse, g):
     return compare(name, got, want)
 
 
-def na_calls_to_plain(name: str, run, first: int):
+def na_calls_to_plain(name: str, run, first: int, *, backward: bool = True):
     """Runs ``run()`` (training steps on the MULTIGRAPH path) with #1's and
     #2's launches recording their operands and results, the first ``first``
     of each, then holds each against the plain version on the same operands
@@ -636,10 +661,11 @@ def na_calls_to_plain(name: str, run, first: int):
     training step's gradients are far below the atol).  So every row width
     and block size a path runs is checked at the path's own shapes.  The
     recorded launches are the path's own; the plain versions launch no
-    kernel.  Returns (run's result, the max abs error, #2's relative to
-    each gradient's largest magnitude)."""
+    kernel.  ``backward=False``: a forward-only run, #1 alone.  Returns
+    (run's result, the max abs error, #2's relative to each gradient's
+    largest magnitude)."""
     mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
-    calls = {"launch": [], "launch_bwd": []}
+    calls = {"launch": [], "launch_bwd": []} if backward else {"launch": []}
     kernels = {k: getattr(mg_mod, k) for k in calls}
 
     def recording(k):
@@ -664,7 +690,7 @@ def na_calls_to_plain(name: str, run, first: int):
         *ops, out, lse, slope = args
         want = mg_mod.seg_gat_agg_multigraph_plain(*ops, leaky_slope=slope)
         err = max(err, compare(f"{name} #1 launch {n}", (out, lse), want))
-    for n, (args, got) in enumerate(calls["launch_bwd"]):
+    for n, (args, got) in enumerate(calls.get("launch_bwd", [])):
         col, gid, row, masks, ths, thd, h, bias, g_out, lse, delta, _, slope = args
         d_ths, d_thd, d_h, _ = mg_mod.unit_softmax_aggregate_vjp(
             col, gid, row, masks, ths, thd, h[None],
@@ -1934,6 +1960,77 @@ def inference(graph, counters, NAB) -> dict:
     return res
 
 
+def k5_calls_to_plain(name: str, run, k5_mod):
+    """Runs ``run()`` with #5's launches recording their operands, then
+    holds each call's output against ``seg_gat_agg_plain`` on the same
+    operands at atol=rtol=1e-4.  Returns (run's result, the calls, the
+    max abs error)."""
+    calls, launch = [], k5_mod.launch
+
+    def recording(*args, **kw):
+        launch(*args, **kw)
+        calls.append(args)
+
+    k5_mod.launch = recording
+    try:
+        result = run()
+    finally:
+        k5_mod.launch = launch
+    err = 0.0
+    for n, (col, masks, ths, thd, hs, bias, out, slope) in enumerate(calls):
+        want = k5_mod.seg_gat_agg_plain(col, masks, ths, thd, hs, leaky_slope=slope,
+                                        edge_bias=bias)
+        err = max(err, compare(f"{name} #5 call {n}", (out,), (want,)))
+    return result, calls, err
+
+
+def captured(buf) -> str:
+    """What a run printed into ``buf``, less the ``[check]`` lines of the
+    checks made inside it, which are logged here."""
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        if ln.startswith("[check] "):
+            log(ln)
+    return "\n".join(ln for ln in lines if not ln.startswith("[check] "))
+
+
+def serve_calls_to_plain(name: str, run):
+    """Runs ``run()`` (a serving run) with every launch of #1 and #3 held,
+    as it returns, against its plain version (``seg_gat_agg_multigraph_plain``,
+    ``seg_gat_agg_fused_fp_plain``) on the same operands at atol=rtol=1e-4:
+    the engine's FP cache may reuse an operand's memory after the call, so
+    the check cannot wait for the run's end.  The plain versions launch no
+    kernel.  Returns (run's result, calls checked by kernel, max abs err)."""
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    launches = {"multigraph": (mg_mod, mg_mod.launch), "fused_fp": (ff_mod, ff_mod.launch)}
+    calls, err = dict.fromkeys(launches, 0), [0.0]
+
+    def mg_call(*args):
+        res = launches["multigraph"][1](*args)
+        *ops, out, lse, slope = args
+        want = mg_mod.seg_gat_agg_multigraph_plain(*ops, leaky_slope=slope)
+        err[0] = max(err[0], compare(f"{name} #1 launch {calls['multigraph']}", (out, lse), want))
+        calls["multigraph"] += 1
+        return res
+
+    def ff_call(*args):
+        res = launches["fused_fp"][1](*args)
+        *ops, out, lse, slope, _ = args
+        want = ff_mod.seg_gat_agg_fused_fp_plain(*ops, leaky_slope=slope)
+        err[0] = max(err[0], compare(f"{name} #3 launch {calls['fused_fp']}", (out, lse), want))
+        calls["fused_fp"] += 1
+        return res
+
+    mg_mod.launch, ff_mod.launch = mg_call, ff_call
+    try:
+        result = run()
+    finally:
+        for mod, fn in launches.values():
+            mod.launch = fn
+    return result, calls, err[0]
+
+
 def inference_block128(graph, k5_mod, NAB) -> dict:
     """Phase 5e: R-GAT and S-HGN inference on KERNEL at block=128 (the
     reference trainer's default, which #5's edge walk takes) on full IMDB's
@@ -1953,26 +2050,15 @@ def inference_block128(graph, k5_mod, NAB) -> dict:
     for name in ("R-GAT", "S-HGN"):
         model, width = MODELS[name], MODEL_WIDTHS[name]
         params = model.init(torch.Generator().manual_seed(0), data, **width)
-        calls, launch = [], k5_mod.launch
 
-        def recording(*args, **kw):
-            launch(*args, **kw)
-            calls.append(args)
-
-        k5_mod.launch = recording
-        try:
+        def forward():
             with torch.no_grad():
-                logits = model.forward(params, data, backend=NAB.KERNEL)
-        finally:
-            k5_mod.launch = launch
+                return model.forward(params, data, backend=NAB.KERNEL)
+
+        logits, calls, err = k5_calls_to_plain(f"{name} B=128", forward, k5_mod)
         if len(calls) != width["layers"] * len(data.graphs):
             raise AssertionError(f"{name} at B=128: {len(calls)} launches of #5, expected "
                                  f"{width['layers'] * len(data.graphs)}")
-        err = 0.0
-        for n, (col, masks, ths, thd, hs, bias, out, slope) in enumerate(calls):
-            want = k5_mod.seg_gat_agg_plain(col, masks, ths, thd, hs, leaky_slope=slope,
-                                            edge_bias=bias)
-            err = max(err, compare(f"{name} B=128 #5 call {n}", (out,), (want,)))
         with torch.no_grad():
             ref = model.forward(params, data, backend=NAB.BLOCK)
         err = max(err, compare(f"{name} B=128 logits kernel vs BLOCK", (logits,), (ref,)))
@@ -2388,6 +2474,255 @@ def lm_phase(counters, fa_mod) -> dict:
     return res
 
 
+# -- phase 7: observability and the HGNN leftovers ---------------------------
+
+
+# examples_torch/train_hgnn_han.py's defaults: ACM at scale 0.5, full features, 8 heads of 128
+# (a row of 1,024 floats, the widest #1/#2 take), full batch, the launcher's B = 128
+OBS_TRAIN = dict(dataset="acm", scale=0.5, feat_scale=1.0, hidden=128, heads=8)
+OBS_STEPS = 20
+CHAR_PASSES = 6  # characterization passes a backend: one with its set-up, five steady
+# the serving phase's problem and width (full IMDB, HAN's 8 x 64, B = 16, a 64 MiB FP cache,
+# three slots, two requests a metapath) through the serving launcher's flags
+OBS_SERVE = ["--dataset", "imdb", "--scale", "1.0", "--feat-scale", "1.0", "--heads", "8",
+             "--hidden", "64", "--block", "16", "--cache-kb", str(64 << 10), "--slots", "3",
+             "--repeats", "2", "--max-edges", "20000"]
+
+
+def trace_spans(path) -> list[tuple[str, str]]:
+    """(name, lane) of each complete event of a Chrome trace."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    lanes = {e["tid"]: e["args"]["name"] for e in events if e["name"] == "thread_name"}
+    return [(e["name"], lanes[e["tid"]]) for e in events if e["ph"] == "X"]
+
+
+def load_example(name: str):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def characterization(data, counters, k5_mod) -> dict:
+    """Phase 7a: ``characterize_hgnn`` on HAN at its own width on the
+    phase-4 problem under ``enable_tracing(sync=True)``, on BLOCK, KERNEL
+    (#5 once a graph) and MULTIGRAPH (#1 at G = 1), ``CHAR_PASSES`` passes
+    each (the first builds MULTIGRAPH's edge index and is reported apart;
+    the others by their median); every #5 and #1 call held against its
+    plain version; each pass's trace must hold one ``char/na/<g>`` span on
+    lane ``sg/<g>`` a semantic graph."""
+    from repro_torch.models.hgnn import HAN
+    from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing
+    from repro_torch.obs.characterize import characterize_hgnn
+    from repro_torch.core import NABackend as NAB
+
+    params = HAN.init(torch.Generator().manual_seed(0), data, **WIDTH)
+    names = [b.name for b in data.graphs]
+    res = {}
+    for backend in (NAB.BLOCK, NAB.KERNEL, NAB.MULTIGRAPH):
+        passes = []
+
+        def run():
+            for i in range(CHAR_PASSES):
+                tracer = enable_tracing(sync=True)
+                try:
+                    passes.append(characterize_hgnn(params, data, backend=backend,
+                                                    registry=MetricsRegistry()))
+                finally:
+                    disable_tracing()
+                path = OUT / f"char_{backend.value}_{i}.json"
+                tracer.export_chrome_trace(str(path))
+                spans = trace_spans(path)
+                for g in names:
+                    if spans.count((f"char/na/{g}", f"sg/{g}")) != 1:
+                        raise AssertionError(f"characterize {backend.value}: no single char/na/{g} "
+                                             f"span on lane sg/{g}: {spans}")
+
+        for fn in counters.values():
+            fn.launches = 0
+        mem0 = torch.cuda.memory_stats()
+        if backend is NAB.KERNEL:
+            _, calls, err = k5_calls_to_plain("characterize KERNEL", run, k5_mod)
+            n_calls = len(calls)
+        elif backend is NAB.MULTIGRAPH:
+            n_calls = CHAR_PASSES * len(names)
+            _, err = na_calls_to_plain("characterize MULTIGRAPH", run, n_calls, backward=False)
+        else:
+            run()
+            err, n_calls = None, 0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        mem1 = torch.cuda.memory_stats()  # the caching allocator's cudaMallocs and retries
+        alloc = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in ("num_device_alloc", "num_alloc_retries")}
+        want = {"seg_gat_agg": n_calls if backend is NAB.KERNEL else 0,
+                "multigraph": n_calls if backend is NAB.MULTIGRAPH else 0}
+        if {k: launches[k] for k in want} != want or launches["multigraph_bwd"]:
+            raise AssertionError(f"characterize {backend.value}: launches {launches}, "
+                                 f"expected {want}")
+        steady = passes[1:]
+        med = {part: {k: float(np.median([p[part][k] for p in steady])) for k in steady[0][part]}
+               for part in ("stage_us", "na_us_per_graph")}
+        med["total_us"] = float(np.median([p["total_us"] for p in steady]))
+        res[backend.value] = dict(median=med, passes=passes, launches=launches, max_abs_err=err,
+                                  alloc=alloc)
+        log(f"[characterize {backend.value}] median of {len(steady)} passes: stage_us "
+            + " ".join(f"{k}={v:.1f}" for k, v in med["stage_us"].items())
+            + " na_us_per_graph " + " ".join(f"{k}={v:.1f}"
+                                               for k, v in med["na_us_per_graph"].items())
+            + f" total {med['total_us']:.1f} us (totals "
+            + ", ".join(f"{p['total_us']:.1f}" for p in passes)
+            + f", the first with its set-up); launches {json.dumps(launches)}; allocator "
+            f"{json.dumps(alloc)}, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    return res
+
+
+def observability_phase(data, counters, k5_mod) -> dict:
+    """Phase 7: the characterization (7a), the training launcher's
+    ``--trace``/``--metrics`` at the training example's width (7b), the
+    serving launcher's backend names and the examples (7c)."""
+    import tempfile
+
+    from repro_torch.launch import hgnn_serve, hgnn_train
+    from repro_torch.obs import get_registry, reset_registry
+
+    t_phase = time.perf_counter()
+    res = {"characterize": characterization(data, counters, k5_mod)}
+
+    # b. the launcher with --trace/--metrics, counters zeroed just before
+    reset_registry()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = Path(tmp) / "trace.json", Path(tmp) / "metrics.json"
+        lines = []
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        (_, hist, meta), err = na_calls_to_plain(
+            "trainer 8 x 128", lambda: hgnn_train.run_training(
+                steps=OBS_STEPS, backend="kernel", log_every=1, log=lines.append,
+                trace=str(trace), metrics_out=str(metrics), device="cuda", **OBS_TRAIN), 1)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        spans = {name for name, _ in trace_spans(trace)}
+        snap = json.loads(metrics.read_text())
+    stages = sorted(s["labels"]["stage"] for s in snap["histograms"].get("char.stage_us", []))
+    char_line = next(ln for ln in lines if ln.startswith("[characterize]"))
+    log(f"[obs trainer] {lines[0]}")
+    log(f"[obs trainer] {char_line}; launches {json.dumps(launches)}; loss "
+        f"{hist[0]['loss']:.6f} -> {hist[-1]['loss']:.6f}; step ms cold {hist[0]['sec'] * 1e3:.3f}, "
+        f"steady median {float(np.median([h['sec'] for h in hist[1:]])) * 1e3:.3f}; wall "
+        f"{wall:.3f} s")
+    want_spans = {"char/forward", "char/fp", "char/gsf", "train/step", "na/multilane"}
+    want_spans |= {f"char/{st}/{g}" for g in meta["characterize"]["na_us_per_graph"]
+                   for st in ("theta", "na", "lsf")}
+    if not want_spans <= spans:
+        raise AssertionError(f"trainer trace lacks {sorted(want_spans - spans)}")
+    if stages != ["FA", "FP", "NA", "theta"] or "train.step_ms" not in snap["histograms"]:
+        raise AssertionError(f"trainer metrics: {json.dumps(snap)[:2000]}")
+    if snap["counters"]["train.steps"][0]["value"] != OBS_STEPS:
+        raise AssertionError(f"trainer metrics count {snap['counters']['train.steps']} steps")
+    if launches["multigraph"] != OBS_STEPS or launches["multigraph_bwd"] != OBS_STEPS:
+        raise AssertionError(f"#1/#2 did not launch once a step: {launches}")
+    if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the loss did not fall: {[h['loss'] for h in hist]}")
+    res["trainer"] = dict(launches=launches, wall_s=wall, meta=meta, max_abs_err=err,
+                          loss=[h["loss"] for h in hist], steps_ms=[h["sec"] * 1e3 for h in hist],
+                          spans=sorted(spans), histograms=sorted(snap["histograms"]))
+    reset_registry()
+    if get_registry().snapshot()["histograms"]:
+        raise AssertionError("reset_registry left series behind")
+
+    # c. the serving launcher's backend names at the serving phase's width
+    # (full IMDB, HAN's 8 x 64, B = 16), every #1/#3 call held against its
+    # plain version, then the examples (serve_hgnn.py's #1 calls held too)
+    outs = {}
+    for name in ("multigraph", "segment", "fused-fp", "fused_fp"):
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs[name], checked, err = serve_calls_to_plain(
+                f"hgnn_serve {name}", lambda: hgnn_serve.main(["--na-backend", name, *OBS_SERVE]))
+        m = json.loads(captured(buf))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        res[f"serve_{name}"] = dict(m, launches=launches, checked=checked, max_abs_err=err)
+        if not m["device"].startswith("cuda") or m["requests_finished"] != len(outs[name]):
+            raise AssertionError(f"hgnn_serve --na-backend {name}: {m}")
+        if any(launches[k] != checked[k] for k in checked):
+            raise AssertionError(f"hgnn_serve {name}: launches {launches}, checked {checked}")
+    if res["serve_fused_fp"]["launches"]["fused_fp"] == 0:
+        raise AssertionError("hgnn_serve --na-backend fused_fp never launched #3")
+    if any(res["serve_segment"]["launches"].values()):
+        raise AssertionError(f"segment launched a kernel: {res['serve_segment']['launches']}")
+    for rid, out in outs["fused-fp"].items():
+        if not torch.equal(outs["fused_fp"][rid], out):
+            raise AssertionError(f"hgnn_serve fused_fp and fused-fp differ on request {rid}")
+    for name in ("multigraph", "fused_fp"):
+        res[f"serve_segment_vs_{name}"] = max(
+            compare(f"hgnn_serve {name} vs segment rid {rid}", (outs[name][rid],), (out,))
+            for rid, out in outs["segment"].items())
+    log(f"[obs serve] {' '.join(OBS_SERVE)}: " + ", ".join(
+        f"{k}: {res['serve_' + k]['steps']} steps, launches "
+        f"{json.dumps({n: v for n, v in res['serve_' + k]['launches'].items() if v})}"
+        + (f", each within {res['serve_' + k]['max_abs_err']:.3e} of plain"
+           if any(res['serve_' + k]['checked'].values()) else "") for k in outs)
+        + "; fused_fp == fused-fp bitwise; multigraph and fused_fp within "
+        f"{res['serve_segment_vs_multigraph']:.3e} and {res['serve_segment_vs_fused_fp']:.3e} "
+        "of segment")
+
+    for name in ("serve_hgnn", "quickstart"):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out, checked, err = serve_calls_to_plain(f"example {name}",
+                                                     lambda: load_example(name).main([]))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        res[f"example_{name}"] = dict(wall_s=time.perf_counter() - t0, result=out,
+                                      launches=launches, checked=checked, max_abs_err=err)
+        if any(launches[k] != checked[k] for k in checked):
+            raise AssertionError(f"example {name}: launches {launches}, checked {checked}")
+        log(f"[obs example {name}] {time.perf_counter() - t0:.3f} s (with the checks); "
+            + captured(buf).strip().splitlines()[-1] + "; launches "
+            + json.dumps({k: v for k, v in launches.items() if v})
+            + (f", each within {err:.3e} of plain" if any(checked.values()) else ""))
+    if not res["example_serve_hgnn"]["launches"]["multigraph"]:
+        raise AssertionError("examples_torch/serve_hgnn.py never launched #1")
+    losses = res["example_quickstart"]["result"]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"examples_torch/quickstart.py: losses {losses}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"[obs] phase 7 in {res['wall_s']:.1f} s on {card_line()}")
+    return res
+
+
+def observability_alone() -> dict:
+    """Phase 7 alone: builds the kernels, runs the phase on the phase-4
+    problem and writes chiprun_out/observability.json."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import hgnn_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    log(card_line())
+    build.build()
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    k5_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg")
+    _, tdata = hgnn_train.build_problem(device="cuda", **TRAIN)
+    res = observability_phase(tdata, obs_counters(mg_mod, ff_mod, k5_mod), k5_mod)
+    (OUT / "observability.json").write_text(json.dumps(res, indent=1, default=str))
+    log(card_line())
+    return res
+
+
+def obs_counters(mg_mod, ff_mod, k5_mod) -> dict:
+    return {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
+            "multigraph_bwd": mg_mod.seg_gat_agg_multigraph_bwd,
+            "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
+            "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd,
+            "seg_gat_agg": k5_mod.seg_gat_agg}
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -2589,6 +2924,8 @@ def main() -> int:
                       "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
     train = training(tdata, train_counters, fusion)
     lanes = multilane_phase(tdata, train_counters, mg_mod)
+    # phase 7 on the phase-4 problem (its counts are read apart from the main path's)
+    obs = observability_phase(tdata, obs_counters(mg_mod, ff_mod, k5_mod), k5_mod)
     # each kernel's count comes from the training run of the path that launches it
     launches = {"multigraph": train["multigraph_run"]["launches"]["multigraph"],
                 "multigraph_bwd": train["multigraph_run"]["launches"]["multigraph_bwd"],
@@ -2620,14 +2957,28 @@ def main() -> int:
     by_path = {
         "multigraph": {"HAN training, 20 steps": launches["multigraph"],
                        "HAN training over a 16-lane plan at B = 128, 5 steps":
-                           lanes["run"]["launches"]["multigraph"]},
+                           lanes["run"]["launches"]["multigraph"],
+                       f"run_training(trace=, metrics_out=) at 8 x 128, {OBS_STEPS} steps":
+                           obs["trainer"]["launches"]["multigraph"],
+                       f"characterize_hgnn(MULTIGRAPH), {CHAR_PASSES} passes":
+                           obs["characterize"]["multigraph"]["launches"]["multigraph"],
+                       "examples_torch/serve_hgnn.py":
+                           obs["example_serve_hgnn"]["launches"]["multigraph"],
+                       "hgnn_serve --na-backend multigraph, full IMDB at 8 x 64":
+                           obs["serve_multigraph"]["launches"]["multigraph"]},
         "multigraph_bwd": {"HAN training, 20 steps": launches["multigraph_bwd"],
                            "HAN training over a 16-lane plan at B = 128, 5 steps":
-                               lanes["run"]["launches"]["multigraph_bwd"]},
-        "fused_fp": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp"]},
+                               lanes["run"]["launches"]["multigraph_bwd"],
+                           f"run_training(trace=, metrics_out=) at 8 x 128, {OBS_STEPS} steps":
+                               obs["trainer"]["launches"]["multigraph_bwd"]},
+        "fused_fp": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp"],
+                     "hgnn_serve --na-backend fused_fp, full IMDB at 8 x 64":
+                         obs["serve_fused_fp"]["launches"]["fused_fp"]},
         "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"]},
-        "seg_gat_agg": {f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
-                        for m in ("R-GAT", "S-HGN")},
+        "seg_gat_agg": {**{f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
+                           for m in ("R-GAT", "S-HGN")},
+                        f"characterize_hgnn(KERNEL), {CHAR_PASSES} passes":
+                            obs["characterize"]["kernel"]["launches"]["seg_gat_agg"]},
         "fused_fp_coeff": {f"{m} forward": infer[m]["launches"]["fused_fp_coeff"]
                            for m in ("R-GAT", "S-HGN")},
     }
@@ -2713,6 +3064,7 @@ def main() -> int:
                    launches_by_route=train["fused_fp_run"]["launches_by_route"][k])
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
                 train_kernels=train_kernels, training=train, multilane=lanes, inference=infer,
+                observability=obs,
                 rgat_training=rgat_train, lm=lm,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,

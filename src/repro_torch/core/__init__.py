@@ -1,7 +1,7 @@
 """HiHGNN core of the port: stage ops, the NA dispatch with its kernel
 backends, independency-aware parallel execution (multi-lane plans and
 workload-aware lane scheduling), similarity-aware scheduling and
-FP-traffic accounting."""
+RAB-style reuse accounting."""
 from . import stages
 from .fusion import (
     FusedFPInputs,
@@ -22,7 +22,7 @@ from .multilane import (
     multilane_na_sharded,
     resolve_multilane_backend,
 )
-from .reuse import FPTraffic, fp_buffer_traffic
+from .reuse import FPTraffic, ReuseCounters, count_reuse, fp_buffer_traffic
 from .scheduling import (
     LanePlan,
     brute_force_hamilton_path,
@@ -51,6 +51,8 @@ __all__ = [
     "multilane_na_sharded",
     "resolve_multilane_backend",
     "FPTraffic",
+    "ReuseCounters",
+    "count_reuse",
     "fp_buffer_traffic",
     "LanePlan",
     "brute_force_hamilton_path",

@@ -13,9 +13,9 @@ by the previous graph (reuse) or must be re-fetched from HBM (miss).
 holding per-type projected feature tables, consumed in a given execution
 order.  It returns reused vs re-fetched bytes; the serving engine replays
 its executed steps through it to report model-vs-measured FP traffic.
+``count_reuse`` counts the FP and θ work the factoring saves.
 
-A copy of ``repro.core.reuse`` (the parts serving uses); outputs are
-identical.
+A copy of ``repro.core.reuse``; outputs are identical.
 """
 from __future__ import annotations
 
@@ -23,6 +23,39 @@ import dataclasses
 from typing import Mapping, Sequence
 
 from ..graphs.hetgraph import SemanticGraph
+
+
+@dataclasses.dataclass
+class ReuseCounters:
+    """Work counters with and without RAB-style dedup."""
+
+    fp_naive: int = 0      # vertex projections if recomputed per semantic graph
+    fp_dedup: int = 0      # vertex projections with type-level dedup (ours)
+    theta_naive: int = 0   # coefficient computations if recomputed per edge
+    theta_dedup: int = 0   # coefficient computations once per (vertex, graph)
+
+    @property
+    def fp_saved(self) -> float:
+        return 1.0 - self.fp_dedup / max(self.fp_naive, 1)
+
+    @property
+    def theta_saved(self) -> float:
+        return 1.0 - self.theta_dedup / max(self.theta_naive, 1)
+
+
+def count_reuse(sgs: Sequence[SemanticGraph], vertex_counts: Mapping[str, int]) -> ReuseCounters:
+    c = ReuseCounters()
+    projected_types: set[str] = set()
+    for sg in sgs:
+        for t in set(sg.path_types) & {sg.src_type, sg.dst_type}:
+            c.fp_naive += vertex_counts[t]
+            if t not in projected_types:
+                c.fp_dedup += vertex_counts[t]
+                projected_types.add(t)
+        # naive: recompute theta_dst and theta_src per edge endpoint
+        c.theta_naive += 2 * sg.num_edges
+        c.theta_dedup += sg.num_src + sg.num_dst
+    return c
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,3 +1,3 @@
-from .pipeline import SyntheticHGNNData
+from .pipeline import SyntheticHGNNData, hgnn_minibatches
 
-__all__ = ["SyntheticHGNNData"]
+__all__ = ["SyntheticHGNNData", "hgnn_minibatches"]

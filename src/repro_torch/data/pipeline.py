@@ -1,5 +1,6 @@
-"""Deterministic, checkpointable data pipeline of the HGNN trainer (the
-counterpart of ``repro.data.pipeline.SyntheticHGNNData``).
+"""Deterministic, checkpointable data pipelines of the HGNN trainer (the
+counterparts of ``repro.data.pipeline.SyntheticHGNNData`` and
+``hgnn_minibatches``).
 
 Batch t is a pure function of ``(seed, step)``: a restart that restores
 ``state()`` replays the exact vertex stream, which is what makes
@@ -8,12 +9,14 @@ with threefry; torch cannot reproduce those bits, so minibatches here come
 from a ``torch.Generator`` seeded from ``(seed, step)`` and parity tests
 inject the reference's ``idx`` stream instead.  ``batch_size >=
 num_vertices`` is full-batch training: ``arange`` every step, as in the
-reference.
+reference.  ``hgnn_minibatches`` is a numpy stream, the reference's bit
+for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -45,3 +48,13 @@ class SyntheticHGNNData:
             return {"idx": torch.arange(self.num_vertices)}
         gen = torch.Generator().manual_seed((self.seed << 32) + step)
         return {"idx": torch.randperm(self.num_vertices, generator=gen)[: self.batch_size]}
+
+
+def hgnn_minibatches(num_vertices: int, batch_size: int, seed: int = 0):
+    """Deterministic vertex-minibatch id stream for HGNN training (int32
+    numpy arrays, one permutation an epoch, the last partial batch dropped)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        perm = rng.permutation(num_vertices)
+        for i in range(0, num_vertices - batch_size + 1, batch_size):
+            yield perm[i : i + batch_size].astype(np.int32)

@@ -9,10 +9,13 @@ its target-type metapaths, and drives ``serve/hgnn_engine.py``.
 and reports the measured FP-stage compute reduction.
 
 ``--na-backend multigraph`` runs one multigraph kernel launch per step;
-``fused-fp`` runs the FP+NA megakernel on an FP-cache miss and the
-multigraph kernel on a full-table hit; ``block`` is the plain PyTorch
-per-graph path.  ``--device`` defaults to ``cuda`` and raises on a host
-without a card; ``--device cpu`` runs the kernels' plain versions.
+``fused_fp`` (or ``fused-fp``) runs the FP+NA megakernel on an FP-cache
+miss and the multigraph kernel on a full-table hit; ``block`` and
+``segment`` are the plain PyTorch per-graph paths.
+``multigraph_interpret`` and ``fused_fp_interpret`` are spellings of
+``multigraph`` and ``fused_fp``: the device picks the code.  ``--device``
+defaults to ``cuda`` and raises on a host without a card (no fallback);
+``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -28,9 +31,13 @@ from ..runtime import resolve_device
 from ..serve.hgnn_engine import HGNNEngine, make_request_mix
 
 _BACKENDS = {
+    "segment": NABackend.SEGMENT,
     "block": NABackend.BLOCK,
     "multigraph": NABackend.MULTIGRAPH,
-    "fused-fp": NABackend.FUSED_FP,
+    "multigraph_interpret": NABackend.MULTIGRAPH,
+    "fused_fp": NABackend.FUSED_FP,
+    "fused-fp": NABackend.FUSED_FP,  # alias
+    "fused_fp_interpret": NABackend.FUSED_FP,
 }
 
 
@@ -38,7 +45,10 @@ def _target_metapaths(name: str, target: str) -> list[tuple[str, ...]]:
     return [tuple(mp) for mp in dataset_metapaths(name) if mp[0] == target and mp[-1] == target]
 
 
-def serve_mix(graph, target, clusters, args, admission, registry=None) -> dict:
+def serve_mix(graph, target, clusters, args, admission, registry=None,
+              outputs: dict | None = None) -> dict:
+    """Serve the mix on a fresh engine; returns its metrics and puts each
+    finished request's fused embedding into ``outputs`` by rid."""
     eng = HGNNEngine(
         graph,
         target_type=target,
@@ -58,8 +68,10 @@ def serve_mix(graph, target, clusters, args, admission, registry=None) -> dict:
     for req in make_request_mix(0, clusters, repeats=args.repeats):
         eng.submit(req)
     t0 = time.perf_counter()
-    eng.run()
+    finished = eng.run()
     dt = time.perf_counter() - t0
+    if outputs is not None:
+        outputs.update((r.rid, r.result) for r in finished)
     m = eng.metrics()
     m["wall_s"] = dt
     m["admission"] = admission
@@ -67,7 +79,9 @@ def serve_mix(graph, target, clusters, args, admission, registry=None) -> dict:
     return m
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
+    """Run the launcher; returns the fused embedding of each request by rid
+    (under ``--compare``, the similarity run's)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="imdb", choices=("imdb", "acm", "dblp"))
     ap.add_argument("--scale", type=float, default=0.05)
@@ -109,16 +123,19 @@ def main(argv: list[str] | None = None) -> None:
     # one registry across runs: --compare accumulates both admissions'
     # counters; gauges reflect the last engine to step
     reg = MetricsRegistry() if args.metrics else None
+    outputs: dict = {}
     try:
         if args.compare:
             fifo = serve_mix(graph, target, clusters, args, "fifo", registry=reg)
-            sim = serve_mix(graph, target, clusters, args, "similarity", registry=reg)
+            sim = serve_mix(graph, target, clusters, args, "similarity", registry=reg,
+                            outputs=outputs)
             reduction = fifo["fp_rows_computed"] / max(sim["fp_rows_computed"], 1)
             print(json.dumps(dict(fifo=fifo, similarity=sim,
                                   fp_rows_fifo_over_similarity=reduction), indent=1))
         else:
             print(json.dumps(
-                serve_mix(graph, target, clusters, args, args.admission, registry=reg),
+                serve_mix(graph, target, clusters, args, args.admission, registry=reg,
+                          outputs=outputs),
                 indent=1,
             ))
     finally:
@@ -129,6 +146,7 @@ def main(argv: list[str] | None = None) -> None:
     if reg is not None:
         reg.export_json(args.metrics)
         print(f"wrote {args.metrics}", file=sys.stderr)
+    return outputs
 
 
 if __name__ == "__main__":

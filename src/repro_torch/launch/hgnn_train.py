@@ -6,6 +6,7 @@ lane group of ranks.
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --model R-GAT \\
         --dataset imdb --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 4 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --device cpu --steps 5 --plan-lanes 4
+    PYTHONPATH=src python -m repro_torch.launch.hgnn_train --steps 20 --trace t.json --metrics m.json
     torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 4 --plan-lanes 16
 
 Builds the named Table-5 HetGraph, its target-type semantic graphs in the
@@ -30,8 +31,16 @@ relation-specific projections keep it off the plan: it runs kernels
 ``reference``.  ``--device`` defaults to ``cuda`` and raises on a host
 without a card; ``--device cpu`` runs the kernels' plain versions.
 
+``--trace PATH`` traces the whole run with synchronising spans into a
+Chrome-trace JSON; for HAN it first runs one per-stage characterization
+pass (``obs/characterize.py``: FP, θ, NA and FA, one lane row per
+semantic graph).  ``--metrics PATH`` writes the metrics registry (the
+step-time histogram, the loss and grad-norm gauges, the characterization's
+stage histogram) as JSON.  Under a lane group lane rank 0 alone
+characterizes and writes both files.
+
 Not ported yet, and an error that names the ROADMAP item: ``--model-split``
-> 1 (item 9) and ``--trace``/``--metrics`` (item 5).
+> 1 (item 9).
 """
 from __future__ import annotations
 
@@ -55,6 +64,8 @@ from ..graphs import (
     synthetic_labels,
 )
 from ..models.hgnn import MODELS, han_forward_multilane, prepare_data
+from ..obs import disable_tracing, enable_tracing, get_registry
+from ..obs.characterize import characterize_hgnn
 from ..optim import AdamWConfig
 from ..runtime import resolve_device
 from ..train import init_hgnn_train_state, make_hgnn_train_step, train_loop
@@ -72,10 +83,6 @@ _INIT_KW = {
     "HAN": lambda hidden, heads: dict(hidden=hidden, heads=heads, att_dim=2 * hidden),
     "R-GAT": lambda hidden, heads: dict(hidden=hidden, heads=heads, layers=2),
 }
-
-
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 item {slice_}")
 
 
 def build_problem(
@@ -125,13 +132,27 @@ def run_training(
     crash_at: int | None = None,
     log_every: int = 10,
     log=print,
+    trace: str | None = None,        # Chrome-trace JSON output path
+    metrics_out: str | None = None,  # metrics-registry snapshot path
+    registry=None,
     device: str | torch.device = "cuda",
 ):
     """Train HAN or R-GAT on one dataset under the lanes posture: one
     process, or one per rank of a lane mesh of ``lanes`` (an initialised
     ``torch.distributed`` group).  Returns ``(state, history, meta)``;
     meta records the model, the resolved backend, the mesh, the plan's
-    lanes and sizes."""
+    lanes and sizes, and the characterization's result (None without
+    ``trace``).
+
+    ``trace=`` enables synchronising spans for the whole run and writes a
+    Chrome-trace/Perfetto JSON on exit.  For HAN it also runs the
+    per-stage characterization pass (``obs/characterize.py``, BLOCK)
+    before the steady state, so the timeline carries FP/theta/NA/FA stage
+    times with one lane row per semantic graph.  ``metrics_out=``
+    snapshots ``registry`` (default: the process-wide one) to JSON.
+    Under a lane group lane rank 0 alone logs, characterizes and writes
+    (and logs each file it wrote).
+    """
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}, expected one of {BACKENDS}")
     if model_name not in _INIT_KW:
@@ -143,8 +164,10 @@ def run_training(
     mesh = make_lane_mesh(lanes, model_split, device_type=dev.type)
     if mesh is not None and dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    if not writes_checkpoints(mesh):
-        log = lambda *_: None  # noqa: E731  (lane rank 0 reports)
+    reporter = writes_checkpoints(mesh)  # lane rank 0 logs, characterizes and writes
+    if not reporter:
+        log = lambda *_: None  # noqa: E731
+    reg = registry if registry is not None else get_registry()
     g, data = build_problem(dataset, scale=scale, feat_scale=feat_scale, block=block,
                             max_edges=max_edges, seed=seed, device=dev)
     model = MODELS[model_name]
@@ -174,14 +197,31 @@ def run_training(
         f"plan_lanes={None if plan is None else plan.num_lanes} device={dev} "
         f"backend={na_backend}")
     step_fn = make_hgnn_train_step(forward_fn, data, opt)
-    state, history = train_loop(
-        state=state, train_step=step_fn, data=pipeline, steps=steps,
-        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
-        crash_at=crash_at, log_every=log_every, log=log, mesh=mesh,
-    )
+    tracer = enable_tracing(sync=True) if trace and reporter else None
+    char = None
+    try:
+        if tracer is not None and model_name == "HAN":
+            # per-stage pass (paper §3 measured): FP/theta/NA/FA spans, one
+            # lane row per semantic graph; the steps below yield whole-step spans
+            char = characterize_hgnn(state.params, data, backend=NABackend.BLOCK, registry=reg)
+            log("[characterize] "
+                + " ".join(f"{k}={v:.0f}us" for k, v in char["stage_us"].items()))
+        state, history = train_loop(
+            state=state, train_step=step_fn, data=pipeline, steps=steps,
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
+            crash_at=crash_at, log_every=log_every, log=log, registry=reg, mesh=mesh,
+        )
+    finally:
+        if tracer is not None:
+            tracer.export_chrome_trace(trace)
+            disable_tracing()
+            log(f"wrote {trace} (open at https://ui.perfetto.dev)")
+    if metrics_out and reporter:
+        reg.export_json(metrics_out)
+        log(f"wrote {metrics_out}")
     meta = dict(dataset=dataset, model=model_name, backend=na_backend, lanes=lanes,
                 model_split=model_split, plan_lanes=None if plan is None else plan.num_lanes,
-                n_params=n_params, n_target=n_target, device=str(dev))
+                n_params=n_params, n_target=n_target, device=str(dev), characterize=char)
     return state, history, meta
 
 
@@ -214,8 +254,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--crash-at", type=int, default=None, help="fault injection (tests)")
     ap.add_argument("--out", default=None, help="write the loss trajectory as JSON")
-    ap.add_argument("--trace", default=None, metavar="PATH", help="not ported yet")
-    ap.add_argument("--metrics", default=None, metavar="PATH", help="not ported yet")
+    ap.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome-trace/Perfetto JSON of the run (enables sync spans "
+             "+ the per-stage characterization pass for HAN)",
+    )
+    ap.add_argument(
+        "--metrics", default=None, metavar="PATH",
+        help="write a metrics-registry JSON snapshot (step-time histogram, "
+             "loss/grad-norm gauges, characterization stage histogram)",
+    )
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (plain versions)")
     return ap.parse_args(argv)
@@ -223,9 +271,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
-    if args.trace or args.metrics:
-        raise _not_ported("--trace/--metrics on the training launcher", "5 (observability)")
-
     # under torchrun (one process per rank) the launcher joins the group it sets up
     joined = (args.lanes * args.model_split > 1 and "WORLD_SIZE" in os.environ
               and not dist.is_initialized())
@@ -239,7 +284,8 @@ def main(argv: list[str] | None = None) -> None:
             batch=args.batch, block=args.block, scale=args.scale,
             feat_scale=args.feat_scale, max_edges=args.max_edges, seed=args.seed,
             ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every, resume=not args.no_resume,
-            crash_at=args.crash_at, device=args.device,
+            crash_at=args.crash_at, trace=args.trace, metrics_out=args.metrics,
+            device=args.device,
         )
     finally:
         if joined:

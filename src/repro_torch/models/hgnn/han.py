@@ -31,6 +31,7 @@ from ...core.multilane import (
     multilane_na_sharded,
     resolve_multilane_backend,
 )
+from ...runtime import barrier
 from .common import HGNNData, HGNNModel, glorot
 
 
@@ -172,11 +173,26 @@ def han_forward_multilane(
 # --- staged execution (Fig. 4(a) baseline): one stage at a time ---
 
 
-def _barrier(t: torch.Tensor) -> torch.Tensor:
-    """The host waits for the device after a stage (a no-op on the CPU)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    return t
+def _fp_stage(w, b, x):
+    return stages.feature_projection(x, w, b)
+
+
+def _coeff_stage(h, a_src, a_dst):
+    return stages.attention_coefficients(h, a_src, a_dst)
+
+
+def _na_stage(src, dst, valid, th_s, th_d, h, num_dst):
+    z = stages.segment_softmax_aggregate(src, dst, valid, th_s, th_d, h, num_dst)
+    return F.elu(z.reshape(num_dst, -1))
+
+
+def _sf_stage(z_stack, w_g, b_g, q, w_out, b_out):
+    n = z_stack.shape[1]
+    valid = torch.ones((n,), dtype=torch.bool, device=z_stack.device)
+    w_list = [stages.local_semantic_fusion(z_stack[p], w_g, b_g, q, valid)
+              for p in range(z_stack.shape[0])]
+    fused, _ = stages.global_semantic_fusion(torch.stack(w_list), z_stack)
+    return fused @ w_out + b_out
 
 
 def han_forward_staged(params, data: HGNNData):
@@ -184,20 +200,15 @@ def han_forward_staged(params, data: HGNNData):
     barrier after it, mirroring DGL-on-GPU; NA on SEGMENT."""
     x = data.features[data.target_type]
     heads = params["a_src"].shape[1]
-    n = x.shape[0]
-    h = _barrier(stages.feature_projection(x, params["w_fp"], params["b_fp"]))
-    hh = h.reshape(n, heads, -1)
+    h = barrier(_fp_stage(params["w_fp"], params["b_fp"], x))
+    hh = h.reshape(x.shape[0], heads, -1)
     z_list = []
     for i, batch in enumerate(data.graphs):
-        th_s, th_d = stages.attention_coefficients(hh, params["a_src"][i], params["a_dst"][i])
-        _barrier(th_s)
-        z = stages.segment_softmax_aggregate(*batch.edges, th_s, th_d, hh, batch.num_dst)
-        z_list.append(_barrier(F.elu(z.reshape(batch.num_dst, -1))))
-    valid = torch.ones((n,), dtype=torch.bool, device=x.device)
-    w_list = [stages.local_semantic_fusion(z, params["w_g"], params["b_g"], params["q"], valid)
-              for z in z_list]
-    fused, _ = stages.global_semantic_fusion(torch.stack(w_list), torch.stack(z_list))
-    return _barrier(fused @ params["w_out"] + params["b_out"])
+        th_s, th_d = _coeff_stage(hh, params["a_src"][i], params["a_dst"][i])
+        barrier(th_s)
+        z_list.append(barrier(_na_stage(*batch.edges, th_s, th_d, hh, batch.num_dst)))
+    return barrier(_sf_stage(torch.stack(z_list), params["w_g"], params["b_g"], params["q"],
+                              params["w_out"], params["b_out"]))
 
 
 HAN = HGNNModel(name="HAN", init=init_han, forward=han_forward)

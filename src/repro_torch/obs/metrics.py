@@ -1,5 +1,5 @@
-"""Metrics: counters, gauges, log-bucketed histograms (a copy of
-``repro.obs.metrics`` without the process-wide default registry).
+"""Process-wide metrics: counters, gauges, log-bucketed histograms (a
+copy of ``repro.obs.metrics``).
 
 The second observability pillar (DESIGN.md §12): where ``obs.trace``
 answers *when* each stage ran, this registry answers *how much* — NA
@@ -27,6 +27,8 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "get_registry",
+    "reset_registry",
 ]
 
 
@@ -203,3 +205,14 @@ class MetricsRegistry:
         with self._lock:
             self._series.clear()
 
+
+_DEFAULT = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry (launchers scrape this one)."""
+    return _DEFAULT
+
+
+def reset_registry() -> None:
+    _DEFAULT.reset()

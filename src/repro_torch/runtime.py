@@ -26,3 +26,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def barrier(value):
+    """The host waits for the device when ``value`` (a tensor, or a tuple
+    whose first item is one) lies on a card; a no-op on the CPU.  Returns
+    ``value``."""
+    t = value[0] if isinstance(value, tuple) else value
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return value

@@ -23,7 +23,7 @@ from ..checkpoint import (
 )
 from ..data.pipeline import SyntheticHGNNData
 from ..obs.emit import Emitter
-from ..obs.metrics import MetricsRegistry
+from ..obs.metrics import MetricsRegistry, get_registry
 from ..obs.trace import trace_span
 from .step import TrainState
 
@@ -77,14 +77,16 @@ def train_loop(
     a restored state is placed by ``reshard_to`` over the lane group
     (elastic restart: any lane count restores any checkpoint).
 
-    Observability (DESIGN.md §12): every step increments ``train.steps``
-    and lands its wall time in the ``train.step_ms`` histogram; logged steps
-    set the ``train.loss``/``train.grad_norm`` gauges and emit a
-    ``[train] step=… loss=… sec=…`` record through :class:`Emitter`.  On the
-    card each step ends with a device synchronise, so ``sec`` and
-    ``train.step_ms`` are the step's latency, not its enqueue time.
+    Observability (DESIGN.md §12), into ``registry`` (default: the
+    process-wide one, ``obs.get_registry()``): every step increments
+    ``train.steps`` and lands its wall time in the ``train.step_ms``
+    histogram; logged steps set the ``train.loss``/``train.grad_norm``
+    gauges and emit a ``[train] step=… loss=… sec=…`` record through
+    :class:`Emitter`.  On the card each step ends with a device
+    synchronise, so ``sec`` and ``train.step_ms`` are the step's latency,
+    not its enqueue time.
     """
-    reg = registry if registry is not None else MetricsRegistry()
+    reg = registry if registry is not None else get_registry()
     em = Emitter(sink=log)
     step_ms = reg.histogram("train.step_ms")
     steps_c = reg.counter("train.steps")

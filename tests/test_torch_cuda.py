@@ -82,6 +82,8 @@ from repro_torch.models.hgnn import (
     han_forward_staged,
     prepare_data,
 )
+from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing
+from repro_torch.obs.characterize import characterize_hgnn
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
@@ -585,6 +587,31 @@ def test_han_staged_and_per_graph_backends_on_cuda_match_cpu(cuda):
         got += [han_forward(on_card, card, backend=b) for b in (NABackend.SEGMENT, NABackend.KERNEL)]
     for g in got:
         torch.testing.assert_close(g.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,counter", [(NABackend.KERNEL, "seg_gat_agg"),
+                                             (NABackend.MULTIGRAPH, "multigraph")])
+def test_characterize_on_cuda_launches_the_kernel_a_graph(cuda, backend, counter):
+    """The per-stage pass on the card: #5 (KERNEL) or #1 at G = 1
+    (MULTIGRAPH) once a semantic graph, on parameters that require a
+    gradient, every stage timed and one NA span a graph on its lane."""
+    problem = dict(scale=0.05, feat_scale=0.1, block=16, max_edges=20_000)
+    card = hgnn_train.build_problem("acm", device=cuda, **problem)[1]
+    params = {k: v.requires_grad_() for k, v in MODELS["HAN"].init(
+        torch.Generator().manual_seed(0), card, hidden=8, heads=2, att_dim=16).items()}
+    fn = {"seg_gat_agg": seg_gat_agg, "multigraph": seg_gat_agg_multigraph_fwd}[counter]
+    fn.launches = 0
+    tracer = enable_tracing(sync=True)
+    try:
+        res = characterize_hgnn(params, card, backend=backend, registry=MetricsRegistry())
+    finally:
+        disable_tracing()
+    assert fn.launches == len(card.graphs)
+    assert all(v > 0 for v in res["stage_us"].values())
+    for b in card.graphs:
+        [span] = tracer.spans(f"char/na/{b.name}")
+        assert span["lane"] == f"sg/{b.name}" and span["attrs"]["backend"] == backend.value
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
-"""Port hygiene: ``repro_torch`` and ``chip_smoke.py`` import neither JAX
-nor the JAX package; the entry points default to the card and raise
-without one; and, on a host with a card, each CUDA kernel agrees with its
-plain PyTorch version (those tests carry the ``cuda`` marker and skip
-here: a CUDA kernel has no CPU mode)."""
+"""Port hygiene: ``repro_torch``, ``examples_torch/`` and ``chip_smoke.py``
+import neither JAX nor the JAX package; the entry points default to the
+card and raise without one; and, on a host with a card, each CUDA kernel
+agrees with its plain PyTorch version (those tests carry the ``cuda``
+marker and skip here: a CUDA kernel has no CPU mode)."""
 import ast
 import pathlib
 
@@ -27,7 +27,8 @@ from repro_torch.models.hgnn import prepare_data
 from repro_torch.serve import GraphRequest, HGNNEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path):

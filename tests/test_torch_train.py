@@ -231,8 +231,6 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--trace", "t.json"], "Queue 1 item 5"),
-    (["--metrics", "m.json"], "Queue 1 item 5"),
     (["--model-split", "2"], "Queue 1 item 9"),
 ])
 def test_launcher_rejects_what_is_not_ported(argv, match):
