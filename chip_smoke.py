@@ -31,8 +31,9 @@ Phases, each fatal on failure:
 4. Training (HAN at heads=8, hidden=64, att_dim=128 on full-scale IMDB,
    block=16, max_edges=400000, full batch, AdamW lr=5e-3):
    a. the backward kernels #2 and #4 (and #1, #3 once more) against their
-      plain versions at the training shapes and on the edge cases (#1/#2
-      also at B = 64 and 128, at R-GAT's row width H·Dh = 256 and at phase
+      plain versions at the training shapes and on the edge cases (all four
+      also at B = 64 and 128, #3/#4 re-blocked to 32; #1/#2 at R-GAT's row
+      width H·Dh = 256 and at phase
       4f's B = 128 with HAN's width), at atol=rtol=1e-4 (the fused kernels on
       exactly representable operands, see ``exact_fused``), and #3's
       projection phase on HAN's own inexact operands under
@@ -83,7 +84,24 @@ Phases, each fatal on failure:
       ``python3 -c 'import chip_smoke as c; c.multilane_alone()'``.
       The lane-sharded path (``multilane_na_sharded``, ``--lanes`` > 1)
       needs several cards and runs apart: ``lanes_sharded()`` under
-      ``torchrun`` (its docstring says how).
+      ``torchrun`` (its docstring says how);
+   h. FUSED_FP at B = 128 on the same problem (kernels #3 and #4 re-blocked
+      to B' = 32 on the host): #3 and #4 on the problem's exact operands
+      against their plain versions at atol=rtol=1e-4, twice bitwise
+      equal, and against #1 and #2 on the MULTIGRAPH path's projection (#3
+      at 1e-4; #4's gradients within 1e-4 of each one's largest magnitude
+      of #2's chained through x @ W + θ by autograd); both timed with CUDA
+      events beside their plain versions, the MULTIGRAPH composition and
+      their bounds; 3 FUSED_FP training steps at B = 128, counters zeroed
+      just before (#3 and #4 once a step, the loss falls; the first #3
+      launch held against its plain version); the first step's logits at
+      1e-4 and gradients (as 4g's fused_fp) against MULTIGRAPH's; then 3
+      steps on a (1, 1) mesh through the ``dist`` rules (a one-rank NCCL
+      group, ``param_shardings``, ``han_forward_multilane(mesh=,
+      placements=)``, the placements-aware AdamW), counters zeroed just
+      before (#1 and #2 once a step), bitwise today's MULTIGRAPH steps.
+      The model axis over several cards runs apart: ``model_sharded()``
+      under ``torchrun`` (its docstring says how).
 5. The per-graph models on full IMDB's six relation graphs (AM, MA, KM,
    MK, DM, MD), block=16, at the JAX package's ``init_*`` widths (R-GAT
    hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
@@ -546,7 +564,7 @@ def ff_index(ff_mod, ops: dict, *, backward: bool = True) -> dict:
     """#3/#4's topology index of these fused operands."""
     return ff_mod.fused_index(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["wsel"],
                               ops["w"].shape[0], ops["x"].shape[0], ops["masks"].shape[-1],
-                              backward=backward)
+                              backward=backward, masks=ops["masks"])
 
 
 def multigraph_composition(mg_mod, mg, ff, out=None, lse=None):
@@ -651,6 +669,34 @@ def check_bwd(name, fn, plain, ops, out, lse, g):
     return compare(name, got, want)
 
 
+def recorded_launches(name: str, mod, launches: tuple[str, ...], first: int, run):
+    """Runs ``run()`` with the launch functions ``launches`` of a kernel
+    module recording the (arguments, result) of their first ``first``
+    calls each.  Returns (run's result, {launch: [(args, result)]}); fails
+    where a launch was called fewer times."""
+    calls = {k: [] for k in launches}
+    kernels = {k: getattr(mod, k) for k in launches}
+
+    def recording(k):
+        def call(*args):
+            res = kernels[k](*args)
+            if len(calls[k]) < first:
+                calls[k].append((args, res))
+            return res
+        return call
+
+    for k in launches:
+        setattr(mod, k, recording(k))
+    try:
+        result = run()
+    finally:
+        for k, fn in kernels.items():
+            setattr(mod, k, fn)
+    if any(len(c) < first for c in calls.values()):
+        raise AssertionError(f"{name}: fewer than {first} launches were recorded")
+    return result, calls
+
+
 def na_calls_to_plain(name: str, run, first: int, *, backward: bool = True):
     """Runs ``run()`` (training steps on the MULTIGRAPH path) with #1's and
     #2's launches recording their operands and results, the first ``first``
@@ -665,26 +711,9 @@ def na_calls_to_plain(name: str, run, first: int, *, backward: bool = True):
     (run's result, the max abs error, #2's relative to each gradient's
     largest magnitude)."""
     mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
-    calls = {"launch": [], "launch_bwd": []} if backward else {"launch": []}
-    kernels = {k: getattr(mg_mod, k) for k in calls}
-
-    def recording(k):
-        def call(*args):
-            res = kernels[k](*args)
-            if len(calls[k]) < first:
-                calls[k].append((args, res))
-            return res
-        return call
-
-    for k in calls:
-        setattr(mg_mod, k, recording(k))
-    try:
-        result = run()
-    finally:
-        for k, fn in kernels.items():
-            setattr(mg_mod, k, fn)
-    if any(len(c) < first for c in calls.values()):
-        raise AssertionError(f"{name}: fewer than {first} launches of #1 and #2 were recorded")
+    result, calls = recorded_launches(
+        f"{name}: #1 and #2", mg_mod, ("launch", "launch_bwd") if backward else ("launch",),
+        first, run)
     err = 0.0
     for n, (args, _) in enumerate(calls["launch"]):
         *ops, out, lse, slope = args
@@ -794,10 +823,9 @@ def train_kernel_phase(data, params, fusion, mg_mod, ff_mod) -> dict:
     cases.append(("edge B=16 W=6 Din=100", *edge_operands(1, dev)))
     cases.append(("edge W=1", *edge_operands(2, dev, W=1)))
     cases.append(("edge B=8 H=2 Dh=8 Din=37", *edge_operands(3, dev, B=8, H=2, Dh=8, din=37)))
-    # block sizes only #1/#2 take: their fused counterparts refuse B > 32
-    cases.append(("edge B=64", edge_operands(4, dev, B=64, U=12, W=4)[0], None))
-    cases.append(("edge B=128 H=4 Dh=32", edge_operands(5, dev, B=128, U=8, W=3, H=4, Dh=32)[0],
-                  None))
+    # block sizes #3/#4 take re-blocked to 32
+    cases.append(("edge B=64", *edge_operands(4, dev, B=64, U=12, W=4)))
+    cases.append(("edge B=128 H=4 Dh=32", *edge_operands(5, dev, B=128, U=8, W=3, H=4, Dh=32)))
     # the row widths of the other paths #1/#2 run: R-GAT's (H·Dh = 256) and phase 4f's B = 128
     cases.append(("edge H=4 Dh=64", edge_operands(6, dev, H=4, Dh=64)[0], None))
     cases.append(("edge B=128 H=8 Dh=64", edge_operands(7, dev, B=128, U=8, W=3)[0], None))
@@ -1437,6 +1465,469 @@ def lanes_sharded() -> dict:
             log(json.dumps(res))
         if not all(res["checks"].values()):
             raise AssertionError(f"rank {rank}: {res['checks']}")
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+# -- phase 4h: FUSED_FP at B = 128 (re-blocked to 32), the (1, 1) mesh --------------
+
+B128_REL = 1e-4  # #4 against #2's composition: max |Δ| over each gradient's largest magnitude
+
+
+def fused_calls_to_plain(name: str, run, first: int, ff_mod):
+    """Runs ``run()`` with #3's first ``first`` launches recorded
+    (:func:`recorded_launches`), then holds each against
+    ``seg_gat_agg_fused_fp_plain`` on the same operands (the topology the
+    kernel read: at B above 32 the re-blocked one) at atol=rtol=1e-4.  The
+    recorded launches are the path's own.  Returns (run's result, the max
+    abs error)."""
+    result, calls = recorded_launches(f"{name}: #3", ff_mod, ("launch",), first, run)
+    err = 0.0
+    for n, (args, _) in enumerate(calls["launch"]):
+        *ops, out, lse, slope, _ = args
+        with torch.no_grad():  # out is the autograd Function's output, the weights its leaves
+            want = ff_mod.seg_gat_agg_fused_fp_plain(*ops, leaky_slope=slope)
+        err = max(err, compare(f"{name} #3 launch {n} at B={ops[4].shape[-1]}",
+                               (out.detach(), lse), want))
+    return result, err
+
+
+def mesh_step_equals_multigraph(data, idx, counters) -> dict:
+    """The (1, 1) mesh through the ``dist`` rules (a one-rank NCCL group,
+    ``make_mesh``, ``param_shardings`` of ``hgnn_train_state_axes``,
+    ``reshard_to``, ``han_forward_multilane(mesh=, placements=)`` and the
+    placements-aware AdamW) for 3 steps, counters zeroed just before and
+    read just after: bitwise today's MULTIGRAPH steps from the same state."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import reshard_to
+    from repro_torch.core import NABackend
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.hgnn import HAN, han_forward, han_forward_multilane
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import hgnn_train_state_axes, init_hgnn_train_state, make_hgnn_train_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+    state0 = init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt, **width)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("lane", "model"))
+            pl = param_shardings(mesh, make_rules(parallelism="lanes"),
+                                 hgnn_train_state_axes(state0, opt))
+            plan = data.plan()
+            step_mesh = make_hgnn_train_step(
+                lambda p: han_forward_multilane(p, data, plan, mesh=mesh, placements=pl.params,
+                                                backend="kernel"),
+                data, opt, placements=pl.params, mesh=mesh)
+            step_mg = make_hgnn_train_step(
+                lambda p: han_forward(p, data, backend=NABackend.MULTIGRAPH), data, opt)
+            states = {"mesh": reshard_to(state0, mesh=mesh, placements=pl), "multigraph": state0}
+            losses = {k: [] for k in states}
+            launches = {}
+            for k, fn in (("mesh", step_mesh), ("multigraph", step_mg)):
+                for c in counters.values():
+                    c.launches = 0
+                for _ in range(3):
+                    states[k], m = fn(states[k], {"idx": idx})
+                    losses[k].append(m["loss"])
+                torch.cuda.synchronize()
+                launches[k] = {n: c.launches for n, c in counters.items()}
+        finally:
+            dist.destroy_process_group()
+    same = all(ka == kb and torch.equal(va, vb) for (ka, va), (kb, vb) in
+               zip(tree_leaves_with_path(states["mesh"]), tree_leaves_with_path(states["multigraph"])))
+    same &= all(torch.equal(a, b) for a, b in zip(losses["mesh"], losses["multigraph"]))
+    res = dict(bitwise=same, launches=launches, loss=[float(v) for v in losses["mesh"]])
+    log(f"[mesh 1x1] 3 steps through the dist rules vs MULTIGRAPH: bitwise {same}; launches "
+        f"{json.dumps(launches)}; loss {['%.6f' % v for v in res['loss']]}")
+    if not same:
+        raise AssertionError("the (1, 1) mesh's steps differ from MULTIGRAPH's")
+    if launches["mesh"] != {"multigraph": 3, "multigraph_bwd": 3, "fused_fp": 0,
+                            "fused_fp_bwd": 0}:
+        raise AssertionError(f"the (1, 1) mesh's launches are not 1/1/0/0 a step: {launches}")
+    return res
+
+
+def fused_b128_phase(counters, mg_mod, ff_mod, fusion) -> dict:
+    """Phase 4h: kernels #3 and #4 at B = 128 (re-blocked to 32 on the host)
+    on the phase-4 problem at HAN's width, then FUSED_FP training at B = 128
+    (the main path of #3/#4 at that block, counters zeroed just before),
+    then the (1, 1) mesh through the ``dist`` rules."""
+    from repro_torch.core import NABackend
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import HAN, han_forward
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import hgnn_loss_and_grads, init_hgnn_train_state, make_hgnn_train_step
+
+    res = {}
+    width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+    _, data = hgnn_train.build_problem(device="cuda", **dict(TRAIN, block=128))
+    params = HAN.init(torch.Generator().manual_seed(0), data, **width)
+    idx = torch.arange(data.labels.shape[0], device=data.labels.device)
+
+    # a. #3 and #4 at B = 128 on the problem's operands (exact, as in 4a): against
+    # their plain versions, and against #1 and #2 on the MULTIGRAPH path's projection
+    mg, ff = train_operands(data, params, fusion)
+    ff = exact_fused(ff)
+    fidx = ff_index(ff_mod, ff)
+    sub = fidx["reblocked"]
+    log(f"[fused B=128] U={ff['col_index'].shape[0]} W={ff['col_index'].shape[1]} live slots "
+        f"{int((ff['col_index'] >= 0).sum())} -> re-blocked to 32: U={sub['col_index'].shape[0]} "
+        f"W={sub['col_index'].shape[1]} live slots {int((sub['col_index'] >= 0).sum())}, edges "
+        f"{live_edges(ff['col_index'], ff['masks'])}")
+    out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, index=fidx)
+    again = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, index=fidx)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_f, again[0]) and torch.equal(lse_f, again[1])):
+        raise AssertionError("fused_fp B=128: two runs on the same inputs differ")
+    err = compare("fused_fp B=128", (out_f, lse_f), ff_mod.seg_gat_agg_fused_fp_plain(**ff))
+    h, ths, thd = multigraph_composition(mg_mod, mg, ff)
+    mg = dict(mg, theta_src=ths, theta_dst=thd, h_src=h.contiguous())
+    out_m, lse_m = mg_mod.seg_gat_agg_multigraph_fwd(**mg)
+    err_mg = compare("fused_fp vs multigraph B=128", (out_f, lse_f), (out_m, lse_m))
+    g = torch.randn(out_f.shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    err_bwd = check_bwd("fused_fp_bwd B=128", ff_mod.seg_gat_agg_fused_fp_bwd,
+                        ff_mod.seg_gat_agg_fused_fp_bwd_plain, ff, out_f, lse_f, g)
+    got = ff_mod.seg_gat_agg_fused_fp_bwd(**ff, out=out_f, lse=lse_f, g_out=g, need_dx=False,
+                                          index=fidx)[1:]
+    leaves = [t.clone().requires_grad_() for t in (ff["w"][0], ff["b"][0], ff["a_src"],
+                                                   ff["a_dst"], ff["edge_bias"])]
+    H, Dh = ff["a_src"].shape[1:]
+    hh = torch.addmm(leaves[1], ff["x"], leaves[0]).reshape(-1, H, Dh)
+    out = mg_mod.seg_gat_agg_multigraph(
+        mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"],
+        torch.einsum("nhd,ghd->gnh", hh, leaves[2]).contiguous(),
+        torch.einsum("nhd,ghd->gnh", hh, leaves[3]).contiguous(), hh.contiguous(), leaves[4])
+    want = torch.autograd.grad((out * g).sum(), leaves)
+    scale = [float(w.abs().max()) or 1.0 for w in want]
+    rel = max(float((a.reshape(w.shape) - w).abs().max()) / c for a, w, c in zip(got, want, scale))
+    log(f"[check] fused_fp_bwd vs multigraph (#2 and autograd through x @ W + θ) B=128: max |d| "
+        f"over each gradient's largest magnitude {rel:.3e} (limit {B128_REL}; d_w, d_b, d_a_src, "
+        f"d_a_dst, d_edge_bias at scales {', '.join('%.3e' % c for c in scale)})")
+    if rel > B128_REL:
+        raise AssertionError(f"fused_fp_bwd B=128: {rel:.3e} of each gradient's scale from "
+                             "the multigraph composition's")
+    res["kernels"] = dict(fwd_max_abs_err=err, fwd_vs_multigraph_max_abs_err=err_mg,
+                          bwd_max_abs_err=err_bwd, bwd_vs_multigraph_rel_err=rel,
+                          units=int(ff["col_index"].shape[0]),
+                          reblocked_units=int(sub["col_index"].shape[0]),
+                          reblocked_width=int(sub["col_index"].shape[1]))
+
+    # times at B = 128, straight on the launches over the re-blocked topology
+    kops = dict(ff, col_index=sub["col_index"], graph_id=sub["graph_id"], dst_row=sub["dst_row"],
+                masks=sub["masks"])
+    o, lo = torch.empty_like(out_f), torch.empty_like(lse_f)
+    delta_f = (g * out_f).sum(-1)
+    idx_m = mg_index(mg_mod, mg)
+
+    def composition_vjp():  # as phase 4a's: x @ W + b and θ, then #2
+        hh, ths_, thd_ = multigraph_composition(mg_mod, mg, ff)
+        mg_mod.launch_bwd(mg["col_index"], mg["graph_id"], mg["dst_row"], mg["masks"], ths_, thd_,
+                          hh, mg["edge_bias"], g, lse_f, delta_f, idx_m, 0.2)
+
+    t = {"fused_fp": (
+        cuda_ms(lambda: ff_mod.launch(**kops, out=o, lse=lo, leaky_slope=0.2,
+                                      index=sub["index"]), reps=10),
+        cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**ff), reps=1),
+        cuda_ms(lambda: multigraph_composition(mg_mod, mg, ff, o, lo), reps=10)),
+        "fused_fp_bwd": (
+        cuda_ms(lambda: ff_mod.launch_bwd(**kops, g_out=g, lse=lse_f, delta=delta_f,
+                                          index=sub["index"], leaky_slope=0.2), reps=10),
+        cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_bwd_plain(**ff, out=out_f, lse=lse_f, g_out=g,
+                                                               need_dx=False), reps=1),
+        cuda_ms(composition_vjp, reps=10))}
+    costs = {"fused_fp": fused_cost(ff), "fused_fp_bwd": fused_bwd_cost(ff)}
+    for k, (ms, plain_ms, comp_ms) in t.items():
+        nbytes, flops, _, proj = costs[k]
+        res[k] = dict(ms=ms, plain_ms=plain_ms, multigraph_ms=comp_ms, bytes=nbytes, flops=flops,
+                      **fused_bounds(nbytes, flops, proj["needed"]))
+        log(f"[fused B=128 time] {k} kernel {ms:.4f} ms (re-blocked to 32), plain "
+            f"{plain_ms:.4f} ms, MULTIGRAPH composition {comp_ms:.4f} ms, bound "
+            f"{res[k]['bound_ms']:.4f} ms ({res[k]['bound_by']}; {nbytes:.4e} B, {flops:.4e} flops)")
+
+    # b. the path: FUSED_FP training at B = 128, counters zeroed just before, read
+    # just after, every #3 launch of the first step held against its plain version
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    state0 = init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt, **width)
+    step_ff = make_hgnn_train_step(lambda p: han_forward(p, data, backend=NABackend.FUSED_FP),
+                                   data, opt)
+    for fn in counters.values():
+        fn.launches = 0
+
+    def three_steps():
+        st, hist = state0, []
+        for _ in range(3):
+            st, m = step_ff(st, {"idx": idx})
+            hist.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        return hist
+
+    hist, call_err = fused_calls_to_plain("FUSED_FP B=128 training", three_steps, 1, ff_mod)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    res["run"] = dict(launches=launches, loss=hist, call_max_abs_err=call_err)
+    log(f"[train fused_fp B=128] launches={json.dumps(launches)} loss "
+        f"{['%.6f' % v for v in hist]}")
+    if launches != {"multigraph": 0, "multigraph_bwd": 0, "fused_fp": 3, "fused_fp_bwd": 3}:
+        raise AssertionError(f"FUSED_FP at B=128: launches are not 0/0/3/3 over 3 steps: {launches}")
+    if not hist[-1] < hist[0] or not all(math.isfinite(v) for v in hist):
+        raise AssertionError(f"FUSED_FP at B=128: the loss did not fall: {hist}")
+
+    # the first step's logits and gradients against MULTIGRAPH's at B = 128
+    with torch.no_grad():
+        logits = {nab: han_forward(params, data, backend=nab)
+                  for nab in (NABackend.FUSED_FP, NABackend.MULTIGRAPH)}
+    res["logits_max_abs_err"] = compare("HAN logits FUSED_FP vs MULTIGRAPH at B=128",
+                                        (logits[NABackend.FUSED_FP],),
+                                        (logits[NABackend.MULTIGRAPH],))
+    grads = {nab: hgnn_loss_and_grads(lambda p, nab=nab: han_forward(p, data, backend=nab),
+                                      params, data, idx)
+             for nab in (NABackend.FUSED_FP, NABackend.MULTIGRAPH)}
+    rels = {}
+    for k, gf in grads[NABackend.FUSED_FP][2].items():
+        gm = grads[NABackend.MULTIGRAPH][2][k]
+        torch.testing.assert_close(gf, gm, **FUSED_GRAD_TOL, msg=lambda m: f"grad {k}: {m}")
+        rels[k] = float((gf - gm).abs().max()) / (float(gm.abs().max()) or 1.0)
+    worst = max(rels[k] for k in FUSED_LEAVES)
+    res["grad_rel_err"] = rels
+    log(f"[check] first-step gradients FUSED_FP vs MULTIGRAPH at B=128 ({FUSED_GRAD_TOL}); over "
+        f"each leaf's largest magnitude {', '.join(f'{k} {v:.3e}' for k, v in rels.items())} "
+        f"(limit {FUSED_GRAD_REL} on {', '.join(FUSED_LEAVES)})")
+    if worst > FUSED_GRAD_REL:
+        raise AssertionError(f"FUSED_FP at B=128: #4's gradients {worst:.3e} of their scale "
+                             "from MULTIGRAPH's")
+
+    # c. the (1, 1) mesh through the dist rules, bitwise today's MULTIGRAPH step
+    res["mesh_1x1"] = mesh_step_equals_multigraph(data, idx, counters)
+    return res
+
+
+def fused_b128_alone() -> dict:
+    """Phase 4h alone: builds the kernels, runs the phase on the phase-4
+    problem at B = 128 and writes fused_b128.json to the output directory."""
+    from repro_torch.core import fusion
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    log(card_line())
+    build.build()
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    counters = {"multigraph": mg_mod.seg_gat_agg_multigraph_fwd,
+                "multigraph_bwd": mg_mod.seg_gat_agg_multigraph_bwd,
+                "fused_fp": ff_mod.seg_gat_agg_fused_fp_fwd,
+                "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
+    res = fused_b128_phase(counters, mg_mod, ff_mod, fusion)
+    (OUT / "fused_b128.json").write_text(json.dumps(res, indent=1, default=str))
+    log(card_line())
+    return res
+
+
+MODEL_MESHES = ((1, 4), (2, 2), (4, 1))  # (lanes, model) over four cards
+MODEL_REL = 1e-5  # sharded vs one card: max |Δ| over each leaf's (logits', loss's) largest magnitude
+# A gradient that nearly cancels (b_g's: the semantic softmax's cotangent sums to
+# zero over the graphs) moves by far more than MODEL_REL of its own magnitude when
+# the column-split FP GEMM moves the forward's last bits.  Such a leaf is held
+# against a float64 run instead: the sharded gradient no farther from it than
+# FLOAT64_FACTOR times one card's float32 gradient is.
+FLOAT64_FACTOR = 2.0
+
+
+def model_sharded() -> dict:
+    """The model mesh axis over four cards, run apart, one process a card:
+
+        torchrun --nproc-per-node 4 --no-python python3 -c 'import chip_smoke as c; c.model_sharded()'
+
+    HAN at its own width on the phase-4 problem at B = 128, a 16-lane plan,
+    over (lanes, model) meshes of (1, 4), (2, 2) and (4, 1) on NCCL, each
+    rank holding its slices of the params by the ``lanes`` rules
+    (``param_shardings``): on the kernel and fused_fp backends the sharded
+    logits, loss and gathered gradients within ``MODEL_REL`` of each one's
+    largest magnitude of the one-card run's (a gradient beyond it, one that
+    nearly cancels, no farther from a float64 SEGMENT run's than
+    ``FLOAT64_FACTOR`` times one card's), bitwise equal across the ranks
+    of each model group and on a second run, #1/#2 (#3/#4) launched once a
+    step where the rank's lanes hold units; the sharded train step (the
+    placements-aware AdamW) and the one-card step timed with CUDA events in
+    turns, then 3 sharded steps under the profiler (rank 0's busy and idle
+    share, top kernels); then ``run_training`` at (2, 2) for 3 steps with a checkpoint,
+    resumed for a 4th on every rank from the writer's step.  Rank 0 prints
+    the results and writes model_sharded.json to the output directory."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import reshard_to
+    from repro_torch.core import NABackend, build_multilane_plan
+    from repro_torch.dist import gather_leaf, local_slice, make_rules, param_shardings
+    from repro_torch.launch import hgnn_train
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.models.hgnn import HAN, han_forward, han_forward_multilane
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        hgnn_loss_and_grads,
+        hgnn_param_axes,
+        hgnn_train_state_axes,
+        init_hgnn_train_state,
+        make_hgnn_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl")
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+        ff_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+        counters = {"kernel": (mg_mod.seg_gat_agg_multigraph_fwd,
+                               mg_mod.seg_gat_agg_multigraph_bwd),
+                    "fused_fp": (ff_mod.seg_gat_agg_fused_fp_fwd, ff_mod.seg_gat_agg_fused_fp_bwd)}
+        width = dict(TRAIN_WIDTH, att_dim=2 * TRAIN_WIDTH["hidden"])
+        _, data = hgnn_train.build_problem(device=dev, **dict(TRAIN, block=128))
+        params = HAN.init(torch.Generator().manual_seed(0), data, **width)
+        plan = build_multilane_plan(data.graphs, 16)
+        idx = torch.arange(data.labels.shape[0], device=dev)
+        opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+        # float64 gradients (SEGMENT, the plain per-edge softmax) for the leaves that cancel
+        d64 = dataclasses.replace(data, features={k: v.double() for k, v in data.features.items()})
+        p64 = {k: v.double().requires_grad_() for k, v in params.items()}
+        loss64 = torch.nn.functional.cross_entropy(
+            han_forward(p64, d64, backend=NABackend.SEGMENT), data.labels)
+        g64 = dict(zip(p64, torch.autograd.grad(loss64, list(p64.values()))))
+        del d64, p64
+
+        def off64(grads):  # max |g - g64| over g64's largest magnitude, a leaf
+            return {k: float((g.double() - g64[k]).abs().max() / g64[k].abs().max())
+                    for k, g in grads.items()}
+
+        one = {}
+        for backend in counters:
+            fwd = lambda p, b=backend: han_forward_multilane(p, data, plan, backend=b)  # noqa: E731
+            with torch.no_grad():
+                logits = fwd(params)
+            one[backend] = (logits, *hgnn_loss_and_grads(fwd, params, data, idx)[::2])
+        rules = make_rules(parallelism="lanes")
+        res = dict(card=card_line(), world=world, plan_lanes=plan.num_lanes, meshes={})
+        ok = True
+        for lanes, model in MODEL_MESHES:
+            mesh = make_lane_mesh(lanes, model)
+            name = f"{lanes}x{model}"
+            pl = param_shardings(mesh, rules, hgnn_param_axes(params))
+            local = {k: local_slice(v, pl[k], mesh) for k, v in params.items()}
+            per = plan.num_lanes // lanes
+            lane = mesh.get_local_rank("lane")
+            has_units = plan.units((lane * per, (lane + 1) * per)).count > 0
+            model_group = mesh.get_group("model")
+            cell = dict(local_shapes={k: list(v.shape) for k, v in local.items()})
+            for backend, (fwd_fn, bwd_fn) in counters.items():
+                fwd = lambda p, b=backend: han_forward_multilane(  # noqa: E731
+                    p, data, plan, mesh=mesh, placements=pl, backend=b)
+                runs = []
+                for _ in range(2):
+                    with torch.no_grad():
+                        logits = fwd(local)
+                    fwd_fn.launches = bwd_fn.launches = 0
+                    loss, _, grads = hgnn_loss_and_grads(fwd, local, data, idx)
+                    torch.cuda.synchronize()
+                    launches = (fwd_fn.launches, bwd_fn.launches)
+                    whole = {k: gather_leaf(g, pl[k], mesh) for k, g in grads.items()}
+                    runs.append((logits, loss, whole, grads, launches))
+                logits, loss, whole, grads, launches = runs[0]
+                w_logits, w_loss, w_grads = one[backend]
+                rel = {"logits": float((logits - w_logits).abs().max() / w_logits.abs().max()),
+                       "loss": float((loss - w_loss).abs() / w_loss.abs())}
+                grel = {k: float((g - w_grads[k]).abs().max())
+                        / (float(w_grads[k].abs().max()) or 1.0) for k, g in whole.items()}
+                rel.update(grel)
+                e_one, e_sharded = off64(w_grads), off64(whole)
+                held = all(v <= MODEL_REL or e_sharded[k] <= FLOAT64_FACTOR * e_one[k]
+                           for k, v in grel.items())
+                same = True  # each model group's rank 0 against the others, bit for bit
+                for t in (logits, loss, *whole.values()):
+                    first = t.clone(memory_format=torch.contiguous_format)
+                    dist.broadcast(first, src=dist.get_global_rank(model_group, 0),
+                                   group=model_group)
+                    same &= torch.equal(first, t)
+                again = runs[1]
+                repeat = (torch.equal(again[0], logits) and torch.equal(again[1], loss)
+                          and all(torch.equal(again[2][k], g) for k, g in whole.items()))
+                checks = {"within_limit": max(rel["logits"], rel["loss"]) <= MODEL_REL and held,
+                          "model_group_bitwise": bool(same), "repeat_bitwise": bool(repeat),
+                          "launches_a_step": launches == ((1, 1) if has_units else (0, 0))}
+                cell[backend] = dict(rel_err=rel, launches_a_step=launches, checks=checks,
+                                     off_float64={"one": e_one, "sharded": e_sharded})
+            # the train step through the placements-aware AdamW, and the one-card step
+            state = init_hgnn_train_state(HAN, torch.Generator().manual_seed(0), data, opt,
+                                          **width)
+            spl = param_shardings(mesh, rules, hgnn_train_state_axes(state, opt))
+            step_fns = {
+                "one": make_hgnn_train_step(
+                    lambda p: han_forward_multilane(p, data, plan, backend="kernel"), data, opt),
+                "sharded": make_hgnn_train_step(
+                    lambda p, m=mesh, s=spl: han_forward_multilane(
+                        p, data, plan, mesh=m, placements=s.params, backend="kernel"),
+                    data, opt, placements=spl.params, mesh=mesh)}
+            states = {"one": state, "sharded": reshard_to(state, mesh=mesh, placements=spl)}
+            states, times = event_steps(step_fns, states, idx, 11)
+            cell["median_ms"] = {k: float(np.median(t[1:])) for k, t in times.items()}
+            cell["step_ms"] = times
+            _, cell["steady"] = profiled_steps(step_fns["sharded"], states["sharded"], idx, 3)
+            flags = torch.tensor([int(v) for b in counters for v in cell[b]["checks"].values()],
+                                 device=dev)
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+            cell["all_ranks_ok"] = bool(flags.min())
+            ok &= cell["all_ranks_ok"]
+            res["meshes"][name] = cell
+            if rank == 0:
+                log(f"[model_sharded {name}] " + json.dumps(
+                    {k: cell[k] for k in ("all_ranks_ok", "median_ms")}
+                    | {b: cell[b] for b in counters}))
+                st = cell["steady"]
+                log(f"[model_sharded {name}] profiled sharded steps "
+                    f"{['%.3f' % t for t in st['steps_ms']]}, busy {st['device_busy_ms']:.3f} of "
+                    f"{st['device_wall_ms']:.3f} ms, idle share {st['device_idle_share']:.4f}")
+                for k in st["top_kernels"]:
+                    log(f"[model_sharded {name}]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} "
+                        f"{k['name']}")
+
+        # the launcher at (2, 2): 3 steps with a checkpoint, then a 4th resumed from it
+        ckpt = str(OUT / "model_sharded_ckpt")
+        if rank == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        dist.barrier()
+        run = dict(lanes=2, model_split=2, plan_lanes=16, ckpt_dir=ckpt, ckpt_every=3,
+                   log_every=1, log=log if rank == 0 else (lambda *_: None), device="cuda",
+                   **dict(TRAIN, block=128), **TRAIN_WIDTH)
+        _, hist, meta = hgnn_train.run_training(model_name="HAN", steps=3, **run)
+        _, resumed, _ = hgnn_train.run_training(model_name="HAN", steps=4, **run)
+        res["run_2x2"] = dict(loss=[h["loss"] for h in hist],
+                              resumed=[(h["step"], h["loss"]) for h in resumed],
+                              steps_ms=[h["sec"] * 1e3 for h in hist], meta=meta)
+        run_ok = (hist[-1]["loss"] < hist[0]["loss"] and [s for s, _ in res["run_2x2"]["resumed"]]
+                  == [3] and resumed[0]["loss"] < hist[-1]["loss"])
+        flag = torch.tensor([int(run_ok)], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        res["run_2x2"]["all_ranks_ok"] = bool(flag.item())
+        ok &= res["run_2x2"]["all_ranks_ok"]
+        if rank == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+            OUT.mkdir(exist_ok=True)
+            (OUT / "model_sharded.json").write_text(json.dumps(res, indent=1, default=str))
+            log(f"[model_sharded run 2x2] {json.dumps(res['run_2x2'], default=str)}")
+            log(res["card"])
+        if not ok:
+            raise AssertionError(f"rank {rank}: the model axis failed a check (see "
+                                 f"{OUT / 'model_sharded.json'})")
         return res
     finally:
         dist.destroy_process_group()
@@ -2924,6 +3415,7 @@ def main() -> int:
                       "fused_fp_bwd": ff_mod.seg_gat_agg_fused_fp_bwd}
     train = training(tdata, train_counters, fusion)
     lanes = multilane_phase(tdata, train_counters, mg_mod)
+    b128 = fused_b128_phase(train_counters, mg_mod, ff_mod, fusion)
     # phase 7 on the phase-4 problem (its counts are read apart from the main path's)
     obs = observability_phase(tdata, obs_counters(mg_mod, ff_mod, k5_mod), k5_mod)
     # each kernel's count comes from the training run of the path that launches it
@@ -2960,6 +3452,8 @@ def main() -> int:
                            lanes["run"]["launches"]["multigraph"],
                        f"run_training(trace=, metrics_out=) at 8 x 128, {OBS_STEPS} steps":
                            obs["trainer"]["launches"]["multigraph"],
+                       "HAN training on the (1, 1) mesh through the dist rules, B = 128, 3 steps":
+                           b128["mesh_1x1"]["launches"]["mesh"]["multigraph"],
                        f"characterize_hgnn(MULTIGRAPH), {CHAR_PASSES} passes":
                            obs["characterize"]["multigraph"]["launches"]["multigraph"],
                        "examples_torch/serve_hgnn.py":
@@ -2970,11 +3464,17 @@ def main() -> int:
                            "HAN training over a 16-lane plan at B = 128, 5 steps":
                                lanes["run"]["launches"]["multigraph_bwd"],
                            f"run_training(trace=, metrics_out=) at 8 x 128, {OBS_STEPS} steps":
-                               obs["trainer"]["launches"]["multigraph_bwd"]},
+                               obs["trainer"]["launches"]["multigraph_bwd"],
+                           "HAN training on the (1, 1) mesh through the dist rules, B = 128, "
+                           "3 steps": b128["mesh_1x1"]["launches"]["mesh"]["multigraph_bwd"]},
         "fused_fp": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp"],
+                     "HAN training on FUSED_FP at B = 128 (re-blocked to 32), 3 steps":
+                         b128["run"]["launches"]["fused_fp"],
                      "hgnn_serve --na-backend fused_fp, full IMDB at 8 x 64":
                          obs["serve_fused_fp"]["launches"]["fused_fp"]},
-        "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"]},
+        "fused_fp_bwd": {"HAN training on FUSED_FP, 3 steps": launches["fused_fp_bwd"],
+                         "HAN training on FUSED_FP at B = 128 (re-blocked to 32), 3 steps":
+                             b128["run"]["launches"]["fused_fp_bwd"]},
         "seg_gat_agg": {**{f"{m} forward": infer[m]["launches"]["seg_gat_agg"]
                            for m in ("R-GAT", "S-HGN")},
                         f"characterize_hgnn(KERNEL), {CHAR_PASSES} passes":
@@ -2986,7 +3486,8 @@ def main() -> int:
     for k in ("fused_fp", "fused_fp_bwd"):
         ms_per[k] += (" (phase P and the NA pass: one call, two kernels; multigraph_ms: x @ W + "
                       "the θ einsums + #1 (#2 for the VJP) on the same operands, as MULTIGRAPH "
-                      "runs them; library_ms null: no PyTorch call computes fused FP+NA)")
+                      "runs them; library_ms null: no PyTorch call computes fused FP+NA); "
+                      "*_b128: the same at B = 128, the topology re-blocked to 32 (phase 4h)")
     ms_per["seg_gat_agg"] = "one R-GAT layer: 6 launches, one per IMDB relation graph"
     ms_per["fused_fp_coeff"] = ("one launch at R-GAT layer 0's actor projection "
                                 f"({train_kernels['fused_fp_coeff']['shape']}, float32): the "
@@ -3061,9 +3562,12 @@ def main() -> int:
                    bound_cuda_cores_ms=tk["bound_cuda_cores_ms"], split_error=tk["split_error"],
                    kernel_flops=tk["kernel_flops"], flops=tk["flops"],
                    projection_ratio=tk["projection"]["ratio"],
-                   launches_by_route=train["fused_fp_run"]["launches_by_route"][k])
+                   launches_by_route=train["fused_fp_run"]["launches_by_route"][k],
+                   **{f"{f}_b128": b128[k][f] for f in ("ms", "plain_ms", "multigraph_ms",
+                                                        "bound_ms", "bound_by")})
     full = dict(card=card, torch=torch.__version__, build_s=build_s, kernels=kernels,
-                train_kernels=train_kernels, training=train, multilane=lanes, inference=infer,
+                train_kernels=train_kernels, training=train, multilane=lanes, fused_b128=b128,
+                inference=infer,
                 observability=obs,
                 rgat_training=rgat_train, lm=lm,
                 launches=launches, launches_by_path=launches_by_path,

@@ -1,4 +1,12 @@
-from .io import latest_step, reshard_to, restore_checkpoint, save_checkpoint, writes_checkpoints
+from .io import (
+    broadcast_from_writer,
+    latest_step,
+    logical_state,
+    reshard_to,
+    restore_checkpoint,
+    save_checkpoint,
+    writes_checkpoints,
+)
 
-__all__ = ["latest_step", "reshard_to", "restore_checkpoint", "save_checkpoint",
-           "writes_checkpoints"]
+__all__ = ["broadcast_from_writer", "latest_step", "logical_state", "reshard_to",
+           "restore_checkpoint", "save_checkpoint", "writes_checkpoints"]

@@ -11,9 +11,10 @@ so a checkpoint of either package restores into the other: a field of a
 dataclass such as ``TrainState`` is ``[<flat index i>]`` (params, opt,
 step in order), a dict entry ``['name']`` with keys in sorted order, a
 list entry ``[i]``, joined by ``/``; None leaves (an unused ``master``) do
-not appear.  Leaves are logical (unsharded) arrays; :func:`reshard_to`
-places a restored state on a run's device and lane group, whatever lane
-count wrote it.
+not appear.  Leaves are logical (unsharded) arrays, gathered over the
+mesh before a write (:func:`logical_state`); :func:`reshard_to` places a
+restored state on a run's device and takes this rank's slice of each leaf
+on its mesh, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..dist.sharding import gather_leaf, local_slice, map_placements, param_shardings
 from ..tree import tree_leaves, tree_leaves_with_path, tree_unflatten
 
 
@@ -79,28 +81,57 @@ def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
     return tree_unflatten(like, values), manifest["aux"]
 
 
-def reshard_to(state, device: str | torch.device | None = None, *, mesh=None):
-    """Elastic restart: place a restored (host) state on this run's device,
-    replicated over the lane group of ``mesh`` (``launch.mesh.make_lane_mesh``).
-
-    Under the lanes posture every rank holds the whole state (params and
-    optimizer state are replicated; the multi-lane plan is rebuilt per
-    run), so a checkpoint written at L lanes restores bit-identically at
-    any L′: each leaf moves to ``device`` (kept where it is when None) and,
-    with a mesh, lane rank 0's copy is broadcast over the lane group, so
-    every rank starts from the same bits.  Only lane rank 0 reads and
-    writes checkpoints (``train.loop.train_loop``)."""
+def reshard_to(state, device: str | torch.device | None = None, *, mesh=None,
+               placements=None, rules=None, axes=None):
+    """Elastic restart: place a logical (restored) state on this rank.  Each
+    leaf moves to ``device`` (kept where it is when None); on a ``mesh``
+    each leaf is then cut to this rank's slice (``dist.local_slice``) by
+    ``placements``, or by the placements ``dist.param_shardings(mesh,
+    rules, axes)`` derives from a logical-axes tree (the reference's
+    form).  So a checkpoint written on any mesh restores on any other: the
+    leaves are logical, and the slices come from this run's mesh."""
     if device is not None:
         state = tree_unflatten(state, [x.to(device) for x in tree_leaves(state)])
-    if mesh is not None:
-        group = mesh.get_group("lane")
+    if mesh is None:
+        return state
+    if placements is None and rules is not None:
+        placements = param_shardings(mesh, rules, axes)
+    if placements is None:
+        return state
+    return map_placements(lambda pl, x: local_slice(x, pl, mesh), placements, state)
+
+
+def logical_state(state, mesh=None, placements=None):
+    """The logical form of this rank's ``state``: each leaf gathered over
+    the mesh dimensions that shard it (a collective: every rank of the
+    mesh calls it).  ``state`` itself without a mesh or placements."""
+    if mesh is None or placements is None:
+        return state
+    with torch.no_grad():
+        return map_placements(lambda pl, x: gather_leaf(x, pl, mesh), placements, state)
+
+
+def broadcast_from_writer(mesh, device: torch.device, *, objects: list | None = None,
+                          tensors=()) -> None:
+    """Broadcast the writer's ``objects`` (a list, in place) and ``tensors``
+    (in place) to every rank of ``mesh``: over each mesh dimension from its
+    rank 0, the last dimension first, so that the writer's values reach its
+    row and then every column.  ``device``: the ranks' device (objects
+    travel through it on ``cuda``)."""
+    for d in reversed(range(mesh.ndim)):
+        if mesh.size(d) == 1:
+            continue
+        group = mesh.get_group(d)
         src = dist.get_global_rank(group, 0)
-        for leaf in tree_leaves(state):
-            dist.broadcast(leaf, src=src, group=group)
-    return state
+        if objects is not None:
+            dist.broadcast_object_list(objects, src=src, group=group,
+                                       device=device if device.type == "cuda" else None)
+        for t in tensors:
+            dist.broadcast(t, src=src, group=group)
 
 
 def writes_checkpoints(mesh) -> bool:
-    """Whether this process writes checkpoints: the only process without a
-    mesh, lane rank 0 with one."""
-    return mesh is None or dist.get_rank(mesh.get_group("lane")) == 0
+    """Whether this process writes checkpoints (and the launchers' logs):
+    the only process without a mesh, the rank at coordinate 0 of every
+    mesh dimension with one."""
+    return mesh is None or all(mesh.get_local_rank(d) == 0 for d in range(mesh.ndim))

@@ -84,11 +84,13 @@ class LaneUnits:
     def fused_index(self, wsel: torch.Tensor, n_tables: int, n_pad: int) -> dict:
         """Kernels #3/#4's ``fused_index`` of these units (built with the
         first ``wsel`` of this shape; another raises in the kernels'
-        ``check_index``)."""
+        ``check_index``); at B above 32 it keeps the units re-blocked to
+        32, which the kernels read."""
         key = ("fused", n_tables, n_pad)
         if key not in self._indexes:
             self._indexes[key] = fused_index(self.col_index, self.graph_id, self.dst_row, wsel,
-                                             n_tables, n_pad, int(self.masks.shape[-1]))
+                                             n_tables, n_pad, int(self.masks.shape[-1]),
+                                             masks=self.masks)
         return self._indexes[key]
 
     def nbytes(self) -> int:
@@ -367,7 +369,10 @@ def multilane_na_sharded(
     fp: FusedFPInputs | None = None,
 ) -> torch.Tensor:
     """``multilane_na`` with the plan's lane axis split over the ``lane``
-    dimension of a ``torch.distributed`` device mesh (``launch.mesh.make_lane_mesh``).
+    dimension of a ``torch.distributed`` device mesh (``launch.mesh.make_lane_mesh``):
+    on a (lane, model) mesh, the calling rank's lane group (its column of
+    the mesh; one rank at a lane size of 1), so every model rank of a lane
+    runs the same lanes.
 
     Rank r of the lane group runs :func:`multilane_na` on its contiguous
     block of lanes against the replicated operands and leaves the other

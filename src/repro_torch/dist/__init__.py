@@ -1,0 +1,37 @@
+"""Distribution subsystem: logical-axis sharding rules (the counterpart of
+``repro.dist``).
+
+``sharding`` maps *logical* tensor axes (``"embed"``, ``"mlp"``,
+``"lane"``, ...) onto the named dimensions of a ``torch.distributed``
+device mesh (``"lane"``, ``"model"``, ...), and places and gathers the
+leaves of a parameter tree by that map.  Model code names logical axes
+only; which mesh dimension a name lands on is decided once, at launch
+time, by ``make_rules``.
+"""
+from .sharding import (
+    Rules,
+    active_rules,
+    gather_leaf,
+    lane_axes,
+    local_slice,
+    make_rules,
+    map_placements,
+    param_shardings,
+    placement_leaves,
+    shard,
+    use_rules,
+)
+
+__all__ = [
+    "Rules",
+    "active_rules",
+    "gather_leaf",
+    "lane_axes",
+    "local_slice",
+    "make_rules",
+    "map_placements",
+    "param_shardings",
+    "placement_leaves",
+    "shard",
+    "use_rules",
+]

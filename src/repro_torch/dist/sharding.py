@@ -1,0 +1,344 @@
+"""Logical-axis sharding rules, the counterpart of ``repro.dist.sharding``.
+
+Model code never names a mesh dimension.  Parameter trees carry *logical*
+axes (``("embed", "mlp")`` for HAN's ``w_fp``), and a :class:`Rules`
+table, built for a launch posture by :func:`make_rules`, translates them
+to a spec over the named dimensions of a ``torch.distributed`` device
+mesh (``launch.mesh.make_mesh``).  The postures are the reference's:
+
+* ``"tp"``: data-parallel batch × tensor-parallel weights; ``fsdp=True``
+  also shards the ``embed`` dim of every weight over the data axes,
+  ``seq_shard=True`` sequence-shards activations over ``model``;
+* ``"sp"``: sequence parallelism, weights model-replicated;
+* ``"serve2d"``: decode, weights resident (``embed`` over ``data``,
+  ``mlp``/``heads`` over ``model``), the batch not sharded;
+* ``"lanes"``: the paper's multi-lane execution (HiHGNN §4.2): work units
+  ride the ``lane`` dimension, head and feature dims ride ``model``.
+
+Compounding and conflicts, as the reference pins them: multi-pod
+compounds the data (and lane) axes, ``("pod", "data")``, which appears as
+one tuple entry of the spec; within one spec each mesh axis is used at
+most once (a later logical axis whose mesh axes are taken maps to None);
+``batch_shard=False`` gates ``act_batch`` off.
+
+JAX places a leaf by a ``NamedSharding``; eager PyTorch holds each rank's
+piece explicitly.  :func:`param_shardings` gives, per leaf, one
+``torch.distributed.tensor`` placement per mesh dimension (``Shard(dim)``
+or ``Replicate()``); :func:`local_slice` takes a rank's piece of a logical
+leaf and :func:`gather_leaf` rebuilds the logical leaf from the pieces,
+with the rank's slice of the cotangent as its backward.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Placement, Replicate, Shard
+
+# Logical parameter axes that ride the tensor-parallel `model` mesh axis
+# under the "tp" posture.  Everything not named in a table replicates.
+_MODEL_PARAM_AXES = (
+    "heads",
+    "kv_heads",
+    "mlp",
+    "vocab",
+    "experts",
+    "ssm_inner",
+    "rnn",
+)
+
+# Activation counterparts (the `act_` namespace keeps activation layout
+# decisions independent of weight layout: serve2d shards one without the
+# other).
+_MODEL_ACT_AXES = ("act_heads", "act_mlp", "act_vocab", "act_experts")
+
+Spec = tuple  # one entry a tensor dim: a mesh axis name, a tuple of them, or None
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """Immutable logical-axis → mesh-axes table with spec translation.
+
+    ``table`` maps a logical axis name to a tuple of mesh axis names
+    (compound axes allowed, e.g. ``("pod", "data")``) or None for
+    replicated.  Unknown names are replicated."""
+
+    table: dict[str, tuple[str, ...] | None]
+    name: str = "tp"
+
+    def spec(self, axes: tuple[str | None, ...]) -> Spec:
+        """Translate a logical-axes tuple into a spec, the entries of the
+        reference's ``PartitionSpec``: a mesh axis name, a tuple of names
+        (a compound axis) or None.  Each mesh axis is used at most once:
+        later logical axes whose mesh axes were taken collapse to None."""
+        used: set[str] = set()
+        parts: list[str | tuple[str, ...] | None] = []
+        for name in axes:
+            mesh_axes = self.table.get(name) if name is not None else None
+            if not mesh_axes:
+                parts.append(None)
+                continue
+            fresh = tuple(a for a in mesh_axes if a not in used)
+            used.update(fresh)
+            if not fresh:
+                parts.append(None)
+            elif len(fresh) == 1:
+                parts.append(fresh[0])
+            else:
+                parts.append(fresh)
+        return tuple(parts)
+
+    def mesh_axes(self, name: str) -> tuple[str, ...] | None:
+        """Mesh axes backing one logical axis (None = replicated)."""
+        return self.table.get(name)
+
+
+def make_rules(
+    *,
+    multi_pod: bool = False,
+    fsdp: bool = False,
+    seq_shard: bool = False,
+    batch_shard: bool = True,
+    parallelism: str = "tp",
+) -> Rules:
+    """Build the Rules for one launch posture (see the module docstring)."""
+    data: tuple[str, ...] = ("pod", "data") if multi_pod else ("data",)
+    model: tuple[str, ...] = ("model",)
+    lane: tuple[str, ...] = ("pod", "lane") if multi_pod else ("lane",)
+
+    table: dict[str, tuple[str, ...] | None]
+    if parallelism == "tp":
+        table = {
+            "act_batch": data if batch_shard else None,
+            "act_seq": model if seq_shard else None,
+            "act_qseq": model if seq_shard else None,
+            "act_embed": None,
+            "embed": data if fsdp else None,
+            "layers": None,
+        }
+        table.update({a: model for a in _MODEL_PARAM_AXES})
+        table.update({a: model for a in _MODEL_ACT_AXES})
+    elif parallelism == "sp":
+        table = {
+            "act_batch": data if batch_shard else None,
+            "act_seq": model,
+            "act_qseq": model,
+            "act_embed": None,
+            "embed": data if fsdp else None,
+            "layers": None,
+        }
+        table.update({a: None for a in _MODEL_PARAM_AXES})
+        table.update({a: None for a in _MODEL_ACT_AXES})
+    elif parallelism == "serve2d":
+        table = {
+            "act_batch": None,
+            "act_seq": None,
+            "act_qseq": None,
+            "act_embed": data,
+            "embed": data,
+            "layers": None,
+        }
+        table.update({a: model for a in _MODEL_PARAM_AXES})
+        table.update({a: model for a in _MODEL_ACT_AXES})
+    elif parallelism == "lanes":
+        # (semantic graph, dst block row) units ride `lane`; head/feature
+        # dims ride `model`; vertex-space tensors replicate (every lane reads
+        # the whole projected table).  A lane mesh has no `data` axis.
+        table = {
+            "lane": lane,
+            "act_lane": lane,
+            "act_vertex": None,
+            "act_graph": None,
+            "act_feat": model,
+            "act_batch": None,
+            "embed": None,
+            "layers": None,
+        }
+        table.update({a: model for a in _MODEL_PARAM_AXES})
+        table.update({a: model for a in _MODEL_ACT_AXES})
+    else:
+        raise ValueError(f"unknown parallelism {parallelism!r}")
+    return Rules(table=table, name=parallelism)
+
+
+# Active-rules context: thread-local, so that rules never leak across threads.
+_state = threading.local()
+
+
+def active_rules() -> Rules | None:
+    """The innermost ``use_rules`` Rules, or None outside any context."""
+    stack = getattr(_state, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def use_rules(rules: Rules):
+    """Install ``rules`` as the ambient sharding rules for the block.  Nests:
+    the innermost rules win, and the previous ones are restored on exit,
+    also on an exception."""
+    stack = getattr(_state, "stack", None)
+    if stack is None:
+        stack = _state.stack = []
+    stack.append(rules)
+    try:
+        yield rules
+    finally:
+        stack.pop()
+
+
+def shard(x, *axes: str | None):
+    """The reference's layout annotation: returns ``x`` unchanged, in every
+    context.  JAX turns it into a sharding constraint inside a rules and
+    mesh context; eager PyTorch has no such constraint, and the port holds
+    each rank's piece explicitly (:func:`local_slice`, :func:`gather_leaf`),
+    so there is nothing here to constrain or check."""
+    return x
+
+
+def lane_axes(rules: Rules) -> tuple[str, ...]:
+    """The mesh axes backing the logical ``lane`` axis under ``rules``
+    (``("pod", "lane")`` under a multi-pod posture)."""
+    axes = rules.mesh_axes("lane")
+    if not axes:
+        raise ValueError(f"rules {rules.name!r} do not map a lane axis")
+    return axes
+
+
+def is_axes_leaf(a) -> bool:
+    """A logical-axes leaf: a tuple of axis names or None (``()`` for a scalar)."""
+    return isinstance(a, tuple) and all(isinstance(x, (str, type(None))) for x in a)
+
+
+def _is_placements(a) -> bool:
+    return isinstance(a, tuple) and all(isinstance(p, Placement) for p in a)
+
+
+def _map(fn, tree, rest, is_leaf):
+    """``fn(leaf, *entries)`` over the leaves of ``tree`` (``is_leaf``) and
+    the entries of ``rest`` at the same keys; None stays None."""
+    if tree is None:
+        return None
+    if is_leaf(tree):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _map(fn, getattr(tree, f.name),
+                                          [getattr(r, f.name) for r in rest], is_leaf)
+                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, [r[k] for r in rest], is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, [r[i] for r in rest], is_leaf) for i, v in enumerate(tree))
+    raise TypeError(f"not a tree node or leaf: {type(tree).__name__}")
+
+
+def _leaves(tree, is_leaf) -> list:
+    """The leaves in ``repro_torch.tree``'s order (dict keys sorted)."""
+    if tree is None:
+        return []
+    if is_leaf(tree):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        kids = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        kids = [tree[k] for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        kids = list(tree)
+    else:
+        raise TypeError(f"not a tree node or leaf: {type(tree).__name__}")
+    return [leaf for k in kids for leaf in _leaves(k, is_leaf)]
+
+
+def _spec_placements(mesh, spec: Spec) -> tuple[Placement, ...]:
+    """One placement per dimension of ``mesh``: ``Shard(i)`` where entry i
+    of ``spec`` names that dimension (alone or in a compound), else
+    ``Replicate()``."""
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [i for i, e in enumerate(spec) if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def map_axes(fn, axes):
+    """``fn`` over the leaves of a logical-axes tree; None stays None."""
+    return _map(fn, axes, [], is_axes_leaf)
+
+
+def param_shardings(mesh, rules: Rules, axes):
+    """Map a logical-axes tree (``train.hgnn.hgnn_train_state_axes``: one
+    tuple of logical names a tensor dim, ``()`` for scalars, None for an
+    absent slot) to per-leaf placements on ``mesh``
+    (:func:`_spec_placements` of the leaf's ``rules.spec``)."""
+    return map_axes(lambda a: _spec_placements(mesh, rules.spec(a)), axes)
+
+
+def map_placements(fn, placement_tree, *trees):
+    """``fn(placements, *leaves)`` over a placements tree
+    (:func:`param_shardings`) and trees of the same structure."""
+    return _map(fn, placement_tree, list(trees), _is_placements)
+
+
+def placement_leaves(placement_tree) -> list[tuple[Placement, ...]]:
+    """A placements tree's leaves, in the order of ``tree.tree_leaves`` of
+    the state it places."""
+    return _leaves(placement_tree, _is_placements)
+
+
+def _sharded_dims(placement: tuple[Placement, ...], mesh):
+    """(mesh dim, tensor dim) of each mesh dimension of more than one rank
+    that shards the leaf, in mesh order."""
+    return [(d, p.dim) for d, p in enumerate(placement)
+            if isinstance(p, Shard) and mesh.size(d) > 1]
+
+
+def local_slice(x: torch.Tensor, placement: tuple[Placement, ...], mesh) -> torch.Tensor:
+    """This rank's piece of the logical leaf ``x``: along each mesh
+    dimension that shards it, the contiguous block of its tensor dim at
+    the rank's coordinate, in mesh order (so a compound axis splits
+    major-first, as JAX's).  Raises unless the mesh dimension divides
+    the tensor dim.  ``x`` itself where nothing shards it."""
+    for d, dim in _sharded_dims(placement, mesh):
+        n = mesh.size(d)
+        if x.shape[dim] % n:
+            raise ValueError(f"a leaf of shape {tuple(x.shape)} does not split over the "
+                             f"{n} ranks of mesh dimension {mesh.mesh_dim_names[d]!r} "
+                             f"(tensor dim {dim})")
+        chunk = x.shape[dim] // n
+        x = x.narrow(dim, mesh.get_local_rank(d) * chunk, chunk).clone(
+            memory_format=torch.contiguous_format)
+    return x
+
+
+class _Gather(torch.autograd.Function):
+    """All-gathers the pieces of a leaf over the mesh dimensions that shard
+    it, last dimension first (the inverse of :func:`local_slice`).  The
+    backward takes the rank's slice of the cotangent: what follows the
+    gather runs replicated, so every rank holds the same whole cotangent,
+    and a reduce-scatter of it would scale the gradient by the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, placement, mesh):
+        ctx.placement, ctx.mesh = placement, mesh
+        for d, dim in reversed(_sharded_dims(placement, mesh)):
+            x = x.contiguous()  # NCCL takes contiguous tensors
+            parts = [torch.empty_like(x) for _ in range(mesh.size(d))]
+            dist.all_gather(parts, x, group=mesh.get_group(d))
+            x = torch.cat(parts, dim=dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return local_slice(grad, ctx.placement, ctx.mesh), None, None
+
+
+def gather_leaf(x: torch.Tensor, placement: tuple[Placement, ...], mesh) -> torch.Tensor:
+    """The logical leaf of this rank's piece ``x`` (a collective: every rank
+    of the mesh calls it), differentiable: its backward is the rank's slice
+    of the cotangent (:class:`_Gather`).  ``x`` itself where nothing shards
+    it."""
+    if not _sharded_dims(placement, mesh):
+        return x
+    return _Gather.apply(x, placement, mesh)

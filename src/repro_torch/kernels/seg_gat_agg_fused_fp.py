@@ -33,6 +33,15 @@ plain products.  CPU tensors take :func:`seg_gat_agg_fused_fp_bwd_plain`.
 ``torch.autograd.Function`` around kernels #3 and #4).  The topology index
 both directions read (:func:`fused_index`) may be built once per batch set
 and passed in.
+
+The .cu files instantiate B = 8, 16 and 32 (``SUPPORTED_BLOCKS``).  A
+larger block (64 or 128, as ``EDGE_BLOCKS``) is re-blocked on the host to
+B' = 32 before the launch (:func:`reblock`, kept on the index): each unit
+becomes B/32 sub-units whose slots are its non-empty 32 × 32 sub-masks.
+The output rows keep their place, so ``out``, ``lse`` and the VJP are
+those of the B-unit layout; the online softmax takes a row's entries in
+another order, so B = 128 agrees with MULTIGRAPH and with the plain
+version within float32 tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ import torch
 from . import build
 from .fused_fp_coeff import BLOCK_M, split_error, split_k, split_scratch
 from .seg_gat_agg_multigraph import (
+    EDGE_BLOCKS,
+    SUPPORTED_BLOCKS,
     check_smem,
     csr,
     unit_softmax_aggregate,
@@ -53,6 +64,7 @@ ROW_TILE = BLOCK_M  # rows of x a tile of phase P covers (csrc/fused_fp_project.
 ROUTES = ("wgmma", "cuda_cores")  # phase P's projection: tensor cores, CUDA cores
 _ROUTE_CODE = {"wgmma": 0, "cuda_cores": 1}
 _TOPOLOGY = ("col_index", "graph_id", "dst_row", "wsel")  # what fused_index reads
+KERNEL_BLOCK = max(SUPPORTED_BLOCKS)  # a larger B is re-blocked to this one (:func:`reblock`)
 _NAME = "seg_gat_agg_fused_fp"
 _BWD_NAME = "seg_gat_agg_fused_fp_bwd"
 
@@ -198,8 +210,42 @@ def bwd_index(col_index, graph_id, dst_row, wsel, n_graphs: int, n_tables: int,
                 table=csr(keys, n_tables * nblk), graph=csr(graph_id, n_graphs))
 
 
+def reblock(col_index, graph_id, dst_row, masks, block: int = KERNEL_BLOCK):
+    """The units of ``masks``' block B (a multiple of ``block``) as units of
+    ``block``: (col_index, graph_id, dst_row, masks) with U·n units, n =
+    B / block.  Unit u becomes the sub-units (u, i), i < n, in that order:
+    ``dst_row' = n·dst_row + i``, its graph copied, and as slots the
+    non-empty ``block × block`` sub-masks ``masks[u, w, i·block:, k·block:]``
+    of u's live slots, at ``col' = n·col + k``, in (w, k) order, compacted
+    and padded with -1 to the widest sub-unit's count (at least one slot, so
+    that a sub-unit with no set entry writes its rows as an empty row).  Row
+    r of sub-unit (u, i) is row ``u·B + i·block + r`` of the B layout: the
+    kernels' ``out`` and ``lse`` are laid out as at B.  One host sync."""
+    U, W = col_index.shape
+    B = masks.shape[-1]
+    if B % block:
+        raise ValueError(f"{_NAME}: block size B={B} is not a multiple of {block}")
+    n = B // block
+    dev = col_index.device
+    sub = masks.reshape(U, W, n, block, n, block)
+    # [U·n, W·n]: sub-unit (u, i), slot (w, k)
+    live = (sub.any(dim=5).any(dim=3) & (col_index >= 0)[:, :, None, None])
+    live = live.permute(0, 2, 1, 3).reshape(U * n, W * n)
+    width = max(1, int(live.sum(dim=1).max())) if live.numel() else 1
+    order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)[:, :width]
+    keep = torch.gather(live, 1, order)
+    sub_unit = torch.arange(U * n, device=dev)
+    u, i = (sub_unit // n)[:, None], (sub_unit % n)[:, None]
+    w, k = order // n, order % n
+    col = torch.where(keep, col_index.long()[u, w] * n + k, -1).int()
+    sub_masks = sub[u, w, i, :, k, :] & keep[:, :, None, None]
+    row = dst_row.long().repeat_interleave(n) * n + sub_unit % n
+    return (col.contiguous(), graph_id.repeat_interleave(n).contiguous(),
+            row.int().contiguous(), sub_masks.contiguous())
+
+
 def fused_index(col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int, block: int,
-                *, backward: bool = True) -> dict:
+                *, backward: bool = True, masks: torch.Tensor | None = None) -> dict:
     """The topology index kernels #3 and #4 read, on the topology's device:
     ``tiles`` (:func:`row_tiles`) and, with ``backward``, :func:`bwd_index`'s
     live-slot numbering and CSRs.  It takes a device sort and host syncs, so
@@ -207,26 +253,43 @@ def fused_index(col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int, b
     it to every call.  ``built_for`` records what it was built for, which
     :func:`check_index` holds each call to: (U, W, B, T, N_pad) and the four
     topology tensors, each with its version counter and a copy of its
-    values."""
-    topology = (col_index, graph_id, dst_row, wsel)
-    index = dict(tiles=row_tiles(col_index, graph_id, dst_row, wsel, n_pad, block),
-                 built_for=dict(shape=(*col_index.shape, block, n_tables, n_pad),
-                                operands={k: (t, t._version, t.clone())
-                                          for k, t in zip(_TOPOLOGY, topology)}))
-    if backward:
-        index.update(bwd_index(col_index, graph_id, dst_row, wsel, int(wsel.numel()), n_tables,
-                               n_pad // block))
+    values.
+
+    A ``block`` above ``KERNEL_BLOCK`` needs ``masks``: the index then holds
+    :func:`reblock`'s topology and the index of that topology at
+    ``KERNEL_BLOCK`` under ``reblocked``, which the kernels read, and is
+    built for the masks too."""
+    topology = dict(zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)))
+    if block > KERNEL_BLOCK:
+        if masks is None:
+            raise ValueError(f"{_NAME}: B={block} is re-blocked to {KERNEL_BLOCK}, which reads "
+                             "the masks: pass masks=")
+        topology["masks"] = masks
+        col, gid, row, sub_masks = reblock(col_index, graph_id, dst_row, masks)
+        index = dict(reblocked=dict(
+            col_index=col, graph_id=gid, dst_row=row, masks=sub_masks,
+            index=fused_index(col, gid, row, wsel, n_tables, n_pad, KERNEL_BLOCK,
+                              backward=backward)))
+    else:
+        index = dict(tiles=row_tiles(col_index, graph_id, dst_row, wsel, n_pad, block))
+        if backward:
+            index.update(bwd_index(col_index, graph_id, dst_row, wsel, int(wsel.numel()),
+                                   n_tables, n_pad // block))
+    index["built_for"] = dict(shape=(*col_index.shape, block, n_tables, n_pad),
+                              operands={k: (t, t._version, t.clone())
+                                        for k, t in topology.items()})
     return index
 
 
 def check_index(index: dict, col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int,
-                block: int) -> None:
+                block: int, *, masks: torch.Tensor | None = None) -> None:
     """Raise unless ``index`` is :func:`fused_index` of this topology: the
     same (U, W, B, T, N_pad) and the same values of col_index, graph_id,
-    dst_row and wsel.  Phase A reads only the rows of h that phase P wrote,
-    so an index of another topology gives wrong numbers, not an error.  A
-    tensor the index was built from, unchanged since (its version counter),
-    passes without reading the device; any other is compared by value."""
+    dst_row and wsel (and masks, for an index of a re-blocked B).  Phase A
+    reads only the rows of h that phase P wrote, so an index of another
+    topology gives wrong numbers, not an error.  A tensor the index was
+    built from, unchanged since (its version counter), passes without
+    reading the device; any other is compared by value."""
     built = index.get("built_for")
     if built is None:
         raise ValueError(f"{_NAME}: index is not one of fused_index")
@@ -234,12 +297,35 @@ def check_index(index: dict, col_index, graph_id, dst_row, wsel, n_tables: int, 
     if built["shape"] != shape:
         raise ValueError(f"{_NAME}: the index was built for (U, W, B, T, N_pad) = "
                          f"{built['shape']}, the operands have {shape}")
-    for name, t in zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)):
-        ref, version, values = built["operands"][name]
+    given = dict(zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)), masks=masks)
+    for name, (ref, version, values) in built["operands"].items():
+        t = given[name]
         if t is ref and t._version == version:
             continue
-        if t.shape != values.shape or not torch.equal(t, values.to(t.device)):
+        if t is None or t.shape != values.shape or not torch.equal(t, values.to(t.device)):
             raise ValueError(f"{_NAME}: the index was built for another {name}")
+
+
+def _kernel_topology(name: str, col_index, graph_id, dst_row, wsel, masks, n_tables: int,
+                     n_pad: int, index: dict | None, backward: bool):
+    """What the kernels read for these operands: (col_index, graph_id,
+    dst_row, masks, index) at a block the .cu files take, the given ones
+    below ``KERNEL_BLOCK``, else the re-blocked ones the index keeps.
+    ``index`` is checked (:func:`check_index`), or built when None or
+    without the backward's part."""
+    B = masks.shape[-1]
+    if B not in EDGE_BLOCKS:
+        raise ValueError(f"{name}: block size B={B} not in {EDGE_BLOCKS}")
+    kernel_index = index if index is None else index.get("reblocked", {}).get("index", index)
+    if index is None or (backward and "pair_of" not in kernel_index):
+        index = fused_index(col_index, graph_id, dst_row, wsel, n_tables, n_pad, B,
+                            backward=backward, masks=masks)
+    else:
+        check_index(index, col_index, graph_id, dst_row, wsel, n_tables, n_pad, B, masks=masks)
+    if "reblocked" not in index:
+        return col_index, graph_id, dst_row, masks, index
+    r = index["reblocked"]
+    return r["col_index"], r["graph_id"], r["dst_row"], r["masks"], r["index"]
 
 
 def _projection_scratch(route_: str, n_tiles: int, T: int, n_pad: int, din: int, C: int,
@@ -415,25 +501,26 @@ def seg_gat_agg_fused_fp_fwd(
     as ``seg_gat_agg_multigraph_fwd``) and ``lse [U·B, H]``.  ``x`` must
     cover every block index in ``col_index``/``dst_row`` (N_pad = n_blocks·B).
 
-    CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only.  ``index``: :func:`fused_index` of these operands, built
-    here when None; one built for another topology raises
-    (:func:`check_index`)."""
+    CUDA operands launch the kernel (B above 32 re-blocked to 32,
+    :func:`reblock`); CPU operands take the plain version.  float32 only.
+    ``index``: :func:`fused_index` of these operands, built here when None;
+    one built for another topology raises (:func:`check_index`)."""
     w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
                                       a_src, a_dst, edge_bias)
     if x.device.type == "cpu":
         if index is not None:
             check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0],
-                        masks.shape[-1])
+                        masks.shape[-1], masks=masks)
         return seg_gat_agg_fused_fp_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
             edge_bias, leaky_slope=leaky_slope,
         )
     U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape[1:]
-    check_smem(_NAME, B, H, Dh, smem_bytes(B, H, Dh))
-    if index is None:
-        index = fused_index(col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B,
-                            backward=False)
+    col_index, graph_id, dst_row, masks, index = _kernel_topology(
+        _NAME, col_index, graph_id, dst_row, wsel, masks, w.shape[0], x.shape[0], index,
+        backward=False)
+    kb = masks.shape[-1]
+    check_smem(_NAME, kb, H, Dh, smem_bytes(kb, H, Dh))
     out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=x.device)
     lse = torch.empty((U * B, H), dtype=torch.float32, device=x.device)
     launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
@@ -455,8 +542,8 @@ def seg_gat_agg_fused_fp_bwd(
     [T, Din, H·Dh], d_b [T, H·Dh], d_a_src, d_a_dst, d_edge_bias), bitwise
     repeatable on the card.  ``need_dx=False`` skips the ``d_x`` product.
 
-    CUDA operands launch the backward kernel; CPU operands take the plain
-    version.  float32 only.  ``index``: :func:`fused_index` of these
+    CUDA operands launch the backward kernel (B above 32 re-blocked to 32,
+    :func:`reblock`); CPU operands take the plain version.  float32 only.  ``index``: :func:`fused_index` of these
     operands with its backward part, built here when None or without it;
     one built for another topology raises (:func:`check_index`)."""
     w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
@@ -468,14 +555,17 @@ def seg_gat_agg_fused_fp_bwd(
     build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
     if dev.type == "cpu":
         if index is not None:
-            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B)
+            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B,
+                        masks=masks)
         return seg_gat_agg_fused_fp_bwd_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
             out, lse, g_out, leaky_slope=leaky_slope, need_dx=need_dx,
         )
-    check_smem(_BWD_NAME, B, H, Dh, bwd_smem_bytes(B, H, Dh))
-    if index is None or "pair_of" not in index:
-        index = fused_index(col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B)
+    col_index, graph_id, dst_row, masks, index = _kernel_topology(
+        _BWD_NAME, col_index, graph_id, dst_row, wsel, masks, w.shape[0], x.shape[0], index,
+        backward=True)
+    kb = masks.shape[-1]
+    check_smem(_BWD_NAME, kb, H, Dh, bwd_smem_bytes(kb, H, Dh))
     delta = (g_out * out).sum(dim=-1)
     dh_t, d_a_src, d_a_dst, d_bias = launch_bwd(
         col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,

@@ -36,7 +36,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3 and #4 are instantiated for
+SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3 and #4 are instantiated for (64, 128: re-blocked)
 SMEM_OPTIN = 232_448            # bytes of shared memory a block may opt into (sm_90)
 EDGE_BLOCKS = (8, 16, 32, 64, 128)  # B that #1, #2 and #5 take (csrc/edge_na.cuh: kMaxBlock)
 MAX_HEADS = 32                  # #1, #2 and #5: lane h of a warp holds head h

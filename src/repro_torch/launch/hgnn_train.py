@@ -8,6 +8,8 @@ lane group of ranks.
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --device cpu --steps 5 --plan-lanes 4
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --steps 20 --trace t.json --metrics m.json
     torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 4 --plan-lanes 16
+    torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 2 --model-split 2 \
+        --plan-lanes 16
 
 Builds the named Table-5 HetGraph, its target-type semantic graphs in the
 similarity schedule's order (FP reuse), synthetic labels with planted
@@ -24,23 +26,28 @@ step and one of #2 in the backward; ``reference`` is the plain per-unit
 softmax; ``kernel_interpret`` is a spelling of ``kernel``.  ``--lanes``
 is the lane axis of the mesh, the ranks of a ``torch.distributed`` group
 (``torchrun --nproc-per-node``), over which the plan's lanes are split
-(``--plan-lanes`` a multiple of ``--lanes``); checkpoints restore at any
-lane count (elastic restart) and only lane rank 0 writes them.  R-GAT's
+(``--plan-lanes`` a multiple of ``--lanes``).  ``--model-split M`` adds
+the mesh's model axis (``lanes · M`` ranks), under the reference's
+``lanes`` rules (``dist.make_rules(parallelism="lanes")``): each model
+rank holds its columns of ``w_fp``/``b_fp`` and its heads of the ``heads``
+and ``mlp`` leaves, and its slices of the AdamW moments; FP's flops split
+over the model axis, the rest runs replicated over it
+(``han_forward_multilane``); M must divide ``--heads``.  Checkpoints hold
+the logical leaves and restore on any (lanes, model) mesh (elastic
+restart); one rank of the mesh writes them, and logs.  R-GAT's
 relation-specific projections keep it off the plan: it runs kernels
 #1/#2 once per semantic graph and layer (MULTIGRAPH at G = 1), BLOCK on
-``reference``.  ``--device`` defaults to ``cuda`` and raises on a host
-without a card; ``--device cpu`` runs the kernels' plain versions.
+``reference``, with no model axis (an error that names ROADMAP Queue 1
+item 9b).  ``--device`` defaults to ``cuda`` and raises on a host without
+a card; ``--device cpu`` runs the kernels' plain versions.
 
 ``--trace PATH`` traces the whole run with synchronising spans into a
 Chrome-trace JSON; for HAN it first runs one per-stage characterization
 pass (``obs/characterize.py``: FP, θ, NA and FA, one lane row per
 semantic graph).  ``--metrics PATH`` writes the metrics registry (the
 step-time histogram, the loss and grad-norm gauges, the characterization's
-stage histogram) as JSON.  Under a lane group lane rank 0 alone
-characterizes and writes both files.
-
-Not ported yet, and an error that names the ROADMAP item: ``--model-split``
-> 1 (item 9).
+stage histogram) as JSON.  Under a mesh one rank alone characterizes
+and writes both files.
 """
 from __future__ import annotations
 
@@ -51,11 +58,12 @@ import os
 import torch
 import torch.distributed as dist
 
-from ..checkpoint import writes_checkpoints
+from ..checkpoint import logical_state, reshard_to, writes_checkpoints
 from ..core.fusion import NABackend
 from ..core.multilane import build_multilane_plan, resolve_multilane_backend
 from ..core.scheduling import similarity_schedule
 from ..data import SyntheticHGNNData
+from ..dist import make_rules, param_shardings
 from ..graphs import (
     build_semantic_graphs,
     dataset_metapaths,
@@ -68,9 +76,14 @@ from ..obs import disable_tracing, enable_tracing, get_registry
 from ..obs.characterize import characterize_hgnn
 from ..optim import AdamWConfig
 from ..runtime import resolve_device
-from ..train import init_hgnn_train_state, make_hgnn_train_step, train_loop
+from ..train import (
+    hgnn_train_state_axes,
+    init_hgnn_train_state,
+    make_hgnn_train_step,
+    train_loop,
+)
 from ..tree import tree_leaves
-from .mesh import make_lane_mesh
+from .mesh import MODEL_AXIS_ITEM, make_lane_mesh
 
 DATASETS = ("acm", "imdb", "dblp")
 BACKENDS = ("reference", "kernel", "kernel_interpret")
@@ -138,8 +151,9 @@ def run_training(
     device: str | torch.device = "cuda",
 ):
     """Train HAN or R-GAT on one dataset under the lanes posture: one
-    process, or one per rank of a lane mesh of ``lanes`` (an initialised
-    ``torch.distributed`` group).  Returns ``(state, history, meta)``;
+    process, or one per rank of a (``lanes``, ``model_split``) mesh (an
+    initialised ``torch.distributed`` group).  Returns ``(state, history,
+    meta)``: the state holds this rank's pieces of the sharded leaves;
     meta records the model, the resolved backend, the mesh, the plan's
     lanes and sizes, and the characterization's result (None without
     ``trace``).
@@ -150,13 +164,19 @@ def run_training(
     before the steady state, so the timeline carries FP/theta/NA/FA stage
     times with one lane row per semantic graph.  ``metrics_out=``
     snapshots ``registry`` (default: the process-wide one) to JSON.
-    Under a lane group lane rank 0 alone logs, characterizes and writes
-    (and logs each file it wrote).
+    Under a mesh one rank (``writes_checkpoints``) alone logs,
+    characterizes and writes (and logs each file it wrote).
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}, expected one of {BACKENDS}")
     if model_name not in _INIT_KW:
         raise ValueError(f"model_name={model_name!r}, expected one of {sorted(_INIT_KW)}")
+    if model_split > 1 and model_name != "HAN":
+        raise NotImplementedError(f"{model_name} over a model axis of {model_split} is not "
+                                  f"ported yet: {MODEL_AXIS_ITEM}")
+    if model_split > 1 and heads % model_split:
+        raise ValueError(f"heads={heads} must be a multiple of model_split={model_split}: "
+                         "a model rank holds whole heads")
     n_plan_lanes = plan_lanes or lanes
     if n_plan_lanes % lanes:
         raise ValueError(f"plan_lanes={n_plan_lanes} must be a multiple of lanes={lanes}")
@@ -164,20 +184,33 @@ def run_training(
     mesh = make_lane_mesh(lanes, model_split, device_type=dev.type)
     if mesh is not None and dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    reporter = writes_checkpoints(mesh)  # lane rank 0 logs, characterizes and writes
+    reporter = writes_checkpoints(mesh)  # one rank logs, characterizes and writes
     if not reporter:
         log = lambda *_: None  # noqa: E731
     reg = registry if registry is not None else get_registry()
     g, data = build_problem(dataset, scale=scale, feat_scale=feat_scale, block=block,
                             max_edges=max_edges, seed=seed, device=dev)
     model = MODELS[model_name]
+    n_target = g.vertex_counts[data.target_type]
+    opt = AdamWConfig(lr=lr, weight_decay=0.0)
+    pipeline = SyntheticHGNNData(num_vertices=n_target,
+                                 batch_size=batch if batch > 0 else n_target, seed=seed)
+    # the logical state, the same on every rank (one seed), then this rank's slices
+    state = init_hgnn_train_state(model, torch.Generator().manual_seed(seed), data, opt,
+                                  **_INIT_KW[model_name](hidden, heads))
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    rules, axes = make_rules(parallelism="lanes"), hgnn_train_state_axes(state, opt)
+    placements = None if mesh is None else param_shardings(mesh, rules, axes)
+    state = reshard_to(state, mesh=mesh, rules=rules, axes=axes)
+    param_placements = None if placements is None else placements.params
     if model_name == "HAN":
         # one NA call for all relations a step, over the plan's units in lane
         # order, the plan's lanes split over the mesh's lane group
         plan = build_multilane_plan(data.graphs, n_plan_lanes)
         na_backend = resolve_multilane_backend(backend)
         forward_fn = lambda p: han_forward_multilane(  # noqa: E731
-            p, data, plan, mesh=mesh, backend=na_backend)
+            p, data, plan, mesh=mesh, placements=param_placements,
+            backend=na_backend)
     else:
         # per-relation projections: the kernels once per relation and layer,
         # replicated on every lane rank
@@ -185,31 +218,29 @@ def run_training(
         nab = _PER_GRAPH[backend]
         na_backend = nab.value
         forward_fn = lambda p: model.forward(p, data, backend=nab)  # noqa: E731
-    n_target = g.vertex_counts[data.target_type]
-    opt = AdamWConfig(lr=lr, weight_decay=0.0)
-    pipeline = SyntheticHGNNData(num_vertices=n_target,
-                                 batch_size=batch if batch > 0 else n_target, seed=seed)
-    state = init_hgnn_train_state(model, torch.Generator().manual_seed(seed), data, opt,
-                                  **_INIT_KW[model_name](hidden, heads))
-    n_params = sum(p.numel() for p in tree_leaves(state.params))
     log(f"[hgnn_train] {model_name}/{dataset} params={n_params / 1e6:.2f}M "
         f"edges={sum(b.num_edges for b in data.graphs)} mesh=lane{lanes}xmodel{model_split} "
         f"plan_lanes={None if plan is None else plan.num_lanes} device={dev} "
         f"backend={na_backend}")
-    step_fn = make_hgnn_train_step(forward_fn, data, opt)
+    step_fn = make_hgnn_train_step(forward_fn, data, opt, mesh=mesh,
+                                   placements=param_placements)
     tracer = enable_tracing(sync=True) if trace and reporter else None
+    # the logical params, gathered on every rank (a collective) for the reporter
+    char_params = (logical_state(state.params, mesh, param_placements)
+                   if trace and model_name == "HAN" else None)
     char = None
     try:
         if tracer is not None and model_name == "HAN":
             # per-stage pass (paper §3 measured): FP/theta/NA/FA spans, one
             # lane row per semantic graph; the steps below yield whole-step spans
-            char = characterize_hgnn(state.params, data, backend=NABackend.BLOCK, registry=reg)
+            char = characterize_hgnn(char_params, data, backend=NABackend.BLOCK, registry=reg)
             log("[characterize] "
                 + " ".join(f"{k}={v:.0f}us" for k, v in char["stage_us"].items()))
         state, history = train_loop(
             state=state, train_step=step_fn, data=pipeline, steps=steps,
             ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
             crash_at=crash_at, log_every=log_every, log=log, registry=reg, mesh=mesh,
+            placements=placements,
         )
     finally:
         if tracer is not None:
@@ -232,7 +263,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lanes", type=int, default=1,
                     help="lane mesh axis size: the ranks of the process group (torchrun)")
-    ap.add_argument("--model-split", type=int, default=1, help="model mesh axis size (1 only)")
+    ap.add_argument("--model-split", type=int, default=1,
+                    help="model mesh axis size: HAN's heads/features over it (divides --heads)")
     ap.add_argument("--plan-lanes", type=int, default=None,
                     help="work-unit partition lanes (default: mesh lanes; must be a multiple)")
     ap.add_argument("--backend", default="kernel", choices=BACKENDS,

@@ -31,6 +31,7 @@ from ...core.multilane import (
     multilane_na_sharded,
     resolve_multilane_backend,
 )
+from ...dist.sharding import gather_leaf
 from ...runtime import barrier
 from .common import HGNNData, HGNNModel, glorot
 
@@ -115,6 +116,7 @@ def _han_embed_multilane(
     plan: MultiLanePlan,
     *,
     mesh=None,
+    placements=None,
     backend: str = "reference",
 ):
     """The consolidated HAN layer over a lane-partitioned work-unit plan.
@@ -125,21 +127,51 @@ def _han_embed_multilane(
     group.  ``backend="kernel"`` is kernel #1 forward and #2 backward;
     ``"fused_fp"`` projects inside the call (#3/#4) from the raw features.
 
+    The model axis (DESIGN.md §5's lanes posture): with ``placements``
+    (``dist.param_shardings`` of ``train.hgnn.hgnn_param_axes``) the params
+    are this rank's pieces.  A model rank holds contiguous columns of
+    ``w_fp``/``b_fp`` (whole heads: the model axis must divide H), projects
+    its columns of h (FP's flops split over the model axis) and an
+    all-gather over the model group rebuilds h; the ``heads``/``mlp``
+    leaves (``a_src``, ``a_dst``, ``w_g``, ``w_out``) are gathered before
+    use, and everything after FP (θ, NA over the lane group, ELU, LSF, GSF)
+    runs replicated over the model group.  Each gather's backward takes
+    the rank's slice of the (replicated) cotangent
+    (``dist.sharding.gather_leaf``).  On ``fused_fp`` the kernel projects
+    inside the call from the whole ``w``, so ``w_fp`` is gathered and FP is
+    not split.
+
     Equivalence contract (the reference's): the forward is bit-identical
     across lane counts and backends on the card, since each unit is
     computed alone and lanes only move exact zeros through the placement
     and the all-reduce.  The backward's cross-unit sums (d_h_src, d_theta_src
     over all units that read a src vertex) run in the plan's unit order,
     so gradients agree to float32 tolerance across plans and are
-    bit-deterministic for a fixed plan.
+    bit-deterministic for a fixed plan.  Under a model axis the ranks of a
+    model group compute bitwise-equal logits, loss and replicated leaves
+    (all read the same gathered operands), two runs at one mesh are
+    bitwise equal, and against one process logits, loss and the gathered
+    gradients agree within 1e-5 of each leaf's largest magnitude in
+    float32 (TF32 off): the column-sliced GEMM and the gradient norm's
+    order of summation may move bits.  A gradient that nearly cancels
+    (b_g's: the semantic softmax's cotangent sums to zero over the graphs)
+    moves further when the GEMM's bits move, by about its own float32
+    error against float64.
     """
     x = data.features[data.target_type]
-    heads = params["a_src"].shape[1]
     n = x.shape[0]
     n_pad = plan.n_dst_blocks * plan.block  # shared src/dst vertex space
     backend = resolve_multilane_backend(backend)
     kw = {} if mesh is None else dict(mesh=mesh)
     na = multilane_na if mesh is None else multilane_na_sharded
+    split_fp = placements is not None and backend != "fused_fp"
+    if placements is not None:
+        if mesh is None:
+            raise ValueError("placements without a mesh")
+        local = ("w_fp", "b_fp", "w_out") if split_fp else ("w_out",)  # w_out: the caller's
+        params = {k: v if k in local else gather_leaf(v, placements[k], mesh)
+                  for k, v in params.items()}
+    heads = params["a_src"].shape[1]
 
     if backend == "fused_fp":
         fp = FusedFPInputs.shared(_pad_rows(x, n_pad), params["w_fp"], params["b_fp"],
@@ -147,6 +179,8 @@ def _han_embed_multilane(
         z_all = na(plan, None, None, None, backend=backend, fp=fp, **kw)
     else:
         h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
+        if split_fp:  # this rank's columns of h, gathered as w_fp's columns are placed
+            h = gather_leaf(h, placements["w_fp"], mesh)
         hh = h.reshape(n, heads, -1)
         th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
         th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
@@ -162,12 +196,16 @@ def han_forward_multilane(
     plan: MultiLanePlan,
     *,
     mesh=None,
+    placements=None,
     backend: str = "reference",
 ):
-    """HAN logits with NA dispatched through a multi-lane plan (see
-    ``_han_embed_multilane``)."""
-    fused, _ = _han_embed_multilane(params, data, plan, mesh=mesh, backend=backend)
-    return fused @ params["w_out"] + params["b_out"]
+    """HAN logits with NA dispatched through a multi-lane plan, over a
+    (lane, model) mesh with ``placements`` (see ``_han_embed_multilane``)."""
+    fused, _ = _han_embed_multilane(params, data, plan, mesh=mesh, placements=placements,
+                                    backend=backend)
+    w_out = params["w_out"] if placements is None else gather_leaf(
+        params["w_out"], placements["w_out"], mesh)
+    return fused @ w_out + params["b_out"]
 
 
 # --- staged execution (Fig. 4(a) baseline): one stage at a time ---

@@ -1,4 +1,5 @@
-from .adamw import AdamWConfig, apply_updates, global_norm, init_opt_state
+from .adamw import AdamWConfig, apply_updates, global_norm, init_opt_state, opt_state_axes
 from .schedules import warmup_cosine
 
-__all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_opt_state", "warmup_cosine"]
+__all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_opt_state", "opt_state_axes",
+           "warmup_cosine"]

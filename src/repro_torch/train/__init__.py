@@ -1,10 +1,18 @@
-from .hgnn import hgnn_loss_and_grads, init_hgnn_train_state, make_hgnn_train_step
+from .hgnn import (
+    hgnn_loss_and_grads,
+    hgnn_param_axes,
+    hgnn_train_state_axes,
+    init_hgnn_train_state,
+    make_hgnn_train_step,
+)
 from .loop import train_loop
 from .step import TrainState
 
 __all__ = [
     "TrainState",
     "hgnn_loss_and_grads",
+    "hgnn_param_axes",
+    "hgnn_train_state_axes",
     "init_hgnn_train_state",
     "make_hgnn_train_step",
     "train_loop",

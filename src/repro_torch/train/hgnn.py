@@ -12,6 +12,11 @@ whole step is bitwise repeatable on the card: a per-vertex weight (the
 count of the vertex in ``idx`` over ``len(idx)``) multiplies the full-graph
 NLL, in place of ``logits[idx]``, whose backward would scatter with atomics.
 It equals the reference's mean NLL over ``idx`` up to the order of the sum.
+
+Under a model axis the state holds this rank's pieces of the sharded
+leaves (``dist.sharding``, placed by :func:`hgnn_train_state_axes`
+through ``param_shardings``): the step takes the placements and the mesh,
+so that the gradient clip sees the whole gradient.
 """
 from __future__ import annotations
 
@@ -21,9 +26,47 @@ import torch
 import torch.nn.functional as F
 
 from ..models.hgnn.common import HGNNData, HGNNModel
-from ..optim import AdamWConfig, apply_updates, init_opt_state
+from ..optim import AdamWConfig, apply_updates, init_opt_state, opt_state_axes
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .step import TrainState
+
+# Logical parameter axes by leaf name (the reference's table): the lanes
+# rules map "mlp"/"heads" onto the model axis and replicate the rest.
+# Unknown names replicate.
+_HGNN_PARAM_AXES: dict[str, tuple[str | None, ...]] = {
+    "w_fp": ("embed", "mlp"),
+    "b_fp": ("mlp",),
+    "a_src": ("act_graph", "heads", None),
+    "a_dst": ("act_graph", "heads", None),
+    "w_src": ("embed", "mlp"),
+    "w_dst": ("embed", "mlp"),
+    "w_g": ("mlp", None),
+    "w_out": ("mlp", None),
+}
+
+
+def hgnn_param_axes(params) -> Any:
+    """Logical-axes tree of an HGNN params tree (the same structure): a
+    leaf's axes are keyed by its last dict key; anything not in the table,
+    or of another rank, replicates (``(None,) * ndim``)."""
+
+    def axes(tree, name):
+        if isinstance(tree, dict):
+            return {k: axes(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(axes(v, None) for v in tree)
+        ax = _HGNN_PARAM_AXES.get(name)
+        return tuple(ax) if ax is not None and len(ax) == tree.dim() else (None,) * tree.dim()
+
+    return axes(params, None)
+
+
+def hgnn_train_state_axes(state: TrainState, opt_cfg: AdamWConfig) -> TrainState:
+    """Logical-axes TrainState for ``dist.param_shardings``: an elastic
+    restart derives the placements from this against whatever mesh the new
+    run has (checkpoint leaves are logical)."""
+    pax = hgnn_param_axes(state.params)
+    return TrainState(params=pax, opt=opt_state_axes(pax, opt_cfg, state.params), step=())
 
 
 def init_hgnn_train_state(
@@ -65,13 +108,17 @@ def make_hgnn_train_step(
     opt_cfg: AdamWConfig,
     *,
     lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    placements=None,
+    mesh=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the HGNN train step.
 
     ``forward_fn(params) -> logits [N_target, C]`` runs the full-graph
     forward; ``batch["idx"]`` selects the step's labeled minibatch.
     Metrics (0-d tensors): ``loss``, minibatch accuracy ``acc``,
-    ``grad_norm`` and ``lr``.
+    ``grad_norm`` and ``lr``.  ``placements`` (``dist.param_shardings`` of
+    the params) and ``mesh``: the params are this rank's pieces, and the
+    gradient norm is the whole gradient's (``optim.apply_updates``).
     """
     if data.labels is None:
         raise ValueError("training needs labels in HGNNData")
@@ -82,7 +129,8 @@ def make_hgnn_train_step(
         loss, acc, grads = hgnn_loss_and_grads(forward_fn, state.params, data, batch["idx"])
         with torch.no_grad():
             lr = sched(state.step)
-            new_params, new_opt, gnorm = apply_updates(state.params, grads, state.opt, opt_cfg, lr)
+            new_params, new_opt, gnorm = apply_updates(state.params, grads, state.opt, opt_cfg, lr,
+                                                       placements=placements, mesh=mesh)
         metrics = {"loss": loss, "acc": acc, "grad_norm": gnorm, "lr": lr}
         return TrainState(params=new_params, opt=new_opt, step=state.step + 1), metrics
 

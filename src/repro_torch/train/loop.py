@@ -12,10 +12,11 @@ import time
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from ..checkpoint import (
+    broadcast_from_writer,
     latest_step,
+    logical_state,
     reshard_to,
     restore_checkpoint,
     save_checkpoint,
@@ -25,33 +26,35 @@ from ..data.pipeline import SyntheticHGNNData
 from ..obs.emit import Emitter
 from ..obs.metrics import MetricsRegistry, get_registry
 from ..obs.trace import trace_span
+from ..tree import tree_leaves
 from .step import TrainState
 
 
-def _restore_latest(ckpt_dir: str, state: TrainState,
-                    mesh) -> tuple[int | None, TrainState, dict]:
+def _restore_latest(ckpt_dir: str, state: TrainState, mesh,
+                    placements) -> tuple[int | None, TrainState, dict]:
     """(step, state, aux) of the latest checkpoint, or (None, state, {}).
 
-    With a lane mesh, lane rank 0 alone reads the disk and decides; the
-    other ranks take its step and aux through a broadcast and its leaves
-    through ``reshard_to``.  So every rank starts from rank 0's step, also
-    where the others see another directory or none (no shared file
-    system), and no rank skips the collectives the others enter."""
-    found = [None, {}]
-    if writes_checkpoints(mesh):
-        last = latest_step(ckpt_dir)
-        if last is not None:
-            state, aux = restore_checkpoint(ckpt_dir, last, state)
-            found = [last, aux]
+    With a mesh, the writer (``writes_checkpoints``) alone reads the disk
+    and decides; every rank takes its step, aux and logical leaves through
+    broadcasts over the mesh, then ``reshard_to`` cuts its own slices.  So
+    every rank starts from the writer's step, also where the others see
+    another directory or none (no shared file system), and no rank skips
+    the collectives the others enter.  The buffers the others receive into
+    are their state's logical form (``logical_state``)."""
+    writer = writes_checkpoints(mesh)
+    found = [latest_step(ckpt_dir) if writer else None]
+    dev = state.step.device
     if mesh is not None:
-        group = mesh.get_group("lane")
-        dev = state.step.device
-        dist.broadcast_object_list(found, src=dist.get_global_rank(group, 0), group=group,
-                                   device=dev if dev.type == "cuda" else None)
-    last, aux = found
-    if last is not None:
-        state = reshard_to(state, mesh=mesh)
-    return last, state, aux
+        broadcast_from_writer(mesh, dev, objects=found)
+    if found[0] is None:
+        return None, state, {}
+    logical = logical_state(state, mesh, placements)
+    aux = [None]
+    if writer:
+        logical, aux[0] = restore_checkpoint(ckpt_dir, found[0], logical)
+    if mesh is not None:
+        broadcast_from_writer(mesh, dev, objects=aux, tensors=tree_leaves(logical))
+    return found[0], reshard_to(logical, mesh=mesh, placements=placements), aux[0]
 
 
 def train_loop(
@@ -67,15 +70,20 @@ def train_loop(
     log_every: int = 10,
     log: Callable[[str], None] = print,
     registry: MetricsRegistry | None = None,
-    mesh=None,  # lane mesh: restored state replicated over it, lane rank 0 writes
+    mesh=None,  # (lane, model) mesh: one rank reads and writes, every rank restores
+    placements=None,  # dist.param_shardings of the state: its leaves are pieces
 ) -> tuple[TrainState, list[dict]]:
     """Run train steps ``[start, steps)`` with checkpointing and structured
     logging; ``start`` is the latest checkpoint's step when resuming.
 
-    With a lane ``mesh`` (``launch.mesh.make_lane_mesh``) every rank runs
-    the loop in step: lane rank 0 alone reads and writes checkpoints, and
-    a restored state is placed by ``reshard_to`` over the lane group
-    (elastic restart: any lane count restores any checkpoint).
+    With a ``mesh`` (``launch.mesh.make_lane_mesh``) every rank runs the
+    loop in step.  The state's leaves are this rank's pieces by
+    ``placements`` (all whole when None).  One rank (``writes_checkpoints``)
+    reads and writes checkpoints; a checkpoint holds the logical leaves,
+    gathered over the mesh on every rank before the writer writes them,
+    and a restored state is broadcast from the writer and cut to each
+    rank's slices by ``reshard_to`` (elastic restart: any mesh restores
+    any checkpoint).
 
     Observability (DESIGN.md §12), into ``registry`` (default: the
     process-wide one, ``obs.get_registry()``): every step increments
@@ -91,11 +99,16 @@ def train_loop(
     step_ms = reg.histogram("train.step_ms")
     steps_c = reg.counter("train.steps")
     dev = state.step.device
-    writer = bool(ckpt_dir) and writes_checkpoints(mesh)
+    writer = writes_checkpoints(mesh)
+
+    def checkpoint(step: int) -> None:  # every rank gathers, the writer writes
+        logical = logical_state(state, mesh, placements)
+        if writer:
+            save_checkpoint(ckpt_dir, step, logical, aux={"data": data.state()})
 
     start = 0
     if ckpt_dir and resume:
-        last, state, aux = _restore_latest(ckpt_dir, state, mesh)
+        last, state, aux = _restore_latest(ckpt_dir, state, mesh, placements)
         if last is not None:
             data.restore(aux["data"])
             start = last
@@ -124,10 +137,10 @@ def train_loop(
                 em.emit("train", step=step, loss=m["loss"], gnorm=m["grad_norm"], sec=dt)
             step_ms.observe(dt * 1e3)
             steps_c.inc()
-            if writer and (step + 1) % ckpt_every == 0:
-                save_checkpoint(ckpt_dir, step + 1, state, aux={"data": data.state()})
-        if writer:
-            save_checkpoint(ckpt_dir, steps, state, aux={"data": data.state()})
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                checkpoint(step + 1)
+        if ckpt_dir:
+            checkpoint(steps)
     finally:
         em.close()
     return state, history

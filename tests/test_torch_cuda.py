@@ -11,7 +11,8 @@ each run twice and bitwise equal, each visiting exactly the edges (the
 kernels' own counts), #2 with its index passed in giving the bits of one
 built in the call, and #1 equal to #5 at G = 1 bit for bit; backward
 kernel #4 against its plain version (atol=rtol=1e-4, float32 sums in
-another order), run twice and bitwise equal; #3 and
+another order), run twice and bitwise equal; #3 and #4 at B = 64 and 128
+(re-blocked to 32) against their plain versions; #3 and
 #4 on both routes of their projection phase (tensor cores at H·Dh = 8
 and 256, CUDA cores at H·Dh = 9) on a ragged Din, row counts that are
 not a multiple of its 128-row tile, two tables and units that read a
@@ -199,6 +200,27 @@ FUSED_CASES = {  # every N_pad here is not a multiple of the 128-row tile of pha
                                                      din=37, H=3, DH=3, degenerate=True),
     "C=9-B=32": lambda: fused_case(17, units=5, width=2, nblk=5, B=32, H=3, DH=3),
 }
+def reblock_case(B, *, density=0.6, seed=5, units=5, width=2, nblk=3, **kw):
+    """``fused_case`` at a block #3 and #4 re-block to 32 (64, 128), masks at
+    ``density``, sub-unit (1, 1) (rows 32..63 of unit 1) reading nothing and
+    unit 2 padding only."""
+    case = list(fused_case(seed, units=units, width=width, nblk=nblk, B=B, **kw))
+    rng = np.random.default_rng(seed + 100)
+    case[4] = rng.random(case[4].shape) < density
+    case[4][:, 0, 0, 0] = True
+    case[4][1, :, 32:64, :] = False
+    case[0][2] = -1
+    return case
+
+
+REBLOCK_CASES = {
+    "B=64": lambda: reblock_case(64),
+    "B=128": lambda: reblock_case(128, seed=6, nblk=4),
+    "B=128-sparse-C=256": lambda: reblock_case(128, seed=7, density=0.02, nblk=4, DH=128,
+                                               din=40, a_scale=128 ** -0.5),
+}
+
+
 # The card's cases of #3 and #4 on both projection routes: FUSED_CASES (H·Dh = 8
 # on wgmma, 9 on cuda_cores) and one whole 256-column tile (on wgmma; a at
 # 1/sqrt(Dh), so that theta spreads as in the Dh = 4 cases).  Card only: its
@@ -426,6 +448,35 @@ def test_fused_fp_kernels_match_plain_on_both_routes(cuda, name):
     for fn, seen in zip((seg_gat_agg_fused_fp_fwd, seg_gat_agg_fused_fp_bwd), before):
         assert {r: n - seen[r] for r, n in fn.launches_by_route.items()} == {
             r: 2 * (r == route) for r in seen}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REBLOCK_CASES))
+def test_fused_fp_kernels_at_b64_and_b128_match_plain(cuda, name):
+    """#3 and #4 at a block above 32, re-blocked to 32 on the host: against
+    the plain versions at B (another softmax order: atol=rtol=1e-4), twice
+    bitwise equal, one launch a call, reading the index's re-blocked
+    topology when it is passed."""
+    case = [torch.from_numpy(np.array(a)).to(cuda) for a in _exact(REBLOCK_CASES[name]())]
+    col, gid, row, wsel, masks, x, w = case[:7]
+    index = fused_ffp.fused_index(col, gid, row, wsel, w.shape[0], x.shape[0],
+                                  masks.shape[-1], masks=masks)
+    assert index["reblocked"]["masks"].shape[-1] == 32
+    before = (seg_gat_agg_fused_fp_fwd.launches, seg_gat_agg_fused_fp_bwd.launches)
+    got = [seg_gat_agg_fused_fp_fwd(*case, index=ix) for ix in (None, index)]
+    want = seg_gat_agg_fused_fp_plain(*case)
+    g_out = torch.cos(want[0])
+    grads = [seg_gat_agg_fused_fp_bwd(*case, *want, g_out, index=ix) for ix in (None, index)]
+    want_grads = seg_gat_agg_fused_fp_bwd_plain(*case, *want, g_out)
+    torch.cuda.synchronize()
+    assert (seg_gat_agg_fused_fp_fwd.launches - before[0],
+            seg_gat_agg_fused_fp_bwd.launches - before[1]) == (2, 2)
+    for g, a, wt in zip(*got, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, wt, atol=1e-4, rtol=1e-4)
+    for g, a, wt in zip(*grads, want_grads):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, wt, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

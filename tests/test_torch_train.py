@@ -231,7 +231,7 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model-split", "2"], "Queue 1 item 9"),
+    (["--model", "R-GAT", "--model-split", "2"], "Queue 1 item 9b"),
 ])
 def test_launcher_rejects_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -258,6 +258,8 @@ def test_launcher_lanes_without_a_process_group_names_torchrun(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         hgnn_train.main([*_CLI, "--steps", "1", "--lanes", "2"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        hgnn_train.main([*_CLI, "--steps", "1", "--model-split", "2"])
     with pytest.raises(ValueError, match="multiple of lanes"):
         hgnn_train.run_training(lanes=2, plan_lanes=3, device="cpu")
 
