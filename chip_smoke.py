@@ -158,7 +158,8 @@ Phases, each fatal on failure:
       S = 4096) in bfloat16 (atol=rtol=3e-2, and within one rounding of
       the float32 result, atol=1e-4, rtol=8e-3) and float32 (1e-4), and
       on Sq < Sk, Sq > Sk (rows that see no key must be exact zeros), a
-      2048 window with MQA at Dh = 256 and ``causal=False``; each case on
+      2048 window with MQA at Dh = 256, ``causal=False`` and dbrx's and
+      grok's layer (48/8 heads of 128, a GQA group of 6); each case on
       the route the wrapper picks (bf16 at Dh 64 or 128 on ``wgmma``, the
       rest on ``cuda_cores``), its launches counted by route; twice
       bitwise equal; on the wgmma route at least ``BITWISE_SHARE_MIN`` of
@@ -183,7 +184,36 @@ Phases, each fatal on failure:
       fails) and serves the float32-compute variant twice with the same
       tokens; a decode step twice from one state is bitwise equal; the
       prefill's last logits equal ``forward(impl="flash")``'s at 1e-3; the
-      launcher's ``--smoke`` run on the card.
+      launcher's ``--smoke`` run on the card;
+   d. dbrx-132b at full width (d_model 6144, 48/8 heads of 128, 16 experts
+      of d_ff 10,752, top-4, vocab 100,352 untied, bf16 weights from a
+      seeded ``torch.Generator`` and bf16 compute), 8 of its 40 layers (the
+      weights must fit the card): ``LMApi.forward(impl="flash")`` at B = 2,
+      S = 4096 (capacity 1,280 slots an expert a row), counters zeroed just
+      before: #7 launches 8 times, all on the wgmma route, nothing else;
+      cold and steady times, tokens/s, peak memory, idle share and top
+      kernels under the profiler, the aux loss and the dropped share of
+      copies; twice bitwise equal (logits, aux, dispatch tables); flash
+      against xla on row 0 (each row routes alone): the routes that flip
+      per layer, layer 0's all near-ties (``moe.route_flips``), top-1
+      agreement and max |d| on the tokens routed alike in every layer; the
+      bf16 serving path (4 prompts of 8 tokens, 16 new each) with its
+      decode step beside the bound of reading every weight once; the smoke
+      config (float32, capacity factor 0.5) on the card against the CPU:
+      routes equal or near-ties, logits at 1e-4 on the tokens routed
+      alike, aux at 1e-5;
+   e. grok-1-314b the same way (8 experts of 32,768, top-2, tied
+      embeddings, soft cap 30, which the flash path ignores: its xla
+      comparison runs the cap-free config), 4 of its 64 layers;
+   f. the continuous batcher (``serve.ContinuousBatcher``) on llama3.2-3b
+      at full width, float32 compute: 4 slots, 7 requests (prompt lengths
+      3-12, max_new 4-16: slots reused mid-stream), cache_len 32; tokens/s
+      and steps; each request's tokens equal to its own ``greedy_generate``
+      run's or first different where that run's top two logits lie within
+      1e-4 (the position printed); the bf16-compute config refused; the
+      launcher's ``--arch dbrx-132b --smoke`` run on the card.
+      Alone: ``python3 -c 'import chip_smoke as c; c.moe_alone()'`` (d, e)
+      and ``c.batcher_alone()`` (f).
 7. Observability and the HGNN leftovers (run after 4g, on the phase-4
    problem; its launch counts are read apart from the main path's):
    a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
@@ -208,7 +238,8 @@ Phases, each fatal on failure:
       1e-4; then ``examples_torch/serve_hgnn.py`` (every #1 call held
       against plain) and ``quickstart.py`` at their defaults.  Alone:
       ``python3 -c 'import chip_smoke as c; c.observability_alone()'``.
-8. Print the ``kernels`` JSON line (#1-#7; each row's ``ms_per`` says
+8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE layer
+   shape; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
    and #2's rows give the entries they visit an edge, #2's its peak
@@ -229,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import importlib.util
 import io
@@ -2650,11 +2682,13 @@ LM_ARCH = "llama3.2-3b"
 LM_BATCH, LM_SEQ, LM_SEQ_F32 = 2, 4096, 2048
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (printed beside the bound)
 FLASH_MAIN = (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 128, True, None)  # llama3.2-3b's layer
+FLASH_MOE = (LM_BATCH, 48, 8, LM_SEQ, LM_SEQ, 128, True, None)  # dbrx's and grok's: GQA group 6
 FLASH_EDGES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
     (1, 24, 8, 1024, 3072, 128, True, None),   # Sq < Sk (a continuation)
     (1, 24, 8, 2048, 1024, 128, True, None),   # Sq > Sk: the first 1024 rows see no key
     (1, 16, 1, 4096, 4096, 256, True, 2048),   # recurrentgemma's MQA local attention
     (LM_BATCH, 24, 8, 1024, 1024, 128, False, None),  # bidirectional
+    FLASH_MOE,
 ]
 
 
@@ -2754,10 +2788,21 @@ def flash_phase(fa_mod) -> dict:
         f"visible pair): bf16 tensor cores at 989 TFLOP/s {bound:.4f} ms ({by}), float32 CUDA "
         f"cores {bound_f32:.4f} ms; with the split's second p·v ({flops_split:.4e} flops, 6·Dh "
         f"a pair, work of this design, not of the function) {bound_split:.4f} ms")
+    del q, k, v, out, qf, kf, vf
+    q, k, v = flash_operands(FLASH_MOE, torch.bfloat16)
+    moe = dict(ms=cuda_ms(run(q, k, v, torch.empty_like(q)), reps=20),
+               plain_ms=cuda_ms(lambda: fa_mod.flash_attention_plain(q, k, v), reps=3),
+               library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True), reps=20))
+    moe_bytes, moe_flops = flash_cost(*FLASH_MOE, itemsize=2)
+    moe["bound_ms"] = max(moe_bytes / PEAK_HBM_BYTES, moe_flops / PEAK_BF16_FLOPS) * 1e3
+    log(f"[time] flash_attention {FLASH_MOE} bf16 (dbrx's and grok's layer): wgmma kernel "
+        f"{moe['ms']:.4f} ms, plain {moe['plain_ms']:.4f} ms, SDPA {moe['library_ms']:.4f} ms, "
+        f"bound {moe['bound_ms']:.4f} ms ({moe_flops:.4e} flops at 989 TFLOP/s)")
     return dict(max_abs_err=err, ms=ms, ms_again=ms2, ms_float32=ms_f32, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by, bound_split_ms=bound_split,
                 bound_float32_ms=bound_f32, bytes=nbytes, flops=flops, flops_split=flops_split,
-                routes=routes, bitwise_shares=shares)
+                routes=routes, bitwise_shares=shares, moe_shape=moe)
 
 
 def control_shares(fa_mod, q, k, v, want, case) -> dict:
@@ -2963,6 +3008,412 @@ def lm_phase(counters, fa_mod) -> dict:
         raise AssertionError(f"launcher: {lines}")
     log(f"[launcher] serve --smoke on the card: {lines[0]}")
     return res
+
+
+# -- phases 6d-6f: the MoE decoders at full width, the continuous batcher -------------
+
+# layers run of dbrx's 40 and grok's 64: their bf16 weights (54.6 and 41.0 GB)
+# must fit the card's 80 GB beside a B = 2, S = 4096 forward
+MOE_LAYERS = {"dbrx-132b": 8, "grok-1-314b": 4}
+# (prompt length, max_new) of the batcher's 7 requests on 4 slots: slots are reused
+BATCH_JOBS = [(3, 16), (12, 4), (7, 9), (5, 12), (10, 6), (4, 14), (9, 8)]
+BATCH_SLOTS, BATCH_CACHE = 4, 32
+GREEDY_TIE = 1e-4  # top-two logits closer than this may order either way in two runs
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the main path's names."""
+    mg = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    ff = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
+    return {"multigraph": mg.seg_gat_agg_multigraph_fwd,
+            "multigraph_bwd": mg.seg_gat_agg_multigraph_bwd,
+            "fused_fp": ff.seg_gat_agg_fused_fp_fwd, "fused_fp_bwd": ff.seg_gat_agg_fused_fp_bwd,
+            "seg_gat_agg": importlib.import_module("repro_torch.kernels.seg_gat_agg").seg_gat_agg,
+            "fused_fp_coeff": importlib.import_module(
+                "repro_torch.kernels.fused_fp_coeff").fused_fp_coeff,
+            "flash_attention": importlib.import_module(
+                "repro_torch.kernels.flash_attention").flash_attention}
+
+
+def stacked(routes, field: str, rows=slice(None)):
+    """A field of each layer's ``moe.Routing``, stacked: [L, rows, ...]."""
+    return torch.stack([getattr(r, field)[rows] for r in routes])
+
+
+def upstream_free(flipped: torch.Tensor) -> torch.Tensor:
+    """flipped [L, S] (one row's route flips between two runs) -> the flips
+    with no flip upstream: none in an earlier layer at this or an earlier
+    token.  A route reads its token's hidden state, which every earlier
+    layer's outputs at this and earlier tokens shape (attention is
+    causal), so a flipped expert upstream moves it far beyond rounding;
+    a flip with none upstream sees two hidden states that differ by the
+    two attention paths' roundings alone, and must be a near-tie."""
+    n_layers, seq = flipped.shape
+    first = torch.where(flipped.any(1), flipped.int().argmax(1), seq)  # each layer's first flip
+    upstream = torch.cat([first.new_full((1,), seq), torch.cummin(first, 0).values[:-1]])
+    return flipped & (torch.arange(seq, device=flipped.device) < upstream[:, None])
+
+
+def moe_smoke_card_vs_cpu(arch: str) -> dict:
+    """The MoE decoder's smoke config (float32, 4 experts top-2) at S = 64 and
+    half the default capacity, flash on the card against the CPU: every
+    (layer, token) route the same experts or a near-tie in both runs, logits
+    at 1e-4 on the tokens whose routes agree in every layer, aux at 1e-5."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.api import build
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_config(arch), moe_capacity_factor=0.5)
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    card, cpu = [], []
+    got, aux = api.forward(tree_map(lambda t: t.cuda(), params), toks.cuda(), impl="flash",
+                           routes=card)
+    want, want_aux = api.forward(params, toks, impl="flash", routes=cpu)
+    flipped, unexplained = moe.route_flips(stacked(card, "expert_ids").cpu(),
+                                           stacked(card, "gap").cpu(), stacked(cpu, "expert_ids"),
+                                           stacked(cpu, "gap"), torch.float32)
+    if unexplained.any():
+        raise AssertionError(f"{arch} smoke, card vs CPU: routes flipped beyond a near-tie at "
+                             f"(layer, row, token) {unexplained.nonzero().tolist()}")
+    agree = ~flipped.any(0)
+    d = float((got.cpu()[agree] - want[agree]).abs().max())
+    torch.testing.assert_close(got.cpu()[agree], want[agree], atol=1e-4, rtol=1e-4,
+                               msg=lambda m: f"{arch} smoke, card vs CPU: {m}")
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5, rtol=1e-5)
+    dropped = float(sum(int((~r.keep).sum()) for r in cpu)) / sum(r.keep.numel() for r in cpu)
+    log(f"[check] {arch} smoke (float32, S=64, capacity factor 0.5: {dropped:.4f} of copies "
+        f"dropped) flash on the card vs the CPU: {int(flipped.sum())} routes flipped (near-ties), "
+        f"logits max |d| {d:.3e} (atol=rtol=1e-4) on {int(agree.sum())} of {agree.numel()} "
+        f"tokens, aux {float(aux):.6f} vs {float(want_aux):.6f}")
+    return dict(flipped=int(flipped.sum()), max_abs_diff=d, dropped_share=dropped)
+
+
+def moe_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
+    """Phase 6d (dbrx-132b) or 6e (grok-1-314b): the MoE decoder at full width,
+    ``MOE_LAYERS[arch]`` of its layers, random bf16 weights (seed 0), bf16
+    compute: the forward with impl="flash" at B = 2, S = 4096, counters
+    zeroed just before; the forward twice bitwise equal; flash against xla
+    on row 0 (the cap-free config: flash has no soft cap); the bf16 serving
+    path; and the smoke config on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.api import build
+    from repro_torch.models.lm.transformer import vocab_padded
+    from repro_torch.serve import engine
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
+    api = build(cfg)
+    tag = f"[{arch}]"
+    res = dict(layers=cfg.num_layers, of_layers=full.num_layers, batch=LM_BATCH, seq=LM_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    params, res["init_ms"] = timed(
+        lambda: api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    res.update(params=sum(t.numel() for t in tree_leaves(params)), weight_bytes=nbytes(params),
+               expert_bytes=nbytes({k: v for k, v in params["scan"]["pos0"]["moe"].items()
+                                    if k != "router"}),
+               capacity=moe._capacity(cfg, LM_SEQ), init_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{tag} {cfg.num_layers} of {full.num_layers} layers (cut: the bf16 weights must fit one "
+        f"card), d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.experts_per_tok}, vocab "
+        f"{cfg.vocab_size} ({'tied' if cfg.tie_embeddings else 'untied'}), soft cap "
+        f"{cfg.logits_soft_cap}; {res['params']} parameters ({res['weight_bytes'] / 1e9:.3f} GB "
+        f"{cfg.param_dtype}, experts {res['expert_bytes'] / 1e9:.3f} GB), compute {cfg.dtype}; "
+        f"capacity {res['capacity']} slots an expert a row at S={LM_SEQ}; init "
+        f"{res['init_ms']:.1f} ms, peak {res['init_peak_bytes'] / 2**30:.3f} GiB")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device="cuda")
+
+    # the main path: counters zeroed just before the forward, read just after
+    by_route = fa_mod.flash_attention.launches_by_route
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    for r in by_route:
+        by_route[r] = 0
+    routes = []
+    (logits, aux), cold_ms = timed(lambda: api.forward(params, toks, impl="flash", routes=routes))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launch_routes = dict(by_route)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counters} | {"flash_attention": cfg.num_layers}
+    if launches != want or launch_routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
+        raise AssertionError(f"{arch} forward launches {launches}, by route {launch_routes}; "
+                             f"expected {want}, all {cfg.num_layers} on the wgmma route")
+    if (logits.shape != (LM_BATCH, LM_SEQ, vocab_padded(cfg)) or not torch.isfinite(logits).all()
+            or not math.isfinite(float(aux)) or len(routes) != cfg.num_layers):
+        raise AssertionError(f"{arch} logits {tuple(logits.shape)}, aux {float(aux)}, "
+                             f"{len(routes)} routings")
+    keep = stacked(routes, "keep")
+    dropped = 1.0 - float(keep.float().mean())
+    dropped_by_layer = [1.0 - float(r.keep.float().mean()) for r in routes]
+    empty = 1.0 - float((stacked(routes, "table") >= 0).float().mean())
+    again = []
+    logits2, aux2 = api.forward(params, toks, impl="flash", routes=again)
+    if not (torch.equal(logits, logits2) and torch.equal(aux, aux2) and all(
+            torch.equal(a.table, b.table) for a, b in zip(routes, again))):
+        raise AssertionError(f"{arch}: two forwards on the same inputs differ")
+    del logits2, again
+    steady = [timed(lambda: api.forward(params, toks, impl="flash"))[1] for _ in range(2)]
+    prof = profiled(lambda: api.forward(params, toks, impl="flash"), 2)
+    tokens_s = LM_BATCH * LM_SEQ / (float(np.median(steady)) / 1e3)
+    # the expert FFNs of one layer alone (dense over all E · B·cap slots, as
+    # the reference's einsums): their share of the forward, and how much of
+    # it the empty slots take
+    w = {k: v[0] for k, v in params["scan"]["pos0"]["moe"].items()}
+    xin = torch.randn((cfg.num_experts, LM_BATCH * res["capacity"], cfg.d_model),
+                      generator=torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                      dtype=torch.bfloat16)
+    expert_ms = cuda_ms(lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(xin, w["w_gate"]))
+                                          * torch.bmm(xin, w["w_up"]), w["w_down"]), reps=5)
+    del xin, w
+    expert_share = expert_ms * cfg.num_layers / float(np.median(steady))
+    res["forward"] = dict(launches=launches, launches_by_route=launch_routes, cold_ms=cold_ms,
+                          steady_ms=steady, tokens_s=tokens_s, peak_mem_bytes=peak,
+                          profiled=prof, aux=float(aux), dropped_share=dropped,
+                          dropped_share_by_layer=dropped_by_layer, empty_slot_share=empty,
+                          expert_ffn_layer_ms=expert_ms, expert_ffn_share=expert_share)
+    log(f"{tag} forward flash, B={LM_BATCH} S={LM_SEQ}: launches={json.dumps(launches)}, #7 by "
+        f"route {json.dumps(launch_routes)}; ms cold {cold_ms:.3f}, steady median "
+        f"{float(np.median(steady)):.3f} ({['%.3f' % t for t in steady]}), {tokens_s:.1f} tokens/s, "
+        f"peak mem {peak / 2**30:.3f} GiB; twice bitwise equal (logits, aux, dispatch tables)")
+    log(f"{tag} aux loss {float(aux):.6f} (sum of {cfg.num_layers} layers); dropped share of "
+        f"copies {dropped:.6f} (by layer {['%.4f' % x for x in dropped_by_layer]}); empty "
+        f"capacity slots {empty:.4f}")
+    log(f"{tag} one layer's expert FFNs over all {cfg.num_experts} x {LM_BATCH * res['capacity']} "
+        f"slots: {expert_ms:.3f} ms (CUDA events), x {cfg.num_layers} layers = {expert_share:.4f} "
+        f"of the steady forward; the empty slots' part of it {empty * expert_share:.4f}")
+    log(f"{tag} 2 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} ms, device "
+        f"busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    for k in prof["top_kernels"][:6]:
+        log(f"{tag}   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+
+    # flash against xla on row 0 (each row routes alone): the cap-free config,
+    # since impl "flash" has no soft cap (ROADMAP Queue 3)
+    xroutes = []
+    (xla, _), xla_ms = timed(lambda: build(dataclasses.replace(cfg, logits_soft_cap=None)).forward(
+        params, toks[:1], impl="xla", routes=xroutes))
+    flipped, unexplained = moe.route_flips(stacked(routes, "expert_ids", slice(0, 1)),
+                                           stacked(routes, "gap", slice(0, 1)),
+                                           stacked(xroutes, "expert_ids"), stacked(xroutes, "gap"),
+                                           torch.bfloat16)
+    flipped, unexplained = flipped[:, 0], unexplained[:, 0]  # [L, S]
+    free = upstream_free(flipped)
+    flips, free_flips = flipped.sum(1).tolist(), free.sum(1).tolist()
+    beyond, free_beyond = unexplained.sum(1).tolist(), (unexplained & free).sum(1).tolist()
+    gaps = torch.maximum(stacked(routes, "gap", slice(0, 1)), stacked(xroutes, "gap"))[:, 0]
+    agree = ~flipped.any(0)
+    lg0, x0 = logits[0][agree][:, : cfg.vocab_size], xla[0][agree][:, : cfg.vocab_size]
+    top1 = float((lg0.argmax(-1) == x0.argmax(-1)).float().mean())
+    dmax = float((lg0.float() - x0.float()).abs().max())
+    res["flash_vs_xla_row0"] = dict(
+        flipped_by_layer=flips, beyond_near_tie_by_layer=beyond,
+        upstream_free_by_layer=free_flips, upstream_free_beyond_by_layer=free_beyond,
+        largest_upstream_free_gap=float(gaps[free].max()) if free.any() else 0.0,
+        largest_flip_gap=float(gaps[flipped].max()) if flipped.any() else 0.0,
+        tokens_agreeing=int(agree.sum()), top1_agreement=top1, max_abs_diff=dmax, xla_ms=xla_ms)
+    log(f"{tag} flash vs xla (row 0, cap-free), bf16: routes flipped by layer {flips} of {LM_SEQ} "
+        f"(beyond the near-tie limit, {moe.NEAR_TIE[torch.bfloat16]:.4g} in logits: {beyond}; "
+        f"largest gap {res['flash_vs_xla_row0']['largest_flip_gap']:.4e}); with no flip upstream "
+        f"(no earlier layer flipped this or an earlier token): {free_flips}, beyond the limit "
+        f"{free_beyond}, largest gap {res['flash_vs_xla_row0']['largest_upstream_free_gap']:.4e}; "
+        f"on the {int(agree.sum())} tokens routed alike in every layer top-1 agreement "
+        f"{top1:.6f}, max |d| {dmax:.4e}; xla forward {xla_ms:.3f} ms")
+    if any(free_beyond):
+        raise AssertionError(f"{arch}: flash and xla routes with no flip upstream differ beyond "
+                             f"a near-tie: {free_beyond} by layer")
+    del logits, xla, lg0, x0, routes, xroutes
+
+    # the bf16 serving path: 4 prompts of 8 tokens, 16 new each, bf16 caches
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)),
+                              dtype=torch.int32, device="cuda")
+    steps, cache_len = 16, 8 + 16 + 1
+    before = fa_mod.flash_attention.launches
+    state = engine.init_serve_state(api, 4, cache_len + 2, dtype=torch.bfloat16, device="cuda")
+    prefill, step = engine.make_prefill(api), engine.make_serve_step(api)
+    (lg, state), prefill_ms = timed(lambda: prefill(params, state, prompts))
+    toks_out, step_ms = [], []
+    for _ in range(steps):
+        tok = lg[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+        toks_out.append(tok)
+        (lg, state), ms = timed(lambda: step(params, state, tok[:, None]))
+        step_ms.append(ms)
+    gen = torch.stack(toks_out, 1)
+    if not torch.isfinite(lg).all() or gen.shape != (4, steps) or state.cache_pos != cache_len - 1:
+        raise AssertionError(f"{arch} bf16 serving: non-finite logits or wrong shapes")
+    if fa_mod.flash_attention.launches != before:
+        raise AssertionError(f"{arch} bf16 serving launched #7 (decode attends in plain PyTorch)")
+    box = [state]
+
+    def one_step():
+        box[0] = step(params, box[0], gen[:, -1:])[1]
+
+    dprof = profiled(one_step, 2)
+    # a decode step reads every weight once (all experts: the empty capacity
+    # slots are computed too), but of an untied embedding only its 4 rows
+    embed = params["embed"]
+    read = res["weight_bytes"] - (0 if cfg.tie_embeddings
+                                  else embed.numel() * embed.element_size()
+                                  - 4 * cfg.d_model * embed.element_size())
+    step_med = float(np.median(step_ms))
+    res["serve_bf16"] = dict(prefill_ms=prefill_ms, step_ms=step_ms, step_median_ms=step_med,
+                             tokens_s=4 * steps / (sum(step_ms) / 1e3), profiled=dprof,
+                             step_bytes=read, step_bound_ms=read / PEAK_HBM_BYTES * 1e3,
+                             tokens=gen.tolist())
+    log(f"{tag} serve bf16: 4 prompts x 8 tokens, 16 new each, bf16 caches: prefill "
+        f"{prefill_ms:.3f} ms, decode step median {step_med:.3f} ms, "
+        f"{res['serve_bf16']['tokens_s']:.1f} tokens/s; a step reads {read / 1e9:.3f} GB of "
+        f"weights: bound {res['serve_bf16']['step_bound_ms']:.3f} ms at 3.35 TB/s")
+    log(f"{tag} 2 decode steps under the profiler: {['%.3f' % t for t in dprof['steps_ms']]} ms, "
+        f"device busy {dprof['device_busy_ms']:.3f} of {dprof['device_wall_ms']:.3f} ms, idle "
+        f"share {dprof['device_idle_share']:.4f}")
+    for k in dprof["top_kernels"][:4]:
+        log(f"{tag}   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    del params, state, box, lg
+    res["smoke_card_vs_cpu"] = moe_smoke_card_vs_cpu(arch)
+    return res
+
+
+def greedy_margins(api, params, prompt, steps: int, cache_len: int) -> tuple[list, list]:
+    """``greedy_generate``'s path step by step on one prompt: (tokens, the
+    gap between the top two logits at each generated position)."""
+    from repro_torch.serve import engine
+
+    state = engine.init_serve_state(api, 1, cache_len, dtype=torch.float32, device="cuda")
+    lg, state = engine.make_prefill(api)(params, state, prompt)
+    toks, margins = [], []
+    for _ in range(steps):
+        top2 = lg[0, : api.cfg.vocab_size].topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+        toks.append(int(lg[0, : api.cfg.vocab_size].argmax()))
+        lg, state = engine.make_serve_step(api)(params, state, torch.tensor(
+            [[toks[-1]]], dtype=torch.int32, device="cuda"))
+    return toks, margins
+
+
+def batcher_phase() -> dict:
+    """Phase 6f: the continuous batcher on llama3.2-3b at full width with
+    float32 compute (its caches are float32, as the reference's), 4 slots,
+    7 requests (prompt lengths 3-12, max_new 4-16: slots reused
+    mid-stream), cache_len 32; each request's tokens held against its own
+    ``greedy_generate`` run: equal, or first different where that run's top
+    two logits lie within GREEDY_TIE; the bf16 config refused; the
+    launcher's dbrx-132b --smoke run on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models.lm.api import build
+    from repro_torch.serve import ContinuousBatcher, Request, engine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(2)
+    jobs = [(rng.integers(0, cfg.vocab_size, n).tolist(), m) for n, m in BATCH_JOBS]
+    cb = ContinuousBatcher(api, BATCH_SLOTS, BATCH_CACHE, params, device="cuda")
+    for i, (p, m) in enumerate(jobs):
+        cb.submit(Request(rid=i, prompt=p, max_new=m))
+    steps, admitted = 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while cb.queue or any(r is not None for r in cb.slot_req):
+        queued = len(cb.queue)
+        cb.step()
+        admitted += queued - len(cb.queue)
+        steps += 1
+    wall = time.perf_counter() - t0
+    new_tokens = sum(m for _, m in BATCH_JOBS)
+    got = {r.rid: r.out for r in cb.finished}
+    if sorted(got) != list(range(len(jobs))) or admitted != len(jobs):
+        raise AssertionError(f"batcher: finished {sorted(got)}, admitted {admitted}")
+    res = dict(steps=steps, wall_s=wall, tokens_s=new_tokens / wall, new_tokens=new_tokens,
+               requests={})
+    for i, (p, m) in enumerate(jobs):
+        seq = engine.greedy_generate(api, params, torch.tensor([p], dtype=torch.int32,
+                                                                device="cuda"),
+                                     steps=m, cache_len=BATCH_CACHE)[0].tolist()
+        first = next((t for t in range(m) if got[i][t] != seq[t]), None)
+        entry = dict(prompt_len=len(p), max_new=m, equal=first is None)
+        if first is not None:  # a near-tie of the sequential run may order either way
+            toks, margins = greedy_margins(api, params, torch.tensor([p], dtype=torch.int32,
+                                                                      device="cuda"), m, BATCH_CACHE)
+            if toks != seq or not margins[first] < GREEDY_TIE:
+                raise AssertionError(f"batcher request {i}: tokens {got[i]} first differ from "
+                                     f"greedy_generate's {seq} at {first}, top-two margin "
+                                     f"{margins[first]:.3e}")
+            entry.update(first_difference=first, margin=margins[first])
+            log(f"[batcher] request {i}: first differs from greedy_generate at position {first}, "
+                f"a near-tie there (top-two logits {margins[first]:.3e} apart)")
+        res["requests"][i] = entry
+    n_equal = sum(e["equal"] for e in res["requests"].values())
+    log(f"[batcher] {LM_ARCH} float32 at full width, {BATCH_SLOTS} slots, {len(jobs)} requests "
+        f"(prompt lengths {[n for n, _ in BATCH_JOBS]}, max_new {[m for _, m in BATCH_JOBS]}), "
+        f"cache_len {BATCH_CACHE}: {steps} steps, {new_tokens} new tokens in {wall:.3f} s, "
+        f"{res['tokens_s']:.1f} tokens/s; {n_equal} of {len(jobs)} requests equal to their own "
+        f"greedy_generate run, the rest first differ at a near-tie (< {GREEDY_TIE})")
+    del cb, params
+    try:
+        ContinuousBatcher(build(get_config(LM_ARCH)), BATCH_SLOTS, BATCH_CACHE, None,
+                          device="cuda")
+    except ValueError as e:
+        log(f"[batcher] the bf16-compute config refused, as the reference's step fails: "
+            f"{str(e)[:90]}...")
+    else:
+        raise AssertionError("the batcher accepted a bfloat16-compute config")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lm_launch.main(["--arch", "dbrx-132b", "--smoke"])
+    lines = buf.getvalue().splitlines()
+    if not lines or not lines[0].startswith("dbrx-132b: 64 tokens in"):
+        raise AssertionError(f"launcher: {lines}")
+    log(f"[launcher] serve --arch dbrx-132b --smoke on the card: {lines[0]}")
+    res["launcher"] = lines[0]
+    return res
+
+
+def lm_alone(name: str, run) -> dict:
+    """Builds #7 (its ptxas report checked), runs ``run()`` and writes its
+    result to chiprun_out/<name>.json."""
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(card_line())
+    OUT.mkdir(exist_ok=True)
+    check_ptxas(build.build(("flash_attention",)))
+    res = run()
+    res["card"] = card_line()
+    (OUT / f"{name}.json").write_text(json.dumps(res, indent=1, default=str))
+    log(res["card"])
+    return res
+
+
+def moe_alone() -> dict:
+    """Phases 6d and 6e on their own (``python3 -c 'import chip_smoke as c;
+    c.moe_alone()'``): dbrx-132b, then grok-1-314b; chiprun_out/moe.json."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def run():
+        out = {}
+        for arch in MOE_LAYERS:
+            out[arch] = moe_lm_phase(arch, kernel_counters(), fa_mod)
+            torch.cuda.empty_cache()
+        return out
+
+    return lm_alone("moe", run)
+
+
+def batcher_alone() -> dict:
+    """Phase 6f on its own (``python3 -c 'import chip_smoke as c;
+    c.batcher_alone()'``); chiprun_out/batcher.json."""
+    return lm_alone("batcher", batcher_phase)
 
 
 # -- phase 7: observability and the HGNN leftovers ---------------------------
@@ -3498,13 +3949,28 @@ def main() -> int:
     # phase 6: the LM slice
     fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
     train_kernels["flash_attention"] = flash_phase(fa_mod)
-    lm = lm_phase(dict(all_counters, flash_attention=fa_mod.flash_attention), fa_mod)
+    lm_counters = dict(all_counters, flash_attention=fa_mod.flash_attention)
+    lm = lm_phase(lm_counters, fa_mod)
     launches["flash_attention"] = lm["forward"]["launches"]["flash_attention"]
+    # phases 6d-6f: the MoE decoders (the llama weights went with lm_phase's frame)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in MOE_LAYERS:
+        lm[arch] = moe_lm_phase(arch, lm_counters, fa_mod)
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm["batcher"] = batcher_phase()
     by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
-                                  "lm_serve": lm["serve_bf16"]["flash_launches"]}
+                                  "lm_serve": lm["serve_bf16"]["flash_launches"],
+                                  "dbrx_forward": lm["dbrx-132b"]["forward"]["launches"][
+                                      "flash_attention"],
+                                  "grok_forward": lm["grok-1-314b"]["forward"]["launches"][
+                                      "flash_attention"]}
     ms_per["flash_attention"] = (f"one launch at {LM_ARCH}'s layer shape (B={LM_BATCH}, "
                                  f"S={LM_SEQ}, heads 24/8, Dh=128, bf16): the wgmma route; "
-                                 "ms_float32: the cuda_cores route on float32 operands")
+                                 "ms_float32: the cuda_cores route on float32 operands; "
+                                 "moe_shape: the wgmma route at dbrx's and grok's layer shape "
+                                 "(heads 48/8), with its plain, SDPA and bound times")
 
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
@@ -3536,6 +4002,7 @@ def main() -> int:
     fa_row["ms_float32"] = train_kernels["flash_attention"]["ms_float32"]
     fa_row["bound_split_ms"] = train_kernels["flash_attention"]["bound_split_ms"]
     fa_row["launches_by_route"] = lm["forward"]["launches_by_route"]
+    fa_row["moe_shape"] = train_kernels["flash_attention"]["moe_shape"]
     k6_row = next(r for r in line["kernels"] if r["name"] == "fused_fp_coeff")
     k6 = train_kernels["fused_fp_coeff"]
     k6_row.update(ms_cuda_cores=k6["ms_cuda_cores"], bound_split_ms=k6["bound_split_ms"],

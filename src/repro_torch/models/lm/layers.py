@@ -45,16 +45,32 @@ def is_spec(x: Any) -> bool:
     return isinstance(x, P)
 
 
+DRAW_ELEMENTS = 1 << 30  # the largest float32 draw of one leaf (4 GiB)
+
+
 def init_from_specs(specs, generator: torch.Generator, param_dtype=torch.float32,
                     device: torch.device | str | None = None):
     """A tree of tensors of ``specs``' structure (nested dicts and lists
     of :class:`P`).  ``normal`` leaves are drawn from ``generator`` on its
     device, in float32, times the spec's scale or 1/sqrt(fan-in), then cast
-    to ``param_dtype``; ``zeros`` and ``ones`` are constant.  The tensors
+    to ``param_dtype``; ``zeros`` and ``ones`` are constant.  A leaf of more
+    than ``DRAW_ELEMENTS`` is drawn one slice of its leading axis at a time,
+    so its float32 draw never exists whole (a stacked expert tensor of
+    dbrx-132b at 8 layers would take 34 GB).  The tensors
     land on ``device`` (default: the generator's).  The draws are not
     JAX's: parity tests carry the reference's weights across instead
     (``convert.lm_params_from_numpy``)."""
     device = torch.device(device) if device is not None else generator.device
+
+    def normal(shape: tuple[int, ...], std: float) -> torch.Tensor:
+        if np.prod(shape) <= DRAW_ELEMENTS or len(shape) < 2:
+            x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            return (x * std).to(device=device, dtype=param_dtype)
+        out = torch.empty(shape, dtype=param_dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = normal(shape[1:], std)
+        return out
 
     def mk(spec: P):
         if spec.init == "zeros":
@@ -65,9 +81,7 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype=torch.float32
             raise ValueError(f"unknown initializer {spec.init!r}")
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale if spec.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return (x * std).to(device=device, dtype=param_dtype)
+        return normal(spec.shape, std)
 
     return tree_map(mk, specs)
 

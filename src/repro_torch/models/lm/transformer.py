@@ -9,8 +9,8 @@ the stacked axis takes the place of ``jax.lax.scan``.
   * forward()      — full sequence (prefill / scoring), returns logits
   * decode_step()  — one token against carried caches (serving)
 
-This slice ports the dense family ("attn" and "local" blocks with a dense
-MLP).  MoE, SSM and RG-LRU blocks, M-RoPE and visual embeddings raise
+The port runs "attn" and "local" blocks with a dense MLP or MoE
+(``moe.py``).  SSM and RG-LRU blocks, M-RoPE and visual embeddings raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -25,9 +25,9 @@ from .attention import AttnCache, attention_decode, attention_forward, attention
 from .config import LMConfig
 from .layers import P, init_from_specs, rms_norm, rope_angles, torch_dtype
 from .mlp import mlp_forward, mlp_specs
+from .moe import moe_forward, moe_specs
 
 _UNPORTED = {
-    "moe": "ROADMAP Queue 1 item 7b (MoE blocks: dbrx-132b, grok-1-314b)",
     "ssm": "ROADMAP Queue 1 item 7c (SSM blocks: mamba2-2.7b)",
     "rglru": "ROADMAP Queue 1 item 7d (RG-LRU blocks: recurrentgemma-9b)",
     "m_rope": "ROADMAP Queue 1 item 7e (M-RoPE and visual embeddings: qwen2-vl-7b)",
@@ -44,8 +44,6 @@ def check_supported(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` for a config this slice cannot run."""
     if cfg.is_encoder_decoder:
         raise unported("encdec", cfg)
-    if cfg.is_moe:
-        raise unported("moe", cfg)
     for pat in cfg.block_pattern:
         if pat in ("ssm", "rglru"):
             raise unported(pat, cfg)
@@ -64,8 +62,10 @@ def _block_specs(cfg: LMConfig, pat: str, layers: int | None) -> dict:
     lead = () if layers is None else (layers,)
     lx = () if layers is None else ("layers",)
     norm = lambda: P(lead + (d,), lx + (None,), init="ones")  # noqa: E731
-    return {"norm1": norm(), "attn": attention_specs(cfg, layers=layers),
-            "norm2": norm(), "mlp": mlp_specs(cfg, layers=layers)}
+    mixer = {"norm1": norm(), "attn": attention_specs(cfg, layers=layers), "norm2": norm()}
+    if cfg.is_moe:
+        return mixer | {"moe": moe_specs(cfg, layers=layers)}
+    return mixer | {"mlp": mlp_specs(cfg, layers=layers)}
 
 
 def _layout(cfg: LMConfig) -> tuple[int, int]:
@@ -114,15 +114,24 @@ def _angles(cfg: LMConfig, positions: torch.Tensor) -> torch.Tensor:
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, impl: str):
-    """One block, full-sequence."""
+def _ffn(cfg: LMConfig, p: dict, x: torch.Tensor, routes: list | None = None):
+    """The block's MLP or MoE: (out, the MoE's aux loss or None)."""
+    if cfg.is_moe:
+        return moe_forward(p["moe"], x, cfg, routes=routes)
+    return mlp_forward(p["mlp"], x, cfg), None
+
+
+def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, impl: str,
+                   routes: list | None):
+    """One block, full-sequence.  Returns (h, aux_loss or None)."""
     win = cfg.window if pat == "local" else None
     a = attention_forward(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
         angles=angles, window=win, impl=impl,
     )
     h = h + a
-    return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg)
+    m, aux = _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps), routes)
+    return h + m, aux
 
 
 def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos):
@@ -133,7 +142,7 @@ def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos)
         cache, cache_pos, angles=angles, window=win,
     )
     h = h + a
-    return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), cache
+    return h + _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps))[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -162,9 +171,12 @@ def forward(
     positions: torch.Tensor | None = None,  # [B, S]
     visual_embeds: torch.Tensor | None = None,
     impl: str = "xla",
+    routes: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, S, vocab_padded], aux_loss) — the aux loss is
-    the MoE balance term, zero for the dense family."""
+    """Returns (logits [B, S, vocab_padded], aux_loss): the float32 sum of
+    every MoE layer's balance term, in layer order (zero for the dense
+    family).  ``routes``, when given, receives each MoE layer's
+    ``moe.Routing`` in layer order."""
     check_supported(cfg)
     if visual_embeds is not None:
         raise unported("m_rope", cfg)
@@ -174,15 +186,23 @@ def forward(
     angles = _angles(cfg, positions)
 
     h = embed_tokens(params, cfg, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def block(pat, p, h):
+        nonlocal aux_total
+        h, aux = _block_forward(cfg, pat, p, h, angles, impl, routes)
+        if aux is not None:
+            aux_total = aux_total + aux
+        return h
+
     n_super, rem = _layout(cfg)
     for layer in range(n_super):
         sp = _layer(params["scan"], layer)
         for i, pat in enumerate(cfg.block_pattern):
-            h = _block_forward(cfg, pat, sp[f"pos{i}"], h, angles, impl)
+            h = block(pat, sp[f"pos{i}"], h)
     for i in range(rem):
-        h = _block_forward(cfg, cfg.block_pattern[i], params["tail"][i], h, angles, impl)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return logits_from_hidden(params, cfg, h), aux
+        h = block(cfg.block_pattern[i], params["tail"][i], h)
+    return logits_from_hidden(params, cfg, h), aux_total
 
 
 # ---------------------------------------------------------------------------

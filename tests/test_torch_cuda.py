@@ -36,8 +36,10 @@ route), the CUDA-core route forced on float32, and R-GAT on KERNEL
 launching it twice per relation and layer, all on the tensor cores; kernel #7
 on both routes (bf16 also within one rounding, atol=1e-4, rtol=8e-3; on
 the wgmma route at least BITWISE_SHARE_MIN of the outputs that rounding
-bitwise) and the LM decoder.
+bitwise) and the LM decoders, dense and MoE (card against CPU, routes
+equal or near-ties).
 Every test carries the ``cuda`` marker and skips without a card."""
+import dataclasses
 import importlib
 
 import numpy as np
@@ -75,6 +77,7 @@ from repro_torch.kernels.fused_fp_coeff import launch as kernel6_launch
 from repro_torch.kernels.fused_fp_coeff import route as kernel6_route
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.launch import hgnn_train
+from repro_torch.models.lm import moe
 from repro_torch.models.lm.api import build as build_lm
 from repro_torch.models.hgnn import (
     MODELS,
@@ -840,6 +843,40 @@ def test_lm_forward_and_greedy_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
     assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_cuda_matches_cpu(cuda):
+    """dbrx-132b's smoke config (float32, 4 experts top-2) at S = 64 with
+    half the default capacity (copies dropped): flash (#7 once a layer)
+    and xla forwards on the card against the CPU.  Every (layer, token)
+    route is the same experts or a near-tie in both runs
+    (``moe.route_flips``); logits at 1e-4 on the tokens whose routes agree
+    in every layer, the aux loss at 1e-5; the card's forward is bitwise
+    repeatable."""
+    cfg = dataclasses.replace(smoke_config("dbrx-132b"), moe_capacity_factor=0.5)
+    api = build_lm(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    for impl in ("xla", "flash"):
+        card, cpu, again = [], [], []
+        before = flash_attention.launches
+        got, aux = api.forward(on_card, toks.to(cuda), impl=impl, routes=card)
+        assert flash_attention.launches - before == (cfg.num_layers if impl == "flash" else 0)
+        want, want_aux = api.forward(params, toks, impl=impl, routes=cpu)
+        assert not all(r.keep.all() for r in cpu)  # capacity 0.5 drops copies
+        flipped, unexplained = moe.route_flips(
+            torch.stack([r.expert_ids for r in card]).cpu(), torch.stack([r.gap for r in card]).cpu(),
+            torch.stack([r.expert_ids for r in cpu]), torch.stack([r.gap for r in cpu]),
+            torch.float32)
+        assert not unexplained.any(), unexplained.nonzero().tolist()
+        agree = ~flipped.any(0)
+        torch.testing.assert_close(got.cpu()[agree], want[agree], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5, rtol=1e-5)
+        got2, aux2 = api.forward(on_card, toks.to(cuda), impl=impl, routes=again)
+        assert torch.equal(got, got2) and torch.equal(aux, aux2)
+        assert all(torch.equal(a.table, b.table) for a, b in zip(card, again))
 
 
 # -- kernel #6, the KERNEL backend's FP+θ -----------------------------------------

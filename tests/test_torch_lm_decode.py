@@ -57,7 +57,7 @@ def as_np(x):
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-8b", "dbrx-132b", "grok-1-314b"])
 def test_decode_step_matches_jax(arch, cache_dtype):
     jcfg, tcfg = smoke_pair(arch)
     jparams, tparams = shared(jbuild(jcfg).init(jax.random.key(0)))

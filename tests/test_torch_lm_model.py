@@ -11,6 +11,7 @@ exercised.  Tolerances: float32 compute 1e-5 (sum order), bfloat16
 compute 3e-2 (``tests/test_kernels.py``'s bfloat16 tolerance: the two
 frameworks round intermediate bfloat16 products at other places)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,18 +26,23 @@ from repro.models.lm.api import build as jbuild
 from repro_torch import configs as tconfigs
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models.lm import layers as tlayers
+from repro_torch.models.lm import moe as tmoe
 from repro_torch.models.lm.api import build as tbuild
 from repro_torch.tree import tree_leaves_with_path
+from test_torch_lm_moe import run_recorded
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
 # the dense family's smoke configs: plain GQA, QKV bias, qk-norm, and
-# qk-norm with bfloat16 parameters (qwen3-8b's own param_dtype)
+# qk-norm with bfloat16 parameters (qwen3-8b's own param_dtype); the MoE
+# family's: 4 experts top-2, untied (dbrx) and tied with a soft cap (grok)
 CASES = {
     "llama3.2-3b": ("llama3.2-3b", {}),
     "qwen2-7b": ("qwen2-7b", {}),
     "qwen3-8b": ("qwen3-8b", {}),
     "qwen3-8b-bf16-params": ("qwen3-8b", {"param_dtype": "bfloat16"}),
+    "dbrx-132b": ("dbrx-132b", {}),
+    "grok-1-314b": ("grok-1-314b", {}),
 }
 
 
@@ -104,21 +110,56 @@ def test_p_init_statistics():
         tlayers.P((2, 3), (None,))
 
 
+def test_p_init_draws_a_large_leaf_by_slices(monkeypatch):
+    """A leaf above DRAW_ELEMENTS is drawn one leading slice at a time (its
+    float32 draw never exists whole), with the leaf's fan-in scale."""
+    monkeypatch.setattr(tlayers, "DRAW_ELEMENTS", 1000)
+    specs = {"w": tlayers.P((3, 4, 256, 64), (None, None, None, None))}
+    w = tlayers.init_from_specs(specs, torch.Generator().manual_seed(0), torch.bfloat16)["w"]
+    assert w.shape == (3, 4, 256, 64) and w.dtype == torch.bfloat16
+    assert float(w.float().std()) == pytest.approx(256 ** -0.5, rel=0.02)
+    assert not torch.equal(w[0, 0], w[0, 1]) and not torch.equal(w[0], w[1])
+    gen = torch.Generator().manual_seed(0)  # slices drawn in order, each as a leaf of its own
+    first = (torch.randn((256, 64), generator=gen) * 256 ** -0.5).bfloat16()
+    assert torch.equal(w[0, 0], first)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 @pytest.mark.parametrize("case", CASES)
-def test_forward_logits_match_jax(case, impl, dtype):
+def test_forward_logits_match_jax(monkeypatch, case, impl, dtype):
+    """MoE configs: both packages' routes of every (layer, token) are the
+    same experts, or a near-tie in both (``moe.route_flips``: two
+    frameworks' bf16 roundings can move one); logits are held on the
+    tokens whose routes agree in every layer, the aux loss at 1e-6 in
+    float32."""
     arch, over = CASES[case]
     jcfg, tcfg = smoke_pair(arch, dtype=dtype, **over)
     jparams, tparams = shared_params(jcfg)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
-    want, jaux = jbuild(jcfg).forward(jparams, jnp.asarray(toks),
-                                      impl="flash_interpret" if impl == "flash" else "xla")
-    got, aux = tbuild(tcfg).forward(tparams, torch.from_numpy(toks), impl=impl)
+    (want, jaux), rec = run_recorded(
+        monkeypatch, functools.partial(jbuild(jcfg).forward,
+                                       impl="flash_interpret" if impl == "flash" else "xla"),
+        jparams, jnp.asarray(toks))
+    routes = []
+    got, aux = tbuild(tcfg).forward(tparams, torch.from_numpy(toks), impl=impl, routes=routes)
     assert got.shape == want.shape == (2, 16, jtfm.vocab_padded(jcfg))
     assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
-    np.testing.assert_allclose(as_np(got), as_np(want), **TOL[dtype])
-    assert float(aux) == float(jaux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if not jcfg.is_moe:
+        np.testing.assert_allclose(as_np(got), as_np(want), **TOL[dtype])
+        assert float(aux) == float(jaux) == 0.0 and not routes
+        return
+    jids, jgap = rec.routes(jcfg.experts_per_tok)
+    assert len(routes) == len(jids) == jcfg.num_layers
+    flipped, unexplained = tmoe.route_flips(
+        torch.stack([r.expert_ids for r in routes]), torch.stack([r.gap for r in routes]),
+        jids, jgap, getattr(torch, dtype))
+    assert not unexplained.any(), unexplained.nonzero().tolist()
+    agree = ~flipped.any(0).numpy()
+    np.testing.assert_allclose(as_np(got)[agree], as_np(want)[agree], **TOL[dtype])
+    np.testing.assert_allclose(float(aux), float(jaux),
+                               **(dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else TOL[dtype]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

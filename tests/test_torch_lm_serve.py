@@ -1,7 +1,8 @@
 """The port's LM server against the JAX package's: greedy tokens, prefill
 and decode with bfloat16 caches, the greedy server's dtype domain (a
 property of the reference, pinned in both packages), the launcher's
-output, and the families this slice does not port.
+output (the dense and the MoE families), and the families the port does
+not run yet.
 
 Weights come from the JAX ``init`` through ``convert.lm_params_from_numpy``;
 prompts from numpy.  Tolerance of the bfloat16 path: 3e-2
@@ -30,7 +31,7 @@ from repro_torch.serve import engine as tengine
 
 UNPORTED = {
     "qwen2-vl-7b": "7e", "mamba2-2.7b": "7c", "whisper-large-v3": "7f",
-    "recurrentgemma-9b": "7d", "dbrx-132b": "7b", "grok-1-314b": "7b",
+    "recurrentgemma-9b": "7d",
 }
 
 
@@ -105,17 +106,25 @@ def _lines(fn) -> list[str]:
     return buf.getvalue().splitlines()
 
 
-def test_launcher_prints_the_reference_lines(monkeypatch):
-    args = ["--arch", "llama3.2-3b", "--smoke", "--batch", "2", "--prompt-len", "4",
-            "--steps", "3"]
+def check_launcher(monkeypatch, arch: str) -> None:
+    args = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "4", "--steps", "3"]
     monkeypatch.setattr(sys, "argv", ["serve", *args])
     want = _lines(jlaunch.main)
     got = _lines(lambda: tlaunch.main([*args, "--device", "cpu"]))
-    pattern = r"llama3\.2-3b: 6 tokens in \d+\.\d\ds"
+    pattern = rf"{re.escape(arch)}: 6 tokens in \d+\.\d\ds"
     assert re.fullmatch(pattern, want[0]) and re.fullmatch(pattern, got[0])
     rows = [np.array(line.strip(" []").split(), dtype=np.int64) for line in got[1:]]
     assert len(got) == len(want) == 3 and all(r.shape == (3,) for r in rows)
     assert all(((r >= 0) & (r < 257)).all() for r in rows)
+
+
+def test_launcher_prints_the_reference_lines(monkeypatch):
+    check_launcher(monkeypatch, "llama3.2-3b")
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_moe_launcher_prints_the_reference_lines(monkeypatch, arch):
+    check_launcher(monkeypatch, arch)
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
