@@ -169,7 +169,9 @@ Phases, each fatal on failure:
       route timed with CUDA events beside its bound (4·Dh flops a visible
       pair at the bf16 tensor-core peak; the split's 6·Dh printed beside
       it), the CUDA-core route on float32 operands, the plain version and
-      ``scaled_dot_product_attention``;
+      ``scaled_dot_product_attention``; at recurrentgemma-9b's local layer
+      (B = 2, 16/1 heads of 256, window 2048, bf16: cuda_cores) timed
+      beside its bound, the plain version and SDPA with the window mask;
    b. the main path: ``LMApi.forward(impl="flash")`` at B = 2, S = 4096,
       counters zeroed just before: #7 launches 28 times, all on the wgmma
       route, nothing else;
@@ -213,7 +215,35 @@ Phases, each fatal on failure:
       1e-4 (the position printed); the bf16-compute config refused; the
       launcher's ``--arch dbrx-132b --smoke`` run on the card.
       Alone: ``python3 -c 'import chip_smoke as c; c.moe_alone()'`` (d, e)
-      and ``c.batcher_alone()`` (f).
+      and ``c.batcher_alone()`` (f);
+   g. mamba2-2.7b at full width and depth (64 SSD layers, d_model 2560,
+      80 heads of 64, state 128, tied vocab 50,432, float32 weights from a
+      seeded ``torch.Generator``, bf16 compute): ``LMApi.forward(
+      impl="flash")`` at B = 2, S = 4096, counters zeroed just before: no
+      kernel launches; logits (2, 4096, 50432), finite, twice bitwise
+      equal; cold and steady times, tokens/s, peak memory, idle share and
+      top kernels; one layer's ``_ssd_chunked`` timed alone (its share of
+      the forward); flash and xla bitwise equal (no attention), both
+      against the float32-compute forward (printed);
+      decode == forward over 64 tokens at float32 compute, atol=rtol=1e-3;
+      the bf16 server (4 prompts of 8, 16 new each) with its decode step
+      beside the weight-read bound; ``greedy_generate`` at bf16 compute
+      (float32 caches) runs, as the reference's; the caches' bytes equal at
+      4,096 and 524,288 positions; the smoke config on the card against the
+      CPU at 1e-4; the launcher's ``--smoke`` run;
+   h. recurrentgemma-9b the same way (38 layers: 12 × (rglru, rglru,
+      local) + 2 rglru, d_model 4096, MQA 16/1 heads of 256, window 2048,
+      GeGLU d_ff 12,288, tied vocab 256,000): #7 launches 12 times, all on
+      the cuda_cores route, its first call held against
+      ``flash_attention_plain`` as in a and, by b's rule, at most as far
+      (root mean square) from that layer's float32 attention as xla's bf16
+      einsums; flash and xla against the float32 forward on row 0
+      (printed: both distances are the common bf16 roundings of the other
+      layers);
+      ``_gates`` and the doubling scan timed alone; ``greedy_generate`` at
+      bf16 refused, as the reference fails; the local caches a ring of
+      2,048 slots at both lengths.  Alone: ``c.mamba2_alone()``,
+      ``c.recurrentgemma_alone()`` (with #7 at its layer shape).
 7. Observability and the HGNN leftovers (run after 4g, on the phase-4
    problem; its launch counts are read apart from the main path's):
    a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
@@ -238,8 +268,8 @@ Phases, each fatal on failure:
       1e-4; then ``examples_torch/serve_hgnn.py`` (every #1 call held
       against plain) and ``quickstart.py`` at their defaults.  Alone:
       ``python3 -c 'import chip_smoke as c; c.observability_alone()'``.
-8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE layer
-   shape; each row's ``ms_per`` says
+8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE and
+   recurrentgemma layer shapes; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
    and #2's rows give the entries they visit an edge, #2's its peak
@@ -271,6 +301,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -2683,6 +2714,7 @@ LM_BATCH, LM_SEQ, LM_SEQ_F32 = 2, 4096, 2048
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (printed beside the bound)
 FLASH_MAIN = (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 128, True, None)  # llama3.2-3b's layer
 FLASH_MOE = (LM_BATCH, 48, 8, LM_SEQ, LM_SEQ, 128, True, None)  # dbrx's and grok's: GQA group 6
+FLASH_RG = (LM_BATCH, 16, 1, LM_SEQ, LM_SEQ, 256, True, 2048)  # recurrentgemma-9b's local layer
 FLASH_EDGES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
     (1, 24, 8, 1024, 3072, 128, True, None),   # Sq < Sk (a continuation)
     (1, 24, 8, 2048, 1024, 128, True, None),   # Sq > Sk: the first 1024 rows see no key
@@ -2799,10 +2831,65 @@ def flash_phase(fa_mod) -> dict:
     log(f"[time] flash_attention {FLASH_MOE} bf16 (dbrx's and grok's layer): wgmma kernel "
         f"{moe['ms']:.4f} ms, plain {moe['plain_ms']:.4f} ms, SDPA {moe['library_ms']:.4f} ms, "
         f"bound {moe['bound_ms']:.4f} ms ({moe_flops:.4e} flops at 989 TFLOP/s)")
+    del q, k, v
     return dict(max_abs_err=err, ms=ms, ms_again=ms2, ms_float32=ms_f32, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by, bound_split_ms=bound_split,
                 bound_float32_ms=bound_f32, bytes=nbytes, flops=flops, flops_split=flops_split,
-                routes=routes, bitwise_shares=shares, moe_shape=moe)
+                routes=routes, bitwise_shares=shares, moe_shape=moe,
+                recurrentgemma_shape=flash_rg_shape(fa_mod))
+
+
+def sdpa_windowed(q, k, v, window: int) -> tuple[float, str]:
+    """(ms, backend) of ``scaled_dot_product_attention`` with ``enable_gqa``
+    and the bool mask of a causal ``window``: the first backend of flash,
+    memory-efficient, cuDNN and math that takes the operands."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = importlib.import_module("repro_torch.kernels.flash_attention").attention_mask(
+        q.shape[2], k.shape[2], True, window, q.device)
+
+    def fn():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                enable_gqa=True)
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # each refusing backend says why
+            try:
+                fn()
+            except RuntimeError:
+                continue
+            return cuda_ms(fn, reps=10), backend.name.lower()
+    raise AssertionError("no SDPA backend took the windowed operands")
+
+
+def flash_rg_shape(fa_mod) -> dict:
+    """#7 at recurrentgemma-9b's local layer (B = 2, S = 4096, MQA 16/1 heads
+    of 256, window 2048, bf16: the cuda_cores route) timed with CUDA events
+    beside its bound (4·Dh flops a visible pair of the window's mask at the
+    bf16 peak; the float32 CUDA cores' beside it), the plain version and
+    SDPA with the same window mask (its backend named)."""
+    B, Hq, Hkv, Sq, Sk, Dh, causal, window = FLASH_RG
+    q, k, v = flash_operands(FLASH_RG, torch.bfloat16)
+    out = torch.empty_like(q)
+    route = fa_mod.route(q.dtype, Dh)
+    ms = cuda_ms(lambda: fa_mod.launch(q, k, v, out, causal=causal, window=window,
+                                       scale=Dh ** -0.5), reps=10)
+    plain_ms = cuda_ms(lambda: fa_mod.flash_attention_plain(q, k, v, causal=causal,
+                                                            window=window), reps=3)
+    lib_ms, backend = sdpa_windowed(q, k, v, window)
+    nbytes, flops = flash_cost(*FLASH_RG, itemsize=2)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    bound_f32, _ = bound_ms(nbytes, flops)
+    log(f"[time] flash_attention {FLASH_RG} bf16 (recurrentgemma-9b's local layer): {route} "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({backend}); bound "
+        f"{bound:.4f} ms ({by}: {nbytes:.4e} B, {flops:.4e} flops at 989 TFLOP/s), on the "
+        f"float32 CUDA cores {bound_f32:.4f} ms")
+    return dict(shape=FLASH_RG, route=route, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_backend=backend, bound_ms=bound, bound_by=by, bound_float32_ms=bound_f32,
+                bytes=nbytes, flops=flops)
 
 
 def control_shares(fa_mod, q, k, v, want, case) -> dict:
@@ -3416,6 +3503,373 @@ def batcher_alone() -> dict:
     return lm_alone("batcher", batcher_phase)
 
 
+# -- phases 6g-6h: the recurrent decoders at full width and depth ----------------------
+
+RECURRENT_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
+# rows of the float32-compute yardstick forward: recurrentgemma's float32 logits
+# (4.2 GB a row at its 256,000 vocab) must fit beside 37.6 GB of float32 weights
+# and the two bf16 forwards' logits
+F32_ROWS = {"mamba2-2.7b": LM_BATCH, "recurrentgemma-9b": 1}
+DECODE_TOKENS = 64  # decode == forward at full width, float32 compute
+DECODE_TOL = 1e-3   # as llama's prefill check (phase 6c)
+CACHE_LENS = (4096, 524288)  # the reference's train_4k and long_500k contexts
+
+
+def rowwise_max_abs(a, b) -> float:
+    """max |a - b| in float32, one row of the batch at a time."""
+    return max(float((a[i].float() - b[i].float()).abs().max()) for i in range(a.shape[0]))
+
+
+def rowwise_rms(a, b) -> float:
+    """Root-mean-square of a - b in float32, one row at a time."""
+    total = sum(float((a[i].float() - b[i].float()).square().sum()) for i in range(a.shape[0]))
+    return math.sqrt(total / a.numel())
+
+
+def recurrent_block_time(arch: str, cfg, params) -> dict:
+    """The recurrent core of one layer alone at the forward's shape (B = 2,
+    S = 4096), CUDA events: mamba2's ``_ssd_chunked`` (float32, chunk 128),
+    or the RG-LRU's ``_gates`` (two float32 rw x rw products a token) and
+    its doubling scan.  The forward's layers times this is that core's share."""
+    from repro_torch.models.lm import rglru, ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if arch == "mamba2-2.7b":
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        xh, bm, cm = rnd(LM_BATCH, LM_SEQ, h, p), rnd(LM_BATCH, LM_SEQ, n), rnd(LM_BATCH, LM_SEQ, n)
+        dt = torch.nn.functional.softplus(rnd(LM_BATCH, LM_SEQ, h))
+        a = -torch.rand(h, generator=gen, device="cuda") - 0.1
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: ssm._ssd_chunked(xh, dt, a, bm, cm, cfg.ssm_chunk), reps=3)
+        return dict(ssd_ms=ms, ssd_peak_bytes=torch.cuda.max_memory_allocated(),
+                    layers=cfg.num_layers)
+    p0 = {k: v[0] for k, v in params["scan"]["pos0"]["rglru"].items()}
+    u = rnd(LM_BATCH, LM_SEQ, cfg.rnn_width).bfloat16()
+    gates_ms = cuda_ms(lambda: rglru._gates(p0, u, cfg), reps=3)
+    a, b = rglru._gates(p0, u, cfg)
+    scan_ms = cuda_ms(lambda: rglru.linear_scan(a, b), reps=3)
+    layers = sum(cfg.pattern_for_layer(i) == "rglru" for i in range(cfg.num_layers))
+    return dict(gates_ms=gates_ms, gates_flops=2 * 2 * LM_BATCH * LM_SEQ * cfg.rnn_width ** 2,
+                scan_ms=scan_ms, layers=layers)
+
+
+def recurrent_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
+    """Phase 6g (mamba2-2.7b) or 6h (recurrentgemma-9b): the recurrent
+    decoder at full width and depth, random float32 weights (seed 0), bf16
+    compute: the forward with impl="flash" at B = 2, S = 4096, counters
+    zeroed just before (mamba2: no kernel; recurrentgemma: #7 once a local
+    layer, all on cuda_cores, its first call held against its plain
+    version, and at most as far from the float32 attention as xla's, root
+    mean square); twice bitwise equal; flash against xla (bitwise equal
+    without attention) and both against the float32-compute forward;
+    decode == forward over 64 tokens at float32;
+    the bf16 server; the cache bytes at 4,096 and 524,288 positions; the
+    smoke config on the card against the CPU; the launcher's --smoke run."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models.lm import attention, transformer
+    from repro_torch.models.lm.api import build
+    from repro_torch.serve import engine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch)
+    api = build(cfg)
+    tag = f"[{arch}]"
+    n_local = sum(cfg.pattern_for_layer(i) in transformer.ATTENTION for i in range(cfg.num_layers))
+    res = dict(layers=cfg.num_layers, local_layers=n_local, batch=LM_BATCH, seq=LM_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    params, res["init_ms"] = timed(
+        lambda: api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    res.update(params=sum(t.numel() for t in tree_leaves(params)), weight_bytes=nbytes(params),
+               init_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{tag} all {cfg.num_layers} layers ({cfg.block_pattern}, {n_local} local attention), "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size} (tied); {res['params']} parameters "
+        f"({res['weight_bytes'] / 1e9:.3f} GB {cfg.param_dtype}), compute {cfg.dtype}; init "
+        f"{res['init_ms']:.1f} ms, peak {res['init_peak_bytes'] / 2**30:.3f} GiB")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device="cuda")
+    vp = transformer.vocab_padded(cfg)
+
+    # the main path: counters zeroed just before the forward, read just after;
+    # #7's first launch recorded (the wrapper calls the module's `launch`)
+    by_route = fa_mod.flash_attention.launches_by_route
+    launch, first = fa_mod.launch, []
+
+    def recording(q, k, v, out, **kw):
+        launch(q, k, v, out, **kw)
+        if not first:
+            first.append((q, k, v, out, kw))
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    for r in by_route:
+        by_route[r] = 0
+    fa_mod.launch = recording
+    try:
+        (logits, aux), cold_ms = timed(lambda: api.forward(params, toks, impl="flash"))
+    finally:
+        fa_mod.launch = launch
+    launches = {k: fn.launches for k, fn in counters.items()}
+    routes = dict(by_route)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counters} | {"flash_attention": n_local}
+    if launches != want or routes != {"wgmma": 0, "cuda_cores": n_local}:
+        raise AssertionError(f"{arch} forward launches {launches}, by route {routes}; expected "
+                             f"{want}, all {n_local} on the cuda_cores route")
+    if logits.shape != (LM_BATCH, LM_SEQ, vp) or not torch.isfinite(logits).all() or float(aux):
+        raise AssertionError(f"{arch} logits {tuple(logits.shape)} (expected {(LM_BATCH, LM_SEQ, vp)}) "
+                             f"or non-finite, aux {float(aux)}")
+    if first:
+        q, k, v, out, kw = first.pop()
+        name = f"{arch} forward: #7's first launch {tuple(q.shape)} / {tuple(k.shape)} {kw}"
+        plain = fa_mod.flash_attention_plain(q, k, v, **kw)
+        d7 = float((out.float() - plain.float()).abs().max())
+        torch.testing.assert_close(out.float(), plain.float(), atol=3e-2, rtol=3e-2,
+                                   msg=lambda m: f"{name}: {m}")
+        torch.testing.assert_close(out.float(), plain.float(), atol=1e-4, rtol=8e-3,
+                                   msg=lambda m: f"{name}, one rounding: {m}")
+        res["flash_first_call_max_abs_err"] = d7
+        log(f"[check] {name}: against flash_attention_plain max_abs_err={d7:.3e} "
+            f"(atol=rtol=3e-2 and atol=1e-4, rtol=8e-3)")
+        # phase 6b's rule where flash and xla differ, this layer's attention:
+        # #7's output at most as far (root mean square) from the float32
+        # attention of the same operands as impl "xla"'s bf16 einsums
+        exact32 = fa_mod.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        mask = fa_mod.attention_mask(q.shape[2], k.shape[2], kw["causal"], kw["window"], q.device)
+        xla_att = attention._sdpa_xla(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      mask.expand(q.shape[0], -1, -1), cfg).transpose(1, 2)
+        att_rms = {n: float((o.float() - exact32).square().mean().sqrt())
+                   for n, o in (("flash", out), ("xla", xla_att))}
+        res["attention_vs_float32_rms"] = att_rms
+        log(f"[check] {arch} layer-0 attention against its float32 computation: rms flash "
+            f"{att_rms['flash']:.4e}, xla {att_rms['xla']:.4e}")
+        if not att_rms["flash"] <= att_rms["xla"]:
+            raise AssertionError(f"{arch}: #7's attention is further from float32 than xla's: "
+                                 f"{att_rms}")
+        del q, k, v, out, plain, exact32, xla_att
+    logits2, _ = api.forward(params, toks, impl="flash")
+    if not torch.equal(logits, logits2):
+        raise AssertionError(f"{arch}: two forwards on the same inputs differ")
+    del logits2
+    steady = [timed(lambda: api.forward(params, toks, impl="flash"))[1] for _ in range(2)]
+    prof = profiled(lambda: api.forward(params, toks, impl="flash"), 2)
+    tokens_s = LM_BATCH * LM_SEQ / (float(np.median(steady)) / 1e3)
+    core = recurrent_block_time(arch, cfg, params)
+    step_med = float(np.median(steady))
+    if "ssd_ms" in core:
+        core["ssd_share"] = core["ssd_ms"] * core["layers"] / step_med
+        core_line = (f"one layer's _ssd_chunked (float32, chunk {cfg.ssm_chunk}) "
+                     f"{core['ssd_ms']:.3f} ms (peak {core['ssd_peak_bytes'] / 2**30:.3f} GiB), "
+                     f"x {core['layers']} layers = {core['ssd_share']:.4f} of the steady forward")
+    else:
+        core["gates_share"] = core["gates_ms"] * core["layers"] / step_med
+        core["scan_share"] = core["scan_ms"] * core["layers"] / step_med
+        core_line = (f"one layer's _gates (two float32 {cfg.rnn_width}^2 products a token, "
+                     f"{core['gates_flops']:.3e} flops) {core['gates_ms']:.3f} ms and doubling scan "
+                     f"{core['scan_ms']:.3f} ms, x {core['layers']} RG-LRU layers = "
+                     f"{core['gates_share']:.4f} and {core['scan_share']:.4f} of the steady forward")
+    res["forward"] = dict(launches=launches, launches_by_route=routes, cold_ms=cold_ms,
+                          steady_ms=steady, tokens_s=tokens_s, peak_mem_bytes=peak,
+                          profiled=prof, recurrent_core=core)
+    log(f"{tag} forward flash, B={LM_BATCH} S={LM_SEQ}: launches={json.dumps(launches)}, #7 by "
+        f"route {json.dumps(routes)}; ms cold {cold_ms:.3f}, steady median {step_med:.3f} "
+        f"({['%.3f' % t for t in steady]}), {tokens_s:.1f} tokens/s, peak mem "
+        f"{peak / 2**30:.3f} GiB; twice bitwise equal")
+    log(f"{tag} {core_line}")
+    log(f"{tag} 2 forwards under the profiler: {['%.3f' % t for t in prof['steps_ms']]} ms, device "
+        f"busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    for kk in prof["top_kernels"][:8]:
+        log(f"{tag}   {kk['device_ms']:9.3f} ms x{kk['calls']:<4d} {kk['name']}")
+
+    # flash against xla (both bf16) and both against the float32-compute
+    # forward on its rows.  Without attention the two are one computation
+    # (bitwise equal).  With it, phase 6b's rule (flash at most as far from
+    # float32, root mean square, as xla) is held above on the layer where
+    # they differ: in the logits both distances are the other layers'
+    # common bf16 roundings (recurrentgemma's 0.038856 and 0.038833 on row 0,
+    # NVIDIA H100 80GB HBM3), and are printed
+    (xla, _), xla_ms = timed(lambda: api.forward(params, toks, impl="xla"))
+    if not n_local and not torch.equal(logits, xla):
+        raise AssertionError(f"{arch}: with no attention layer flash and xla differ")
+    agree = top1_agreement(logits, xla, cfg.vocab_size)
+    dmax = rowwise_max_abs(logits, xla)
+    rows = F32_ROWS[arch]
+    logits, xla = logits[:rows].clone(), xla[:rows].clone()
+    gc.collect()
+    torch.cuda.empty_cache()
+    api32 = build(dataclasses.replace(cfg, dtype="float32"))
+    exact, _ = api32.forward(params, toks[:rows], impl="xla")
+    to_exact = {name: dict(top1_agreement=top1_agreement(lg, exact, cfg.vocab_size),
+                           max_abs_diff=rowwise_max_abs(lg, exact), rms_diff=rowwise_rms(lg, exact))
+                for name, lg in (("flash", logits), ("xla", xla))}
+    res["flash_vs_xla_bf16"] = dict(top1_agreement=agree, max_abs_diff=dmax, xla_ms=xla_ms,
+                                    float32_rows=rows, vs_float32=to_exact)
+    log(f"[check] {arch} forward flash vs xla, bf16: top-1 agreement {agree:.6f}, max |d| "
+        f"{dmax:.4e}; xla forward {xla_ms:.3f} ms")
+    for name, d in to_exact.items():
+        log(f"[check] {arch} {name} (bf16) against the float32-compute forward on {rows} row(s): "
+            f"top-1 agreement {d['top1_agreement']:.6f}, max |d| {d['max_abs_diff']:.4e}, rms "
+            f"{d['rms_diff']:.4e}")
+    del logits, xla, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode == forward at full width, float32 compute, over 64 tokens
+    short = toks[:, :DECODE_TOKENS]
+    before = dict(by_route)
+    ref, _ = api32.forward(params, short, impl="flash")
+    f32_routes = {r: by_route[r] - before[r] for r in by_route}
+    if f32_routes != {"wgmma": 0, "cuda_cores": n_local}:
+        raise AssertionError(f"{arch} float32 forward: #7 by route {f32_routes}")
+    caches = api32.init_caches(LM_BATCH, DECODE_TOKENS, torch.float32, device="cuda")
+    outs = []
+    for t in range(DECODE_TOKENS):
+        lg, caches = api32.decode(params, short[:, t:t + 1], t, caches)
+        outs.append(lg)
+    dec = torch.cat(outs, dim=1)
+    ddf = float((dec - ref).abs().max())
+    torch.testing.assert_close(dec, ref, atol=DECODE_TOL, rtol=DECODE_TOL,
+                               msg=lambda m: f"{arch} decode == forward (float32, full width): {m}")
+    res["decode_vs_forward"] = dict(tokens=DECODE_TOKENS, max_abs_diff=ddf, tol=DECODE_TOL,
+                                    flash_routes=f32_routes)
+    log(f"[check] {arch} decode == forward, float32 compute, full width: {DECODE_TOKENS} decode "
+        f"steps against forward(flash) at B={LM_BATCH}: max |d| {ddf:.4e} (atol=rtol={DECODE_TOL})")
+    del ref, caches, dec, outs
+
+    # the bf16 server: 4 prompts of 8 tokens, 16 new each, bf16 caches
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)),
+                              dtype=torch.int32, device="cuda")
+    steps, cache_len = 16, 8 + 16 + 1
+    before = fa_mod.flash_attention.launches
+    state = engine.init_serve_state(api, 4, cache_len + 2, dtype=torch.bfloat16, device="cuda")
+    prefill, step = engine.make_prefill(api), engine.make_serve_step(api)
+    (lg, state), prefill_ms = timed(lambda: prefill(params, state, prompts))
+    toks_out, step_ms = [], []
+    for _ in range(steps):
+        tok = lg[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+        toks_out.append(tok)
+        (lg, state), ms = timed(lambda: step(params, state, tok[:, None]))
+        step_ms.append(ms)
+    gen = torch.stack(toks_out, 1)
+    if not torch.isfinite(lg).all() or gen.shape != (4, steps) or state.cache_pos != cache_len - 1:
+        raise AssertionError(f"{arch} bf16 serving: non-finite logits or wrong shapes")
+    if fa_mod.flash_attention.launches != before:
+        raise AssertionError(f"{arch} bf16 serving launched #7 (decode attends in plain PyTorch)")
+    box = [state]
+
+    def one_step():
+        box[0] = step(params, box[0], gen[:, -1:])[1]
+
+    dprof = profiled(one_step, 2)
+    read = res["weight_bytes"]  # a step reads every weight, the tied embedding whole (logits)
+    step_med = float(np.median(step_ms))
+    res["serve_bf16"] = dict(prefill_ms=prefill_ms, step_ms=step_ms, step_median_ms=step_med,
+                             tokens_s=4 * steps / (sum(step_ms) / 1e3), profiled=dprof,
+                             step_bytes=read, step_bound_ms=read / PEAK_HBM_BYTES * 1e3,
+                             tokens=gen.tolist())
+    log(f"{tag} serve bf16: 4 prompts x 8 tokens, 16 new each, bf16 caches: prefill "
+        f"{prefill_ms:.3f} ms, decode step median {step_med:.3f} ms, "
+        f"{res['serve_bf16']['tokens_s']:.1f} tokens/s; a step reads {read / 1e9:.3f} GB of "
+        f"weights: bound {res['serve_bf16']['step_bound_ms']:.3f} ms at 3.35 TB/s")
+    log(f"{tag} 2 decode steps under the profiler: {['%.3f' % t for t in dprof['steps_ms']]} ms, "
+        f"device busy {dprof['device_busy_ms']:.3f} of {dprof['device_wall_ms']:.3f} ms, idle "
+        f"share {dprof['device_idle_share']:.4f}")
+    for kk in dprof["top_kernels"][:4]:
+        log(f"{tag}   {kk['device_ms']:9.3f} ms x{kk['calls']:<4d} {kk['name']}")
+    del state, box, lg
+
+    # greedy_generate's float32 caches at bf16 compute: mamba2 runs (no
+    # attention), recurrentgemma is refused, as the reference fails
+    try:
+        out = engine.greedy_generate(api, params, prompts, steps=2, cache_len=11)
+    except ValueError as e:
+        if n_local == 0:
+            raise
+        res["greedy_bf16"] = "refused"
+        log(f"{tag} greedy_generate at bf16 refuses, as the reference's fails: {str(e)[:90]}...")
+    else:
+        if n_local:
+            raise AssertionError(f"{arch}: greedy_generate accepted bf16 compute with attention")
+        if out.shape != (4, 2):
+            raise AssertionError(f"{arch}: greedy_generate at bf16 gave {tuple(out.shape)}")
+        res["greedy_bf16"] = out.tolist()
+        log(f"{tag} greedy_generate at bf16 compute with float32 caches runs, as the "
+            f"reference's: {out.tolist()}")
+
+    # the caches at the reference's train_4k and long_500k contexts, batch 1, bf16
+    res["cache_bytes"] = {}
+    for n in CACHE_LENS:
+        caches = api.init_caches(1, n, torch.bfloat16, device="cuda")
+        res["cache_bytes"][n] = nbytes(caches)
+        if any(c.k.shape[-3] != cfg.window for c in transformer._attn_caches(caches)):
+            raise AssertionError(f"{arch}: a local cache is not a ring of {cfg.window} slots")
+        del caches
+    if len(set(res["cache_bytes"].values())) != 1:
+        raise AssertionError(f"{arch}: cache bytes grow with the context: {res['cache_bytes']}")
+    log(f"{tag} caches at batch 1, bf16: {res['cache_bytes'][CACHE_LENS[0]]} B at "
+        f"{CACHE_LENS[0]} and {CACHE_LENS[1]} positions"
+        + (f" (local attention: a ring of {cfg.window} slots)" if n_local else " (O(1) state)"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the smoke config (float32) on the card against the CPU, forward and decode
+    scfg = smoke_config(arch)
+    sapi = build(scfg)
+    sp = sapi.init(torch.Generator().manual_seed(0), device="cpu")
+    stoks = torch.randint(0, scfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    got, _ = sapi.forward(tree_map(lambda t: t.cuda(), sp), stoks.cuda(), impl="flash")
+    want, _ = sapi.forward(sp, stoks, impl="flash")
+    ds = float((got.cpu() - want).abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4,
+                               msg=lambda m: f"{arch} smoke, card vs CPU: {m}")
+    res["smoke_card_vs_cpu_max_abs_diff"] = ds
+    log(f"[check] {arch} smoke (float32, S=24{f' > window {scfg.window}' if scfg.window else ''}) "
+        f"flash on the card vs the CPU: max |d| {ds:.3e} (atol=rtol=1e-4)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lm_launch.main(["--arch", arch, "--smoke"])
+    lines = buf.getvalue().splitlines()
+    if not lines or not lines[0].startswith(f"{arch}: 64 tokens in"):
+        raise AssertionError(f"launcher: {lines}")
+    log(f"[launcher] serve --arch {arch} --smoke on the card: {lines[0]}")
+    res["launcher"] = lines[0]
+    return res
+
+
+def recurrent_alone(arch: str) -> dict:
+    """Phase 6g or 6h on its own; recurrentgemma's also times #7 at its
+    layer shape (``flash_rg_shape``)."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def run():
+        out = {"phase": recurrent_lm_phase(arch, kernel_counters(), fa_mod)}
+        if arch == "recurrentgemma-9b":
+            out["flash_attention"] = flash_rg_shape(fa_mod)
+        return out
+
+    return lm_alone(arch, run)
+
+
+def mamba2_alone() -> dict:
+    """Phase 6g alone (``python3 -c 'import chip_smoke as c; c.mamba2_alone()'``);
+    chiprun_out/mamba2-2.7b.json."""
+    return recurrent_alone("mamba2-2.7b")
+
+
+def recurrentgemma_alone() -> dict:
+    """Phase 6h alone (``python3 -c 'import chip_smoke as c;
+    c.recurrentgemma_alone()'``); chiprun_out/recurrentgemma-9b.json."""
+    return recurrent_alone("recurrentgemma-9b")
+
+
 # -- phase 7: observability and the HGNN leftovers ---------------------------
 
 
@@ -3960,17 +4414,29 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     lm["batcher"] = batcher_phase()
+    # phases 6g-6h: the recurrent decoders at full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in RECURRENT_ARCHS:
+        lm[arch] = recurrent_lm_phase(arch, lm_counters, fa_mod)
+        gc.collect()
+        torch.cuda.empty_cache()
     by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
                                   "lm_serve": lm["serve_bf16"]["flash_launches"],
                                   "dbrx_forward": lm["dbrx-132b"]["forward"]["launches"][
                                       "flash_attention"],
                                   "grok_forward": lm["grok-1-314b"]["forward"]["launches"][
-                                      "flash_attention"]}
+                                      "flash_attention"],
+                                  "recurrentgemma_forward": lm["recurrentgemma-9b"]["forward"][
+                                      "launches"]["flash_attention"]}
     ms_per["flash_attention"] = (f"one launch at {LM_ARCH}'s layer shape (B={LM_BATCH}, "
                                  f"S={LM_SEQ}, heads 24/8, Dh=128, bf16): the wgmma route; "
                                  "ms_float32: the cuda_cores route on float32 operands; "
                                  "moe_shape: the wgmma route at dbrx's and grok's layer shape "
-                                 "(heads 48/8), with its plain, SDPA and bound times")
+                                 "(heads 48/8), with its plain, SDPA and bound times; "
+                                 "recurrentgemma_shape: the cuda_cores route at recurrentgemma-9b's "
+                                 "local layer (heads 16/1 of 256, window 2048, bf16), SDPA with "
+                                 "the same window mask (library_backend)")
 
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
@@ -4003,6 +4469,7 @@ def main() -> int:
     fa_row["bound_split_ms"] = train_kernels["flash_attention"]["bound_split_ms"]
     fa_row["launches_by_route"] = lm["forward"]["launches_by_route"]
     fa_row["moe_shape"] = train_kernels["flash_attention"]["moe_shape"]
+    fa_row["recurrentgemma_shape"] = train_kernels["flash_attention"]["recurrentgemma_shape"]
     k6_row = next(r for r in line["kernels"] if r["name"] == "fused_fp_coeff")
     k6 = train_kernels["fused_fp_coeff"]
     k6_row.update(ms_cuda_cores=k6["ms_cuda_cores"], bound_split_ms=k6["bound_split_ms"],

@@ -6,8 +6,10 @@ The counterpart of ``repro/launch/serve.py``: the same flags and printed
 lines, prompts from ``np.random.default_rng(0)``, random weights from a
 ``torch.Generator`` seeded 0.  ``--device`` defaults to ``cuda`` and
 raises on a host without a card.  Like the reference, the greedy server
-runs only float32-compute configs (``--smoke`` ones): a full config
-computes in bfloat16 and raises ``ValueError`` before any work (see
+runs only configs whose decode keeps the compute dtype against its
+float32 caches (the float32 ``--smoke`` ones, and mamba2 at bfloat16): a
+full config with attention blocks computes in bfloat16 and raises
+``ValueError`` before any work (see
 ``serve/engine.py:check_greedy_domain``).
 """
 from __future__ import annotations

@@ -10,8 +10,12 @@ the stacked axis takes the place of ``jax.lax.scan``.
   * decode_step()  — one token against carried caches (serving)
 
 The port runs "attn" and "local" blocks with a dense MLP or MoE
-(``moe.py``).  SSM and RG-LRU blocks, M-RoPE and visual embeddings raise
-``NotImplementedError`` naming their ROADMAP item.
+(``moe.py``), "ssm" blocks (mamba2, ``ssm.py``) and "rglru" blocks with a
+GeGLU MLP (``rglru.py``).  A block's decode cache is an ``AttnCache``
+(a full context, or a ring of ``cfg.window`` slots for "local") or a
+recurrent ``(conv, state)`` tuple, O(1) in context.  M-RoPE, visual
+embeddings and the encoder-decoder raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,10 +30,13 @@ from .config import LMConfig
 from .layers import P, init_from_specs, rms_norm, rope_angles, torch_dtype
 from .mlp import mlp_forward, mlp_specs
 from .moe import moe_forward, moe_specs
+from .rglru import init_rglru_cache, rglru_decode, rglru_forward, rglru_specs
+from .ssm import init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
+
+ATTENTION = ("attn", "local")
+RECURRENT = ("ssm", "rglru")
 
 _UNPORTED = {
-    "ssm": "ROADMAP Queue 1 item 7c (SSM blocks: mamba2-2.7b)",
-    "rglru": "ROADMAP Queue 1 item 7d (RG-LRU blocks: recurrentgemma-9b)",
     "m_rope": "ROADMAP Queue 1 item 7e (M-RoPE and visual embeddings: qwen2-vl-7b)",
     "encdec": "ROADMAP Queue 1 item 7f (encoder-decoder: whisper-large-v3)",
 }
@@ -45,9 +52,7 @@ def check_supported(cfg: LMConfig) -> None:
     if cfg.is_encoder_decoder:
         raise unported("encdec", cfg)
     for pat in cfg.block_pattern:
-        if pat in ("ssm", "rglru"):
-            raise unported(pat, cfg)
-        if pat not in ("attn", "local"):
+        if pat not in ATTENTION + RECURRENT:
             raise ValueError(pat)
     if cfg.m_rope:
         raise unported("m_rope", cfg)
@@ -62,6 +67,11 @@ def _block_specs(cfg: LMConfig, pat: str, layers: int | None) -> dict:
     lead = () if layers is None else (layers,)
     lx = () if layers is None else ("layers",)
     norm = lambda: P(lead + (d,), lx + (None,), init="ones")  # noqa: E731
+    if pat == "ssm":
+        return {"norm1": norm(), "ssm": ssm_specs(cfg, layers=layers)}
+    if pat == "rglru":
+        return {"norm1": norm(), "rglru": rglru_specs(cfg, layers=layers), "norm2": norm(),
+                "mlp": mlp_specs(cfg, layers=layers)}
     mixer = {"norm1": norm(), "attn": attention_specs(cfg, layers=layers), "norm2": norm()}
     if cfg.is_moe:
         return mixer | {"moe": moe_specs(cfg, layers=layers)}
@@ -124,6 +134,13 @@ def _ffn(cfg: LMConfig, p: dict, x: torch.Tensor, routes: list | None = None):
 def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, impl: str,
                    routes: list | None):
     """One block, full-sequence.  Returns (h, aux_loss or None)."""
+    if pat == "ssm":
+        y, _ = ssm_forward(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg)
+        return h + y, None
+    if pat == "rglru":
+        y, _ = rglru_forward(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg)
+        h = h + y
+        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), None
     win = cfg.window if pat == "local" else None
     a = attention_forward(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
@@ -135,7 +152,15 @@ def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, im
 
 
 def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos):
-    """One block, single token.  Returns (h, cache)."""
+    """One block, single token.  Returns (h, cache): the attention cache
+    written in place, or the recurrent block's new ``(conv, state)``."""
+    if pat == "ssm":
+        y, cache = ssm_decode(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache)
+        return h + y, cache
+    if pat == "rglru":
+        y, cache = rglru_decode(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache)
+        h = h + y
+        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), cache
     win = cfg.window if pat == "local" else None
     a, cache = attention_decode(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
@@ -209,19 +234,33 @@ def forward(
 # Decode (serving)
 # ---------------------------------------------------------------------------
 
+def _cache_map(fn, cache):
+    """``fn`` over the tensors of one block's cache: an ``AttnCache`` or a
+    recurrent ``(conv, state)`` tuple."""
+    if isinstance(cache, AttnCache):
+        return AttnCache(*(fn(t) for t in (cache.k, cache.v, cache.pos)))
+    return tuple(fn(t) for t in cache)
+
+
 def _cache_for(cfg: LMConfig, pat: str, batch: int, cache_len: int, dtype, device,
-               lead: tuple[int, ...] = ()) -> AttnCache:
+               lead: tuple[int, ...] = ()):
     """An empty cache of one block: the full context for "attn", a ring
-    buffer of ``cfg.window`` slots for "local"; ``lead`` stacks it."""
-    eff_cfg = cfg if pat == "local" else dataclasses.replace(cfg, window=None)
-    c = init_attn_cache(eff_cfg, batch, cache_len, dtype, device)
-    return AttnCache(*(t.expand(lead + t.shape).clone() for t in (c.k, c.v, c.pos)))
+    buffer of ``cfg.window`` slots for "local", ``(conv, state)`` for
+    "ssm" and "rglru" (the state float32); ``lead`` stacks it."""
+    if pat == "ssm":
+        c = init_ssm_cache(cfg, batch, dtype, device)
+    elif pat == "rglru":
+        c = init_rglru_cache(cfg, batch, dtype, device)
+    else:
+        eff_cfg = cfg if pat == "local" else dataclasses.replace(cfg, window=None)
+        c = init_attn_cache(eff_cfg, batch, cache_len, dtype, device)
+    return _cache_map(lambda t: t.expand(lead + t.shape).clone(), c) if lead else c
 
 
 def init_caches(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
                 device="cuda"):
     """Stacked caches matching the parameter layout: ``scan`` (a leading
-    ``[n_super]`` axis) and the ``tail`` list."""
+    ``[n_super]`` axis on every tensor) and the ``tail`` list."""
     check_supported(cfg)
     n_super, rem = _layout(cfg)
     caches: dict[str, Any] = {}
@@ -238,15 +277,23 @@ def init_caches(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
     return caches
 
 
+def _block_caches(caches):
+    """(container, key, cache) of every block cache in a cache tree."""
+    for k, c in caches.get("scan", {}).items():
+        yield caches["scan"], k, c
+    for i, c in enumerate(caches.get("tail", [])):
+        yield caches["tail"], i, c
+
+
 def _attn_caches(caches):
-    for c in caches.get("scan", {}).values():
-        yield c
-    yield from caches.get("tail", [])
+    for _, _, c in _block_caches(caches):
+        if isinstance(c, AttnCache):
+            yield c
 
 
 def mark_cache_filled(caches, cache_pos: int):
     """Mark attention cache slots [0, cache_pos) as holding real history
-    (in place; returns ``caches``)."""
+    (in place; returns ``caches``).  Recurrent states are left as they are."""
     for c in _attn_caches(caches):
         n = c.pos.shape[-1]
         pos = torch.arange(n, dtype=torch.int32, device=c.pos.device).expand(c.pos.shape)
@@ -254,19 +301,52 @@ def mark_cache_filled(caches, cache_pos: int):
     return caches
 
 
+def decode_dtype(cfg: LMConfig, cache_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of decode's hidden state with caches of ``cache_dtype``.
+    Attention against the caches computes in the promoted type of the two;
+    the recurrent blocks cast their output back to ``cfg.dtype`` whatever
+    their states' type.  So a config with an attention block decodes in
+    the promoted type, and one without in ``cfg.dtype``."""
+    compute = torch_dtype(cfg.dtype)
+    if any(pat in ATTENTION for pat in cfg.block_pattern):
+        return torch.promote_types(compute, cache_dtype)
+    return compute
+
+
 def check_cache_dtype(cfg: LMConfig, dtype: torch.dtype) -> None:
     """Raise unless decode keeps the hidden state in ``cfg.dtype`` with
-    caches of ``dtype``.  Attention against the caches computes in the
-    promoted type of the two; where that is wider than ``cfg.dtype``
-    (bfloat16 compute, float32 caches) the reference's scan over layers
-    refuses the wider carry with a TypeError, so the port refuses it too
-    rather than produce a result the reference cannot."""
-    compute = torch_dtype(cfg.dtype)
-    if torch.promote_types(compute, dtype) != compute:
+    caches of ``dtype`` (:func:`decode_dtype`).  Where an attention block
+    turns it wider (bfloat16 compute, float32 caches) the reference's scan
+    over layers refuses the wider carry with a TypeError, so the port
+    refuses it too rather than produce a result the reference cannot.
+    mamba2 (no attention) decodes at bfloat16 against float32 states in
+    both packages."""
+    wider = decode_dtype(cfg, dtype)
+    if wider != torch_dtype(cfg.dtype):
         raise ValueError(
             f"{cfg.name}: decode with {dtype} caches at compute dtype {cfg.dtype} is outside "
-            f"the reference's domain (its scan carry would turn "
-            f"{torch.promote_types(compute, dtype)}); see ROADMAP Queue 3")
+            f"the reference's domain (attention against the caches turns its scan carry "
+            f"{wider}); see ROADMAP Queue 3")
+
+
+def _widen_conv_states(cfg: LMConfig, caches) -> None:
+    """The reference's recurrent blocks return their conv state in the
+    promoted type of the cache's and the compute dtype, so a float32-compute
+    step turns a bfloat16 conv cache float32.  Such a cache is widened once,
+    in place in the tree, so that each step stores its state unrounded."""
+    compute = torch_dtype(cfg.dtype)
+    for tree, key, c in list(_block_caches(caches)):
+        if not isinstance(c, AttnCache):
+            conv, state = c
+            tree[key] = (conv.to(torch.promote_types(conv.dtype, compute)), state)
+
+
+def _store(cache, new) -> None:
+    """Write a recurrent block's new ``(conv, state)`` into its cache's
+    tensors (``attention_decode`` writes an ``AttnCache`` itself)."""
+    if not isinstance(cache, AttnCache):
+        for t, n in zip(cache, new):
+            t.copy_(n)
 
 
 def decode_step(
@@ -281,6 +361,7 @@ def decode_step(
     check_supported(cfg)
     for c in _attn_caches(caches):
         check_cache_dtype(cfg, c.k.dtype)
+    _widen_conv_states(cfg, caches)
     b = tokens.shape[0]
     # on the device once: each layer then reads it without a host copy
     cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=tokens.device).expand(b)
@@ -290,11 +371,13 @@ def decode_step(
     n_super, rem = _layout(cfg)
     for layer in range(n_super):
         sp = _layer(params["scan"], layer)
-        sc = {k: AttnCache(c.k[layer], c.v[layer], c.pos[layer])
-              for k, c in caches["scan"].items()}
         for i, pat in enumerate(cfg.block_pattern):
-            h, _ = _block_decode(cfg, pat, sp[f"pos{i}"], h, angles, sc[f"pos{i}"], cache_pos)
+            c = _cache_map(lambda t: t[layer], caches["scan"][f"pos{i}"])
+            h, new = _block_decode(cfg, pat, sp[f"pos{i}"], h, angles, c, cache_pos)
+            _store(c, new)
     for i in range(rem):
-        h, _ = _block_decode(cfg, cfg.block_pattern[i], params["tail"][i], h, angles,
-                             caches["tail"][i], cache_pos)
+        c = caches["tail"][i]
+        h, new = _block_decode(cfg, cfg.block_pattern[i], params["tail"][i], h, angles, c,
+                               cache_pos)
+        _store(c, new)
     return logits_from_hidden(params, cfg, h), caches

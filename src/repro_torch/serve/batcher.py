@@ -45,8 +45,10 @@ class ContinuousBatcher:
 
     Prompts are injected by stepping them token by token through the slot
     (prefill is the decode path), as in the reference.  The caches are
-    float32, as the reference builds them, so the batcher serves
-    float32-compute configs only: at a bfloat16 compute dtype the
+    float32, as the reference builds them, so the batcher serves the
+    configs whose decode keeps the compute dtype against them: every
+    float32-compute config, and mamba2 at bfloat16.  Where attention
+    against float32 caches would widen a bfloat16 hidden state the
     reference's jitted step fails on its scan carry, and this one raises
     ``ValueError`` naming the cause (``transformer.check_cache_dtype``)."""
 
@@ -81,8 +83,8 @@ class ContinuousBatcher:
 
     def _reset_slot(self, s: int) -> None:
         """Invalidate slot s's cache rows in place, so that a newly admitted
-        request never attends to the previous occupant (pos -1 is masked,
-        K/V zeroed).  The slot dim follows the ``init_caches`` layout:
+        request never sees the previous occupant (pos -1 is masked, K/V
+        and recurrent states zeroed).  The slot dim follows the ``init_caches`` layout:
         ``caches["scan"]`` leaves are stacked ``[n_super, B, ...]`` (slot
         dim 1), ``caches["tail"]`` leaves ``[B, ...]`` (slot dim 0) —
         located by structure, not by size, so num_slots == n_super stays

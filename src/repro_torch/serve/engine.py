@@ -14,7 +14,7 @@ import torch
 
 from ..models.lm.api import LMApi
 from ..models.lm.layers import torch_dtype
-from ..models.lm.transformer import mark_cache_filled
+from ..models.lm.transformer import decode_dtype, mark_cache_filled
 
 GREEDY_CACHE_DTYPE = torch.float32  # the reference's greedy_generate builds float32 caches
 
@@ -61,17 +61,21 @@ def make_prefill(api: LMApi) -> Callable:
 
 def check_greedy_domain(cfg) -> None:
     """Raise ``ValueError`` for a config the reference's ``greedy_generate``
-    cannot run: it builds float32 caches (``repro/serve/engine.py:100``),
-    and at a bfloat16 compute dtype decode then promotes the hidden state
-    to float32, which the reference's scan over layers refuses (a
-    TypeError on its carry).  ROADMAP Queue 3 records this property of the
-    reference.  ``make_prefill`` and ``make_serve_step`` with bfloat16
-    caches serve such configs in both packages."""
-    if torch_dtype(cfg.dtype) != GREEDY_CACHE_DTYPE:
+    cannot run.  It builds float32 caches (``repro/serve/engine.py:100``);
+    at a bfloat16 compute dtype attention against them promotes the hidden
+    state to float32, which the reference's scan over layers refuses (a
+    TypeError on its carry).  So it runs only configs whose decode keeps
+    the compute dtype (``transformer.decode_dtype``): every float32-compute
+    config, and mamba2 (no attention block) at bfloat16 too.  ROADMAP
+    Queue 3 records this property of the reference.  ``make_prefill`` and
+    ``make_serve_step`` with bfloat16 caches serve the rest in both
+    packages."""
+    wider = decode_dtype(cfg, GREEDY_CACHE_DTYPE)
+    if wider != torch_dtype(cfg.dtype):
         raise ValueError(
             f"{cfg.name}: the reference's greedy_generate cannot run compute dtype {cfg.dtype}: "
-            f"it builds float32 caches (repro/serve/engine.py:100) and its scan over layers "
-            f"refuses the float32 hidden state that attention against them returns (see "
+            f"it builds float32 caches (repro/serve/engine.py:100), attention against them "
+            f"returns a {wider} hidden state, and its scan over layers refuses it (see "
             f"ROADMAP Queue 3).  Serve it through make_prefill / make_serve_step with "
             f"bfloat16 caches, or use a float32 compute dtype.")
 

@@ -36,8 +36,9 @@ route), the CUDA-core route forced on float32, and R-GAT on KERNEL
 launching it twice per relation and layer, all on the tensor cores; kernel #7
 on both routes (bf16 also within one rounding, atol=1e-4, rtol=8e-3; on
 the wgmma route at least BITWISE_SHARE_MIN of the outputs that rounding
-bitwise) and the LM decoders, dense and MoE (card against CPU, routes
-equal or near-ties).
+bitwise) and the LM decoders, dense, MoE (card against CPU, routes
+equal or near-ties) and recurrent (mamba2, recurrentgemma: forward,
+decode, greedy and the batcher against the CPU).
 Every test carries the ``cuda`` marker and skips without a card."""
 import dataclasses
 import importlib
@@ -88,6 +89,7 @@ from repro_torch.models.hgnn import (
 )
 from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing
 from repro_torch.obs.characterize import characterize_hgnn
+from repro_torch.serve import ContinuousBatcher, Request
 from repro_torch.serve.engine import greedy_generate
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
@@ -877,6 +879,46 @@ def test_moe_forward_on_cuda_matches_cpu(cuda):
         got2, aux2 = api.forward(on_card, toks.to(cuda), impl=impl, routes=again)
         assert torch.equal(got, got2) and torch.equal(aux, aux2)
         assert all(torch.equal(a.table, b.table) for a, b in zip(card, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_recurrent_forward_decode_and_batcher_on_cuda_match_cpu(cuda, arch):
+    """The recurrent families' smoke configs (float32) at S = 24, past
+    recurrentgemma's window of 8: flash and xla forwards on the card
+    against the CPU at 1e-4 (#7 once a local layer on flash, none for
+    mamba2), bitwise repeatable; decode on the card against its own
+    forward at 5e-4; greedy tokens and the batcher's (3 slots, 5
+    requests) equal to the CPU's."""
+    cfg = smoke_config(arch)
+    api = build_lm(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    n_local = sum(cfg.pattern_for_layer(i) == "local" for i in range(cfg.num_layers))
+    for impl in ("xla", "flash"):
+        before = flash_attention.launches
+        got, _ = api.forward(on_card, toks.to(cuda), impl=impl)
+        assert flash_attention.launches - before == (n_local if impl == "flash" else 0)
+        want, _ = api.forward(params, toks, impl=impl)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        assert torch.equal(got, api.forward(on_card, toks.to(cuda), impl=impl)[0])
+    caches = api.init_caches(2, 24, torch.float32, device=cuda)
+    outs = []
+    for t in range(24):
+        lg, caches = api.decode(on_card, toks[:, t:t + 1].to(cuda), t, caches)
+        outs.append(lg)
+    torch.testing.assert_close(torch.cat(outs, 1), got, atol=5e-4, rtol=5e-4)
+    out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
+    assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))
+    jobs = [(toks[i % 2, i:i + 4 + i % 3].tolist(), 3 + i % 2) for i in range(5)]
+    runs = []
+    for dev, p in ((cuda, on_card), ("cpu", params)):
+        cb = ContinuousBatcher(api, 3, 16, p, device=dev)
+        for i, (prompt, m) in enumerate(jobs):
+            cb.submit(Request(rid=i, prompt=prompt, max_new=m))
+        runs.append({r.rid: r.out for r in cb.run()})
+    assert runs[0] == runs[1] and len(runs[0]) == len(jobs)
 
 
 # -- kernel #6, the KERNEL backend's FP+θ -----------------------------------------

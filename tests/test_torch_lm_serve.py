@@ -1,8 +1,8 @@
 """The port's LM server against the JAX package's: greedy tokens, prefill
 and decode with bfloat16 caches, the greedy server's dtype domain (a
 property of the reference, pinned in both packages), the launcher's
-output (the dense and the MoE families), and the families the port does
-not run yet.
+output (the dense, MoE and recurrent families), and the families the
+port does not run yet.
 
 Weights come from the JAX ``init`` through ``convert.lm_params_from_numpy``;
 prompts from numpy.  Tolerance of the bfloat16 path: 3e-2
@@ -29,10 +29,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.models.lm.api import build as tbuild
 from repro_torch.serve import engine as tengine
 
-UNPORTED = {
-    "qwen2-vl-7b": "7e", "mamba2-2.7b": "7c", "whisper-large-v3": "7f",
-    "recurrentgemma-9b": "7d",
-}
+UNPORTED = {"qwen2-vl-7b": "7e", "whisper-large-v3": "7f"}
 
 
 def pair(arch: str, **over):
@@ -124,6 +121,11 @@ def test_launcher_prints_the_reference_lines(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
 def test_moe_launcher_prints_the_reference_lines(monkeypatch, arch):
+    check_launcher(monkeypatch, arch)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_recurrent_launcher_prints_the_reference_lines(monkeypatch, arch):
     check_launcher(monkeypatch, arch)
 
 
