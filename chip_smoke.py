@@ -100,8 +100,8 @@ Phases, each fatal on failure:
       group, ``param_shardings``, ``han_forward_multilane(mesh=,
       placements=)``, the placements-aware AdamW), counters zeroed just
       before (#1 and #2 once a step), bitwise today's MULTIGRAPH steps.
-      The model axis over several cards runs apart: ``model_sharded()``
-      under ``torchrun`` (its docstring says how).
+      The model axis over several cards (HAN, then R-GAT) runs apart:
+      ``model_sharded()`` under ``torchrun`` (its docstring says how).
 5. The per-graph models on full IMDB's six relation graphs (AM, MA, KM,
    MK, DM, MD), block=16, at the JAX package's ``init_*`` widths (R-GAT
    hidden 64, heads 4, layers 3; S-HGN hidden 64, heads 4, layers 2,
@@ -158,8 +158,11 @@ Phases, each fatal on failure:
       S = 4096) in bfloat16 (atol=rtol=3e-2, and within one rounding of
       the float32 result, atol=1e-4, rtol=8e-3) and float32 (1e-4), and
       on Sq < Sk, Sq > Sk (rows that see no key must be exact zeros), a
-      2048 window with MQA at Dh = 256, ``causal=False`` and dbrx's and
-      grok's layer (48/8 heads of 128, a GQA group of 6); each case on
+      2048 window with MQA at Dh = 256, ``causal=False``, dbrx's and
+      grok's layer (48/8 heads of 128, a GQA group of 6), qwen2-vl-7b's
+      (28/4 of 128, a group of 7) and whisper-large-v3's (MHA 20/20 of 64:
+      the encoder on 1,024 frames at ``causal=False``, the decoder at 448
+      positions, 3.5 tiles of 128); each case on
       the route the wrapper picks (bf16 at Dh 64 or 128 on ``wgmma``, the
       rest on ``cuda_cores``), its launches counted by route; twice
       bitwise equal; on the wgmma route at least ``BITWISE_SHARE_MIN`` of
@@ -172,6 +175,8 @@ Phases, each fatal on failure:
       ``scaled_dot_product_attention``; at recurrentgemma-9b's local layer
       (B = 2, 16/1 heads of 256, window 2048, bf16: cuda_cores) timed
       beside its bound, the plain version and SDPA with the window mask;
+      at qwen2-vl-7b's and whisper-large-v3's shapes beside their bounds,
+      the plain version and SDPA;
    b. the main path: ``LMApi.forward(impl="flash")`` at B = 2, S = 4096,
       counters zeroed just before: #7 launches 28 times, all on the wgmma
       route, nothing else;
@@ -243,7 +248,35 @@ Phases, each fatal on failure:
       ``_gates`` and the doubling scan timed alone; ``greedy_generate`` at
       bf16 refused, as the reference fails; the local caches a ring of
       2,048 slots at both lengths.  Alone: ``c.mamba2_alone()``,
-      ``c.recurrentgemma_alone()`` (with #7 at its layer shape).
+      ``c.recurrentgemma_alone()`` (with #7 at its layer shape);
+   i. qwen2-vl-7b at full width and depth (28 layers, d_model 3584, 28/4
+      heads of 128 with QKV bias, M-RoPE sections (16, 24, 24), d_ff
+      18,944, vocab 152,064 untied, its bf16 weights from a seeded
+      ``torch.Generator``, bf16 compute): ``LMApi.forward(impl="flash")``
+      at B = 2, S = 4096, the first 1,024 slots seeded visual embeddings
+      at the M-RoPE positions of a 32 x 32 grid (t = 0, h = row, w = col)
+      and the text after them from 32 with t == h == w, counters zeroed
+      just before: #7 launches 28 times, all on the wgmma route, nothing
+      else, its first call held against its plain version and by b's rule
+      on that layer; twice bitwise equal; cold and steady times, peak
+      memory, the profiler; flash and xla against the float32-compute
+      forward on row 0 (flash at most ``LOGITS_RULE_SLACK`` times xla's
+      rms); the bf16 server (4 prompts of 8, 16 new each; no #7 in decode);
+      ``greedy_generate`` at bf16 refused; the smoke config (float32) on
+      the card against the CPU at 1e-4 and decode == forward at 1e-3;
+   j. whisper-large-v3 at full width and depth (32 + 32 layers, d_model
+      1280, 20/20 heads of 64, float32 weights, bf16 compute), B = 2,
+      seeded frames, decoder S = 448: the main path is the flash forward at
+      1,024 frames, counters zeroed just before: #7 launches 64 times (32
+      encoder layers at causal=False, 32 decoder layers causal), all on
+      wgmma, each launch held against its plain version as it returns, b's
+      rule on the first; twice bitwise equal; against xla at 1,024 frames
+      and both against the float32-compute forward as in i; the real 1,500
+      frames on xla (times, peak memory, the profiler); the flash path at
+      1,500 frames raising the reference's block precondition; the bf16
+      server with 1,500 frames encoded once in prefill (the cross K/V
+      carried); the smoke config as in i.  Alone: ``c.qwen2vl_alone()``,
+      ``c.whisper_alone()`` (each with #7 at its layer shapes).
 7. Observability and the HGNN leftovers (run after 4g, on the phase-4
    problem; its launch counts are read apart from the main path's):
    a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
@@ -268,8 +301,8 @@ Phases, each fatal on failure:
       1e-4; then ``examples_torch/serve_hgnn.py`` (every #1 call held
       against plain) and ``quickstart.py`` at their defaults.  Alone:
       ``python3 -c 'import chip_smoke as c; c.observability_alone()'``.
-8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE and
-   recurrentgemma layer shapes; each row's ``ms_per`` says
+8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE,
+   recurrentgemma, qwen2-vl and whisper layer shapes; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
    and #2's rows give the entries they visit an edge, #2's its peak
@@ -1805,7 +1838,7 @@ MODEL_REL = 1e-5  # sharded vs one card: max |Δ| over each leaf's (logits', los
 FLOAT64_FACTOR = 2.0
 
 
-def model_sharded() -> dict:
+def model_sharded(models: tuple[str, ...] = ("HAN", "R-GAT")) -> dict:
     """The model mesh axis over four cards, run apart, one process a card:
 
         torchrun --nproc-per-node 4 --no-python python3 -c 'import chip_smoke as c; c.model_sharded()'
@@ -1822,9 +1855,12 @@ def model_sharded() -> dict:
     step where the rank's lanes hold units; the sharded train step (the
     placements-aware AdamW) and the one-card step timed with CUDA events in
     turns, then 3 sharded steps under the profiler (rank 0's busy and idle
-    share, top kernels); then ``run_training`` at (2, 2) for 3 steps with a checkpoint,
-    resumed for a 4th on every rank from the writer's step.  Rank 0 prints
-    the results and writes model_sharded.json to the output directory."""
+    share, top kernels); then R-GAT on the same meshes
+    (:func:`rgat_model_sharded`); then ``run_training`` at (2, 2) for 3 steps
+    with a checkpoint, resumed for a 4th on every rank from the writer's
+    step.  ``models`` picks HAN's part, R-GAT's or both (the default), e.g.
+    ``c.model_sharded(models=("R-GAT",))``.  Rank 0 prints the results and
+    writes model_sharded.json to the output directory."""
     import os
 
     import torch.distributed as dist
@@ -1882,7 +1918,7 @@ def model_sharded() -> dict:
         rules = make_rules(parallelism="lanes")
         res = dict(card=card_line(), world=world, plan_lanes=plan.num_lanes, meshes={})
         ok = True
-        for lanes, model in MODEL_MESHES:
+        for lanes, model in MODEL_MESHES if "HAN" in models else ():
             mesh = make_lane_mesh(lanes, model)
             name = f"{lanes}x{model}"
             pl = param_shardings(mesh, rules, hgnn_param_axes(params))
@@ -1963,30 +1999,14 @@ def model_sharded() -> dict:
                     log(f"[model_sharded {name}]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} "
                         f"{k['name']}")
 
-        # the launcher at (2, 2): 3 steps with a checkpoint, then a 4th resumed from it
-        ckpt = str(OUT / "model_sharded_ckpt")
+        if "R-GAT" in models:
+            res["rgat"], rgat_ok = rgat_model_sharded(dev, rank)
+            ok &= rgat_ok
+        if "HAN" in models:
+            ok &= han_run_2x2(res, rank, dev)
         if rank == 0:
-            shutil.rmtree(ckpt, ignore_errors=True)
-        dist.barrier()
-        run = dict(lanes=2, model_split=2, plan_lanes=16, ckpt_dir=ckpt, ckpt_every=3,
-                   log_every=1, log=log if rank == 0 else (lambda *_: None), device="cuda",
-                   **dict(TRAIN, block=128), **TRAIN_WIDTH)
-        _, hist, meta = hgnn_train.run_training(model_name="HAN", steps=3, **run)
-        _, resumed, _ = hgnn_train.run_training(model_name="HAN", steps=4, **run)
-        res["run_2x2"] = dict(loss=[h["loss"] for h in hist],
-                              resumed=[(h["step"], h["loss"]) for h in resumed],
-                              steps_ms=[h["sec"] * 1e3 for h in hist], meta=meta)
-        run_ok = (hist[-1]["loss"] < hist[0]["loss"] and [s for s, _ in res["run_2x2"]["resumed"]]
-                  == [3] and resumed[0]["loss"] < hist[-1]["loss"])
-        flag = torch.tensor([int(run_ok)], device=dev)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-        res["run_2x2"]["all_ranks_ok"] = bool(flag.item())
-        ok &= res["run_2x2"]["all_ranks_ok"]
-        if rank == 0:
-            shutil.rmtree(ckpt, ignore_errors=True)
             OUT.mkdir(exist_ok=True)
             (OUT / "model_sharded.json").write_text(json.dumps(res, indent=1, default=str))
-            log(f"[model_sharded run 2x2] {json.dumps(res['run_2x2'], default=str)}")
             log(res["card"])
         if not ok:
             raise AssertionError(f"rank {rank}: the model axis failed a check (see "
@@ -1994,6 +2014,173 @@ def model_sharded() -> dict:
         return res
     finally:
         dist.destroy_process_group()
+
+
+def han_run_2x2(res: dict, rank: int, dev) -> bool:
+    """The launcher at (2, 2) inside :func:`model_sharded`: HAN for 3 steps
+    with a checkpoint, then a 4th resumed from it on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import hgnn_train
+
+    ckpt = str(OUT / "model_sharded_ckpt")
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    run = dict(lanes=2, model_split=2, plan_lanes=16, ckpt_dir=ckpt, ckpt_every=3,
+               log_every=1, log=log if rank == 0 else (lambda *_: None), device="cuda",
+               **dict(TRAIN, block=128), **TRAIN_WIDTH)
+    _, hist, meta = hgnn_train.run_training(model_name="HAN", steps=3, **run)
+    _, resumed, _ = hgnn_train.run_training(model_name="HAN", steps=4, **run)
+    res["run_2x2"] = dict(loss=[h["loss"] for h in hist],
+                          resumed=[(h["step"], h["loss"]) for h in resumed],
+                          steps_ms=[h["sec"] * 1e3 for h in hist], meta=meta)
+    run_ok = (hist[-1]["loss"] < hist[0]["loss"] and [s for s, _ in res["run_2x2"]["resumed"]]
+              == [3] and resumed[0]["loss"] < hist[-1]["loss"])
+    flag = torch.tensor([int(run_ok)], device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    res["run_2x2"]["all_ranks_ok"] = bool(flag.item())
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        log(f"[model_sharded run 2x2] {json.dumps(res['run_2x2'], default=str)}")
+    return res["run_2x2"]["all_ranks_ok"]
+
+
+def rgat_model_sharded(dev, rank: int) -> tuple[dict, bool]:
+    """R-GAT on the model axis, inside :func:`model_sharded`: the launcher's
+    R-GAT (layers=2, MULTIGRAPH per relation and layer) at R-GAT's width
+    (4 x 64) on the phase-4 problem, over the (lanes, model) meshes of
+    ``MODEL_MESHES``, each rank holding its columns of every relation's
+    ``w_src``/``w_dst`` and its rows of ``w_out``: the sharded logits, loss
+    and gathered gradients within ``MODEL_REL`` of each one's largest
+    magnitude of the one-card run's (a gradient beyond it, one that nearly
+    cancels, no farther from a float64 BLOCK run's than ``FLOAT64_FACTOR``
+    times one card's), bitwise equal across the ranks of each model group
+    and on a second run; #1/#2 launched 6 times a step (one a relation and
+    layer); the sharded train step and the one-card step timed with CUDA
+    events in turns; ``run_training(model_name="R-GAT")`` at the mesh for 3
+    steps, the loss falling.  Returns (results, every rank's checks held)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import reshard_to
+    from repro_torch.core import NABackend
+    from repro_torch.dist import gather_leaf, local_slice, make_rules, map_placements
+    from repro_torch.dist import param_shardings
+    from repro_torch.launch import hgnn_train
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.models.hgnn import RGAT
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        hgnn_loss_and_grads,
+        hgnn_param_axes,
+        hgnn_train_state_axes,
+        init_hgnn_train_state,
+        make_hgnn_train_step,
+    )
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    fwd_fn, bwd_fn = mg_mod.seg_gat_agg_multigraph_fwd, mg_mod.seg_gat_agg_multigraph_bwd
+    _, data = hgnn_train.build_problem(device=dev, **TRAIN)
+    params = RGAT.init(torch.Generator().manual_seed(0), data, layers=2, **RGAT_TRAIN)
+    idx = torch.arange(data.labels.shape[0], device=dev)
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    n_rel = 2 * len(data.graphs)  # #1/#2 launches a step: one a relation and layer
+
+    def forward(p, **kw):
+        return RGAT.forward(p, data, backend=NABackend.MULTIGRAPH, **kw)
+
+    def leaves(tree):
+        return dict(tree_leaves_with_path(tree))
+
+    # float64 gradients (BLOCK, plain autograd) for the leaves that nearly cancel
+    d64 = dataclasses.replace(data, features={k: v.double() for k, v in data.features.items()})
+    p64 = tree_map(lambda t: t.double(), params)
+    _, _, g64 = hgnn_loss_and_grads(lambda p: RGAT.forward(p, d64, backend=NABackend.BLOCK),
+                                    p64, d64, idx)
+    g64 = leaves(g64)
+    del d64, p64
+    with torch.no_grad():
+        w_logits = forward(params)
+    w_loss, _, w_grads = hgnn_loss_and_grads(forward, params, data, idx)
+    w_grads = leaves(w_grads)
+    rules = make_rules(parallelism="lanes")
+    out, ok = dict(width=dict(layers=2, **RGAT_TRAIN), relations=len(data.graphs)), True
+    for lanes, model in MODEL_MESHES:
+        mesh = make_lane_mesh(lanes, model, device_type=dev.type)
+        name = f"{lanes}x{model}"
+        pl = param_shardings(mesh, rules, hgnn_param_axes(params))
+        local = map_placements(lambda p, x: local_slice(x, p, mesh), pl, params)
+
+        def sharded(p, m=mesh, s=pl):
+            return forward(p, mesh=m, placements=s)
+
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                logits = sharded(local)
+            fwd_fn.launches = bwd_fn.launches = 0
+            loss, _, grads = hgnn_loss_and_grads(sharded, local, data, idx)
+            torch.cuda.synchronize()
+            launches = (fwd_fn.launches, bwd_fn.launches)
+            whole = leaves(map_placements(lambda p, g: gather_leaf(g, p, mesh), pl, grads))
+            runs.append((logits, loss, whole, launches))
+        logits, loss, whole, launches = runs[0]
+        rel = {"logits": float((logits - w_logits).abs().max() / w_logits.abs().max()),
+               "loss": float((loss - w_loss).abs() / w_loss.abs())}
+        grel = {k: float((g - w_grads[k]).abs().max()) / (float(w_grads[k].abs().max()) or 1.0)
+                for k, g in whole.items()}
+        off64 = {k: (float((w_grads[k].double() - g64[k]).abs().max()),
+                     float((g.double() - g64[k]).abs().max())) for k, g in whole.items()}
+        held = all(v <= MODEL_REL or off64[k][1] <= FLOAT64_FACTOR * off64[k][0]
+                   for k, v in grel.items())
+        model_group = mesh.get_group("model")
+        same = True  # each model group's rank 0 against the others, bit for bit
+        for t in (logits, loss, *whole.values()):
+            first = t.clone(memory_format=torch.contiguous_format)
+            dist.broadcast(first, src=dist.get_global_rank(model_group, 0), group=model_group)
+            same &= torch.equal(first, t)
+        again = runs[1]
+        repeat = (torch.equal(again[0], logits) and torch.equal(again[1], loss)
+                  and all(torch.equal(again[2][k], g) for k, g in whole.items()))
+        checks = {"within_limit": max(rel["logits"], rel["loss"]) <= MODEL_REL and held,
+                  "model_group_bitwise": bool(same), "repeat_bitwise": bool(repeat),
+                  "launches_a_step": launches == (n_rel, n_rel)}
+        cell = dict(rel_err=rel | grel, off_float64=off64, launches_a_step=launches,
+                    checks=checks)
+        # the train step through the placements-aware AdamW, and the one-card step
+        state = init_hgnn_train_state(RGAT, torch.Generator().manual_seed(0), data, opt,
+                                      layers=2, **RGAT_TRAIN)
+        spl = param_shardings(mesh, rules, hgnn_train_state_axes(state, opt))
+        step_fns = {"one": make_hgnn_train_step(forward, data, opt),
+                    "sharded": make_hgnn_train_step(
+                        lambda p, m=mesh, s=spl: forward(p, mesh=m, placements=s.params),
+                        data, opt, placements=spl.params, mesh=mesh)}
+        states = {"one": state, "sharded": reshard_to(state, mesh=mesh, placements=spl)}
+        states, times = event_steps(step_fns, states, idx, 11)
+        cell["median_ms"] = {k: float(np.median(t[1:])) for k, t in times.items()}
+        cell["step_ms"] = times
+        del states
+        # the launcher's function at this mesh
+        _, hist, meta = hgnn_train.run_training(
+            model_name="R-GAT", steps=3, lanes=lanes, model_split=model, log=lambda *_: None,
+            device=dev.type, **TRAIN, **RGAT_TRAIN)
+        cell["run_training"] = dict(loss=[h["loss"] for h in hist], meta=meta)
+        checks["run_training_loss_falls"] = hist[-1]["loss"] < hist[0]["loss"]
+        flags = torch.tensor([int(v) for v in checks.values()], device=dev)
+        dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+        cell["all_ranks_ok"] = bool(flags.min())
+        ok &= cell["all_ranks_ok"]
+        out[name] = cell
+        if rank == 0:
+            worst = max(grel, key=grel.get)
+            log(f"[model_sharded R-GAT {name}] all_ranks_ok={cell['all_ranks_ok']} "
+                f"checks={json.dumps(checks)} launches a step {launches}; rel err logits "
+                f"{rel['logits']:.3e}, loss {rel['loss']:.3e}, largest leaf {worst} "
+                f"{grel[worst]:.3e}; step ms median one card {cell['median_ms']['one']:.3f}, "
+                f"sharded {cell['median_ms']['sharded']:.3f}; run_training loss "
+                f"{['%.6f' % v for v in cell['run_training']['loss']]}")
+    return out, ok
 
 
 # -- phase 5: the per-graph models, kernels #5 and #6 --------------------------------
@@ -2715,12 +2902,19 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (printed beside th
 FLASH_MAIN = (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 128, True, None)  # llama3.2-3b's layer
 FLASH_MOE = (LM_BATCH, 48, 8, LM_SEQ, LM_SEQ, 128, True, None)  # dbrx's and grok's: GQA group 6
 FLASH_RG = (LM_BATCH, 16, 1, LM_SEQ, LM_SEQ, 256, True, 2048)  # recurrentgemma-9b's local layer
+FLASH_VLM = (LM_BATCH, 28, 4, LM_SEQ, LM_SEQ, 128, True, None)  # qwen2-vl-7b's: GQA group 7
+WHISPER_SHAPES = {  # whisper-large-v3's: MHA, 20 heads of 64
+    "whisper encoder": (LM_BATCH, 20, 20, 1024, 1024, 64, False, None),  # on flash: 1,024 frames
+    "whisper decoder": (LM_BATCH, 20, 20, 448, 448, 64, True, None),     # 3.5 tiles of 128
+}
 FLASH_EDGES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
     (1, 24, 8, 1024, 3072, 128, True, None),   # Sq < Sk (a continuation)
     (1, 24, 8, 2048, 1024, 128, True, None),   # Sq > Sk: the first 1024 rows see no key
     (1, 16, 1, 4096, 4096, 256, True, 2048),   # recurrentgemma's MQA local attention
     (LM_BATCH, 24, 8, 1024, 1024, 128, False, None),  # bidirectional
     FLASH_MOE,
+    FLASH_VLM,
+    *WHISPER_SHAPES.values(),
 ]
 
 
@@ -2836,7 +3030,10 @@ def flash_phase(fa_mod) -> dict:
                 library_ms=lib_ms, bound_ms=bound, bound_by=by, bound_split_ms=bound_split,
                 bound_float32_ms=bound_f32, bytes=nbytes, flops=flops, flops_split=flops_split,
                 routes=routes, bitwise_shares=shares, moe_shape=moe,
-                recurrentgemma_shape=flash_rg_shape(fa_mod))
+                recurrentgemma_shape=flash_rg_shape(fa_mod),
+                vlm_shape=flash_shape_times(fa_mod, FLASH_VLM, VLM_ARCH),
+                whisper_shapes={n: flash_shape_times(fa_mod, c, n)
+                                for n, c in WHISPER_SHAPES.items()})
 
 
 def sdpa_windowed(q, k, v, window: int) -> tuple[float, str]:
@@ -2890,6 +3087,30 @@ def flash_rg_shape(fa_mod) -> dict:
     return dict(shape=FLASH_RG, route=route, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_backend=backend, bound_ms=bound, bound_by=by, bound_float32_ms=bound_f32,
                 bytes=nbytes, flops=flops)
+
+
+def flash_shape_times(fa_mod, case, name: str) -> dict:
+    """#7 at a model's layer shape (bf16, no window) timed with CUDA events
+    beside its bound (4·Dh flops a visible pair at the bf16 peak, or the
+    bytes), the plain version and SDPA (``enable_gqa``)."""
+    B, Hq, Hkv, Sq, Sk, Dh, causal, window = case
+    q, k, v = flash_operands(case, torch.bfloat16)
+    out = torch.empty_like(q)
+    route = fa_mod.route(q.dtype, Dh)
+    ms = cuda_ms(lambda: fa_mod.launch(q, k, v, out, causal=causal, window=window,
+                                       scale=Dh ** -0.5), reps=20)
+    plain_ms = cuda_ms(lambda: fa_mod.flash_attention_plain(q, k, v, causal=causal), reps=3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), reps=20)
+    nbytes, flops = flash_cost(*case, itemsize=2)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"[time] flash_attention {case} bf16 ({name}): {route} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes:.4e} B, "
+        f"{flops:.4e} flops at 989 TFLOP/s)")
+    del q, k, v, out
+    return dict(shape=case, route=route, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
 
 
 def control_shares(fa_mod, q, k, v, want, case) -> dict:
@@ -3571,7 +3792,7 @@ def recurrent_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
     smoke config on the card against the CPU; the launcher's --smoke run."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.launch import serve as lm_launch
-    from repro_torch.models.lm import attention, transformer
+    from repro_torch.models.lm import transformer
     from repro_torch.models.lm.api import build
     from repro_torch.serve import engine
     from repro_torch.tree import tree_leaves, tree_map
@@ -3596,25 +3817,12 @@ def recurrent_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
     vp = transformer.vocab_padded(cfg)
 
     # the main path: counters zeroed just before the forward, read just after;
-    # #7's first launch recorded (the wrapper calls the module's `launch`)
+    # #7's first launch held against its plain version as it returns
     by_route = fa_mod.flash_attention.launches_by_route
-    launch, first = fa_mod.launch, []
-
-    def recording(q, k, v, out, **kw):
-        launch(q, k, v, out, **kw)
-        if not first:
-            first.append((q, k, v, out, kw))
-
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    for r in by_route:
-        by_route[r] = 0
-    fa_mod.launch = recording
-    try:
+    reset_counts(counters, fa_mod)
+    with flash_launches_held(fa_mod, f"{arch} forward", every=False) as (held, first):
         (logits, aux), cold_ms = timed(lambda: api.forward(params, toks, impl="flash"))
-    finally:
-        fa_mod.launch = launch
     launches = {k: fn.launches for k, fn in counters.items()}
     routes = dict(by_route)
     peak = torch.cuda.max_memory_allocated()
@@ -3626,33 +3834,11 @@ def recurrent_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
         raise AssertionError(f"{arch} logits {tuple(logits.shape)} (expected {(LM_BATCH, LM_SEQ, vp)}) "
                              f"or non-finite, aux {float(aux)}")
     if first:
-        q, k, v, out, kw = first.pop()
-        name = f"{arch} forward: #7's first launch {tuple(q.shape)} / {tuple(k.shape)} {kw}"
-        plain = fa_mod.flash_attention_plain(q, k, v, **kw)
-        d7 = float((out.float() - plain.float()).abs().max())
-        torch.testing.assert_close(out.float(), plain.float(), atol=3e-2, rtol=3e-2,
-                                   msg=lambda m: f"{name}: {m}")
-        torch.testing.assert_close(out.float(), plain.float(), atol=1e-4, rtol=8e-3,
-                                   msg=lambda m: f"{name}, one rounding: {m}")
-        res["flash_first_call_max_abs_err"] = d7
-        log(f"[check] {name}: against flash_attention_plain max_abs_err={d7:.3e} "
-            f"(atol=rtol=3e-2 and atol=1e-4, rtol=8e-3)")
-        # phase 6b's rule where flash and xla differ, this layer's attention:
-        # #7's output at most as far (root mean square) from the float32
-        # attention of the same operands as impl "xla"'s bf16 einsums
-        exact32 = fa_mod.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
-        mask = fa_mod.attention_mask(q.shape[2], k.shape[2], kw["causal"], kw["window"], q.device)
-        xla_att = attention._sdpa_xla(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                      mask.expand(q.shape[0], -1, -1), cfg).transpose(1, 2)
-        att_rms = {n: float((o.float() - exact32).square().mean().sqrt())
-                   for n, o in (("flash", out), ("xla", xla_att))}
-        res["attention_vs_float32_rms"] = att_rms
-        log(f"[check] {arch} layer-0 attention against its float32 computation: rms flash "
-            f"{att_rms['flash']:.4e}, xla {att_rms['xla']:.4e}")
-        if not att_rms["flash"] <= att_rms["xla"]:
-            raise AssertionError(f"{arch}: #7's attention is further from float32 than xla's: "
-                                 f"{att_rms}")
-        del q, k, v, out, plain, exact32, xla_att
+        res["flash_first_call_max_abs_err"] = held[0][3]
+        log(f"[check] {arch} forward: #7's first launch {held[0][:3]} against "
+            f"flash_attention_plain max_abs_err={held[0][3]:.3e} (atol=1e-4, rtol=8e-3)")
+        # phase 6b's rule where flash and xla differ, this layer's attention
+        res["attention_vs_float32_rms"] = attention_rule(fa_mod, cfg, first.pop(), arch)
     logits2, _ = api.forward(params, toks, impl="flash")
     if not torch.equal(logits, logits2):
         raise AssertionError(f"{arch}: two forwards on the same inputs differ")
@@ -3868,6 +4054,466 @@ def recurrentgemma_alone() -> dict:
     """Phase 6h alone (``python3 -c 'import chip_smoke as c;
     c.recurrentgemma_alone()'``); chiprun_out/recurrentgemma-9b.json."""
     return recurrent_alone("recurrentgemma-9b")
+
+
+# -- phases 6i-6j: the VLM (M-RoPE, visual slots) and the encoder-decoder ------------
+
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-large-v3"
+VLM_GRID = 32  # the visual span: a 32 x 32 patch grid at t = 0, the first 1,024 slots
+# whisper's 1,500 frames (the flash path refuses them: min(512, 1500) does not
+# divide 1500, in both packages), the 1,024 of its flash forward, its 448 positions
+WHISPER_FRAMES, WHISPER_FLASH_FRAMES, WHISPER_DEC = 1500, 1024, 448
+LOGITS_RULE_SLACK = 1.25  # flash's logits at most this much farther (rms) from float32 than xla's
+
+
+def vlm_positions(b: int, s: int, grid: int, device) -> torch.Tensor:
+    """M-RoPE positions ``[b, s, 3]`` (t, h, w): a grid x grid patch span at
+    t = 0 (h = row, w = col), the text after it from max + 1 with t == h == w."""
+    n_vis = grid * grid
+    pos = torch.zeros((s, 3), dtype=torch.int32)
+    idx = torch.arange(n_vis, dtype=torch.int32)
+    pos[:n_vis, 1], pos[:n_vis, 2] = idx // grid, idx % grid
+    pos[n_vis:] = (grid + torch.arange(s - n_vis, dtype=torch.int32))[:, None]
+    return pos.expand(b, s, 3).to(device)
+
+
+@contextlib.contextmanager
+def flash_launches_held(fa_mod, name: str, every: bool):
+    """While active, #7's launches (``fa_mod.launch``, which the wrapper
+    calls), every one or the first, are held against ``flash_attention_plain``
+    on their operands as they return: within one rounding of the float32
+    result for bf16 (atol=1e-4, rtol=8e-3), 1e-4 for float32.  Yields a
+    list of (q shape, k shape, causal, max |d|); ``first`` keeps the first
+    launch's operands.  The plain version launches no kernel, so no
+    count moves."""
+    launch, seen, first = fa_mod.launch, [], []
+
+    def checking(q, k, v, out, **kw):
+        launch(q, k, v, out, **kw)
+        if not first:
+            first.append((q, k, v, out, kw))
+        if every or len(seen) == 0:
+            plain = fa_mod.flash_attention_plain(q, k, v, **kw)
+            tol = (dict(atol=1e-4, rtol=8e-3) if out.dtype == torch.bfloat16
+                   else dict(atol=1e-4, rtol=1e-4))
+            what = f"{name}: #7 launch {len(seen)} {tuple(q.shape)} / {tuple(k.shape)} {kw}"
+            torch.testing.assert_close(out.float(), plain.float(), **tol,
+                                       msg=lambda m: f"{what}: {m}")
+            seen.append((tuple(q.shape), tuple(k.shape), kw["causal"],
+                         float((out.float() - plain.float()).abs().max())))
+
+    fa_mod.launch = checking
+    try:
+        yield seen, first
+    finally:
+        fa_mod.launch = launch
+
+
+def attention_rule(fa_mod, cfg, launch, name: str) -> dict:
+    """Phase 6b's rule on one attention layer of a forward: #7's output at
+    most as far (root mean square) from the float32 attention of the same
+    operands as impl "xla"'s bf16 einsums."""
+    from repro_torch.models.lm import attention
+
+    q, k, v, out, kw = launch
+    exact32 = fa_mod.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    mask = fa_mod.attention_mask(q.shape[2], k.shape[2], kw["causal"], kw["window"], q.device)
+    xla_att = attention._sdpa_xla(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  mask.expand(q.shape[0], -1, -1), cfg).transpose(1, 2)
+    rms = {n: float((o.float() - exact32).square().mean().sqrt())
+           for n, o in (("flash", out), ("xla", xla_att))}
+    log(f"[check] {name} first attention layer against its float32 computation: rms flash "
+        f"{rms['flash']:.4e}, xla {rms['xla']:.4e}")
+    if not rms["flash"] <= rms["xla"]:
+        raise AssertionError(f"{name}: #7's attention is further from float32 than xla's: {rms}")
+    return rms
+
+
+def reset_counts(counters: dict, fa_mod) -> None:
+    """Every kernel count to 0, #7's by route too (just before a main path)."""
+    for fn in counters.values():
+        fn.launches = 0
+    for r in fa_mod.flash_attention.launches_by_route:
+        fa_mod.flash_attention.launches_by_route[r] = 0
+
+
+def logits_vs_float32(name: str, bf16: dict, exact, vocab: int) -> dict:
+    """Each bf16 forward's logits (``{impl: logits}``) against the
+    float32-compute forward's: top-1 agreement, max |d|, rms; and phase
+    6b's rule in the logits with ``LOGITS_RULE_SLACK`` for the other
+    layers' roundings, which both paths share."""
+    to_exact = {impl: dict(top1_agreement=top1_agreement(lg, exact, vocab),
+                           max_abs_diff=rowwise_max_abs(lg, exact), rms_diff=rowwise_rms(lg, exact))
+                for impl, lg in bf16.items()}
+    for impl, d in to_exact.items():
+        log(f"[check] {name} {impl} (bf16) against the float32-compute forward: top-1 agreement "
+            f"{d['top1_agreement']:.6f}, max |d| {d['max_abs_diff']:.4e}, rms {d['rms_diff']:.4e}")
+    if "xla" in to_exact and not (to_exact["flash"]["rms_diff"]
+                                  <= LOGITS_RULE_SLACK * to_exact["xla"]["rms_diff"]):
+        raise AssertionError(f"{name}: flash's logits are further from float32 than "
+                             f"{LOGITS_RULE_SLACK} x xla's: {to_exact}")
+    return to_exact
+
+
+def bf16_server(name: str, api, params, fa_mod, frames=None) -> dict:
+    """4 prompts of 8 tokens, 16 new each, ``make_prefill`` + ``make_serve_step``
+    with bf16 caches (an encoder-decoder's ``frames`` encoded once in
+    prefill, its cross K/V precomputed there and read by every step): ms,
+    tokens/s, the profiler over 2 steps; decode launches no #7."""
+    cfg = api.cfg
+    from repro_torch.serve import engine
+
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8)),
+                              dtype=torch.int32, device="cuda")
+    steps, cache_len = 16, 8 + 16 + 1
+    before = fa_mod.flash_attention.launches
+    state = engine.init_serve_state(api, 4, cache_len + 2, dtype=torch.bfloat16, device="cuda")
+    prefill, step = engine.make_prefill(api), engine.make_serve_step(api)
+    kw = {} if frames is None else {"frames": frames}
+    (lg, state), prefill_ms = timed(lambda: prefill(params, state, prompts, **kw))
+    cross = state.cross_kv
+    toks_out, step_ms = [], []
+    for _ in range(steps):
+        tok = lg[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+        toks_out.append(tok)
+        (lg, state), ms = timed(lambda: step(params, state, tok[:, None]))
+        step_ms.append(ms)
+    gen = torch.stack(toks_out, 1)
+    if not torch.isfinite(lg).all() or gen.shape != (4, steps) or state.cache_pos != cache_len - 1:
+        raise AssertionError(f"{name} bf16 serving: non-finite logits or wrong shapes")
+    if fa_mod.flash_attention.launches != before:
+        raise AssertionError(f"{name} bf16 serving launched #7 (decode attends in plain PyTorch)")
+    if frames is not None:  # the cross K/V: computed once, in prefill, and carried
+        want = (cfg.num_layers, 4, frames.shape[1], cfg.num_kv_heads, cfg.head_dim)
+        if state.cross_kv is not cross or any(t.shape != want or t.dtype != torch.bfloat16
+                                              for t in cross):
+            raise AssertionError(f"{name}: the cross K/V are not prefill's {want} bf16 pair")
+    box = [state]
+
+    def one_step():
+        box[0] = step(params, box[0], gen[:, -1:])[1]
+
+    prof = profiled(one_step, 2)
+    step_med = float(np.median(step_ms))
+    res = dict(prefill_ms=prefill_ms, step_ms=step_ms, step_median_ms=step_med,
+               tokens_s=4 * steps / (sum(step_ms) / 1e3), profiled=prof, tokens=gen.tolist())
+    log(f"[{name}] serve bf16: 4 prompts x 8 tokens, 16 new each, bf16 caches"
+        + ("" if frames is None else f", {frames.shape[1]} frames encoded in prefill")
+        + f": prefill {prefill_ms:.3f} ms, decode step median {step_med:.3f} ms, "
+        f"{res['tokens_s']:.1f} tokens/s; 2 steps under the profiler: device busy "
+        f"{prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    try:
+        engine.greedy_generate(api, params, prompts, steps=1, cache_len=10)
+    except ValueError as e:
+        log(f"[{name}] greedy_generate at bf16 refuses, as the reference's fails: "
+            f"{str(e)[:90]}...")
+    else:
+        raise AssertionError(f"{name}: greedy_generate accepted a bfloat16-compute config")
+    return res
+
+
+def smoke_on_card(arch: str) -> dict:
+    """The smoke config (float32) on the card: flash forward against the
+    CPU's at 1e-4, decode steps against the card's own forward at
+    ``DECODE_TOL`` (the dense family's, llama's prefill check; the
+    encoder-decoder decodes from prefill's cross K/V of the same frames)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.lm.api import build
+    from repro_torch.serve import engine
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_config(arch)
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.cuda(), params)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    if cfg.is_encoder_decoder:
+        kw = {"frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)}
+    else:
+        kw = {"positions": vlm_positions(2, 24, 2, "cpu"),
+              "visual_embeds": 0.5 * torch.randn((2, 4, cfg.d_model), generator=gen)}
+    ckw = {k: v.cuda() for k, v in kw.items()}
+    got, _ = api.forward(card, toks.cuda(), impl="flash", **ckw)
+    want, _ = api.forward(params, toks, impl="flash", **kw)
+    d_cpu = float((got.cpu() - want).abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4,
+                               msg=lambda m: f"{arch} smoke, card vs CPU: {m}")
+    state = engine.init_serve_state(api, 2, 24, dtype=torch.float32, device="cuda")
+    if cfg.is_encoder_decoder:
+        full, _ = api.forward(card, toks.cuda(), impl="flash", **ckw)
+        lg, state = engine.make_prefill(api)(card, state, toks[:, :1].cuda(), ckw["frames"])
+        outs = [lg]
+    else:
+        full, _ = api.forward(card, toks.cuda(), impl="flash")  # decode's positions are text's
+        outs = []
+    step = engine.make_serve_step(api)
+    for t in range(len(outs), 24):
+        lg, state = step(card, state, toks[:, t:t + 1].cuda())
+        outs.append(lg)
+    dec = torch.stack(outs, 1)
+    d_dec = float((dec - full).abs().max())
+    torch.testing.assert_close(dec, full, atol=DECODE_TOL, rtol=DECODE_TOL,
+                               msg=lambda m: f"{arch} smoke decode == forward on the card: {m}")
+    log(f"[check] {arch} smoke (float32) on the card: flash forward vs the CPU max |d| "
+        f"{d_cpu:.3e} (atol=rtol=1e-4); 24 decode steps vs the forward max |d| {d_dec:.3e} "
+        f"(atol=rtol={DECODE_TOL})")
+    return dict(card_vs_cpu_max_abs_diff=d_cpu, decode_vs_forward_max_abs_diff=d_dec)
+
+
+def vlm_lm_phase(counters: dict, fa_mod) -> dict:
+    """Phase 6i: qwen2-vl-7b at full width and depth (28 layers, its bf16
+    weights, seed 0), bf16 compute, B = 2, S = 4096: the first 1,024 slots
+    take seeded visual embeddings at M-RoPE positions of a 32 x 32 grid, the
+    text after them continuing from max + 1.  The flash forward with every
+    count zeroed just before (#7 once a layer, all on wgmma; the first
+    launch held against its plain version and phase 6b's rule on it);
+    twice bitwise equal; steady ms, peak memory, the profiler; flash and
+    xla against the float32-compute forward of the same weights on row 0;
+    the bf16 server; the smoke config on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm.api import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(VLM_ARCH)
+    api = build(cfg)
+    tag = f"[{VLM_ARCH}]"
+    n_vis = VLM_GRID * VLM_GRID
+    res = dict(layers=cfg.num_layers, batch=LM_BATCH, seq=LM_SEQ, visual_slots=n_vis)
+    torch.cuda.reset_peak_memory_stats()
+    params, res["init_ms"] = timed(
+        lambda: api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    res.update(params=sum(t.numel() for t in tree_leaves(params)),
+               weight_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+               init_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{tag} all {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} x {cfg.head_dim} (QKV bias), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, M-RoPE sections {cfg.m_rope_sections}; {res['params']} parameters "
+        f"({res['weight_bytes'] / 1e9:.3f} GB {cfg.param_dtype}), compute {cfg.dtype}; init "
+        f"{res['init_ms']:.1f} ms, peak {res['init_peak_bytes'] / 2**30:.3f} GiB")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vis = (0.02 * torch.randn((LM_BATCH, n_vis, cfg.d_model), generator=gen,
+                              device="cuda")).to(torch.bfloat16)
+    kw = dict(positions=vlm_positions(LM_BATCH, LM_SEQ, VLM_GRID, "cuda"), visual_embeds=vis)
+    vp = transformer.vocab_padded(cfg)
+
+    # the main path: counts zeroed just before the forward, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters, fa_mod)
+    with flash_launches_held(fa_mod, VLM_ARCH, every=False) as (held, first):
+        (logits, aux), cold_ms = timed(lambda: api.forward(params, toks, impl="flash", **kw))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    routes = dict(fa_mod.flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counters} | {"flash_attention": cfg.num_layers}
+    if launches != want or routes != {"wgmma": cfg.num_layers, "cuda_cores": 0}:
+        raise AssertionError(f"{VLM_ARCH} forward launches {launches}, by route {routes}; "
+                             f"expected {want}, all on the wgmma route")
+    if logits.shape != (LM_BATCH, LM_SEQ, vp) or not torch.isfinite(logits).all() or float(aux):
+        raise AssertionError(f"{VLM_ARCH} logits {tuple(logits.shape)} or non-finite, aux {aux}")
+    log(f"[check] {VLM_ARCH} forward: #7's first launch {held[0][:3]} against "
+        f"flash_attention_plain max_abs_err={held[0][3]:.3e} (atol=1e-4, rtol=8e-3)")
+    res["flash_first_call_max_abs_err"] = held[0][3]
+    res["attention_vs_float32_rms"] = attention_rule(fa_mod, cfg, first.pop(), VLM_ARCH)
+    if not torch.equal(logits, api.forward(params, toks, impl="flash", **kw)[0]):
+        raise AssertionError(f"{VLM_ARCH}: two forwards on the same inputs differ")
+    steady = [timed(lambda: api.forward(params, toks, impl="flash", **kw))[1] for _ in range(2)]
+    prof = profiled(lambda: api.forward(params, toks, impl="flash", **kw), 1)
+    step_med = float(np.median(steady))
+    res["forward"] = dict(launches=launches, launches_by_route=routes, cold_ms=cold_ms,
+                          steady_ms=steady, tokens_s=LM_BATCH * LM_SEQ / (step_med / 1e3),
+                          peak_mem_bytes=peak, profiled=prof)
+    log(f"{tag} forward flash, B={LM_BATCH} S={LM_SEQ} ({n_vis} visual slots): "
+        f"launches={json.dumps(launches)}, #7 by route {json.dumps(routes)}; ms cold "
+        f"{cold_ms:.3f} (first launch checked), steady median {step_med:.3f} "
+        f"({['%.3f' % t for t in steady]}), {res['forward']['tokens_s']:.1f} tokens/s, peak mem "
+        f"{peak / 2**30:.3f} GiB; twice bitwise equal; under the profiler "
+        f"{prof['steps_ms'][0]:.3f} ms, device busy {prof['device_busy_ms']:.3f}, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    for kk in prof["top_kernels"][:6]:
+        log(f"{tag}   {kk['device_ms']:9.3f} ms x{kk['calls']:<4d} {kk['name']}")
+
+    (xla, _), xla_ms = timed(lambda: api.forward(params, toks, impl="xla", **kw))
+    agree, dmax = top1_agreement(logits, xla, cfg.vocab_size), rowwise_max_abs(logits, xla)
+    log(f"[check] {VLM_ARCH} forward flash vs xla, bf16: top-1 agreement {agree:.6f}, max |d| "
+        f"{dmax:.4e}; xla forward {xla_ms:.3f} ms")
+    bf16 = {"flash": logits[:1].clone(), "xla": xla[:1].clone()}
+    del logits, xla
+    gc.collect()
+    torch.cuda.empty_cache()
+    api32 = build(dataclasses.replace(cfg, dtype="float32"))
+    exact, _ = api32.forward(params, toks[:1], impl="xla",
+                             **{k: v[:1] for k, v in kw.items()})
+    res["flash_vs_xla_bf16"] = dict(top1_agreement=agree, max_abs_diff=dmax, xla_ms=xla_ms,
+                                    float32_rows=1, vs_float32=logits_vs_float32(
+                                        VLM_ARCH, bf16, exact, cfg.vocab_size))
+    del bf16, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["serve_bf16"] = bf16_server(VLM_ARCH, api, params, fa_mod)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["smoke"] = smoke_on_card(VLM_ARCH)
+    return res
+
+
+def encdec_lm_phase(counters: dict, fa_mod) -> dict:
+    """Phase 6j: whisper-large-v3 at full width and depth (32 + 32 layers,
+    float32 weights, seed 0), bf16 compute, B = 2, seeded frames, decoder S
+    = 448.  The main path is the flash forward at 1,024 frames, every count
+    zeroed just before: #7 32 times in the encoder (causal=False) and 32 in
+    the decoder, all on wgmma, each launch held against its plain version
+    as it returns (phase 6b's rule on the first); twice bitwise equal;
+    held against xla at 1,024 frames and both against the float32-compute
+    forward.  Then the real 1,500 frames on xla (steady ms, peak memory,
+    the profiler), the flash path at 1,500 frames raising the reference's
+    precondition, the bf16 server (frames encoded once per prompt batch),
+    and the smoke config on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm.api import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(ENCDEC_ARCH)
+    api = build(cfg)
+    tag = f"[{ENCDEC_ARCH}]"
+    res = dict(layers=(cfg.encoder_layers, cfg.num_layers), batch=LM_BATCH, frames=WHISPER_FRAMES,
+               flash_frames=WHISPER_FLASH_FRAMES, dec_seq=WHISPER_DEC)
+    torch.cuda.reset_peak_memory_stats()
+    params, res["init_ms"] = timed(
+        lambda: api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    res.update(params=sum(t.numel() for t in tree_leaves(params)),
+               weight_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+               init_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{tag} {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (tied); {res['params']} parameters "
+        f"({res['weight_bytes'] / 1e9:.3f} GB {cfg.param_dtype}), compute {cfg.dtype}; init "
+        f"{res['init_ms']:.1f} ms")
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, WHISPER_DEC)),
+        dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((LM_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    short = frames[:, :WHISPER_FLASH_FRAMES].contiguous()
+    vp = transformer.vocab_padded(cfg)
+    shape = (LM_BATCH, WHISPER_DEC, vp)
+    n_attn = cfg.encoder_layers + cfg.num_layers
+
+    # the main path: counts zeroed just before the flash forward, read just after
+    reset_counts(counters, fa_mod)
+    with flash_launches_held(fa_mod, ENCDEC_ARCH, every=True) as (held, first):
+        (logits, aux), cold_ms = timed(
+            lambda: api.forward(params, toks, frames=short, impl="flash"))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    routes = dict(fa_mod.flash_attention.launches_by_route)
+    want = {k: 0 for k in counters} | {"flash_attention": n_attn}
+    if launches != want or routes != {"wgmma": n_attn, "cuda_cores": 0}:
+        raise AssertionError(f"{ENCDEC_ARCH} forward launches {launches}, by route {routes}; "
+                             f"expected {want}, all on the wgmma route")
+    enc = [h for h in held if not h[2]]
+    dec = [h for h in held if h[2]]
+    if (len(held) != n_attn or len(enc) != cfg.encoder_layers
+            or {h[1][2] for h in enc} != {WHISPER_FLASH_FRAMES} or {h[1][2] for h in dec}
+            != {WHISPER_DEC}):
+        raise AssertionError(f"{ENCDEC_ARCH}: #7's launches {[h[:3] for h in held]}")
+    if logits.shape != shape or not torch.isfinite(logits).all() or float(aux):
+        raise AssertionError(f"{ENCDEC_ARCH} logits {tuple(logits.shape)} or non-finite")
+    res["flash_calls_max_abs_err"] = {"encoder": max(h[3] for h in enc),
+                                      "decoder": max(h[3] for h in dec)}
+    log(f"[check] {ENCDEC_ARCH} forward at {WHISPER_FLASH_FRAMES} frames: each of #7's "
+        f"{n_attn} launches against flash_attention_plain as it returned: max_abs_err encoder "
+        f"(causal=False, {enc[0][0]}) {res['flash_calls_max_abs_err']['encoder']:.3e}, decoder "
+        f"(causal, {dec[0][0]}) {res['flash_calls_max_abs_err']['decoder']:.3e} "
+        f"(atol=1e-4, rtol=8e-3)")
+    res["attention_vs_float32_rms"] = attention_rule(fa_mod, cfg, first.pop(), ENCDEC_ARCH)
+    if not torch.equal(logits, api.forward(params, toks, frames=short, impl="flash")[0]):
+        raise AssertionError(f"{ENCDEC_ARCH}: two forwards on the same inputs differ")
+    flash_steady = [timed(lambda: api.forward(params, toks, frames=short, impl="flash"))[1]
+                    for _ in range(2)]
+    (xla, _), xla_ms = timed(lambda: api.forward(params, toks, frames=short, impl="xla"))
+    agree, dmax = top1_agreement(logits, xla, cfg.vocab_size), rowwise_max_abs(logits, xla)
+    api32 = build(dataclasses.replace(cfg, dtype="float32"))
+    exact, _ = api32.forward(params, toks, frames=short.float(), impl="xla")
+    res["flash_1024"] = dict(launches=launches, launches_by_route=routes, cold_ms=cold_ms,
+                             steady_ms=flash_steady, xla_ms=xla_ms, top1_agreement=agree,
+                             max_abs_diff=dmax, vs_float32=logits_vs_float32(
+                                 f"{ENCDEC_ARCH} at {WHISPER_FLASH_FRAMES} frames",
+                                 {"flash": logits, "xla": xla}, exact, cfg.vocab_size))
+    log(f"{tag} forward flash at {WHISPER_FLASH_FRAMES} frames, decoder S={WHISPER_DEC}: "
+        f"launches={json.dumps(launches)}, #7 by route {json.dumps(routes)}; ms cold "
+        f"{cold_ms:.3f} (every launch checked), steady median "
+        f"{float(np.median(flash_steady)):.3f}; twice bitwise equal; flash vs xla top-1 "
+        f"agreement {agree:.6f}, max |d| {dmax:.4e}, xla {xla_ms:.3f} ms")
+    del logits, xla, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the real 1,500 frames, on xla
+    torch.cuda.reset_peak_memory_stats()
+    (lg, _), cold_ms = timed(lambda: api.forward(params, toks, frames=frames, impl="xla"))
+    peak = torch.cuda.max_memory_allocated()
+    if lg.shape != shape or not torch.isfinite(lg).all():
+        raise AssertionError(f"{ENCDEC_ARCH} logits at {WHISPER_FRAMES} frames: "
+                             f"{tuple(lg.shape)} or non-finite")
+    steady = [timed(lambda: api.forward(params, toks, frames=frames, impl="xla"))[1]
+              for _ in range(2)]
+    prof = profiled(lambda: api.forward(params, toks, frames=frames, impl="xla"), 1)
+    step_med = float(np.median(steady))
+    res["forward"] = dict(cold_ms=cold_ms, steady_ms=steady, peak_mem_bytes=peak, profiled=prof,
+                          frames_s=LM_BATCH * WHISPER_FRAMES / (step_med / 1e3))
+    log(f"{tag} forward xla at {WHISPER_FRAMES} frames, B={LM_BATCH}, decoder S={WHISPER_DEC}: "
+        f"ms cold {cold_ms:.3f}, steady median {step_med:.3f} ({['%.3f' % t for t in steady]}), "
+        f"{res['forward']['frames_s']:.1f} frames/s, peak mem {peak / 2**30:.3f} GiB; under the "
+        f"profiler {prof['steps_ms'][0]:.3f} ms, device busy {prof['device_busy_ms']:.3f}, idle "
+        f"share {prof['device_idle_share']:.4f}")
+    for kk in prof["top_kernels"][:6]:
+        log(f"{tag}   {kk['device_ms']:9.3f} ms x{kk['calls']:<4d} {kk['name']}")
+    del lg
+    # the reference's precondition at its own length, pinned: flash refuses 1,500 frames
+    before = fa_mod.flash_attention.launches
+    try:
+        api.forward(params, toks, frames=frames, impl="flash")
+    except ValueError as e:
+        if "multiples of the blocks" not in str(e) or fa_mod.flash_attention.launches != before:
+            raise
+        res["flash_at_1500"] = str(e)
+        log(f"[check] {ENCDEC_ARCH} flash at {WHISPER_FRAMES} frames raises, as the reference's "
+            f"kernel asserts: {e}")
+    else:
+        raise AssertionError(f"{ENCDEC_ARCH}: flash accepted {WHISPER_FRAMES} frames")
+    serve_frames = torch.randn((4, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+    res["serve_bf16"] = bf16_server(ENCDEC_ARCH, api, params, fa_mod, frames=serve_frames)
+    del params, serve_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["smoke"] = smoke_on_card(ENCDEC_ARCH)
+    return res
+
+
+def qwen2vl_alone() -> dict:
+    """Phase 6i alone (``python3 -c 'import chip_smoke as c; c.qwen2vl_alone()'``),
+    with #7 timed at qwen2-vl-7b's layer shape; chiprun_out/qwen2-vl-7b.json."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    return lm_alone(VLM_ARCH, lambda: {
+        "phase": vlm_lm_phase(kernel_counters(), fa_mod),
+        "flash_attention": flash_shape_times(fa_mod, FLASH_VLM, VLM_ARCH)})
+
+
+def whisper_alone() -> dict:
+    """Phase 6j alone (``python3 -c 'import chip_smoke as c; c.whisper_alone()'``),
+    with #7 timed at whisper's two shapes; chiprun_out/whisper-large-v3.json."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    return lm_alone(ENCDEC_ARCH, lambda: {
+        "phase": encdec_lm_phase(kernel_counters(), fa_mod),
+        "flash_attention": {n: flash_shape_times(fa_mod, c, n) for n, c in WHISPER_SHAPES.items()}})
 
 
 # -- phase 7: observability and the HGNN leftovers ---------------------------
@@ -4421,6 +5067,11 @@ def main() -> int:
         lm[arch] = recurrent_lm_phase(arch, lm_counters, fa_mod)
         gc.collect()
         torch.cuda.empty_cache()
+    # phases 6i-6j: the VLM and the encoder-decoder at full width and depth
+    for arch, phase in ((VLM_ARCH, vlm_lm_phase), (ENCDEC_ARCH, encdec_lm_phase)):
+        lm[arch] = phase(lm_counters, fa_mod)
+        gc.collect()
+        torch.cuda.empty_cache()
     by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
                                   "lm_serve": lm["serve_bf16"]["flash_launches"],
                                   "dbrx_forward": lm["dbrx-132b"]["forward"]["launches"][
@@ -4428,6 +5079,10 @@ def main() -> int:
                                   "grok_forward": lm["grok-1-314b"]["forward"]["launches"][
                                       "flash_attention"],
                                   "recurrentgemma_forward": lm["recurrentgemma-9b"]["forward"][
+                                      "launches"]["flash_attention"],
+                                  "qwen2vl_forward": lm[VLM_ARCH]["forward"]["launches"][
+                                      "flash_attention"],
+                                  "whisper_forward_1024_frames": lm[ENCDEC_ARCH]["flash_1024"][
                                       "launches"]["flash_attention"]}
     ms_per["flash_attention"] = (f"one launch at {LM_ARCH}'s layer shape (B={LM_BATCH}, "
                                  f"S={LM_SEQ}, heads 24/8, Dh=128, bf16): the wgmma route; "
@@ -4436,7 +5091,11 @@ def main() -> int:
                                  "(heads 48/8), with its plain, SDPA and bound times; "
                                  "recurrentgemma_shape: the cuda_cores route at recurrentgemma-9b's "
                                  "local layer (heads 16/1 of 256, window 2048, bf16), SDPA with "
-                                 "the same window mask (library_backend)")
+                                 "the same window mask (library_backend); vlm_shape: the wgmma "
+                                 "route at qwen2-vl-7b's layer (heads 28/4 of 128); whisper_shapes: "
+                                 "the wgmma route at whisper-large-v3's encoder on flash (1,024 "
+                                 "frames, causal=False) and decoder (448 positions), 20/20 heads "
+                                 "of 64")
 
     sources = {
         "multigraph": ("seg_gat_agg_multigraph_fwd", "src/repro_torch/csrc/seg_gat_agg_multigraph.cu",
@@ -4470,6 +5129,8 @@ def main() -> int:
     fa_row["launches_by_route"] = lm["forward"]["launches_by_route"]
     fa_row["moe_shape"] = train_kernels["flash_attention"]["moe_shape"]
     fa_row["recurrentgemma_shape"] = train_kernels["flash_attention"]["recurrentgemma_shape"]
+    fa_row["vlm_shape"] = train_kernels["flash_attention"]["vlm_shape"]
+    fa_row["whisper_shapes"] = train_kernels["flash_attention"]["whisper_shapes"]
     k6_row = next(r for r in line["kernels"] if r["name"] == "fused_fp_coeff")
     k6 = train_kernels["fused_fp_coeff"]
     k6_row.update(ms_cuda_cores=k6["ms_cuda_cores"], bound_split_ms=k6["bound_split_ms"],

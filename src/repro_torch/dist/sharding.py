@@ -334,6 +334,38 @@ class _Gather(torch.autograd.Function):
         return local_slice(grad, ctx.placement, ctx.mesh), None, None
 
 
+class _SumCotangent(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over the ranks of one
+    mesh dimension.  It stands before a product that each rank computes on
+    its own piece of a sharded weight: every rank's cotangent is then the
+    part of the whole one that its piece saw.  The parts are all-gathered
+    and summed in rank order, so every rank holds the same bits."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()  # NCCL takes contiguous tensors
+        parts = [torch.empty_like(grad) for _ in range(ctx.mesh.size(ctx.dim))]
+        dist.all_gather(parts, grad, group=ctx.mesh.get_group(ctx.dim))
+        return torch.stack(parts).sum(dim=0), None, None
+
+
+def sum_cotangent(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, as the input of a product over this rank's piece of a weight
+    sharded on mesh dimension ``axis`` (a collective in the backward: every
+    rank of that dimension calls it).  Its gradient is the sum of the
+    ranks' parts (:class:`_SumCotangent`).  ``x`` itself where ``axis`` has
+    one rank or ``x`` needs no gradient."""
+    dim = mesh.mesh_dim_names.index(axis)
+    if mesh.size(dim) == 1 or not x.requires_grad:
+        return x
+    return _SumCotangent.apply(x, mesh, dim)
+
+
 def gather_leaf(x: torch.Tensor, placement: tuple[Placement, ...], mesh) -> torch.Tensor:
     """The logical leaf of this rank's piece ``x`` (a collective: every rank
     of the mesh calls it), differentiable: its backward is the rank's slice

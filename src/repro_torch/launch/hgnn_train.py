@@ -37,9 +37,11 @@ the logical leaves and restore on any (lanes, model) mesh (elastic
 restart); one rank of the mesh writes them, and logs.  R-GAT's
 relation-specific projections keep it off the plan: it runs kernels
 #1/#2 once per semantic graph and layer (MULTIGRAPH at G = 1), BLOCK on
-``reference``, with no model axis (an error that names ROADMAP Queue 1
-item 9b).  ``--device`` defaults to ``cuda`` and raises on a host without
-a card; ``--device cpu`` runs the kernels' plain versions.
+``reference``, replicated over the lane axis; under ``--model-split M``
+each model rank holds its columns of every relation's ``w_src``/``w_dst``
+and its rows of ``w_out`` (``rgat_forward`` with ``placements``), M
+dividing ``--heads``.  ``--device`` defaults to ``cuda`` and raises on a
+host without a card; ``--device cpu`` runs the kernels' plain versions.
 
 ``--trace PATH`` traces the whole run with synchronising spans into a
 Chrome-trace JSON; for HAN it first runs one per-stage characterization
@@ -83,7 +85,7 @@ from ..train import (
     train_loop,
 )
 from ..tree import tree_leaves
-from .mesh import MODEL_AXIS_ITEM, make_lane_mesh
+from .mesh import make_lane_mesh
 
 DATASETS = ("acm", "imdb", "dblp")
 BACKENDS = ("reference", "kernel", "kernel_interpret")
@@ -171,9 +173,6 @@ def run_training(
         raise ValueError(f"backend={backend!r}, expected one of {BACKENDS}")
     if model_name not in _INIT_KW:
         raise ValueError(f"model_name={model_name!r}, expected one of {sorted(_INIT_KW)}")
-    if model_split > 1 and model_name != "HAN":
-        raise NotImplementedError(f"{model_name} over a model axis of {model_split} is not "
-                                  f"ported yet: {MODEL_AXIS_ITEM}")
     if model_split > 1 and heads % model_split:
         raise ValueError(f"heads={heads} must be a multiple of model_split={model_split}: "
                          "a model rank holds whole heads")
@@ -213,11 +212,12 @@ def run_training(
             backend=na_backend)
     else:
         # per-relation projections: the kernels once per relation and layer,
-        # replicated on every lane rank
+        # replicated on every lane rank, FP split over the model axis
         plan = None
         nab = _PER_GRAPH[backend]
         na_backend = nab.value
-        forward_fn = lambda p: model.forward(p, data, backend=nab)  # noqa: E731
+        forward_fn = lambda p: model.forward(  # noqa: E731
+            p, data, backend=nab, mesh=mesh, placements=param_placements)
     log(f"[hgnn_train] {model_name}/{dataset} params={n_params / 1e6:.2f}M "
         f"edges={sum(b.num_edges for b in data.graphs)} mesh=lane{lanes}xmodel{model_split} "
         f"plan_lanes={None if plan is None else plan.num_lanes} device={dev} "
@@ -264,7 +264,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--lanes", type=int, default=1,
                     help="lane mesh axis size: the ranks of the process group (torchrun)")
     ap.add_argument("--model-split", type=int, default=1,
-                    help="model mesh axis size: HAN's heads/features over it (divides --heads)")
+                    help="model mesh axis size: the heads/features over it (divides --heads)")
     ap.add_argument("--plan-lanes", type=int, default=None,
                     help="work-unit partition lanes (default: mesh lanes; must be a multiple)")
     ap.add_argument("--backend", default="kernel", choices=BACKENDS,

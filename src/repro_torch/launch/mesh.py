@@ -18,9 +18,6 @@ import os
 import torch
 import torch.distributed as dist
 
-MODEL_AXIS_ITEM = ("ROADMAP Queue 1 item 9b (R-GAT, S-HGN and R-GCN under a model axis: their "
-                   "per-relation launches)")
-
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device_type: str = "cuda"):
     """``init_device_mesh(device_type, shape, mesh_dim_names=axes)`` over the

@@ -11,6 +11,8 @@ Backends: SEGMENT and BLOCK (plain PyTorch, plain autograd), KERNEL
 (inference only: per relation and layer two launches of kernel #6, the
 src and the dst side's FP+θ, and one of kernel #5 for NA) and MULTIGRAPH
 (kernels #1/#2 at G = 1 per relation; the trainer's path).
+:func:`rgat_forward` also runs over a (lane, model) mesh with this rank's
+pieces of the parameters, as HAN's multi-lane layer does.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.fusion import NABackend, neighbor_aggregate, project_coefficients
+from ...dist.sharding import gather_leaf, sum_cotangent
 from ...tree import tree_map
 from .common import HGNNData, HGNNModel, glorot
 
@@ -60,17 +63,65 @@ def init_rgat(
     return tree_map(lambda t: t.to(dev), params)
 
 
-def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT):
+def _project_split(x, w, placement, a_src, a_dst, mesh):
+    """:func:`project_coefficients` on this rank's columns of ``w`` (whole
+    heads): the rank projects its columns of h and an all-gather over the
+    model group rebuilds h, then θ runs replicated.  ``x``'s gradient is
+    the sum of the ranks' parts (``sum_cotangent``)."""
+    h = gather_leaf(sum_cotangent(x, mesh, "model") @ w, placement, mesh)
+    h = h.reshape(x.shape[0], a_src.shape[0], -1)
+    return h, torch.einsum("nhd,hd->nh", h, a_src), torch.einsum("nhd,hd->nh", h, a_dst)
+
+
+def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT,
+                 mesh=None, placements=None):
+    """R-GAT logits ``[N_target, C]``.
+
+    The model axis (DESIGN.md §5's lanes posture, as HAN's
+    ``_han_embed_multilane``): with ``placements`` (``dist.param_shardings``
+    of ``train.hgnn.hgnn_param_axes``) and ``mesh`` the params are this
+    rank's pieces.  A model rank holds contiguous columns of each
+    relation's ``w_src``/``w_dst`` (whole heads: the model axis must divide
+    H) and rows of ``w_out``; it projects its columns and an all-gather
+    over the model group rebuilds ``hs``/``hd``.  θ, NA, the relation
+    mean, ELU and the ``self`` products then run replicated over the model
+    group, and ``w_out`` is gathered before use.  Each gather's backward
+    takes the rank's slice of the (replicated) cotangent, and the input of
+    a split product sums the ranks' parts of its cotangent.  On KERNEL, #6
+    projects inside its call from the whole ``w``, so the weights are
+    gathered and FP is not split.  NA sees the same operands on every rank
+    of a model group, so the group's logits, loss and gathered gradients
+    are bitwise equal; against one process they agree within 1e-5 of each
+    leaf's largest magnitude in float32 (the column-split products move
+    bits)."""
+    if placements is not None and mesh is None:
+        raise ValueError("placements without a mesh")
+    split_fp = placements is not None and backend is not NABackend.KERNEL
+
+    def whole(x, placement):
+        return x if placements is None else gather_leaf(x, placement, mesh)
+
     h = dict(data.features)
-    for lp in params["layers"]:
+    for layer, lp in enumerate(params["layers"]):
+        lpl = None if placements is None else placements["layers"][layer]
         agg: dict[str, list[torch.Tensor]] = {}
         for i, batch in enumerate(data.graphs):
             rp = lp["rel"][f"g{i}"]
+            rpl = dict.fromkeys(rp) if lpl is None else lpl["rel"][f"g{i}"]
+            a_src, a_dst = whole(rp["a_src"], rpl["a_src"]), whole(rp["a_dst"], rpl["a_dst"])
             # FP (relation-specific) fused with coefficient computation
-            hs, th_s, _ = project_coefficients(h[batch.src_type], rp["w_src"], rp["a_src"],
-                                               rp["a_dst"], backend=backend)
-            _, _, th_d = project_coefficients(h[batch.dst_type], rp["w_dst"], rp["a_src"],
-                                              rp["a_dst"], backend=backend)
+            if split_fp:
+                hs, th_s, _ = _project_split(h[batch.src_type], rp["w_src"], rpl["w_src"],
+                                             a_src, a_dst, mesh)
+                _, _, th_d = _project_split(h[batch.dst_type], rp["w_dst"], rpl["w_dst"],
+                                            a_src, a_dst, mesh)
+            else:
+                hs, th_s, _ = project_coefficients(h[batch.src_type],
+                                                   whole(rp["w_src"], rpl["w_src"]),
+                                                   a_src, a_dst, backend=backend)
+                _, _, th_d = project_coefficients(h[batch.dst_type],
+                                                  whole(rp["w_dst"], rpl["w_dst"]),
+                                                  a_src, a_dst, backend=backend)
             z = neighbor_aggregate(batch, th_s, th_d, hs, backend=backend)
             agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
         h_new = {}
@@ -78,10 +129,12 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
             if t in agg:
                 s = torch.stack(agg[t]).mean(dim=0)  # SF: mean over relations
             else:
-                s = h[t] @ lp["self"][t]
+                s = h[t] @ whole(lp["self"][t], None if lpl is None else lpl["self"][t])
             h_new[t] = F.elu(s)
         h = h_new
-    return h[data.target_type] @ params["w_out"] + params["b_out"]
+    w_out = whole(params["w_out"], None if placements is None else placements["w_out"])
+    b_out = whole(params["b_out"], None if placements is None else placements["b_out"])
+    return h[data.target_type] @ w_out + b_out
 
 
 RGAT = HGNNModel(name="R-GAT", init=init_rgat, forward=rgat_forward)

@@ -9,7 +9,7 @@ from typing import Any, Callable
 import torch
 
 from ...runtime import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .config import LMConfig
 
 
@@ -20,7 +20,8 @@ class LMApi:
     init: Callable[..., Any]
     # forward(params, tokens, **kw) -> (logits, aux)
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
-    # decode(params, tokens, cache_pos, caches) -> (logits, caches)
+    # decode(params, tokens, cache_pos, caches, **kw) -> (logits, caches);
+    # the encoder-decoder takes cross_kv= (``encdec.precompute_cross``)
     decode: Callable[..., tuple[torch.Tensor, Any]]
     # init_caches(batch, cache_len, dtype=torch.bfloat16, device="cuda") -> caches
     init_caches: Callable[..., Any]
@@ -31,22 +32,30 @@ class LMApi:
 
 
 def build(cfg: LMConfig) -> LMApi:
-    """The API of ``cfg``'s decoder.  Raises ``NotImplementedError`` (naming
-    its ROADMAP item) for a family this slice does not port."""
-    transformer.check_supported(cfg)
+    """The API of ``cfg``'s model: the encoder-decoder (``encdec``) or the
+    decoder stack (``transformer``).  ``init`` draws random weights from a
+    generator (on its device) and places them on ``device``, and
+    ``init_caches`` builds on ``device``: the card unless the caller asks
+    for the CPU."""
+    if cfg.is_encoder_decoder:
+        family, init_fn, caches_fn = encdec, encdec.init_encdec, encdec.init_encdec_caches
+
+        def dec(params, tokens, cache_pos, caches, *, cross_kv):
+            return encdec.decode_step(params, cfg, tokens, cache_pos, caches, cross_kv)
+    else:
+        transformer.check_supported(cfg)
+        family, init_fn, caches_fn = transformer, transformer.init_decoder, transformer.init_caches
+
+        def dec(params, tokens, cache_pos, caches):
+            return transformer.decode_step(params, cfg, tokens, cache_pos, caches)
 
     def init(generator: torch.Generator, device: str | torch.device = "cuda"):
-        """Random weights from ``generator`` (drawn on its device), placed on
-        ``device``: the card unless the caller asks for the CPU."""
-        return transformer.init_decoder(cfg, generator, resolve_device(device))
+        return init_fn(cfg, generator, resolve_device(device))
 
     def fwd(params, tokens, **kw):
-        return transformer.forward(params, cfg, tokens, **kw)
-
-    def dec(params, tokens, cache_pos, caches):
-        return transformer.decode_step(params, cfg, tokens, cache_pos, caches)
+        return family.forward(params, cfg, tokens, **kw)
 
     def init_caches(batch, cache_len, dtype=torch.bfloat16, device="cuda"):
-        return transformer.init_caches(cfg, batch, cache_len, dtype, resolve_device(device))
+        return caches_fn(cfg, batch, cache_len, dtype, resolve_device(device))
 
     return LMApi(cfg=cfg, init=init, forward=fwd, decode=dec, init_caches=init_caches)

@@ -1,4 +1,5 @@
-"""GQA attention: RoPE, qk-norm, bias, windowing, KV cache.
+"""GQA attention: RoPE, qk-norm, bias, windowing, KV cache, and the
+encoder-decoder's cross-attention.
 
 The counterpart of ``repro/models/lm/attention.py``, on one card (the
 reference's ``shard`` annotations are no-ops without a mesh and are
@@ -237,3 +238,29 @@ def attention_decode(
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
     out, wo = _promoted(out, params["wo"].to(x.dtype))
     return out @ wo, cache
+
+
+def cross_attention_forward(
+    params: dict,
+    x: torch.Tensor,                            # [B, Sq, D]
+    kv: tuple[torch.Tensor, torch.Tensor],      # the encoder's K/V [B, Sk, Hkv, Dh]
+    cfg: LMConfig,
+) -> torch.Tensor:
+    """Cross-attention to precomputed encoder K/V: the plain attention over
+    an all-true mask, as in the reference (no kernel)."""
+    b, sq, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, sq, cfg.num_heads, cfg.head_dim)
+    k, v = kv
+    mask = torch.ones((b, sq, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa_xla(q, k, v, mask, cfg).reshape(b, sq, -1)
+    out, wo = _promoted(out, params["wo"].to(x.dtype))
+    return out @ wo
+
+
+def encode_cross_kv(params: dict, enc_out: torch.Tensor, cfg: LMConfig):
+    """The cross-attention K/V of the encoder states ``[B, Sk, D]``:
+    ``(k, v)``, each ``[B, Sk, Hkv, Dh]``."""
+    b, sk, _ = enc_out.shape
+    k = (enc_out @ params["wk"].to(enc_out.dtype)).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ params["wv"].to(enc_out.dtype)).reshape(b, sk, cfg.num_kv_heads, cfg.head_dim)
+    return k, v

@@ -1,0 +1,174 @@
+"""Whisper-style encoder-decoder backbone, the counterpart of
+``repro/models/lm/encdec.py`` (audio frontend stubbed).
+
+The conv/mel frontend is a stub: the caller supplies frame embeddings
+``[B, S_enc, d_model]``.  Architecture: a pre-LN MHA encoder
+(bidirectional) and a decoder with causal self-attention, cross-attention
+to the encoder output, GELU MLPs, learned decoder positions and a tied LM
+head (whisper-large-v3: 32 encoder + 32 decoder layers, d 1280, 20
+heads).  Layers stack on a leading ``[L]`` axis, as the reference's scan
+carries them; a Python loop over it takes the place of ``jax.lax.scan``.
+
+The encoder's and the decoder's self-attention run through ``impl``
+("flash" is kernel #7: ``causal=False`` in the encoder); cross-attention is
+the plain attention over an all-true mask, as in the reference.  The
+reference's ``cfg.remat`` is a memory policy of its backward with no
+effect on values; the port has no LM backward and leaves it out.
+
+Decode writes the self-attention caches in place; the cross K/V are
+computed once per prompt batch (:func:`precompute_cross`).
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention import (
+    AttnCache,
+    attention_decode,
+    attention_forward,
+    attention_specs,
+    cross_attention_forward,
+    encode_cross_kv,
+    init_attn_cache,
+)
+from .config import LMConfig
+from .layers import P, init_from_specs, layer_norm, sinusoidal_positions, torch_dtype
+from .mlp import mlp_forward, mlp_specs
+from .transformer import _layer, check_cache_dtype, vocab_padded
+
+DEC_POSITIONS = 32768  # the reference's learned decoder table (whisper's own context is 448)
+
+
+def _norm_specs(layers: int | None, d: int) -> dict:
+    lead = () if layers is None else (layers,)
+    lx = () if layers is None else ("layers",)
+    return {
+        "scale": P(lead + (d,), lx + (None,), init="ones"),
+        "bias": P(lead + (d,), lx + (None,), init="zeros"),
+    }
+
+
+def encdec_specs(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    le, ld = cfg.encoder_layers, cfg.num_layers
+    enc_block = {
+        "norm1": _norm_specs(le, d),
+        "attn": attention_specs(cfg, layers=le),
+        "norm2": _norm_specs(le, d),
+        "mlp": mlp_specs(cfg, layers=le),
+    }
+    dec_block = {
+        "norm1": _norm_specs(ld, d),
+        "self_attn": attention_specs(cfg, layers=ld),
+        "norm_x": _norm_specs(ld, d),
+        "cross_attn": attention_specs(cfg, layers=ld, cross=True),
+        "norm2": _norm_specs(ld, d),
+        "mlp": mlp_specs(cfg, layers=ld),
+    }
+    return {
+        "embed": P((vocab_padded(cfg), d), ("vocab", "embed"), scale=0.02),
+        "dec_pos": P((DEC_POSITIONS, d), (None, "embed"), scale=0.01),
+        "encoder": enc_block,
+        "enc_final": _norm_specs(None, d),
+        "decoder": dec_block,
+        "dec_final": _norm_specs(None, d),
+    }
+
+
+def init_encdec(cfg: LMConfig, generator: torch.Generator, device=None):
+    return init_from_specs(encdec_specs(cfg), generator, torch_dtype(cfg.param_dtype), device)
+
+
+def _ln(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return layer_norm(x, p["scale"].float(), p["bias"].float(), eps)
+
+
+def _logits(params, h: torch.Tensor) -> torch.Tensor:
+    h = _ln(params["dec_final"], h)
+    return h @ params["embed"].t().to(h.dtype)
+
+
+def encode(params, cfg: LMConfig, frames: torch.Tensor, *, impl: str = "xla") -> torch.Tensor:
+    """frames ``[B, S_enc, D]`` (the stub frontend's output) -> encoder
+    states, bidirectional self-attention through ``impl``."""
+    _, s, d = frames.shape
+    h = frames + sinusoidal_positions(s, d).to(frames.device)[None].to(frames.dtype)
+    for i in range(cfg.encoder_layers):
+        p = _layer(params["encoder"], i)
+        h = h + attention_forward(p["attn"], _ln(p["norm1"], h), cfg, angles=None,
+                                  causal=False, impl=impl)
+        h = h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+    return _ln(params["enc_final"], h)
+
+
+def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+
+
+def decode_train(params, cfg: LMConfig, tokens: torch.Tensor, enc_out: torch.Tensor, *,
+                 impl: str = "xla") -> torch.Tensor:
+    """The teacher-forced decoder pass -> logits ``[B, S, vocab_padded]``:
+    causal self-attention through ``impl``, then cross-attention to
+    ``enc_out``."""
+    s = tokens.shape[1]
+    h = _embed(params, cfg, tokens)
+    h = h + params["dec_pos"][:s][None].to(h.dtype)
+    for i in range(cfg.num_layers):
+        p = _layer(params["decoder"], i)
+        h = h + attention_forward(p["self_attn"], _ln(p["norm1"], h), cfg, angles=None,
+                                  causal=True, impl=impl)
+        kv = encode_cross_kv(p["cross_attn"], enc_out, cfg)
+        h = h + cross_attention_forward(p["cross_attn"], _ln(p["norm_x"], h), kv, cfg)
+        h = h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+    return _logits(params, h)
+
+
+def forward(params, cfg: LMConfig, tokens: torch.Tensor, *, frames: torch.Tensor | None = None,
+            impl: str = "xla") -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole pass: (logits, aux), aux zero.  ``frames`` default to
+    zeros of ``[B, cfg.encoder_seq, D]`` (the stub)."""
+    if frames is None:
+        frames = torch.zeros((tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+                             dtype=torch_dtype(cfg.dtype), device=tokens.device)
+    enc_out = encode(params, cfg, frames, impl=impl)
+    logits = decode_train(params, cfg, tokens, enc_out, impl=impl)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def init_encdec_caches(cfg: LMConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                       device="cuda") -> AttnCache:
+    """The decoder's self-attention caches, stacked ``[L, ...]``; the cross
+    K/V come from :func:`precompute_cross`."""
+    c = init_attn_cache(cfg, batch, cache_len, dtype, device)
+    return AttnCache(*(t.expand((cfg.num_layers,) + t.shape).clone() for t in (c.k, c.v, c.pos)))
+
+
+def precompute_cross(params, cfg: LMConfig, enc_out: torch.Tensor):
+    """Every decoder layer's cross K/V of ``enc_out``, stacked:
+    ``(k, v)``, each ``[L, B, S_enc, Hkv, Dh]``."""
+    kv = [encode_cross_kv(_layer(params["decoder"]["cross_attn"], i), enc_out, cfg)
+          for i in range(cfg.num_layers)]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def decode_step(params, cfg: LMConfig, tokens: torch.Tensor, cache_pos: int | torch.Tensor,
+                caches: AttnCache, cross_kv) -> tuple[torch.Tensor, AttnCache]:
+    """One decoder token: (logits ``[B, 1, vocab_padded]``, caches), the
+    caches written in place.  ``cache_pos`` is a position, or a ``[B]``
+    tensor of per-slot positions (continuous batching)."""
+    check_cache_dtype(cfg, caches.k.dtype)
+    check_cache_dtype(cfg, cross_kv[0].dtype)
+    b = tokens.shape[0]
+    cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=tokens.device).expand(b)
+    h = _embed(params, cfg, tokens)
+    h = h + params["dec_pos"][cache_pos.long()][:, None].to(h.dtype)
+    for i in range(cfg.num_layers):
+        p = _layer(params["decoder"], i)
+        cache = AttnCache(caches.k[i], caches.v[i], caches.pos[i])
+        a, _ = attention_decode(p["self_attn"], _ln(p["norm1"], h), cfg, cache, cache_pos,
+                                angles=None)
+        h = h + a
+        h = h + cross_attention_forward(p["cross_attn"], _ln(p["norm_x"], h),
+                                        (cross_kv[0][i], cross_kv[1][i]), cfg)
+        h = h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+    return _logits(params, h), caches

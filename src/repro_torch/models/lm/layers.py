@@ -1,8 +1,7 @@
-"""Shared LM building blocks: parameter specs, RMS norm, RoPE.
+"""Shared LM building blocks: parameter specs, RMS and layer norms, RoPE,
+M-RoPE and sinusoidal positions.
 
-The counterpart of ``repro/models/lm/layers.py``.  ``mrope_angles``,
-``layer_norm`` and ``sinusoidal_positions`` wait for the families that
-use them (ROADMAP Queue 1 item 7).
+The counterpart of ``repro/models/lm/layers.py``.
 """
 from __future__ import annotations
 
@@ -98,16 +97,52 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with float32 statistics, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
+
+
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``1 / theta ** (i / half)`` for the ``half = head_dim // 2`` slots, in
+    float32 with the reference's bits: the float32 exponent, the power
+    taken in float64 and rounded once (XLA's float32 power is correctly
+    rounded where ``torch.pow`` in float32 can be an ulp off), then the
+    float32 reciprocal."""
+    half = head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    base = torch.tensor(theta, dtype=torch.float32, device=device).double()
+    return 1.0 / torch.pow(base, expo.double()).float()
+
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
     """positions [..., S] -> angles [..., S, head_dim//2] (float32)."""
+    return positions.float()[..., None] * _inv_freq(head_dim, theta, positions.device)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: positions ``[..., S, 3]`` (t, h, w) ->
+    angles ``[..., S, head_dim//2]`` (float32).  The frequency slots are
+    split into (temporal, height, width) sections, each driven by its own
+    position component; text tokens carry t == h == w, which reduces to
+    :func:`rope_angles`."""
     half = head_dim // 2
-    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                             device=positions.device) / half))
-    return positions.float()[..., None] * inv_freq
+    if sum(sections) != half:
+        raise ValueError(f"m_rope sections {tuple(sections)} must sum to head_dim // 2 = {half}")
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
+                                     torch.tensor(sections, device=positions.device))
+    pos = positions.float()[..., sec_id]  # [..., S, half]: slot j reads component sec_id[j]
+    return pos * inv_freq
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -119,3 +154,13 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed positional embeddings ``[n, d]`` (float32), built
+    in float64 and then cast, as the reference builds them in numpy."""
+    pos = np.arange(n)[:, None]
+    idx = np.arange(d // 2)[None, :]
+    angle = pos / (10000 ** (idx / max(d // 2 - 1, 1)))
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=1)
+    return torch.from_numpy(out.astype(np.float32))

@@ -45,6 +45,14 @@ def ssm_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, two roundings in a narrow dtype.
+    ``F.silu`` rounds once; in bfloat16 that made the port's mamba2 drift
+    from its float32 forward ~10% smaller than the reference's, a different
+    result (tests/test_torch_lm_recurrent_drift.py)."""
+    return x * torch.sigmoid(x)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -78,7 +86,7 @@ def _causal_conv(xbc, conv_w, conv_b, state=None):
     """Depthwise causal conv1d then SiLU.  xbc [B, S, C]; conv_w [W, C].
     Returns (out [B, S, C], new_state)."""
     out, new_state = depthwise_conv(xbc, conv_w, conv_b, state)
-    return F.silu(out), new_state
+    return silu(out), new_state
 
 
 def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int, init_state=None):
@@ -147,7 +155,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, ssd_sta
     y, ssd_state = _ssd_chunked(xh.float(), dt, a, bmat.float(), cmat.float(), chunk, ssd_state)
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(x.shape[0], x.shape[1], di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), params["norm"], cfg.norm_eps)
     return y @ params["w_out"].to(x.dtype), (conv_state, ssd_state)
 
 
@@ -168,7 +176,7 @@ def ssm_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, ssd_state):
     y = torch.einsum("bn,bhpn->bhp", cmat.float(), ssd_state)
     y = y + params["d_skip"].float()[None, :, None] * xh
     y = y.reshape(b, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), params["norm"], cfg.norm_eps)
     return y @ params["w_out"].to(x.dtype), (conv_state, ssd_state)
 
 

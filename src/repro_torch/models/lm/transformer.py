@@ -9,13 +9,13 @@ the stacked axis takes the place of ``jax.lax.scan``.
   * forward()      — full sequence (prefill / scoring), returns logits
   * decode_step()  — one token against carried caches (serving)
 
-The port runs "attn" and "local" blocks with a dense MLP or MoE
+The stack runs "attn" and "local" blocks with a dense MLP or MoE
 (``moe.py``), "ssm" blocks (mamba2, ``ssm.py``) and "rglru" blocks with a
-GeGLU MLP (``rglru.py``).  A block's decode cache is an ``AttnCache``
-(a full context, or a ring of ``cfg.window`` slots for "local") or a
-recurrent ``(conv, state)`` tuple, O(1) in context.  M-RoPE, visual
-embeddings and the encoder-decoder raise ``NotImplementedError`` naming
-their ROADMAP item.
+GeGLU MLP (``rglru.py``), under RoPE or Qwen2-VL's M-RoPE (positions
+``[B, S, 3]``), with visual embeddings in the first slots.  A block's
+decode cache is an ``AttnCache`` (a full context, or a ring of
+``cfg.window`` slots for "local") or a recurrent ``(conv, state)`` tuple,
+O(1) in context.  The encoder-decoder is ``encdec.py``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from ...tree import tree_map
 from .attention import AttnCache, attention_decode, attention_forward, attention_specs, init_attn_cache
 from .config import LMConfig
-from .layers import P, init_from_specs, rms_norm, rope_angles, torch_dtype
+from .layers import P, init_from_specs, mrope_angles, rms_norm, rope_angles, torch_dtype
 from .mlp import mlp_forward, mlp_specs
 from .moe import moe_forward, moe_specs
 from .rglru import init_rglru_cache, rglru_decode, rglru_forward, rglru_specs
@@ -36,26 +36,12 @@ from .ssm import init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
 ATTENTION = ("attn", "local")
 RECURRENT = ("ssm", "rglru")
 
-_UNPORTED = {
-    "m_rope": "ROADMAP Queue 1 item 7e (M-RoPE and visual embeddings: qwen2-vl-7b)",
-    "encdec": "ROADMAP Queue 1 item 7f (encoder-decoder: whisper-large-v3)",
-}
-
-
-def unported(what: str, cfg: LMConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported to repro_torch yet; see {_UNPORTED[what]}")
-
 
 def check_supported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    if cfg.is_encoder_decoder:
-        raise unported("encdec", cfg)
+    """Raise ``ValueError`` for a block pattern the stack does not know."""
     for pat in cfg.block_pattern:
         if pat not in ATTENTION + RECURRENT:
             raise ValueError(pat)
-    if cfg.m_rope:
-        raise unported("m_rope", cfg)
 
 
 def vocab_padded(cfg: LMConfig) -> int:
@@ -120,7 +106,7 @@ def _layer(tree, i: int):
 
 def _angles(cfg: LMConfig, positions: torch.Tensor) -> torch.Tensor:
     if cfg.m_rope:
-        raise unported("m_rope", cfg)
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.m_rope_sections)
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
@@ -193,24 +179,28 @@ def forward(
     cfg: LMConfig,
     tokens: torch.Tensor,                  # [B, S] int
     *,
-    positions: torch.Tensor | None = None,  # [B, S]
-    visual_embeds: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,  # [B, S], or [B, S, 3] (m_rope)
+    visual_embeds: torch.Tensor | None = None,  # [B, n_vis, D] stub frontend output
     impl: str = "xla",
     routes: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, S, vocab_padded], aux_loss): the float32 sum of
     every MoE layer's balance term, in layer order (zero for the dense
     family).  ``routes``, when given, receives each MoE layer's
-    ``moe.Routing`` in layer order."""
+    ``moe.Routing`` in layer order.  ``visual_embeds`` (precomputed patch
+    embeddings) take the first ``n_vis`` slots, cast to the hidden dtype."""
     check_supported(cfg)
-    if visual_embeds is not None:
-        raise unported("m_rope", cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        if cfg.m_rope:  # text only: t == h == w
+            positions = positions[..., None].expand(b, s, 3)
     angles = _angles(cfg, positions)
 
     h = embed_tokens(params, cfg, tokens)
+    if visual_embeds is not None:
+        nv = visual_embeds.shape[1]
+        h = torch.cat([visual_embeds.to(h.dtype), h[:, nv:]], dim=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def block(pat, p, h):
@@ -286,6 +276,9 @@ def _block_caches(caches):
 
 
 def _attn_caches(caches):
+    if isinstance(caches, AttnCache):  # the encoder-decoder's stacked self-attention caches
+        yield caches
+        return
     for _, _, c in _block_caches(caches):
         if isinstance(c, AttnCache):
             yield c
@@ -365,7 +358,10 @@ def decode_step(
     b = tokens.shape[0]
     # on the device once: each layer then reads it without a host copy
     cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=tokens.device).expand(b)
-    angles = _angles(cfg, cache_pos[:, None])
+    positions = cache_pos[:, None]
+    if cfg.m_rope:  # a generated token is text: t == h == w
+        positions = positions[..., None].expand(b, 1, 3)
+    angles = _angles(cfg, positions)
 
     h = embed_tokens(params, cfg, tokens)
     n_super, rem = _layout(cfg)

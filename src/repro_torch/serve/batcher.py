@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.lm.api import LMApi
+from ..models.lm.attention import AttnCache
 from ..models.lm.transformer import check_cache_dtype
 from ..runtime import resolve_device
 from ..tree import tree_leaves
@@ -72,10 +73,12 @@ class ContinuousBatcher:
     def _step(self, tokens: np.ndarray, slot_pos: np.ndarray) -> np.ndarray:
         """One decode step of every slot, each at its own position: the
         greedy next token of each slot."""
+        kw = {"cross_kv": self.state.cross_kv} if self.api.cfg.is_encoder_decoder else {}
         logits, caches = self.api.decode(
             self.params, torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(slot_pos, device=self.device), self.state.caches)
-        self.state = ServeState(caches=caches, cache_pos=self.state.cache_pos + 1)
+            torch.as_tensor(slot_pos, device=self.device), self.state.caches, **kw)
+        self.state = ServeState(caches=caches, cache_pos=self.state.cache_pos + 1,
+                                cross_kv=self.state.cross_kv)
         return logits[:, 0, : self.api.cfg.vocab_size].argmax(-1).cpu().numpy()
 
     def submit(self, req: Request) -> None:
@@ -88,9 +91,16 @@ class ContinuousBatcher:
         ``caches["scan"]`` leaves are stacked ``[n_super, B, ...]`` (slot
         dim 1), ``caches["tail"]`` leaves ``[B, ...]`` (slot dim 0) —
         located by structure, not by size, so num_slots == n_super stays
-        correct."""
-        for key, dim in (("scan", 1), ("tail", 0)):
-            for leaf in tree_leaves(self.state.caches.get(key)):
+        correct.  An encoder-decoder's caches are one ``AttnCache`` stacked
+        ``[L, B, ...]`` (slot dim 1); the reference's batcher takes only the
+        decoder's dict and fails on it with a TypeError.  Its cross K/V
+        stay the placeholders, one row a slot, as the reference carries
+        them."""
+        caches = self.state.caches
+        groups = ((caches, 1),) if isinstance(caches, AttnCache) else (
+            (caches.get("scan"), 1), (caches.get("tail"), 0))
+        for tree, dim in groups:
+            for leaf in tree_leaves(tree):
                 leaf.select(dim, s).fill_(0 if leaf.dtype.is_floating_point else -1)
 
     def _admit(self) -> None:

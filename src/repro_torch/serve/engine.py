@@ -3,7 +3,9 @@ prefill as a loop of decode steps, then decode against carried caches.
 
 ``ServeState.cache_pos`` is a Python int (the host always knows the
 position, so no step reads the device for it); caches are updated in
-place by each step.
+place by each step.  An encoder-decoder's state also carries the cross
+K/V (``cross_kv``): zero placeholders until ``prefill`` encodes the
+prompt batch's frames.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..models.lm import encdec
 from ..models.lm.api import LMApi
 from ..models.lm.layers import torch_dtype
 from ..models.lm.transformer import decode_dtype, mark_cache_filled
@@ -23,6 +26,7 @@ GREEDY_CACHE_DTYPE = torch.float32  # the reference's greedy_generate builds flo
 class ServeState:
     caches: Any
     cache_pos: int
+    cross_kv: Any = None  # the encoder-decoder's stacked (k, v)
 
 
 def init_serve_state(
@@ -32,25 +36,40 @@ def init_serve_state(
     caches = api.init_caches(batch, cache_len, dtype, device)
     if filled:
         caches = mark_cache_filled(caches, filled)
-    return ServeState(caches=caches, cache_pos=filled)
+    cross = None
+    if api.cfg.is_encoder_decoder:  # the reference's placeholders until prefill encodes frames
+        cfg = api.cfg
+        shape = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        cross = tuple(torch.zeros(shape, dtype=dtype, device=caches.k.device) for _ in range(2))
+    return ServeState(caches=caches, cache_pos=filled, cross_kv=cross)
 
 
 def make_serve_step(api: LMApi) -> Callable:
     """(params, state, tokens [B,1]) -> (logits [B, vocab_pad], state)."""
+    has_cross = api.cfg.is_encoder_decoder
 
     def serve_step(params, state: ServeState, tokens: torch.Tensor):
-        logits, caches = api.decode(params, tokens, state.cache_pos, state.caches)
-        return logits[:, 0], ServeState(caches=caches, cache_pos=state.cache_pos + 1)
+        kw = {"cross_kv": state.cross_kv} if has_cross else {}
+        logits, caches = api.decode(params, tokens, state.cache_pos, state.caches, **kw)
+        return logits[:, 0], ServeState(caches=caches, cache_pos=state.cache_pos + 1,
+                                        cross_kv=state.cross_kv)
 
     return serve_step
 
 
 def make_prefill(api: LMApi) -> Callable:
-    """(params, state, tokens [B,S]) -> (last logits, state) — fills the
-    caches by running decode steps, one token at a time."""
+    """(params, state, tokens [B,S], frames=None) -> (last logits, state) —
+    fills the caches by running decode steps, one token at a time.  An
+    encoder-decoder first encodes ``frames`` ``[B, S_enc, D]`` and
+    precomputes every layer's cross K/V from them."""
     serve_step = make_serve_step(api)
+    cfg = api.cfg
 
-    def prefill(params, state: ServeState, tokens: torch.Tensor):
+    def prefill(params, state: ServeState, tokens: torch.Tensor, frames=None):
+        if cfg.is_encoder_decoder:
+            enc_out = encdec.encode(params, cfg, frames)
+            state = dataclasses.replace(state, cross_kv=encdec.precompute_cross(params, cfg,
+                                                                                enc_out))
         logits = None
         for t in range(tokens.shape[1]):
             logits, state = serve_step(params, state, tokens[:, t:t + 1])
@@ -87,7 +106,11 @@ def greedy_generate(api: LMApi, params, prompt: torch.Tensor, steps: int, cache_
     state = init_serve_state(api, b, cache_len, dtype=GREEDY_CACHE_DTYPE, device=prompt.device)
     prefill = make_prefill(api)
     serve_step = make_serve_step(api)
-    logits, state = prefill(params, state, prompt)
+    kw = {}
+    if api.cfg.is_encoder_decoder:
+        kw["frames"] = torch.zeros((b, api.cfg.encoder_seq, api.cfg.d_model),
+                                   dtype=torch.float32, device=prompt.device)
+    logits, state = prefill(params, state, prompt, **kw)
     out = []
     tok = torch.argmax(logits[:, : api.cfg.vocab_size], dim=-1).to(torch.int32)
     for _ in range(steps):

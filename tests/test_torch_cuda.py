@@ -90,7 +90,8 @@ from repro_torch.models.hgnn import (
 from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing
 from repro_torch.obs.characterize import characterize_hgnn
 from repro_torch.serve import ContinuousBatcher, Request
-from repro_torch.serve.engine import greedy_generate
+from repro_torch.serve.engine import greedy_generate, init_serve_state, make_prefill
+from repro_torch.serve.engine import make_serve_step
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
 # the modules, not the differentiable functions the package exports by the same names
@@ -780,6 +781,9 @@ WGMMA_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window)
     (1, 24, 8, 1024, 1024, 128, True, 256),   # local window
     (2, 24, 8, 257, 257, 128, False, None),   # bidirectional
     (2, 4, 2, 200, 200, 64, True, None),      # Dh = 64
+    (1, 20, 20, 448, 448, 64, True, None),    # whisper's decoder: MHA, 3.5 tiles of 128
+    (1, 20, 20, 1024, 1024, 64, False, None),  # whisper's encoder on flash (1,024 frames)
+    (1, 28, 4, 512, 512, 128, True, None),    # qwen2-vl-7b's heads: GQA group 7
 ]
 
 
@@ -909,6 +913,65 @@ def test_recurrent_forward_decode_and_batcher_on_cuda_match_cpu(cuda, arch):
         lg, caches = api.decode(on_card, toks[:, t:t + 1].to(cuda), t, caches)
         outs.append(lg)
     torch.testing.assert_close(torch.cat(outs, 1), got, atol=5e-4, rtol=5e-4)
+    out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
+    assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))
+    jobs = [(toks[i % 2, i:i + 4 + i % 3].tolist(), 3 + i % 2) for i in range(5)]
+    runs = []
+    for dev, p in ((cuda, on_card), ("cpu", params)):
+        cb = ContinuousBatcher(api, 3, 16, p, device=dev)
+        for i, (prompt, m) in enumerate(jobs):
+            cb.submit(Request(rid=i, prompt=prompt, max_new=m))
+        runs.append({r.rid: r.out for r in cb.run()})
+    assert runs[0] == runs[1] and len(runs[0]) == len(jobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-large-v3"])
+def test_vlm_and_encdec_forward_decode_and_batcher_on_cuda_match_cpu(cuda, arch):
+    """The VLM's smoke config (M-RoPE, 4 visual slots at distinct (t, h, w)
+    positions) and the encoder-decoder's (16 seeded frames), float32:
+    flash and xla forwards on the card against the CPU at 1e-4 (#7 once an
+    attention layer on flash: the decoder's, and the encoder's at
+    causal=False), bitwise repeatable; decode on the card against its own
+    forward at 5e-4 (the encoder-decoder's from prefill's cross K/V);
+    greedy tokens and the batcher's (3 slots, 5 requests) equal to the
+    CPU's."""
+    cfg = smoke_config(arch)
+    api = build_lm(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    if cfg.is_encoder_decoder:
+        kw = {"frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)}
+        n_attn = cfg.encoder_layers + cfg.num_layers
+    else:
+        pos = torch.arange(24, dtype=torch.int32)[:, None].repeat(1, 3) - 2
+        pos[:4] = torch.tensor([[0, 0, 0], [0, 0, 1], [0, 1, 0], [0, 1, 1]])  # a 2 x 2 grid
+        kw = {"positions": pos.expand(2, 24, 3),
+              "visual_embeds": 0.5 * torch.randn((2, 4, cfg.d_model), generator=gen)}
+        n_attn = cfg.num_layers
+    card_kw = {k: v.to(cuda) for k, v in kw.items()}
+    for impl in ("xla", "flash"):
+        before = flash_attention.launches
+        got, _ = api.forward(on_card, toks.to(cuda), impl=impl, **card_kw)
+        assert flash_attention.launches - before == (n_attn if impl == "flash" else 0)
+        want, _ = api.forward(params, toks, impl=impl, **kw)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        assert torch.equal(got, api.forward(on_card, toks.to(cuda), impl=impl, **card_kw)[0])
+    state = init_serve_state(api, 2, 24, dtype=torch.float32, device=cuda)
+    if cfg.is_encoder_decoder:  # decode from prefill's cross K/V against the forward
+        full, _ = api.forward(on_card, toks.to(cuda), **card_kw)
+        lg, state = make_prefill(api)(on_card, state, toks[:, :1].to(cuda), card_kw["frames"])
+        outs, first = [lg[:, None]], 1
+    else:
+        full, _ = api.forward(on_card, toks.to(cuda))
+        outs, first = [], 0
+    step = make_serve_step(api)
+    for t in range(first, 24):
+        lg, state = step(on_card, state, toks[:, t:t + 1].to(cuda))
+        outs.append(lg[:, None])
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=5e-4, rtol=5e-4)
     out = greedy_generate(api, on_card, toks[:, :8].to(cuda), steps=6, cache_len=15)
     assert torch.equal(out.cpu(), greedy_generate(api, params, toks[:, :8], steps=6, cache_len=15))
     jobs = [(toks[i % 2, i:i + 4 + i % 3].tolist(), 3 + i % 2) for i in range(5)]

@@ -4,7 +4,10 @@ card and raise without one; and, on a host with a card, each CUDA kernel
 agrees with its plain PyTorch version (those tests carry the ``cuda``
 marker and skip here: a CUDA kernel has no CPU mode)."""
 import ast
+import importlib.util
+import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph_fwd,
     seg_gat_agg_multigraph_plain,
 )
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ARCH_IDS, smoke_config
 from repro_torch.launch import hgnn_serve
 from repro_torch.launch import serve as lm_serve
 from repro_torch.models.lm.api import build as build_lm
@@ -62,11 +65,41 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_serve.main(["--arch", "llama3.2-3b", "--smoke"])
-    api = build_lm(smoke_config("llama3.2-3b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.init(torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.init_caches(1, 4)
+        _example("serve_lm").main(["--arch", "whisper-large-v3"])
+    for arch in ("llama3.2-3b", "whisper-large-v3"):
+        api = build_lm(smoke_config(arch))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.init(torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.init_caches(1, 4)
+
+
+def _example(name: str):
+    """A script of ``examples_torch/`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_lm_example_runs_every_arch_on_cpu(arch, capsys):
+    """``examples_torch/serve_lm.py``, the twin of ``examples/serve_lm.py``:
+    the reference's lines for each architecture's smoke config."""
+    _example("serve_lm").main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                               "--steps", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    cfg = smoke_config(arch)
+    assert lines[0] == f"arch={cfg.name} family={cfg.family}"
+    assert re.fullmatch(r"generated 6 tokens in \d+\.\d\ds \(\d+\.\d tok/s on cpu\)", lines[1])
+    assert len(lines) == 4
+    for i, line in enumerate(lines[2:]):
+        prefix, row = line.split(": ")
+        toks = json.loads(row)
+        assert prefix == f"  request {i}" and len(toks) == 3
+        assert all(0 <= t < cfg.vocab_size for t in toks)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,8 +1,7 @@
 """The port's LM server against the JAX package's: greedy tokens, prefill
 and decode with bfloat16 caches, the greedy server's dtype domain (a
 property of the reference, pinned in both packages), the launcher's
-output (the dense, MoE and recurrent families), and the families the
-port does not run yet.
+output (the dense, MoE, recurrent, VLM and encoder-decoder families).
 
 Weights come from the JAX ``init`` through ``convert.lm_params_from_numpy``;
 prompts from numpy.  Tolerance of the bfloat16 path: 3e-2
@@ -28,9 +27,6 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models.lm.api import build as tbuild
 from repro_torch.serve import engine as tengine
-
-UNPORTED = {"qwen2-vl-7b": "7e", "whisper-large-v3": "7f"}
-
 
 def pair(arch: str, **over):
     """(JAX api, JAX params, port api, port params): one smoke config, the
@@ -129,10 +125,8 @@ def test_recurrent_launcher_prints_the_reference_lines(monkeypatch, arch):
     check_launcher(monkeypatch, arch)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_their_roadmap_item(arch):
-    item = UNPORTED[arch]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}"):
-        tbuild(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-large-v3"])
+def test_unported_families_raise_naming_their_roadmap_item(monkeypatch, arch):
+    """The VLM (M-RoPE) and the encoder-decoder, once unported, now run the
+    launcher as the reference does."""
+    check_launcher(monkeypatch, arch)

@@ -231,10 +231,11 @@ def test_launcher_main_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "R-GAT", "--model-split", "2"], "Queue 1 item 9b"),
+    # a model rank holds whole heads, R-GAT's as HAN's
+    (["--model", "R-GAT", "--heads", "3", "--model-split", "2"], "multiple of model_split"),
 ])
 def test_launcher_rejects_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         hgnn_train.main(["--device", "cpu", "--steps", "1", *argv])
 
 
