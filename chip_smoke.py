@@ -276,7 +276,38 @@ Phases, each fatal on failure:
       1,500 frames raising the reference's block precondition; the bf16
       server with 1,500 frames encoded once in prefill (the cross K/V
       carried); the smoke config as in i.  Alone: ``c.qwen2vl_alone()``,
-      ``c.whisper_alone()`` (each with #7 at its layer shapes).
+      ``c.whisper_alone()`` (each with #7 at its layer shapes);
+   k. LM training (no kernel on its path: #7 has no gradient in either
+      package, training runs impl "xla"):
+      a. the main path: llama3.2-3b at full width and depth (float32
+         params, bf16 compute, remat full) through ``make_train_step``,
+         seeded init on the card, AdamW (lr 3e-4 constant, b2 0.95, wd
+         0.1, clip 1.0), global batch 4 × S = 2048 in 2 microbatches, 10
+         steps, counters zeroed just before and read just after: no
+         launch; the loss falls (the first batch's, re-evaluated after the
+         last step, and the last three steps' mean below the first step's:
+         with no warmup the fresh batches' loss first rises for about
+         five steps); a second run from the seed bitwise equal
+         (losses, grad norms, every param leaf's checksum); cold and
+         steady step ms, tokens/s, peak memory (below 76 GiB), MFU (6 N T
+         + attention over the bf16 peak; remat's recompute apart), idle
+         share and top device ops of 2 more steps under the profiler; the
+         flash forward at B = 2, S = 4096 with jax.nn's activations
+         against ``F.silu``, in turns;
+      b. dbrx-132b at full width, 1 of 40 layers, bf16 params with a
+         float32 master, factored AdamW, B = 2, S = 2048, 3 steps: the
+         first batch's loss falls (a fresh batch's does not in 3 steps: the
+         untied head learns only the rows a batch holds), the aux loss
+         finite, twice bitwise equal; step ms and
+         peak memory;
+      c. llama's width at 2 layers, float32 compute, microbatches 2
+         against 1: loss at 1e-5, grads at tests/test_train.py's
+         tolerance and within 1e-4 of each leaf's scale (bf16 printed);
+      d. each of the ten smoke configs, 3 steps on the card against the
+         CPU: losses and grad norms at rtol 1e-4;
+      e. ``launch.train``'s smoke run crashed at step 3 and resumed
+         bitwise; ``examples_torch/train_lm.py`` at its defaults.
+      Alone: ``c.lm_train_alone()``.
 7. Observability and the HGNN leftovers (run after 4g, on the phase-4
    problem; its launch counts are read apart from the main path's):
    a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
@@ -3409,6 +3440,7 @@ def moe_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.lm import moe
     from repro_torch.models.lm.api import build
+    from repro_torch.models.lm.layers import silu
     from repro_torch.models.lm.transformer import vocab_padded
     from repro_torch.serve import engine
     from repro_torch.tree import tree_leaves
@@ -3477,7 +3509,7 @@ def moe_lm_phase(arch: str, counters: dict, fa_mod) -> dict:
     xin = torch.randn((cfg.num_experts, LM_BATCH * res["capacity"], cfg.d_model),
                       generator=torch.Generator(device="cuda").manual_seed(3), device="cuda",
                       dtype=torch.bfloat16)
-    expert_ms = cuda_ms(lambda: torch.bmm(torch.nn.functional.silu(torch.bmm(xin, w["w_gate"]))
+    expert_ms = cuda_ms(lambda: torch.bmm(silu(torch.bmm(xin, w["w_gate"]))
                                           * torch.bmm(xin, w["w_up"]), w["w_down"]), reps=5)
     del xin, w
     expert_share = expert_ms * cfg.num_layers / float(np.median(steady))
@@ -4516,6 +4548,388 @@ def whisper_alone() -> dict:
         "flash_attention": {n: flash_shape_times(fa_mod, c, n) for n, c in WHISPER_SHAPES.items()}})
 
 
+# -- phase 6k: LM training ------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-3b"
+# 10 steps: at lr 3e-4 with no warmup the loss on fresh batches first rises (steps 1-5)
+# and falls from step 6 on (PERF.md §6)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 10
+TRAIN_OPT = dict(lr=3e-4, b2=0.95, weight_decay=0.1, grad_clip=1.0)
+TRAIN_PEAK_GIB = 76  # the main path's peak memory must stay below this
+# b. bf16 params with a float32 master and factored AdamW: dbrx-132b at full width,
+# 1 of its 40 layers (8 B a param: 35.9 GB; 2 layers would be 62.0 GB)
+MOE_TRAIN = dict(arch="dbrx-132b", layers=1, batch=2, seq=2048, steps=3)
+MICRO_LAYERS = 2  # c. microbatches 2 against 1 at llama's width
+MICRO_TOL = dict(rtol=5e-4, atol=5e-5)  # tests/test_train.py:105
+GRAD_REL = 1e-4  # each grad leaf within this of its largest magnitude (the CPU parity tests')
+SMOKE_STEPS, SMOKE_TOL = 3, 1e-4  # d. every family's smoke config, the card against the CPU
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+
+
+def leaf_checksums(tree) -> list[int]:
+    """Each leaf's bit patterns summed as integers (a changed bit changes its sum)."""
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+        out.append(sum(int(c.sum(dtype=torch.int64)) for c in bits.split(1 << 26)))
+    return out
+
+
+def train_run(api, opt, data_kw: dict, *, steps: int, microbatches: int,
+              profile_steps: int = 0) -> dict:
+    """``steps`` train steps from a seeded init (generator seed 0 on the
+    card) on ``SyntheticLMData(**data_kw)``, each timed; the loss of the
+    first batch (``lm_loss`` with no grad) before the first step and after
+    the last; then the params' checksums and, with ``profile_steps``, that
+    many more steps under the profiler.  The state is freed before it
+    returns."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.train import lm_loss, make_train_step
+    from repro_torch.train.step import init_train_state
+
+    torch.cuda.reset_peak_memory_stats()
+    state, init_ms = timed(lambda: init_train_state(
+        api, torch.Generator(device="cuda").manual_seed(0), opt, device="cuda"))
+    init_peak = torch.cuda.max_memory_allocated()
+    step = make_train_step(api, opt, microbatches=microbatches,
+                           lr_schedule=lambda s: torch.tensor(opt.lr))
+    data = SyntheticLMData(**data_kw)
+    first = {k: v.cuda() for k, v in SyntheticLMData(**data_kw).next().items()}
+
+    def first_loss() -> float:
+        with torch.no_grad():
+            return float(lm_loss(api, state.params, first)[1]["loss"])
+
+    seen = [first_loss()]
+    hist = []
+    for _ in range(steps):
+        batch = data.next()
+        (state, m), ms = timed(lambda: step(state, batch))
+        hist.append({k: float(v) for k, v in m.items()} | {"ms": ms})
+    seen.append(first_loss())
+    res = dict(init_ms=init_ms, init_peak_bytes=init_peak, history=hist, first_batch_loss=seen,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               checksums=leaf_checksums(state.params))
+    if profile_steps:
+        box = [state]
+
+        def one():
+            box[0], _ = step(box[0], data.next())
+
+        res["profiled"] = profiled(one, profile_steps)
+        box.clear()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def same_run(name: str, a: dict, b: dict) -> None:
+    """Two runs from one seed: bitwise the same losses, grad norms and params."""
+    keys = ("loss", "aux_loss", "grad_norm")
+    if [[h[k] for k in keys] for h in a["history"]] != [[h[k] for k in keys] for h in b["history"]]:
+        raise AssertionError(f"{name}: two seeded runs differ: {a['history']} vs {b['history']}")
+    if a["checksums"] != b["checksums"]:
+        bad = [i for i, (x, y) in enumerate(zip(a["checksums"], b["checksums"])) if x != y]
+        raise AssertionError(f"{name}: two seeded runs end with other params (leaves {bad})")
+
+
+def falls(name: str, run: dict, *, fresh: bool) -> None:
+    """The loss of the first batch fell from before the first step to after
+    the last (the batches differ from step to step, and their own losses
+    by a few hundredths); with ``fresh``, also the mean loss of the last
+    three steps' fresh batches below the first step's."""
+    hist, seen = run["history"], run["first_batch_loss"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(h[k]) for h in hist for k in ("loss", "aux_loss", "grad_norm")):
+        raise AssertionError(f"{name}: non-finite loss, aux loss or grad norm: {hist}")
+    if not seen[1] < seen[0] or (fresh and not np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: first batch {seen}, steps {losses}")
+
+
+def train_flops(cfg, params, tokens: int, seq: int) -> dict:
+    """A step's model FLOPs (6 N T over the matmul params, the tied head
+    included, plus PaLM's attention term 12 L H Dh S T) and what remat's
+    recompute adds (the layers' forward again: 2 N_layers T + 4 L H Dh S T)."""
+    from repro_torch.models.lm.transformer import vocab_padded
+    from repro_torch.tree import tree_leaves
+
+    n_layers = sum(t.numel() for t in tree_leaves(params["scan"]) if t.dim() >= 3)
+    n_head = vocab_padded(cfg) * cfg.d_model
+    attn = cfg.num_layers * cfg.num_heads * cfg.head_dim * seq * tokens
+    return dict(model=6 * (n_layers + n_head) * tokens + 12 * attn,
+                recompute=2 * n_layers * tokens + 4 * attn, matmul_params=n_layers + n_head)
+
+
+def activation_cost(api, params) -> dict:
+    """llama's flash forward at B = 2, S = 4096 with jax.nn's activations
+    (the MLP's SiLU one torch op a primitive in bf16) against the single
+    fused ``F.silu`` the port used before, timed in turns (old, new, new,
+    old), host clock around a synchronise."""
+    from repro_torch.models.lm import mlp
+
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, api.cfg.vocab_size,
+                                                            (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device="cuda")
+    forms = {"old": torch.nn.functional.silu, "new": mlp.silu}
+    times = {k: [] for k in forms}
+    try:
+        with torch.no_grad():
+            for form in ("old", "new", "new", "old"):
+                mlp.silu = forms[form]
+                api.forward(params, toks, impl="flash")
+                times[form] += [timed(lambda: api.forward(params, toks, impl="flash"))[1]
+                                for _ in range(2)]
+    finally:
+        mlp.silu = forms["new"]
+    return {k: dict(ms=v, median_ms=float(np.median(v))) for k, v in times.items()}
+
+
+def moe_train() -> dict:
+    """6k b: dbrx-132b at full width, ``MOE_TRAIN["layers"]`` of its 40
+    layers, bf16 params with a float32 master, factored AdamW."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm.api import build
+    from repro_torch.optim import AdamWConfig
+
+    m = MOE_TRAIN
+    cfg = dataclasses.replace(get_config(m["arch"]), num_layers=m["layers"])
+    api = build(cfg)
+    opt = AdamWConfig(**TRAIN_OPT, factored=True)
+    data_kw = dict(vocab_size=cfg.vocab_size, seq_len=m["seq"], global_batch=m["batch"], seed=0)
+    runs = [train_run(api, opt, data_kw, steps=m["steps"], microbatches=1) for _ in range(2)]
+    same_run(m["arch"], *runs)
+    falls(m["arch"], runs[0], fresh=False)
+    hist = runs[0]["history"]
+    res = dict(cfg=dict(layers=cfg.num_layers, param_dtype=cfg.param_dtype, remat=cfg.remat,
+                        batch=m["batch"], seq=m["seq"], optimizer="AdamW factored, float32 master"),
+               runs=runs)
+    log(f"[lm train {m['arch']}] {cfg.num_layers} of 40 layers at full width, {cfg.param_dtype} "
+        f"params, float32 master, factored AdamW, remat {cfg.remat}, B={m['batch']} S={m['seq']}: "
+        f"loss {['%.6f' % h['loss'] for h in hist]} (the first batch's "
+        f"{runs[0]['first_batch_loss'][0]:.6f} -> {runs[0]['first_batch_loss'][1]:.6f}), aux "
+        f"{['%.6f' % h['aux_loss'] for h in hist]}, "
+        f"grad norm {['%.4f' % h['grad_norm'] for h in hist]}; step ms "
+        f"{['%.3f' % h['ms'] for h in hist]}; peak {runs[0]['peak_mem_bytes'] / 2**30:.3f} GiB "
+        f"(init {runs[0]['init_peak_bytes'] / 2**30:.3f}); a second seeded run bitwise equal")
+    return res
+
+
+def micro_check() -> dict:
+    """6k c: at llama's full width, ``MICRO_LAYERS`` of its layers, float32
+    compute (the reference test's), microbatches 2 against 1 on one global
+    batch: the loss at rtol 1e-5, the grads at ``MICRO_TOL`` and within
+    ``GRAD_REL`` of each leaf's largest magnitude.  The bf16-compute
+    difference is printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.lm.api import build
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_leaves_with_path
+
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MICRO_LAYERS, dtype=dtype)
+        api = build(cfg)
+        params = api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0).next()
+        batch = {k: v.cuda() for k, v in batch.items()}
+        g1, m1 = loss_and_grads(api, params, batch, microbatches=1)
+        g2, m2 = loss_and_grads(api, params, batch, microbatches=2)
+        worst = max(((float((b.float() - a.float()).abs().max()) / float(a.abs().max()), k)
+                     for (k, a), (_, b) in zip(tree_leaves_with_path(g1),
+                                               tree_leaves_with_path(g2))))
+        dl = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
+        res[dtype] = dict(loss=[float(m1["loss"]), float(m2["loss"])], loss_rel=dl,
+                          worst_leaf_rel=worst[0], worst_leaf=worst[1])
+        if dtype == "float32":
+            if dl > 1e-5 or worst[0] > GRAD_REL:
+                raise AssertionError(f"microbatches 2 vs 1 at full width: {res[dtype]}")
+            for (k, a), (_, b) in zip(tree_leaves_with_path(g1), tree_leaves_with_path(g2)):
+                torch.testing.assert_close(b, a, **MICRO_TOL, msg=lambda msg: f"{k}: {msg}")
+        log(f"[lm train micro] {cfg.num_layers} layers at full width, {dtype} compute, "
+            f"B={TRAIN_BATCH} S={TRAIN_SEQ}: loss {m1['loss']:.6f} (1) vs {m2['loss']:.6f} (2), "
+            f"rel {dl:.3e}; worst grad leaf {worst[1]} {worst[0]:.3e} of its largest magnitude"
+            + (f" (limits 1e-5, {GRAD_REL}; elementwise {MICRO_TOL})" if dtype == "float32"
+               else " (printed only)"))
+        del params, g1, g2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def smoke_train_card_vs_cpu() -> dict:
+    """6k d: every architecture's smoke config, ``SMOKE_STEPS`` train steps
+    (the launcher's smoke optimizer, 2 microbatches) on the card and on the
+    CPU from the same init and batches: losses and grad norms at rtol
+    ``SMOKE_TOL``.  whisper's frames are cast to float32 here: the
+    pipeline's bf16 frames run its encoder in bf16, whose roundings differ
+    between the card's and the CPU's products."""
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.lm.api import build
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import tree_map
+
+    res = {}
+    for arch in ARCH_IDS:
+        cfg = smoke_config(arch)
+        api = build(cfg)
+        opt = AdamWConfig(lr=1e-2, weight_decay=0.0)
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev, copy=True), params)  # the step writes in place
+            state = TrainState(p, init_opt_state(p, opt),
+                               torch.zeros((), dtype=torch.int32, device=dev))
+            step = make_train_step(api, opt, microbatches=2,
+                                   lr_schedule=lambda s: torch.tensor(1e-2))
+            data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0,
+                                   with_frames=cfg.frontend == "audio",
+                                   frame_len=cfg.encoder_seq, d_model=cfg.d_model)
+            hist = []
+            for _ in range(SMOKE_STEPS):
+                batch = data.next()
+                if "frames" in batch:
+                    batch["frames"] = batch["frames"].float()
+                state, m = step(state, batch)
+                hist.append([float(m["loss"]), float(m["grad_norm"])])
+            out[dev] = hist
+        got, want = np.array(out["cuda"]), np.array(out["cpu"])
+        rel = float((np.abs(got - want) / np.abs(want)).max())
+        res[arch] = dict(cuda=out["cuda"], cpu=out["cpu"], max_rel=rel)
+        if not rel <= SMOKE_TOL:
+            raise AssertionError(f"{arch} smoke training, card vs CPU: {res[arch]}")
+    log(f"[lm train smoke] {SMOKE_STEPS} steps of each smoke config, card vs CPU (rtol "
+        f"{SMOKE_TOL}): losses and grad norms max rel "
+        + ", ".join(f"{a} {r['max_rel']:.2e}" for a, r in res.items()))
+    return res
+
+
+def train_entry_points() -> dict:
+    """6k e: the launcher's ``--smoke`` run with a checkpoint, crashed at
+    step 3 and resumed, against an uninterrupted run (bitwise); then
+    ``examples_torch/train_lm.py`` at its defaults."""
+    from repro_torch.launch import train as lm_train
+    from repro_torch.tree import tree_leaves
+
+    ckpt = OUT / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    silent = lambda *_: None  # noqa: E731
+    kw = dict(smoke=True, steps=6, device="cuda", log=silent)
+    ref, _ = lm_train.run_training(TRAIN_ARCH, **kw)
+    try:
+        lm_train.run_training(TRAIN_ARCH, ckpt=str(ckpt), ckpt_every=2, crash_at=3, **kw)
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("the launcher's run did not crash at step 3")
+    got, hist = lm_train.run_training(TRAIN_ARCH, ckpt=str(ckpt), ckpt_every=2, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got))):
+        raise AssertionError("the launcher's crashed and resumed run differs from an "
+                             "uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ex = load_example("train_lm").main([])
+    if not ex[-1]["loss"] < ex[0]["loss"]:
+        raise AssertionError(f"examples_torch/train_lm.py: the loss did not fall: {ex}")
+    last = buf.getvalue().strip().splitlines()[-1]
+    log(f"[lm train launcher] --smoke, crashed at step 3 and resumed from step 2's checkpoint: "
+        f"bitwise the uninterrupted run; examples_torch/train_lm.py on the card: {last}")
+    return dict(example=ex, example_last_line=last)
+
+
+def lm_train_phase(counters: dict, fa_mod) -> dict:
+    """Phase 6k: LM training (a: the main path, llama3.2-3b at full width and
+    depth; b-e as their functions say)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm.api import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    api = build(cfg)
+    opt = AdamWConfig(**TRAIN_OPT)
+    data_kw = dict(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(cfg=dict(arch=TRAIN_ARCH, layers=cfg.num_layers, param_dtype=cfg.param_dtype,
+                        dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        microbatches=TRAIN_MICRO, steps=TRAIN_STEPS, optimizer=TRAIN_OPT))
+
+    # a. the main path: counters zeroed just before, read just after
+    reset_counts(counters, fa_mod)
+    run = train_run(api, opt, data_kw, steps=TRAIN_STEPS, microbatches=TRAIN_MICRO)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"LM training launched a kernel (none is on its path: #7 has no "
+                             f"gradient, training runs impl=\"xla\"): {launches}")
+    falls(TRAIN_ARCH, run, fresh=True)
+    if not run["peak_mem_bytes"] < TRAIN_PEAK_GIB * 2**30:
+        raise AssertionError(f"peak memory {run['peak_mem_bytes'] / 2**30:.3f} GiB")
+    again = train_run(api, opt, data_kw, steps=TRAIN_STEPS, microbatches=TRAIN_MICRO,
+                      profile_steps=2)
+    same_run(TRAIN_ARCH, run, again)
+    # the activations' cost, on params of the same init
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    res["activation_cost"] = act = activation_cost(api, params)
+    flops = train_flops(cfg, params, tokens, TRAIN_SEQ)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [h["ms"] for h in run["history"]]
+    steady = float(np.median(ms[1:]))
+    prof = again["profiled"]
+    res.update(launches=launches, run=run, again=again, params=n_params, flops=flops,
+               cold_ms=ms[0], steady_ms=steady, tokens_s=tokens / (steady / 1e3),
+               mfu=flops["model"] / (steady / 1e3 * BF16_PEAK_FLOPS),
+               hfu=(flops["model"] + flops["recompute"]) / (steady / 1e3 * BF16_PEAK_FLOPS))
+    hist = run["history"]
+    log(f"[lm train] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} "
+        f"{cfg.param_dtype} params, compute {cfg.dtype}, remat {cfg.remat}; AdamW {TRAIN_OPT}, "
+        f"constant lr; B={TRAIN_BATCH} S={TRAIN_SEQ} in {TRAIN_MICRO} microbatches; launches "
+        f"{json.dumps(launches)}")
+    log(f"[lm train] loss {['%.6f' % h['loss'] for h in hist]} (the first batch's "
+        f"{run['first_batch_loss'][0]:.6f} -> {run['first_batch_loss'][1]:.6f}), grad norm "
+        f"{['%.4f' % h['grad_norm'] for h in hist]}; a second seeded run bitwise equal (losses, "
+        f"grad norms, {len(run['checksums'])} param leaves' checksums)")
+    log(f"[lm train] step ms cold {ms[0]:.3f}, steady median {steady:.3f} "
+        f"({['%.3f' % t for t in ms[1:]]}), {res['tokens_s']:.1f} tokens/s; peak mem "
+        f"{run['peak_mem_bytes'] / 2**30:.3f} GiB (init {run['init_peak_bytes'] / 2**30:.3f}, "
+        f"limit {TRAIN_PEAK_GIB}); model FLOPs {flops['model']:.4e} a step (6 N T, N "
+        f"{flops['matmul_params']} matmul params, + attention), MFU {res['mfu']:.4f} of "
+        f"{BF16_PEAK_FLOPS:.0f} FLOP/s bf16; with remat's recompute ({flops['recompute']:.4e}) "
+        f"{res['hfu']:.4f}")
+    log(f"[lm train] 2 steps under the profiler: {['%.3f' % t for t in prof['steps_ms']]} ms, "
+        f"device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    for k in prof["top_kernels"][:8]:
+        log(f"[lm train]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    log(f"[lm train] activations' cost, flash forward B={LM_BATCH} S={LM_SEQ} (PERF.md: 147.554 ms "
+        f"with F.silu): F.silu {act['old']['median_ms']:.3f} ms {['%.3f' % t for t in act['old']['ms']]}, "
+        f"jax.nn's roundings {act['new']['median_ms']:.3f} ms {['%.3f' % t for t in act['new']['ms']]}")
+    res["moe"] = moe_train()
+    res["micro"] = micro_check()
+    res["smoke"] = smoke_train_card_vs_cpu()
+    res["entry_points"] = train_entry_points()
+    return res
+
+
+def lm_train_alone() -> dict:
+    """Phase 6k alone (``python3 -c 'import chip_smoke as c; c.lm_train_alone()'``);
+    chiprun_out/lm_train.json."""
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+    return lm_alone("lm_train", lambda: lm_train_phase(kernel_counters(), fa_mod))
+
+
 # -- phase 7: observability and the HGNN leftovers ---------------------------
 
 
@@ -5072,6 +5486,10 @@ def main() -> int:
         lm[arch] = phase(lm_counters, fa_mod)
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 6k: LM training (no kernel on its path)
+    lm["train"] = lm_train_phase(lm_counters, fa_mod)
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path["flash_attention"] = {"lm_forward": launches["flash_attention"],
                                   "lm_serve": lm["serve_bf16"]["flash_launches"],
                                   "dbrx_forward": lm["dbrx-132b"]["forward"]["launches"][

@@ -10,8 +10,11 @@ Leaf keys are JAX's tree-path strings (``tree.tree_leaves_with_path``),
 so a checkpoint of either package restores into the other: a field of a
 dataclass such as ``TrainState`` is ``[<flat index i>]`` (params, opt,
 step in order), a dict entry ``['name']`` with keys in sorted order, a
-list entry ``[i]``, joined by ``/``; None leaves (an unused ``master``) do
-not appear.  Leaves are logical (unsharded) arrays, gathered over the
+list entry ``[i]``, joined by ``/``; None leaves (an unused ``master``, a
+factored slot) do not appear.  A bfloat16 leaf is written as the
+reference's numpy writes one, two raw bytes an element (``.npy`` type
+``V2``) under the manifest dtype ``bfloat16``, and read back bit for bit.
+Leaves are logical (unsharded) arrays, gathered over the
 mesh before a write (:func:`logical_state`); :func:`reshard_to` places a
 restored state on a run's device and takes this rank's slice of each leaf
 on its mesh, whatever mesh wrote it.
@@ -39,11 +42,16 @@ def save_checkpoint(ckpt_dir: str, step: int, state, aux: dict | None = None) ->
     os.makedirs(tmp)
     manifest = {"step": step, "aux": aux or {}, "leaves": []}
     for i, (k, v) in enumerate(tree_leaves_with_path(state)):
-        arr = v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            arr, dtype = v.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
+        else:
+            arr = v.numpy()
+            dtype = str(arr.dtype)
         fname = f"leaf_{i}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
-            {"key": k, "file": fname, "dtype": str(arr.dtype), "shape": list(arr.shape)}
+            {"key": k, "file": fname, "dtype": dtype, "shape": list(arr.shape)}
         )
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -77,7 +85,11 @@ def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
         if k not in by_key or by_key[k]["file"] is None:
             raise KeyError(f"checkpoint {path} has no leaf {k!r}")
         arr = np.load(os.path.join(path, by_key[k]["file"]))
-        values.append(torch.from_numpy(arr).to(v.device))
+        if by_key[k]["dtype"] == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        values.append(t.to(v.device))
     return tree_unflatten(like, values), manifest["aux"]
 
 

@@ -15,6 +15,10 @@ numpy::
     params = jax.tree.map(np.asarray, repro.models.lm.api.build(cfg).init(key))
     lm_params = lm_params_from_numpy(params, device="cuda")   # dtypes kept
 
+    st = repro.train.step.init_train_state(api, key, opt_cfg)
+    lm_state = lm_train_state_from_numpy(*(jax.tree.map(np.asarray, t)
+                                           for t in (st.params, st.opt, st.step)))
+
 This module imports nothing of JAX: it takes numpy arrays.
 """
 from __future__ import annotations
@@ -46,6 +50,23 @@ def lm_params_from_numpy(params, device: str | torch.device = "cuda"):
     ["wq"]`` …) as the same tree of tensors on ``device``, each leaf in its
     own dtype: float32 stays float32, bfloat16 stays bfloat16."""
     return tree_map(lambda a: _tensor_keep_dtype(a, device), params)
+
+
+def lm_train_state_from_numpy(params, opt: Mapping, step, device: str | torch.device = "cuda"):
+    """A reference LM ``TrainState`` given as numpy, as the port's, every
+    leaf in its own dtype: the params (bf16 leaves bit for bit), the AdamW
+    state of any mode (``m``/``v`` in their moment dtype, or the factored
+    ``v_row``/``v_col``/``v_full``; ``master``), its None slots kept, and
+    the int32 ``count`` and step."""
+    from .train.step import TrainState
+
+    scalar = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=device)  # noqa: E731
+    return TrainState(
+        params=lm_params_from_numpy(params, device),
+        opt={k: scalar(v) if k == "count" else lm_params_from_numpy(v, device)
+             for k, v in opt.items()},
+        step=scalar(step),
+    )
 
 
 def engine_params_from_numpy(

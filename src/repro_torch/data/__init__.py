@@ -1,3 +1,3 @@
-from .pipeline import SyntheticHGNNData, hgnn_minibatches
+from .pipeline import SyntheticHGNNData, SyntheticLMData, hgnn_minibatches
 
-__all__ = ["SyntheticHGNNData", "hgnn_minibatches"]
+__all__ = ["SyntheticHGNNData", "SyntheticLMData", "hgnn_minibatches"]

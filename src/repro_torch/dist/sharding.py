@@ -262,9 +262,11 @@ def _spec_placements(mesh, spec: Spec) -> tuple[Placement, ...]:
     return tuple(out)
 
 
-def map_axes(fn, axes):
-    """``fn`` over the leaves of a logical-axes tree; None stays None."""
-    return _map(fn, axes, [], is_axes_leaf)
+def map_axes(fn, axes, *trees):
+    """``fn(axes_leaf, *entries)`` over the leaves of a logical-axes tree
+    and the entries of ``trees`` (of the same structure) at the same keys;
+    None stays None."""
+    return _map(fn, axes, list(trees), is_axes_leaf)
 
 
 def param_shardings(mesh, rules: Rules, axes):

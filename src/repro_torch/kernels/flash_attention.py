@@ -218,7 +218,7 @@ def flash_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention (kernel #7) has no gradient, like the JAX package's Pallas kernel "
-            "(no custom_vjp): LM training is ROADMAP Queue 1 item 7h")
+            "(no custom_vjp): LM training runs impl=\"xla\", as the reference's does")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     build.check_tensor("q", q, q.dtype, (None, None, None, None), dev)

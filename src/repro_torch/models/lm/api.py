@@ -18,6 +18,8 @@ class LMApi:
     cfg: LMConfig
     # init(generator, device="cuda") -> params
     init: Callable[..., Any]
+    # axes() -> the params' logical axes (one tuple of axis names a leaf)
+    axes: Callable[[], Any]
     # forward(params, tokens, **kw) -> (logits, aux)
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     # decode(params, tokens, cache_pos, caches, **kw) -> (logits, caches);
@@ -39,12 +41,14 @@ def build(cfg: LMConfig) -> LMApi:
     for the CPU."""
     if cfg.is_encoder_decoder:
         family, init_fn, caches_fn = encdec, encdec.init_encdec, encdec.init_encdec_caches
+        axes_fn = encdec.encdec_axes
 
         def dec(params, tokens, cache_pos, caches, *, cross_kv):
             return encdec.decode_step(params, cfg, tokens, cache_pos, caches, cross_kv)
     else:
         transformer.check_supported(cfg)
         family, init_fn, caches_fn = transformer, transformer.init_decoder, transformer.init_caches
+        axes_fn = transformer.decoder_axes
 
         def dec(params, tokens, cache_pos, caches):
             return transformer.decode_step(params, cfg, tokens, cache_pos, caches)
@@ -58,4 +62,5 @@ def build(cfg: LMConfig) -> LMApi:
     def init_caches(batch, cache_len, dtype=torch.bfloat16, device="cuda"):
         return caches_fn(cfg, batch, cache_len, dtype, resolve_device(device))
 
-    return LMApi(cfg=cfg, init=init, forward=fwd, decode=dec, init_caches=init_caches)
+    return LMApi(cfg=cfg, init=init, axes=lambda: axes_fn(cfg), forward=fwd, decode=dec,
+                 init_caches=init_caches)

@@ -11,9 +11,10 @@ carries them; a Python loop over it takes the place of ``jax.lax.scan``.
 
 The encoder's and the decoder's self-attention run through ``impl``
 ("flash" is kernel #7: ``causal=False`` in the encoder); cross-attention is
-the plain attention over an all-true mask, as in the reference.  The
-reference's ``cfg.remat`` is a memory policy of its backward with no
-effect on values; the port has no LM backward and leaves it out.
+the plain attention over an all-true mask, as in the reference.
+``cfg.remat`` applies to each encoder and decoder layer's body
+(``transformer.maybe_remat``), as the reference's ``_maybe_remat`` wraps
+its scan bodies; it changes no value.
 
 Decode writes the self-attention caches in place; the cross K/V are
 computed once per prompt batch (:func:`precompute_cross`).
@@ -32,9 +33,16 @@ from .attention import (
     init_attn_cache,
 )
 from .config import LMConfig
-from .layers import P, init_from_specs, layer_norm, sinusoidal_positions, torch_dtype
+from .layers import (
+    P,
+    axes_from_specs,
+    init_from_specs,
+    layer_norm,
+    sinusoidal_positions,
+    torch_dtype,
+)
 from .mlp import mlp_forward, mlp_specs
-from .transformer import _layer, check_cache_dtype, vocab_padded
+from .transformer import _layer, check_cache_dtype, maybe_remat, vocab_padded
 
 DEC_POSITIONS = 32768  # the reference's learned decoder table (whisper's own context is 448)
 
@@ -79,6 +87,11 @@ def init_encdec(cfg: LMConfig, generator: torch.Generator, device=None):
     return init_from_specs(encdec_specs(cfg), generator, torch_dtype(cfg.param_dtype), device)
 
 
+def encdec_axes(cfg: LMConfig):
+    """The logical axes of :func:`encdec_specs`' params."""
+    return axes_from_specs(encdec_specs(cfg))
+
+
 def _ln(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return layer_norm(x, p["scale"].float(), p["bias"].float(), eps)
 
@@ -93,11 +106,15 @@ def encode(params, cfg: LMConfig, frames: torch.Tensor, *, impl: str = "xla") ->
     states, bidirectional self-attention through ``impl``."""
     _, s, d = frames.shape
     h = frames + sinusoidal_positions(s, d).to(frames.device)[None].to(frames.dtype)
-    for i in range(cfg.encoder_layers):
-        p = _layer(params["encoder"], i)
+
+    def block(h, p):
         h = h + attention_forward(p["attn"], _ln(p["norm1"], h), cfg, angles=None,
                                   causal=False, impl=impl)
-        h = h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+        return h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+
+    block = maybe_remat(block, cfg)
+    for i in range(cfg.encoder_layers):
+        h = block(h, _layer(params["encoder"], i))
     return _ln(params["enc_final"], h)
 
 
@@ -113,13 +130,17 @@ def decode_train(params, cfg: LMConfig, tokens: torch.Tensor, enc_out: torch.Ten
     s = tokens.shape[1]
     h = _embed(params, cfg, tokens)
     h = h + params["dec_pos"][:s][None].to(h.dtype)
-    for i in range(cfg.num_layers):
-        p = _layer(params["decoder"], i)
+
+    def block(h, enc_out, p):
         h = h + attention_forward(p["self_attn"], _ln(p["norm1"], h), cfg, angles=None,
                                   causal=True, impl=impl)
         kv = encode_cross_kv(p["cross_attn"], enc_out, cfg)
         h = h + cross_attention_forward(p["cross_attn"], _ln(p["norm_x"], h), kv, cfg)
-        h = h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+        return h + mlp_forward(p["mlp"], _ln(p["norm2"], h), cfg)
+
+    block = maybe_remat(block, cfg)
+    for i in range(cfg.num_layers):
+        h = block(h, enc_out, _layer(params["decoder"], i))
     return _logits(params, h)
 
 

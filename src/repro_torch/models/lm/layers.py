@@ -1,11 +1,12 @@
-"""Shared LM building blocks: parameter specs, RMS and layer norms, RoPE,
-M-RoPE and sinusoidal positions.
+"""Shared LM building blocks: parameter specs and their logical axes, the
+activations, RMS and layer norms, RoPE, M-RoPE and sinusoidal positions.
 
 The counterpart of ``repro/models/lm/layers.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -83,6 +84,50 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype=torch.float32
         return normal(spec.shape, std)
 
     return tree_map(mk, specs)
+
+
+def axes_from_specs(specs):
+    """The tree of logical axes (one tuple of axis names a leaf) of
+    ``specs``' structure: what ``dist.param_shardings`` maps to placements."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+# ---------------------------------------------------------------------------
+# Activations, with jax.nn's roundings
+# ---------------------------------------------------------------------------
+# In a dtype narrower than float32 XLA rounds after every primitive of
+# jax.nn's expressions, constants included; one fused torch op rounds once
+# and differs from it in a third of bf16 elements.  So the narrow forms run
+# the reference's primitives one torch op at a time.  In float32 XLA fuses
+# them, and the single torch ops are the nearer.
+
+def _narrow(x: torch.Tensor) -> bool:
+    return torch.finfo(x.dtype).bits < 32
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * logistic(x)``.  Narrow dtypes take its four
+    roundings, ``exp(-x)``, ``+ 1``, the reciprocal and the product."""
+    if not _narrow(x):
+        return x * torch.sigmoid(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+_GELU_C = 0.044715
+_GELU_S = math.sqrt(2 / math.pi)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation).  Narrow dtypes take its
+    eight roundings: ``x·x·x``, ``× c``, ``+ x``, ``× sqrt(2/π)``, tanh,
+    ``+ 1``, ``× 0.5`` and ``x ×``, the constants cast to the dtype first
+    (in bf16 ``4.4678e-2`` and ``0.796875``)."""
+    if not _narrow(x):
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    c = torch.tensor(_GELU_C, dtype=x.dtype, device=x.device)
+    s = torch.tensor(_GELU_S, dtype=x.dtype, device=x.device)
+    inner = s * (x + c * (x * x * x))
+    return x * (0.5 * (1 + torch.tanh(inner)))
 
 
 # ---------------------------------------------------------------------------

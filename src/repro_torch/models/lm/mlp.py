@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import LMConfig
-from .layers import P
+from .layers import P, gelu_tanh, silu
 
 
 def mlp_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
@@ -30,8 +30,8 @@ def mlp_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
 def _act(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return {
-        "silu": F.silu,
-        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": silu,
+        "gelu": gelu_tanh,
         "relu": F.relu,
         "relu2": lambda x: torch.square(F.relu(x)),  # nemotron/minitron
     }[name]

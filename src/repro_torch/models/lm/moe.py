@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from .attention import _promoted
 from .config import LMConfig
-from .layers import P
+from .layers import P, silu
 
 
 def moe_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
@@ -149,7 +149,7 @@ def moe_forward(
                        b * s)
     xin = torch.cat([x.reshape(b * s, d), x.new_zeros(1, d)])[rows.transpose(0, 1).reshape(e, -1)]
     dt = x.dtype
-    h = F.silu(torch.bmm(xin, params["w_gate"].to(dt))) * torch.bmm(xin, params["w_up"].to(dt))
+    h = silu(torch.bmm(xin, params["w_gate"].to(dt))) * torch.bmm(xin, params["w_up"].to(dt))
     y = torch.bmm(h, params["w_down"].to(dt))  # [E, B·cap, D]
 
     # combine: each token's kept copies, gate cast to y's dtype, summed in slot order

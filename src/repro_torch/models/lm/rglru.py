@@ -19,11 +19,8 @@ from __future__ import annotations
 import torch
 
 from .config import LMConfig
-from .layers import P
-from .mlp import _act
+from .layers import P, gelu_tanh
 from .ssm import depthwise_conv, softplus
-
-_gelu = _act("gelu")  # jax.nn.gelu: the tanh approximation
 
 
 def rglru_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
@@ -87,7 +84,7 @@ def rglru_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, h_sta
                           dim=1)
     h = linear_scan(a, bterm)
     h_state = h[:, -1, :]
-    gate = _gelu(x @ params["w_y"].to(x.dtype))
+    gate = gelu_tanh(x @ params["w_y"].to(x.dtype))
     y = (h.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
     return y, (conv_state, h_state)
 
@@ -98,7 +95,7 @@ def rglru_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, h_state):
     u, conv_state = _conv(params, u, conv_state)
     a, bterm = _gates(params, u, cfg)
     h = a[:, 0] * h_state.float() + bterm[:, 0]
-    gate = _gelu(x @ params["w_y"].to(x.dtype))
+    gate = gelu_tanh(x @ params["w_y"].to(x.dtype))
     y = (h[:, None, :].to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
     return y, (conv_state, h)
 

@@ -20,10 +20,9 @@ mamba2-2.7b's width, B = 2, S = 4096).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .config import LMConfig
-from .layers import P, rms_norm
+from .layers import P, rms_norm, silu
 
 
 def ssm_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
@@ -43,14 +42,6 @@ def ssm_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
         "norm": P(lead + (di,), lx + ("ssm_inner",), init="ones"),
         "w_out": P(lead + (di, d), lx + ("ssm_inner", "embed")),
     }
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: ``x * sigmoid(x)``, two roundings in a narrow dtype.
-    ``F.silu`` rounds once; in bfloat16 that made the port's mamba2 drift
-    from its float32 forward ~10% smaller than the reference's, a different
-    result (tests/test_torch_lm_recurrent_drift.py)."""
-    return x * torch.sigmoid(x)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

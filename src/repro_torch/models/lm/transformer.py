@@ -16,18 +16,39 @@ GeGLU MLP (``rglru.py``), under RoPE or Qwen2-VL's M-RoPE (positions
 decode cache is an ``AttnCache`` (a full context, or a ring of
 ``cfg.window`` slots for "local") or a recurrent ``(conv, state)`` tuple,
 O(1) in context.  The encoder-decoder is ``encdec.py``.
+
+``cfg.remat`` is the reference's memory policy for the backward, and
+changes no value: "full" recomputes each superblock (the body of the
+reference's scan) in the backward and keeps only its input, "dots" keeps
+the products with no batch dims (``aten.mm``: the weight products) and
+recomputes the rest, as ``checkpoint_dots_with_no_batch_dims`` does.  The
+tail layers run outside it, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ...tree import tree_map
+from ...tree import tree_leaves, tree_map
 from .attention import AttnCache, attention_decode, attention_forward, attention_specs, init_attn_cache
 from .config import LMConfig
-from .layers import P, init_from_specs, mrope_angles, rms_norm, rope_angles, torch_dtype
+from .layers import (
+    P,
+    axes_from_specs,
+    init_from_specs,
+    mrope_angles,
+    rms_norm,
+    rope_angles,
+    torch_dtype,
+)
 from .mlp import mlp_forward, mlp_specs
 from .moe import moe_forward, moe_specs
 from .rglru import init_rglru_cache, rglru_decode, rglru_forward, rglru_specs
@@ -95,9 +116,49 @@ def init_decoder(cfg: LMConfig, generator: torch.Generator, device=None):
     return init_from_specs(decoder_specs(cfg), generator, torch_dtype(cfg.param_dtype), device)
 
 
+def decoder_axes(cfg: LMConfig):
+    """The logical axes of :func:`decoder_specs`' params."""
+    return axes_from_specs(decoder_specs(cfg))
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked (``[n_super, ...]``) tree, as views."""
     return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+def _save_dots_without_batch_dims(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: a product with no batch dims
+    is ``aten.mm`` (``x @ W`` reaches it flattened); ``bmm`` (attention,
+    the experts) has one."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn, cfg: LMConfig):
+    """``fn`` under ``cfg.remat``'s policy where autograd records it (grad
+    mode on, a tensor of its arguments requiring grad), else ``fn`` itself.
+    Anything ``fn`` appends to a list (MoE ``routes``) is appended again
+    when the backward recomputes it."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots_without_batch_dims)
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -203,20 +264,21 @@ def forward(
         h = torch.cat([visual_embeds.to(h.dtype), h[:, nv:]], dim=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def block(pat, p, h):
-        nonlocal aux_total
+    def block(pat, p, h, aux_total):
         h, aux = _block_forward(cfg, pat, p, h, angles, impl, routes)
-        if aux is not None:
-            aux_total = aux_total + aux
-        return h
+        return h, aux_total if aux is None else aux_total + aux
 
+    def superblock(h, aux_total, sp):
+        for i, pat in enumerate(cfg.block_pattern):
+            h, aux_total = block(pat, sp[f"pos{i}"], h, aux_total)
+        return h, aux_total
+
+    superblock = maybe_remat(superblock, cfg)
     n_super, rem = _layout(cfg)
     for layer in range(n_super):
-        sp = _layer(params["scan"], layer)
-        for i, pat in enumerate(cfg.block_pattern):
-            h = block(pat, sp[f"pos{i}"], h)
+        h, aux_total = superblock(h, aux_total, _layer(params["scan"], layer))
     for i in range(rem):
-        h = block(cfg.block_pattern[i], params["tail"][i], h)
+        h, aux_total = block(cfg.block_pattern[i], params["tail"][i], h, aux_total)
     return logits_from_hidden(params, cfg, h), aux_total
 
 

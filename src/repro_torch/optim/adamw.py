@@ -1,20 +1,31 @@
-"""AdamW with a global-norm clip (the counterpart of ``repro.optim.adamw``,
-its non-factored mode).
+"""AdamW with a global-norm clip, the counterpart of ``repro.optim.adamw``.
 
 The state keeps the reference's layout, so a checkpoint of either package
-restores into the other: ``m`` and ``v`` mirror the params, ``master`` holds
-None for each param (the port's params are float32, which need no float32
-master copy) and ``count`` is an int32 step counter.  Params are trees of
-nested dicts and lists of tensors (``repro_torch.tree``): HAN's are one
-flat dict, R-GAT's nest by layer and relation.  The factored
-(Adafactor-style) mode serves the LM side and is not ported yet (ROADMAP
-Queue 1 item 7h).
+restores into the other.  Params are trees of nested dicts and lists of
+tensors (``repro_torch.tree``): HAN's are one flat dict, R-GAT's nest by
+layer and relation, an LM's by block.
+
+* ``m`` and ``v`` mirror the params, in ``moment_dtype`` (bfloat16 halves
+  their memory); ``count`` is an int32 step counter.
+* A param narrower than float32 (bf16) keeps a float32 ``master`` copy
+  (``master_fp32``); its working copy is re-derived from the master each
+  step.  Every other param holds None there.
+* ``factored=True`` is the Adafactor-style memory mode: no first moment,
+  the second moment of each param of two or more dims factored over its
+  last two (``v_row``, ``v_col``: row and column means), the rest kept
+  whole (``v_full``).
+
+:func:`apply_updates` returns new trees and leaves its inputs as they are
+(the HGNN trainers rely on it); :func:`apply_updates_` writes the same
+bits into the state it is given, a slice of each leaf at a time, so that
+an LM step over 50 GB of state needs no second copy of it.  Both run the
+reference's operations in its order.
 
 Under a model axis (``dist.sharding``) a leaf may be this rank's piece of
-the logical one: :func:`global_norm` and :func:`apply_updates` then take
-the leaves' placements and the mesh, and sum the squares of each sharded
-leaf over the ranks that share it, so that every rank clips by the same
-norm of the whole gradient.  The update itself is elementwise.
+the logical one: :func:`global_norm` and the updates then take the
+leaves' placements and the mesh, and sum the squares of each sharded leaf
+over the ranks that share it, so that every rank clips by the same norm
+of the whole gradient.  The update itself is elementwise.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from torch.distributed.tensor import Shard
 from ..dist.sharding import map_axes, placement_leaves
 from ..tree import tree_leaves, tree_map
 
+CHUNK = 1 << 26  # elements an update step takes of a leaf at a time (256 MiB in float32)
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -36,28 +49,74 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    master_fp32: bool = True  # keep a float32 master when params are low-precision
+    # Adafactor-style memory mode: no first moment, second moment factored
+    # over the last two dims (row and column means)
+    factored: bool = False
+
+
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _needs_master(p, cfg: AdamWConfig) -> bool:
+    return cfg.master_fp32 and p.dtype != torch.float32
+
+
+def _factorable(p) -> bool:
+    return len(p.shape) >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
 
 
 def init_opt_state(params, cfg: AdamWConfig) -> dict:
+    """The zero state of ``params`` in ``cfg``'s mode, on the params' device."""
     leaves = tree_leaves(params)
-    for p in leaves:
-        if p.dtype != torch.float32:
-            raise TypeError(f"a param is {p.dtype}: the port's AdamW takes float32 params")
+    master = tree_map(lambda p: p.float() if _needs_master(p, cfg) else None, params)
+    count = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    f32 = dict(dtype=torch.float32)
+    if cfg.factored:
+        return {
+            "v_row": tree_map(lambda p: p.new_zeros(p.shape[:-1], **f32)
+                              if _factorable(p) else None, params),
+            "v_col": tree_map(lambda p: p.new_zeros(p.shape[:-2] + p.shape[-1:], **f32)
+                              if _factorable(p) else None, params),
+            "v_full": tree_map(lambda p: None if _factorable(p) else p.new_zeros(p.shape, **f32),
+                               params),
+            "master": master,
+            "count": count,
+        }
+    mdt = _dtype(cfg.moment_dtype)
     return {
-        "m": tree_map(torch.zeros_like, params),
-        "v": tree_map(torch.zeros_like, params),
-        "master": tree_map(lambda _: None, params),
-        "count": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+        "m": tree_map(lambda p: p.new_zeros(p.shape, dtype=mdt), params),
+        "v": tree_map(lambda p: p.new_zeros(p.shape, dtype=mdt), params),
+        "master": master,
+        "count": count,
     }
 
 
 def opt_state_axes(param_axes, cfg: AdamWConfig, params_abstract=None) -> dict:
-    """Logical axes of the optimizer state (the reference's non-factored
-    form): ``m`` and ``v`` mirror the params' axes, ``count`` is a scalar,
-    ``master`` mirrors them too, or, given the params, holds None for each
-    (the port's params are float32 and keep no master copy)."""
+    """Logical axes of the optimizer state, mirroring the params'.
+    ``params_abstract`` (the params, or anything with their ``shape`` and
+    ``dtype``) puts None where a leaf is absent: ``master`` of a float32
+    param, and the factored slots a param does not use; the factored mode
+    needs it."""
     same = map_axes(lambda a: a, param_axes)
-    master = same if params_abstract is None else map_axes(lambda _: None, param_axes)
+    master = same
+    if params_abstract is not None:
+        master = map_axes(lambda a, p: a if _needs_master(p, cfg) else None,
+                          param_axes, params_abstract)
+    if cfg.factored:
+        if params_abstract is None:
+            raise ValueError("factored axes need the params' shapes (params_abstract)")
+        row = map_axes(lambda a, p: tuple(a[:-1]) if _factorable(p) else None,
+                       param_axes, params_abstract)
+        col = map_axes(lambda a, p: tuple(a[:-2]) + (a[-1],) if _factorable(p) else None,
+                       param_axes, params_abstract)
+        full = map_axes(lambda a, p: None if _factorable(p) else a, param_axes, params_abstract)
+        return {"v_row": row, "v_col": col, "v_full": full, "master": master, "count": ()}
     return {"m": same, "v": same, "master": master, "count": ()}
 
 
@@ -81,38 +140,131 @@ def _sum_over_shards(squares: list, placements, mesh) -> list:
 
 
 def global_norm(tree, *, placements=None, mesh=None) -> torch.Tensor:
-    """sqrt of the sum of squares, leaf by leaf in JAX's ``tree_leaves``
-    order (dict keys sorted, lists in order), as the reference sums them.
-    With ``placements`` (``dist.param_shardings`` of ``tree``) and ``mesh``,
-    the leaves are pieces and the norm is the whole tree's
-    (:func:`_sum_over_shards`), the same on every rank."""
-    squares = [torch.sum(torch.square(x)) for x in tree_leaves(tree)]
+    """sqrt of the sum of squares in float32, leaf by leaf in JAX's
+    ``tree_leaves`` order (dict keys sorted, lists in order), as the
+    reference sums them.  With ``placements`` (``dist.param_shardings`` of
+    ``tree``) and ``mesh``, the leaves are pieces and the norm is the whole
+    tree's (:func:`_sum_over_shards`), the same on every rank."""
+    squares = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     if placements is not None and mesh is not None:
         squares = _sum_over_shards(squares, placements, mesh)
     return torch.sqrt(sum(squares))
 
 
+def _flat_chunks(*ts):
+    """Matching flat slices of at most CHUNK elements of same-shaped
+    tensors (None stays None)."""
+    n = ts[0].numel()
+    flat = [None if t is None else t.view(-1) for t in ts]
+    for i in range(0, n, CHUNK):
+        yield [None if f is None else f[i:i + CHUNK] for f in flat]
+
+
+def _adamw_leaf(cfg: AdamWConfig, lr, scale, c1, c2, mdt, p, g, m, v, master):
+    """One slice of a leaf: the reference's ``upd``, in its order."""
+    g = g.float() * scale
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+    mhat = m32 / c1
+    vhat = v32 / c2
+    base = master if master is not None else p.float()
+    step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base
+    new_base = base - lr * step
+    return new_base.to(p.dtype), m32.to(mdt), v32.to(mdt), new_base
+
+
+def _factored_leaf(cfg: AdamWConfig, lr, scale, p, g, vr, vc, vf, master):
+    """One slice of a leaf: the reference's factored ``upd``, in its
+    order.  A factorable slice is ``[n, rows, cols]`` with ``vr [n, rows]``
+    and ``vc [n, cols]``."""
+    b2 = cfg.b2
+    g = g.float() * scale
+    g2 = g * g + 1e-30
+    if vr is not None:
+        vr = b2 * vr + (1 - b2) * g2.mean(dim=-1)
+        vc = b2 * vc + (1 - b2) * g2.mean(dim=-2)
+        # V ≈ (R C) / mean(R): rank-1 reconstruction (Shazeer & Stern '18)
+        denom = vr.mean(dim=-1, keepdim=True)
+        vhat = (vr / torch.clamp(denom, min=1e-30))[..., None] * vc[..., None, :]
+    else:
+        vf = b2 * vf + (1 - b2) * g2
+        vhat = vf
+    base = master if master is not None else p.float()
+    step = g * torch.rsqrt(vhat + cfg.eps) + cfg.weight_decay * base
+    new_base = base - lr * step
+    return new_base.to(p.dtype), vr, vc, vf, new_base
+
+
+def _factored_chunks(p, g, vr, vc, vf, master):
+    """Matching slices of one leaf's tensors for :func:`_factored_leaf`:
+    a factorable leaf as ``[n, rows, cols]`` cut along n (the means run
+    over the last two dims, so a slice of whole matrices is exact), any
+    other leaf elementwise."""
+    if vr is None:
+        yield from _flat_chunks(p, g, None, None, vf, master)
+        return
+    r, c = p.shape[-2], p.shape[-1]
+    as3 = lambda t: None if t is None else t.view(-1, r, c)  # noqa: E731
+    p3, g3, m3 = as3(p), as3(g), as3(master)
+    vr2, vc2 = vr.view(-1, r), vc.view(-1, c)
+    step = max(1, CHUNK // (r * c))
+    for i in range(0, p3.shape[0], step):
+        s = slice(i, i + step)
+        yield [p3[s], g3[s], vr2[s], vc2[s], None, None if m3 is None else m3[s]]
+
+
+def _at_leaves(params, tree) -> list:
+    """``tree``'s entries at the leaves of ``params`` (None where it holds
+    None, as the master slot of a float32 param), in ``tree_leaves`` order."""
+    return [get() for get in tree_leaves(tree_map(lambda _, x: lambda: x, params, tree))]
+
+
+def _write(dst, src) -> None:
+    if dst is not None:
+        dst.copy_(src)
+
+
+def apply_updates_(params, grads, state: dict, cfg: AdamWConfig, lr, *, placements=None,
+                   mesh=None):
+    """One optimizer step written into ``params`` and ``state`` (their
+    tensors are updated in place, ``count`` too).  Returns (params, state,
+    grad_norm).  Each leaf is updated a slice at a time, so the step needs
+    a few slices of scratch on top of the state.  ``placements``/``mesh``:
+    the leaves are pieces (:func:`global_norm`)."""
+    with torch.no_grad():
+        gnorm = global_norm(grads, placements=placements, mesh=mesh)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        state["count"].add_(1)
+        flat_p = tree_leaves(params)
+        flat = lambda t: _at_leaves(params, t)  # noqa: E731
+        if cfg.factored:
+            for p, g, vr, vc, vf, ma in zip(flat_p, flat(grads), flat(state["v_row"]),
+                                            flat(state["v_col"]), flat(state["v_full"]),
+                                            flat(state["master"])):
+                for cp, cg, cvr, cvc, cvf, cma in _factored_chunks(p, g.contiguous(), vr, vc, vf,
+                                                                   ma):
+                    out = _factored_leaf(cfg, lr, scale, cp, cg, cvr, cvc, cvf, cma)
+                    for dst, src in zip((cp, cvr, cvc, cvf, cma), out):
+                        _write(dst, src)
+            return params, state, gnorm
+        cf = state["count"].float()
+        c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
+        c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
+        mdt = _dtype(cfg.moment_dtype)
+        for p, g, m, v, ma in zip(flat_p, flat(grads), flat(state["m"]), flat(state["v"]),
+                                  flat(state["master"])):
+            for cp, cg, cm, cv, cma in _flat_chunks(p, g.contiguous(), m, v, ma):
+                out = _adamw_leaf(cfg, lr, scale, c1, c2, mdt, cp, cg, cm, cv, cma)
+                for dst, src in zip((cp, cm, cv, cma), out):
+                    _write(dst, src)
+    return params, state, gnorm
+
+
 def apply_updates(params, grads, state: dict, cfg: AdamWConfig, lr, *, placements=None,
                   mesh=None):
-    """One optimizer step.  Returns (params, state, grad_norm); the inputs
-    are not modified.  ``placements``/``mesh``: the leaves are pieces
-    (:func:`global_norm`)."""
-    gnorm = global_norm(grads, placements=placements, mesh=mesh)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    count = state["count"] + 1
-    cf = count.float()
-    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
-    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
-
-    def upd(p, g, m, v):
-        g = g * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps) + cfg.weight_decay * p
-        return p - lr * step, m, v
-
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
-    new_state = {"m": pick(1), "v": pick(2), "master": tree_map(lambda _: None, params),
-                 "count": count}
-    return pick(0), new_state, gnorm
+    """One optimizer step.  Returns (params, state, grad_norm), new trees;
+    the inputs are not modified.  The bits are :func:`apply_updates_`'s.
+    ``placements``/``mesh``: the leaves are pieces (:func:`global_norm`)."""
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+    state = {k: clone(v) for k, v in state.items()}
+    return apply_updates_(clone(params), grads, state, cfg, lr, placements=placements, mesh=mesh)

@@ -22,7 +22,7 @@ from ..checkpoint import (
     save_checkpoint,
     writes_checkpoints,
 )
-from ..data.pipeline import SyntheticHGNNData
+from ..data.pipeline import SyntheticHGNNData, SyntheticLMData
 from ..obs.emit import Emitter
 from ..obs.metrics import MetricsRegistry, get_registry
 from ..obs.trace import trace_span
@@ -61,7 +61,7 @@ def train_loop(
     *,
     state: TrainState,
     train_step: Callable,
-    data: SyntheticHGNNData,
+    data: SyntheticLMData | SyntheticHGNNData,
     steps: int,
     ckpt_dir: str | None = None,
     ckpt_every: int = 50,
@@ -69,6 +69,7 @@ def train_loop(
     crash_at: int | None = None,  # fault-injection hook for tests
     log_every: int = 10,
     log: Callable[[str], None] = print,
+    log_jsonl: str | None = None,  # mirror structured records to a JSONL file
     registry: MetricsRegistry | None = None,
     mesh=None,  # (lane, model) mesh: one rank reads and writes, every rank restores
     placements=None,  # dist.param_shardings of the state: its leaves are pieces
@@ -90,12 +91,15 @@ def train_loop(
     ``train.steps`` and lands its wall time in the ``train.step_ms``
     histogram; logged steps set the ``train.loss``/``train.grad_norm``
     gauges and emit a ``[train] step=… loss=… sec=…`` record through
-    :class:`Emitter`.  On the card each step ends with a device
-    synchronise, so ``sec`` and ``train.step_ms`` are the step's latency,
-    not its enqueue time.
+    :class:`Emitter` (mirrored to ``log_jsonl`` when given).  On the card
+    each step ends with a device synchronise, so ``sec`` and
+    ``train.step_ms`` are the step's latency, not its enqueue time.
+
+    The LM step (``make_train_step``) updates the state in place and the
+    HGNN step returns a new one; the loop takes the state each returns.
     """
     reg = registry if registry is not None else get_registry()
-    em = Emitter(sink=log)
+    em = Emitter(sink=log, jsonl_path=log_jsonl)
     step_ms = reg.histogram("train.step_ms")
     steps_c = reg.counter("train.steps")
     dev = state.step.device

@@ -25,6 +25,7 @@ from repro_torch.kernels import (
 from repro_torch.configs import ARCH_IDS, smoke_config
 from repro_torch.launch import hgnn_serve
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
 from repro_torch.models.lm.api import build as build_lm
 from repro_torch.models.hgnn import prepare_data
 from repro_torch.serve import GraphRequest, HGNNEngine
@@ -73,6 +74,20 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
             api.init(torch.Generator().manual_seed(0))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             api.init_caches(1, 4)
+
+
+def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_train.main(["--arch", "llama3.2-3b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _example("train_lm").main(["--arch", "dbrx-132b", "--steps", "1"])
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(build_lm(smoke_config("llama3.2-3b")), torch.Generator().manual_seed(0),
+                         AdamWConfig())
 
 
 def _example(name: str):

@@ -97,7 +97,7 @@ def test_flash_wrapper_keeps_the_reference_preconditions():
         flash_attention(q[:, :3], k, v)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention(q, k.double(), v)
-    with pytest.raises(NotImplementedError, match="no gradient"):
+    with pytest.raises(NotImplementedError, match='no gradient.*training runs impl="xla"'):
         flash_attention(q.requires_grad_(), k, v)
 
 
