@@ -307,7 +307,9 @@ Phases, each fatal on failure:
          CPU: losses and grad norms at rtol 1e-4;
       e. ``launch.train``'s smoke run crashed at step 3 and resumed
          bitwise; ``examples_torch/train_lm.py`` at its defaults.
-      Alone: ``c.lm_train_alone()``.
+      Alone: ``c.lm_train_alone()``.  The same training over a data mesh
+      of four cards runs apart: ``lm_data_parallel()`` under ``torchrun``
+      (its docstring says how).
 7. Observability and the HGNN leftovers (run after 4g, on the phase-4
    problem; its launch counts are read apart from the main path's):
    a. ``obs.characterize.characterize_hgnn`` on HAN at its own width under
@@ -1112,6 +1114,7 @@ def profiled(run, n) -> dict:
         raise AssertionError("torch.profiler recorded no device time")
     return dict(steps_ms=times, device_busy_ms=busy, device_wall_ms=wall,
                 device_idle_share=1.0 - busy / wall,
+                nccl_ms=sum(k[1] for k in kernels if "nccl" in k[0].lower()),
                 top_kernels=[dict(name=k[0][:80], device_ms=k[1], calls=k[2])
                              for k in kernels[:8]])
 
@@ -4928,6 +4931,392 @@ def lm_train_alone() -> dict:
     chiprun_out/lm_train.json."""
     fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
     return lm_alone("lm_train", lambda: lm_train_phase(kernel_counters(), fa_mod))
+
+
+# -- LM training over a data mesh of four cards (run apart, under torchrun) ----------
+
+# llama3.2-3b at phase 6k's width, depth and optimizer over a (4, 1) data mesh: global
+# batch 16 x 2048 in 2 microbatches, so each card runs 2 microbatches of 2 rows (4 rows
+# a card, the per-card load of phase 6k)
+DP_BATCH, DP_MICRO, DP_STEPS, DP_CKPT_STEP = 16, 2, 10, 3
+DP_ONE_MICRO = 8  # a. one card's step over the same 16 rows: 8 microbatches of the same 2-row blocks
+DP_REL = 1e-5     # a. the loss and each reduced grad leaf within this of one card's (of its scale)
+DP_WIRE_REL = 1e-2  # e. the bf16 wire's grads within this of the float32 wire's (of each leaf's scale)
+DP_ONE_STEPS = 4  # d. one card's step at 4 rows, timed on every card at once
+NVLINK_BYTES_S = 450e9  # NVLink 4, one direction
+# f. the MoE balance loss over the data group: dbrx-132b at full width, 1 of its 40 layers,
+# float32 params and compute (the config's bf16 params round each microbatch's grads to
+# bf16, so rows grouped otherwise give other grads), remat full, global batch 8 x 1024 in 2
+# microbatches (1 row a card each); one card's step over the same rows takes the same 4-row
+# microbatches whole (S = 1024: its 4 rows beside 36 GB of float32 params and grads)
+DP_MOE = dict(arch="dbrx-132b", layers=1, batch=8, seq=1024)
+DP_MOE_REL = GRAD_REL  # loss, aux and each grad leaf (of its scale): float32 sums in other orders
+
+
+def rank_rows_loss(api, params, batch, ranks: int, rank: int, group) -> float:
+    """The loss (``lm_loss`` with no grad) of a global batch, each rank over
+    its own rows 2 at a time, averaged over the data group."""
+    from repro_torch.train import lm_loss
+    from repro_torch.train.step import data_rows
+
+    import torch.distributed as dist
+
+    rows = data_rows(batch, DP_MICRO, ranks, rank)
+    n = rows["tokens"].shape[0]
+    with torch.no_grad():
+        losses = [lm_loss(api, params, {k: v[i:i + 2] for k, v in rows.items()})[1]["loss"]
+                  for i in range(0, n, 2)]
+    mean = torch.stack(losses).mean().reshape(1)
+    dist.all_reduce(mean, group=group)
+    return float(mean) / ranks
+
+
+def moe_data_parallel(mesh, world: int, rank: int, say) -> tuple[dict, bool]:
+    """f: ``DP_MOE``'s first step over the data group (its balance loss takes
+    the group's mean of ``me`` and ``ce`` in the forward, and again in
+    remat's recompute on autograd's thread) against one card's over the
+    same rows on rank 0: loss, aux loss and each grad leaf within
+    ``DP_MOE_REL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.lm.api import build
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_leaves_with_path
+
+    m = DP_MOE
+    cfg = dataclasses.replace(get_config(m["arch"]), num_layers=m["layers"], dtype="float32",
+                              param_dtype="float32", remat="full")
+    api = build(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {k: v.to(dev) for k, v in SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=m["seq"], global_batch=m["batch"], seed=0).next().items()}
+    torch.cuda.reset_peak_memory_stats()
+    one = None
+    if rank == 0:  # one card's grads wait on the host while the group runs
+        g1, m1 = loss_and_grads(api, params, batch, microbatches=DP_MICRO)
+        one = ({k: v.cpu() for k, v in tree_leaves_with_path(g1)},
+               {k: float(m1[k]) for k in ("loss", "aux_loss")})
+        del g1
+        gc.collect()
+        torch.cuda.empty_cache()
+    (grads, mx), ms = timed(lambda: loss_and_grads(api, params, batch, microbatches=DP_MICRO,
+                                                   mesh=mesh))
+    res, ok = dict(cfg=dict(m, microbatches=DP_MICRO, dtype=cfg.dtype,
+                            param_dtype=cfg.param_dtype, remat=cfg.remat), data_group_ms=ms,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated()), True
+    if rank == 0:
+        g1, m1 = one
+        rel = {k: abs(float(mx[k]) - m1[k]) / abs(m1[k]) for k in ("loss", "aux_loss")}
+        worst = max((float((b - g1[k].to(dev)).abs().max()) / float(g1[k].abs().max()), k)
+                    for k, b in tree_leaves_with_path(grads))
+        res.update(one_card=m1, data_group={k: float(mx[k]) for k in ("loss", "aux_loss")},
+                   rel=rel, worst_leaf_rel=worst[0], worst_leaf=worst[1])
+        ok = max(rel.values()) <= DP_MOE_REL and worst[0] <= DP_MOE_REL
+        say(f"[lm dp f] {m['arch']}, {cfg.num_layers} of 40 layers at full width, float32 "
+            f"params and compute, remat full, B={m['batch']} S={m['seq']} in {DP_MICRO} microbatches "
+            f"({m['batch'] // DP_MICRO // world} row a card each): loss {m1['loss']:.6f} one card, "
+            f"{float(mx['loss']):.6f} the group (rel {rel['loss']:.3e}); aux {m1['aux_loss']:.6f} "
+            f"vs {float(mx['aux_loss']):.6f} (rel {rel['aux_loss']:.3e}); worst grad leaf "
+            f"{worst[1]} {worst[0]:.3e} of its scale (limit {DP_MOE_REL}); {ms:.1f} ms; rank 0's "
+            f"peak {res['peak_mem_bytes'] / 2**30:.3f} GiB")
+    del params, grads, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def lm_data_parallel() -> dict:
+    """LM training over a data mesh of four cards, one process a card:
+
+        torchrun --nproc-per-node 4 --no-python python3 -c 'import chip_smoke as c; c.lm_data_parallel()'
+
+    llama3.2-3b at full width and depth as phase 6k (float32 params, bf16
+    compute, remat full, AdamW lr 3e-4 constant) over the ``(4, 1)`` data
+    mesh of ``launch.mesh.make_data_mesh`` (NCCL), global batch 16 × 2,048
+    in 2 microbatches (each card 2 microbatches of 2 rows):
+
+    a. the first step's loss and reduced grads on rank 0 against one card's
+       ``loss_and_grads`` over the same 16 rows in 8 microbatches of the
+       same 2-row blocks (only the sum order differs): within ``DP_REL`` of
+       the loss and of each leaf's largest magnitude;
+    b. 10 steps through ``make_train_step(mesh=)`` and ``train_loop(mesh=,
+       placements=)`` (a checkpoint written at step 3 by rank 0), each timed
+       with CUDA events: every rank's param checksums (``leaf_checksums``)
+       equal after every step; the loss falls as phase 6k's (the first
+       batch's after the last step, and the last three steps' mean below
+       the first's); peak memory per rank;
+    c. ``train_loop`` resumed from the step-3 checkpoint (restored in place
+       on the writer, broadcast to the others) for step 4: its checksums
+       equal the uninterrupted run's after step 4;
+    d. the steady step (median of steps 2-10), tokens/s, and the scaling
+       efficiency: 4-card tokens/s over 4 × one card's at 4 rows (its own
+       step with no mesh, 2 microbatches of 2 rows, timed on every card at
+       once in the same run); 2 steps under the profiler: rank 0's NCCL
+       kernel time and idle share;
+    e. one step's grads with ``grad_dtype="bfloat16"`` (bf16 on the wire,
+       float32 accumulators) within ``DP_WIRE_REL`` of each leaf's scale of
+       the float32 wire's, and half its bytes on the wire
+       (``launch.opstats.CollectiveCounter``);
+    f. :func:`moe_data_parallel`.
+
+    Every kernel's launch count is set to 0 just before b's steps and read
+    just after: none may launch (training runs impl "xla").  The
+    checkpoint goes under ``build/`` (gitignored; the run fails at once
+    where it has no room) and is deleted at the end.  Rank 0 prints the
+    results and writes lm_data_parallel.json to the output directory."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.launch.opstats import CollectiveCounter
+    from repro_torch.models.lm.api import build
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step, train_loop
+    from repro_torch.train.step import TrainState, loss_and_grads, train_state_axes
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl")
+    ckpt = None
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        mesh = make_data_mesh(world)  # each rank on card LOCAL_RANK
+        group = mesh.get_group("data")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        say = log if rank == 0 else (lambda *_: None)
+        fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+        counters = kernel_counters()
+        cfg = get_config(TRAIN_ARCH)
+        api = build(cfg)
+        opt = AdamWConfig(**TRAIN_OPT)
+        lr = lambda s: torch.tensor(opt.lr)  # noqa: E731
+        data_kw = dict(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DP_BATCH, seed=0)
+        tokens = DP_BATCH * TRAIN_SEQ
+        res = dict(card=card_line(), world=world, cfg=dict(
+            arch=TRAIN_ARCH, layers=cfg.num_layers, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
+            remat=cfg.remat, global_batch=DP_BATCH, seq=TRAIN_SEQ, microbatches=DP_MICRO,
+            rows_a_card=DP_BATCH // world, optimizer=TRAIN_OPT))
+        say(f"[lm dp] {res['card']}; {world} ranks; {json.dumps(res['cfg'])}")
+        checks = {}
+
+        # a. the data group's first grads against one card's over the same 16 rows
+        params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        first = {k: v.to(dev) for k, v in SyntheticLMData(**data_kw).next().items()}
+        one = None
+        if rank == 0:
+            one, one_ms = timed(lambda: loss_and_grads(api, params, first,
+                                                       microbatches=DP_ONE_MICRO))
+        dist.barrier()
+        (grads, m), dp_ms = timed(lambda: loss_and_grads(api, params, first,
+                                                         microbatches=DP_MICRO, mesh=mesh))
+        if rank == 0:
+            g1, m1 = one
+            loss_rel = abs(float(m["loss"]) - float(m1["loss"])) / float(m1["loss"])
+            worst = max((float((b - a).abs().max()) / float(a.abs().max()), k)
+                        for (k, a), (_, b) in zip(tree_leaves_with_path(g1),
+                                                  tree_leaves_with_path(grads)))
+            res["a"] = dict(loss=[float(m1["loss"]), float(m["loss"])], loss_rel=loss_rel,
+                            worst_leaf_rel=worst[0], worst_leaf=worst[1], one_card_ms=one_ms,
+                            data_group_ms=dp_ms)
+            checks["a"] = loss_rel <= DP_REL and worst[0] <= DP_REL
+            say(f"[lm dp a] first step, rank 0 vs one card over the same {DP_BATCH} rows "
+                f"({DP_ONE_MICRO} microbatches of 2): loss {float(m1['loss']):.6f} vs "
+                f"{float(m['loss']):.6f} (rel {loss_rel:.3e}); worst reduced grad leaf {worst[1]} "
+                f"{worst[0]:.3e} of its largest magnitude (limit {DP_REL}); grads {one_ms:.1f} ms "
+                f"on one card, {dp_ms:.1f} ms over the group")
+            del g1, one
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # b. 10 steps over the mesh, a checkpoint at step 3, checksums after every step
+        state = TrainState(params, init_opt_state(params, opt),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        del params
+        # rank 0 writes the checkpoints under build/: two of the state (c's resumed run
+        # writes step 4's)
+        need = 2.1 * sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        free = [0]
+        if rank == 0:
+            (ROOT / "build").mkdir(exist_ok=True)
+            free[0] = shutil.disk_usage(ROOT / "build").free
+        dist.broadcast_object_list(free, src=0, group=group)
+        if free[0] < need:
+            raise AssertionError(f"the checkpoints need {need / 1e9:.1f} GB under "
+                                 f"{ROOT / 'build'}, which has {free[0] / 1e9:.1f} GB free")
+        ckpt = str(ROOT / "build" / "lm_data_parallel_ckpt")
+        if rank == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        say(f"[lm dp] checkpoints need {need / 1e9:.1f} GB: {ckpt} ({free[0] / 1e9:.1f} GB free)")
+        placements = param_shardings(mesh, make_rules(batch_shard=True, fsdp=False),
+                                     train_state_axes(api, opt, state.params))
+        step = make_train_step(api, opt, microbatches=DP_MICRO, lr_schedule=lr, mesh=mesh)
+        step_ms, sums = [], []
+
+        def recorded(st, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, mx = step(st, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            sums.append(leaf_checksums(st.params))
+            return st, mx
+
+        seen = [rank_rows_loss(api, state.params, first, world, rank, group)]
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticLMData(**data_kw)
+        loop_kw = dict(log_every=1, log=lambda *_: None, mesh=mesh, placements=placements,
+                       registry=MetricsRegistry())
+        reset_counts(counters, fa_mod)  # b is the main path: counts zeroed just before
+        t0 = time.perf_counter()
+        state, hist = train_loop(state=state, train_step=recorded, data=data, steps=DP_CKPT_STEP,
+                                 ckpt_dir=ckpt, ckpt_every=DP_CKPT_STEP, **loop_kw)
+        ckpt_s = time.perf_counter() - t0
+        state, more = train_loop(state=state, train_step=recorded, data=data,
+                                 steps=DP_STEPS - DP_CKPT_STEP, **loop_kw)
+        launches = {k: fn.launches for k, fn in counters.items()}  # and read just after
+        hist += more
+        times = list(step_ms)  # b's steps (c's resumed step records after them)
+        peak = torch.cuda.max_memory_allocated()
+        seen.append(rank_rows_loss(api, state.params, first, world, rank, group))
+        ranks_sums = [None] * world
+        dist.all_gather_object(ranks_sums, sums, group=group)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, peak, group=group)
+        run = dict(history=[{k: h[k] for k in ("loss", "aux_loss", "grad_norm")} | {"ms": t}
+                            for h, t in zip(hist, times)], first_batch_loss=seen)
+        checks["b_replicas"] = all(s == ranks_sums[0] for s in ranks_sums)
+        checks["b_no_kernel"] = not any(launches.values())
+        try:
+            falls(f"{TRAIN_ARCH} over {world} cards", run, fresh=True)
+            checks["b_falls"] = True
+        except AssertionError as e:
+            say(f"[lm dp b] {e}")
+            checks["b_falls"] = False
+        steady = float(np.median(times[1:]))
+        res["b"] = dict(run=run, peak_mem_bytes=peaks, replicas_bitwise=checks["b_replicas"],
+                        first_three_ckpt_s=ckpt_s, launches=launches)
+        say(f"[lm dp b] {DP_STEPS} steps: loss {['%.6f' % h['loss'] for h in hist]} (the first "
+            f"batch's {seen[0]:.6f} -> {seen[1]:.6f}), grad norm "
+            f"{['%.4f' % h['grad_norm'] for h in hist]}; the {world} ranks' param checksums "
+            f"{'equal' if checks['b_replicas'] else 'DIFFER'} after every step; peak memory "
+            f"{['%.3f GiB' % (p / 2**30) for p in peaks]}; steps 1-3 with the step-3 checkpoint "
+            f"{ckpt_s:.1f} s; rank 0's kernel launches in the {DP_STEPS} steps "
+            f"{json.dumps(launches)} (none may launch)")
+
+        # c. resumed from the step-3 checkpoint for step 4
+        t0 = time.perf_counter()
+        state, resumed = train_loop(state=state, train_step=recorded, data=SyntheticLMData(
+            **data_kw), steps=DP_CKPT_STEP + 1, ckpt_dir=ckpt, ckpt_every=DP_STEPS, **loop_kw)
+        resume_s = time.perf_counter() - t0
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        checks["c"] = len(resumed) == 1 and sums[-1] == sums[DP_CKPT_STEP]
+        res["c"] = dict(resumed_loss=resumed[0]["loss"] if resumed else None,
+                        uninterrupted_loss=hist[DP_CKPT_STEP]["loss"], bitwise=checks["c"],
+                        resume_s=resume_s)
+        say(f"[lm dp c] resumed from step {DP_CKPT_STEP}'s checkpoint for step "
+            f"{DP_CKPT_STEP + 1}: loss {res['c']['resumed_loss']} vs "
+            f"{res['c']['uninterrupted_loss']}, params "
+            f"{'bitwise the uninterrupted run' if checks['c'] else 'DIFFER'} (restore, step and "
+            f"step 4's checkpoint {resume_s:.1f} s)")
+
+        # d. one card's step at 4 rows, on every card at once; then the profiler
+        one_kw = dict(data_kw, global_batch=DP_BATCH // world)
+        one_step = make_train_step(api, opt, microbatches=DP_MICRO, lr_schedule=lr)
+        one_data = SyntheticLMData(**one_kw)
+        one_ms = []
+        for _ in range(DP_ONE_STEPS):
+            batch = one_data.next()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = one_step(state, batch)
+            end.record()
+            end.synchronize()
+            one_ms.append(start.elapsed_time(end))
+        dist.barrier()
+        one_steady = float(np.median(one_ms[1:]))
+        box = [state]
+
+        def dp_step():
+            box[0], _ = step(box[0], data.next())
+
+        prof = profiled(dp_step, 2)
+        state = box.pop()
+        tok_s = tokens / (steady / 1e3)
+        one_tok_s = one_kw["global_batch"] * TRAIN_SEQ / (one_steady / 1e3)
+        grad_bytes = sum(t.numel() * 4 for t in tree_leaves(state.params))
+        ring_ms = 2 * (world - 1) / world * grad_bytes / NVLINK_BYTES_S * 1e3
+        res["d"] = dict(step_ms=times, steady_ms=steady, tokens_s=tok_s, one_card_step_ms=one_ms,
+                        one_card_steady_ms=one_steady, one_card_tokens_s=one_tok_s,
+                        scaling_efficiency=tok_s / (world * one_tok_s), profiled=prof,
+                        grad_bytes=grad_bytes, ring_all_reduce_bound_ms=ring_ms)
+        say(f"[lm dp d] step ms {['%.3f' % t for t in times]}: steady (median of steps 2-"
+            f"{DP_STEPS}) {steady:.3f}, {tok_s:.1f} tokens/s; one card at "
+            f"{one_kw['global_batch']} rows {['%.3f' % t for t in one_ms]}: steady "
+            f"{one_steady:.3f}, {one_tok_s:.1f} tokens/s; scaling efficiency "
+            f"{res['d']['scaling_efficiency']:.4f}; the grads' all-reduce moves {grad_bytes} B a "
+            f"rank (ring bound {ring_ms:.3f} ms at {NVLINK_BYTES_S / 1e9:.0f} GB/s)")
+        say(f"[lm dp d] 2 steps under the profiler (rank 0): {['%.3f' % t for t in prof['steps_ms']]}"
+            f" ms, device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f} ms, "
+            f"idle share {prof['device_idle_share']:.4f}, NCCL kernels {prof['nccl_ms']:.3f} ms")
+        for k in prof["top_kernels"]:
+            say(f"[lm dp d]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+
+        # e. the bf16 wire against the float32 wire, on the current params
+        params = state.params
+        del state, box
+        gc.collect()
+        torch.cuda.empty_cache()
+        wire = {}
+        for gdt in (None, "bfloat16"):
+            counter = CollectiveCounter()
+            with counter:
+                g, mx = loss_and_grads(api, params, first, microbatches=DP_MICRO, grad_dtype=gdt,
+                                       mesh=mesh)
+            wire[gdt] = (g, float(mx["loss"]), dict(counter.bytes))
+        g32, l32, b32 = wire[None]
+        g16, l16, b16 = wire["bfloat16"]
+        worst = max((float((b - a).abs().max()) / float(a.abs().max()), k)
+                    for (k, a), (_, b) in zip(tree_leaves_with_path(g32),
+                                              tree_leaves_with_path(g16)))
+        ar32, ar16 = b32.get("all-reduce", 0), b16.get("all-reduce", 0)
+        checks["e"] = worst[0] <= DP_WIRE_REL and 0.45 <= ar16 / ar32 <= 0.55
+        res["e"] = dict(loss=[l32, l16], worst_leaf_rel=worst[0], worst_leaf=worst[1],
+                        wire_bytes={"float32": b32, "bfloat16": b16}, ratio=ar16 / ar32)
+        say(f"[lm dp e] grad_dtype=bfloat16: worst grad leaf {worst[1]} {worst[0]:.3e} of its "
+            f"largest magnitude (limit {DP_WIRE_REL}); all-reduce bytes a rank {ar16} vs {ar32} "
+            f"(ratio {ar16 / ar32:.4f}); loss {l16:.6f} vs {l32:.6f}")
+        del wire, g32, g16, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["f"], checks["f"] = moe_data_parallel(mesh, world, rank, say)
+        res["checks"] = checks
+        ok = torch.tensor(int(all(checks.values())), device=dev)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        res["all_ranks_ok"] = bool(ok)
+        if rank == 0:
+            OUT.mkdir(exist_ok=True)
+            (OUT / "lm_data_parallel.json").write_text(json.dumps(res, indent=1, default=str))
+            log(f"[lm dp] checks {json.dumps(checks)}; all ranks ok: {res['all_ranks_ok']}")
+            log(res["card"])
+        if not res["all_ranks_ok"]:
+            raise AssertionError(f"rank {rank}: LM training over the data mesh failed a check "
+                                 f"({checks}; see {OUT / 'lm_data_parallel.json'})")
+        return res
+    finally:
+        if ckpt and dist.get_rank() == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        dist.destroy_process_group()
 
 
 # -- phase 7: observability and the HGNN leftovers ---------------------------

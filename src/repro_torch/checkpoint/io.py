@@ -72,25 +72,35 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
-    """Restore into the structure of ``like`` (a TrainState or a tree of
-    tensors): each leaf is loaded bit for bit, in the file's dtype, onto the
-    device of ``like``'s leaf of the same key.  Returns (state, aux)."""
+def read_leaves(ckpt_dir: str, step: int, like):
+    """The checkpoint's aux, and for each leaf of ``like`` (a TrainState or
+    a tree of tensors) the pair (that leaf, the file's leaf of the same key
+    as a host tensor, bit for bit in the file's dtype), each file read as
+    its pair is taken."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
-    values = []
-    for k, v in tree_leaves_with_path(like):
-        if k not in by_key or by_key[k]["file"] is None:
-            raise KeyError(f"checkpoint {path} has no leaf {k!r}")
-        arr = np.load(os.path.join(path, by_key[k]["file"]))
-        if by_key[k]["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        values.append(t.to(v.device))
-    return tree_unflatten(like, values), manifest["aux"]
+
+    def pairs():
+        for k, v in tree_leaves_with_path(like):
+            if k not in by_key or by_key[k]["file"] is None:
+                raise KeyError(f"checkpoint {path} has no leaf {k!r}")
+            arr = np.load(os.path.join(path, by_key[k]["file"]))
+            if by_key[k]["dtype"] == "bfloat16":
+                yield v, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                yield v, torch.from_numpy(arr)
+
+    return manifest["aux"], pairs()
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
+    """Restore into the structure of ``like`` (a TrainState or a tree of
+    tensors): each leaf is loaded bit for bit, in the file's dtype, onto the
+    device of ``like``'s leaf of the same key.  Returns (state, aux)."""
+    aux, pairs = read_leaves(ckpt_dir, step, like)
+    return tree_unflatten(like, [t.to(v.device) for v, t in pairs]), aux
 
 
 def reshard_to(state, device: str | torch.device | None = None, *, mesh=None,

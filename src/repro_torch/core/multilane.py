@@ -356,6 +356,15 @@ class _Replicated(torch.autograd.Function):
         return grad, None
 
 
+def lane_group(mesh, lane_axes: tuple[str, ...] = ("lane",)):
+    """The calling rank's lane group on ``mesh``: the process group of the
+    mesh dimension ``lane_axes`` names, or of those dimensions flattened,
+    major first (``("pod", "lane")`` on a multi-pod mesh)."""
+    if len(lane_axes) == 1:
+        return mesh.get_group(lane_axes[0])
+    return mesh[tuple(lane_axes)]._flatten().get_group()
+
+
 def multilane_na_sharded(
     plan: MultiLanePlan,
     theta_src: torch.Tensor | None,  # [G, Ns_pad, H]   (None with fused_fp)
@@ -363,6 +372,7 @@ def multilane_na_sharded(
     h_src: torch.Tensor | None,      # [Ns_pad, H, Dh]  (None with fused_fp)
     *,
     mesh,
+    lane_axes: tuple[str, ...] = ("lane",),
     edge_bias: torch.Tensor | None = None,  # [G, H]
     leaky_slope: float = 0.2,
     backend: str = "reference",
@@ -372,7 +382,8 @@ def multilane_na_sharded(
     dimension of a ``torch.distributed`` device mesh (``launch.mesh.make_lane_mesh``):
     on a (lane, model) mesh, the calling rank's lane group (its column of
     the mesh; one rank at a lane size of 1), so every model rank of a lane
-    runs the same lanes.
+    runs the same lanes.  ``lane_axes`` names the mesh dimensions the lanes
+    ride (``dist.lane_axes(rules)``; :func:`lane_group`).
 
     Rank r of the lane group runs :func:`multilane_na` on its contiguous
     block of lanes against the replicated operands and leaves the other
@@ -382,7 +393,7 @@ def multilane_na_sharded(
     replicated inputs (θs, θd and h, or ``fp``'s x, w, b, a_src and a_dst,
     and ``edge_bias``) pass through an identity whose backward all-reduces their gradient.
     The plan's lane count must be a multiple of the group size."""
-    group = mesh.get_group("lane")
+    group = lane_group(mesh, lane_axes)
     n_shards = dist.get_world_size(group)
     if plan.num_lanes % n_shards:
         raise ValueError(f"the plan's {plan.num_lanes} lanes do not split over {n_shards} ranks")

@@ -4,34 +4,41 @@
 ``sharding`` maps *logical* tensor axes (``"embed"``, ``"mlp"``,
 ``"lane"``, ...) onto the named dimensions of a ``torch.distributed``
 device mesh (``"lane"``, ``"model"``, ...), and places and gathers the
-leaves of a parameter tree by that map.  Model code names logical axes
+leaves of a parameter tree by that map; it also holds the LM step's data
+group (``use_data_group``, ``mean_over_data``).  Model code names logical axes
 only; which mesh dimension a name lands on is decided once, at launch
 time, by ``make_rules``.
 """
 from .sharding import (
     Rules,
+    active_data_group,
     active_rules,
     gather_leaf,
     lane_axes,
     local_slice,
     make_rules,
     map_placements,
+    mean_over_data,
     param_shardings,
     placement_leaves,
     shard,
+    use_data_group,
     use_rules,
 )
 
 __all__ = [
     "Rules",
+    "active_data_group",
     "active_rules",
     "gather_leaf",
     "lane_axes",
     "local_slice",
     "make_rules",
     "map_placements",
+    "mean_over_data",
     "param_shardings",
     "placement_leaves",
     "shard",
+    "use_data_group",
     "use_rules",
 ]

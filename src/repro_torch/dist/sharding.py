@@ -189,6 +189,59 @@ def use_rules(rules: Rules):
         stack.pop()
 
 
+# The data group of the running train step: a process-wide slot, not a
+# thread-local one, because the backward (and remat's recompute of the
+# forward inside it) runs on autograd's own device threads.
+_data_group: list = []
+
+
+def active_data_group():
+    """The process group of the innermost :func:`use_data_group`, or None."""
+    return _data_group[-1] if _data_group else None
+
+
+@contextlib.contextmanager
+def use_data_group(group):
+    """Make ``group`` (a data mesh dimension's) the data group of the block:
+    :func:`mean_over_data` averages over it.  The LM step sets it around
+    each rank's microbatches, as :func:`use_rules` sets the rules; with
+    ``group`` None (one process), or outside it, nothing is reduced."""
+    _data_group.append(group)
+    try:
+        yield group
+    finally:
+        _data_group.pop()
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean of a statistic over the data group (an all-reduce SUM ÷ n).
+    Its backward passes the cotangent on unchanged: every rank computes the
+    same function of the mean, and the step's gradient all-reduce already
+    divides the ranks' sum by n, so the mean's own 1/n would count twice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def mean_over_data(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the active data group (:func:`use_data_group`; a
+    collective: every rank of the group calls it), for a statistic that the
+    reference takes over the whole microbatch, whose rows the group's ranks
+    share equally (the MoE balance loss's ``me`` and ``ce``).  ``x`` itself
+    outside a data group."""
+    group = active_data_group()
+    if group is None:
+        return x
+    return _DataMean.apply(x, group)
+
+
 def shard(x, *axes: str | None):
     """The reference's layout annotation: returns ``x`` unchanged, in every
     context.  JAX turns it into a sharding constraint inside a rules and

@@ -1,6 +1,7 @@
 """LM training launcher of the port.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --global-batch 16
 
 The counterpart of ``repro/launch/train.py``: the same flags, defaults,
 optimizer choice and printed lines (``--smoke``: the reduced config, lr
@@ -8,25 +9,59 @@ optimizer choice and printed lines (``--smoke``: the reduced config, lr
 lr 3e-4, weight decay 0.1, the warmup-cosine schedule), random weights
 from a ``torch.Generator`` seeded 0 and ``SyntheticLMData`` seeded 0,
 through ``make_train_step`` and the fault-tolerant ``train_loop``
-(``--ckpt`` checkpoints and resumes).  One process on one device:
-``--device`` defaults to ``cuda`` and raises on a host without a card.
-The reference's data mesh over several devices is ROADMAP item 7j.
+(``--ckpt`` checkpoints and resumes).  ``--device`` defaults to ``cuda``
+and raises on a host without a card.
+
+The mesh follows the reference's branch on the number of ranks (one
+process a rank; under ``torchrun`` the launcher joins the group it sets
+up, NCCL on ``cuda`` and gloo on ``--device cpu``):
+
+* one rank: the one-process path, no mesh;
+* more than one: an ``(n, 1)`` data mesh (``mesh.make_data_mesh``) under
+  ``make_rules(batch_shard=True, fsdp=False)``: every parameter
+  replicated, each microbatch's rows split over ``data``, the grads
+  summed over it after the microbatches; one rank logs and writes
+  checkpoints, every rank restores, and a checkpoint resumes at any
+  number of ranks (``train_loop`` with the mesh and the placements);
+* 256 or more without ``--smoke``: the reference's production mesh under
+  the ``tp`` rules, which shard heads and FFN dims over ``model``; the
+  port's LM has no model axis yet, so this raises (ROADMAP item 7k).
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
+from ..checkpoint import writes_checkpoints
 from ..configs import ARCH_IDS, get_config, smoke_config
 from ..data import SyntheticLMData
+from ..dist import make_rules, param_shardings
 from ..models.lm.api import build
 from ..optim import AdamWConfig
 from ..runtime import resolve_device
 from ..train import make_train_step, train_loop
-from ..train.step import TrainState, init_train_state
+from ..train.step import TrainState, init_train_state, train_state_axes
+from .mesh import make_data_mesh
 
 SMOKE_LR = 1e-2
+PRODUCTION_RANKS = 256  # from here on the reference builds the production mesh
+
+
+def training_mesh(ranks: int, *, smoke: bool = False, device_type: str = "cuda"):
+    """The reference launcher's mesh for ``ranks`` ranks: None at one, the
+    ``(ranks, 1)`` data mesh below ``PRODUCTION_RANKS`` (or with
+    ``smoke``); at or above it the production mesh under the ``tp`` rules,
+    which the port cannot lay out yet: ValueError naming item 7k."""
+    if ranks >= PRODUCTION_RANKS and not smoke:
+        raise ValueError(
+            f"{ranks} ranks: the reference trains on the production mesh under the 'tp' rules "
+            f"(heads and FFN dims over 'model'), and the port's LM has no model axis yet "
+            f"(ROADMAP Queue 1 item 7k); train on fewer than {PRODUCTION_RANKS} ranks, over "
+            f"the data mesh")
+    return make_data_mesh(ranks, device_type=device_type)
 
 
 def run_training(arch: str = "llama3.2-3b", *, smoke: bool = False, steps: int = 20,
@@ -35,8 +70,16 @@ def run_training(arch: str = "llama3.2-3b", *, smoke: bool = False, steps: int =
                  crash_at: int | None = None, log=print) -> tuple[TrainState, list[dict]]:
     """The launcher's run: (final state, logged history).  ``ckpt_every``
     and ``crash_at`` (a failure injected at that step) are
-    ``train_loop``'s."""
+    ``train_loop``'s.  Under an initialised process group of n ranks every
+    rank calls it: the data mesh of :func:`training_mesh`, and only the
+    writer logs."""
     dev = resolve_device(device)
+    ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    mesh = training_mesh(ranks, smoke=smoke, device_type=dev.type)
+    if mesh is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if not writes_checkpoints(mesh):
+        log = lambda *_: None  # noqa: E731
     cfg = smoke_config(arch) if smoke else get_config(arch)
     api = build(cfg)
     opt = AdamWConfig(lr=SMOKE_LR if smoke else 3e-4, weight_decay=0.0 if smoke else 0.1)
@@ -45,13 +88,19 @@ def run_training(arch: str = "llama3.2-3b", *, smoke: bool = False, steps: int =
         seed=0, with_frames=cfg.frontend == "audio",
         frame_len=cfg.encoder_seq, d_model=cfg.d_model,
     )
+    # one seed on every rank: the replicas start equal
     state = init_train_state(api, torch.Generator(device=dev).manual_seed(0), opt, device=dev)
+    placements = None
+    if mesh is not None:
+        rules = make_rules(batch_shard=True, fsdp=False)
+        placements = param_shardings(mesh, rules, train_state_axes(api, opt, state.params))
     step = make_train_step(
         api, opt, microbatches=microbatches,
-        lr_schedule=(lambda s: torch.tensor(SMOKE_LR)) if smoke else None,
+        lr_schedule=(lambda s: torch.tensor(SMOKE_LR)) if smoke else None, mesh=mesh,
     )
     return train_loop(state=state, train_step=step, data=data, steps=steps, ckpt_dir=ckpt,
-                      ckpt_every=ckpt_every, log_every=5, crash_at=crash_at, log=log)
+                      ckpt_every=ckpt_every, log_every=5, crash_at=crash_at, log=log,
+                      mesh=mesh, placements=placements)
 
 
 def main(argv: list[str] | None = None):
@@ -65,10 +114,20 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    _, hist = run_training(args.arch, smoke=args.smoke, steps=args.steps,
-                           global_batch=args.global_batch, seq=args.seq,
-                           microbatches=args.microbatches, ckpt=args.ckpt, device=args.device)
-    print(f"final loss {hist[-1]['loss']:.4f} (start {hist[0]['loss']:.4f})")
+    # under torchrun (one process per rank) the launcher joins the group it sets up
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
+    if joined:
+        dist.init_process_group("nccl" if args.device.startswith("cuda") else "gloo")
+    try:
+        _, hist = run_training(args.arch, smoke=args.smoke, steps=args.steps,
+                               global_batch=args.global_batch, seq=args.seq,
+                               microbatches=args.microbatches, ckpt=args.ckpt,
+                               device=args.device)
+        if hist and (not dist.is_initialized() or dist.get_rank() == 0):
+            print(f"final loss {hist[-1]['loss']:.4f} (start {hist[0]['loss']:.4f})")
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -86,6 +86,17 @@ def init_from_specs(specs, generator: torch.Generator, param_dtype=torch.float32
     return tree_map(mk, specs)
 
 
+def abstract_from_specs(specs, param_dtype=torch.float32, device="meta"):
+    """The counterpart of the reference's (a ``jax.ShapeDtypeStruct`` a
+    leaf): a tree of ``specs``' structure whose leaves are tensors of each
+    spec's shape in ``param_dtype`` (a torch dtype or a config's dtype
+    string) that hold no data: on the ``meta`` device, or, under a
+    ``FakeTensorMode`` with a real ``device``, fake tensors of it (a dry
+    run's)."""
+    dt = torch_dtype(param_dtype) if isinstance(param_dtype, str) else param_dtype
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dt, device=device), specs)
+
+
 def axes_from_specs(specs):
     """The tree of logical axes (one tuple of axis names a leaf) of
     ``specs``' structure: what ``dist.param_shardings`` maps to placements."""

@@ -7,7 +7,11 @@ capacity drop the part of the overflow-workload bound — copies beyond an
 expert's capacity go to the residual path.
 
 On one card, as PyTorch ops (the reference's ``shard`` annotations are
-no-ops without a mesh and are dropped).  The routing is the reference's,
+no-ops without a mesh and are dropped).  Under the LM step's data group
+(``dist.use_data_group``) each rank holds its share of a microbatch's
+rows, and the balance loss's ``me`` and ``ce`` are averaged over the
+group first (``dist.mean_over_data``), as the reference's means over the
+global rows; routing and capacity are per row and need nothing.  The routing is the reference's,
 decision for decision:
 
   * top-k by a stable descending sort, so equal probabilities go to the
@@ -33,6 +37,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ...dist.sharding import mean_over_data
 from .attention import _promoted
 from .config import LMConfig
 from .layers import P, silu
@@ -139,9 +144,10 @@ def moe_forward(
         routes.append(r)
     cap = r.table.shape[-1]
 
-    # load-balancing auxiliary loss (Switch-style), dropped copies counted too
-    me = r.probs.mean(dim=(0, 1))
-    ce = F.one_hot(r.expert_ids, e).sum(dim=2).float().mean(dim=(0, 1)) / k
+    # load-balancing auxiliary loss (Switch-style), dropped copies counted too;
+    # over the data group, the means of the whole microbatch's rows
+    me = mean_over_data(r.probs.mean(dim=(0, 1)))
+    ce = mean_over_data(F.one_hot(r.expert_ids, e).sum(dim=2).float().mean(dim=(0, 1)) / k)
     aux = e * torch.sum(me * ce)
 
     # xin [E, B·cap, D]: each expert's slots of every row; empty slots read a zero row

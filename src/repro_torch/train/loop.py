@@ -17,8 +17,8 @@ from ..checkpoint import (
     broadcast_from_writer,
     latest_step,
     logical_state,
+    read_leaves,
     reshard_to,
-    restore_checkpoint,
     save_checkpoint,
     writes_checkpoints,
 )
@@ -39,8 +39,10 @@ def _restore_latest(ckpt_dir: str, state: TrainState, mesh,
     broadcasts over the mesh, then ``reshard_to`` cuts its own slices.  So
     every rank starts from the writer's step, also where the others see
     another directory or none (no shared file system), and no rank skips
-    the collectives the others enter.  The buffers the others receive into
-    are their state's logical form (``logical_state``)."""
+    the collectives the others enter.  Every rank restores into its
+    state's logical form (``logical_state``) in place: the writer reads
+    the files into it, the others receive the broadcast into it (where
+    nothing shards a leaf, that is the state's own tensor)."""
     writer = writes_checkpoints(mesh)
     found = [latest_step(ckpt_dir) if writer else None]
     dev = state.step.device
@@ -50,8 +52,14 @@ def _restore_latest(ckpt_dir: str, state: TrainState, mesh,
         return None, state, {}
     logical = logical_state(state, mesh, placements)
     aux = [None]
-    if writer:
-        logical, aux[0] = restore_checkpoint(ckpt_dir, found[0], logical)
+    if writer:  # in place: a resumed run holds one state, not two
+        aux[0], pairs = read_leaves(ckpt_dir, found[0], logical)
+        for v, t in pairs:
+            if t.shape != v.shape or t.dtype != v.dtype:
+                raise ValueError(f"checkpoint step {found[0]} in {ckpt_dir} holds a "
+                                 f"{t.dtype} {tuple(t.shape)} leaf where the state has "
+                                 f"{v.dtype} {tuple(v.shape)}")
+            v.copy_(t)
     if mesh is not None:
         broadcast_from_writer(mesh, dev, objects=aux, tensors=tree_leaves(logical))
     return found[0], reshard_to(logical, mesh=mesh, placements=placements), aux[0]
@@ -71,14 +79,14 @@ def train_loop(
     log: Callable[[str], None] = print,
     log_jsonl: str | None = None,  # mirror structured records to a JSONL file
     registry: MetricsRegistry | None = None,
-    mesh=None,  # (lane, model) mesh: one rank reads and writes, every rank restores
+    mesh=None,  # (lane, model) or data mesh: one rank reads and writes, every rank restores
     placements=None,  # dist.param_shardings of the state: its leaves are pieces
 ) -> tuple[TrainState, list[dict]]:
     """Run train steps ``[start, steps)`` with checkpointing and structured
     logging; ``start`` is the latest checkpoint's step when resuming.
 
-    With a ``mesh`` (``launch.mesh.make_lane_mesh``) every rank runs the
-    loop in step.  The state's leaves are this rank's pieces by
+    With a ``mesh`` (``launch.mesh.make_lane_mesh`` or ``make_data_mesh``)
+    every rank runs the loop in step.  The state's leaves are this rank's pieces by
     ``placements`` (all whole when None).  One rank (``writes_checkpoints``)
     reads and writes checkpoints; a checkpoint holds the logical leaves,
     gathered over the mesh on every rank before the writer writes them,
@@ -105,17 +113,20 @@ def train_loop(
     dev = state.step.device
     writer = writes_checkpoints(mesh)
 
+    saved = [None]  # the step of the checkpoint last written or restored
+
     def checkpoint(step: int) -> None:  # every rank gathers, the writer writes
         logical = logical_state(state, mesh, placements)
         if writer:
             save_checkpoint(ckpt_dir, step, logical, aux={"data": data.state()})
+        saved[0] = step
 
     start = 0
     if ckpt_dir and resume:
         last, state, aux = _restore_latest(ckpt_dir, state, mesh, placements)
         if last is not None:
             data.restore(aux["data"])
-            start = last
+            start = saved[0] = last
             em.emit("resume", step=last)
 
     history: list[dict] = []
@@ -143,8 +154,8 @@ def train_loop(
             steps_c.inc()
             if ckpt_dir and (step + 1) % ckpt_every == 0:
                 checkpoint(step + 1)
-        if ckpt_dir:
-            checkpoint(steps)
+        if ckpt_dir and saved[0] != steps:
+            checkpoint(steps)  # unless this step's checkpoint was just written or read
     finally:
         em.close()
     return state, history

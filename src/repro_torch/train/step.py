@@ -17,6 +17,15 @@ v fit one card with no second copy.  Each param reaches the forward as a
 detached leaf (a stacked ``[L, ...]`` leaf as L of them, one a layer),
 whose gradient a hook adds into its slice of the accumulator as the
 backward produces it and then drops.
+
+Over a data mesh (``launch.mesh.make_data_mesh``: ``(n, 1)`` over
+``("data", "model")``, every parameter replicated, the reference's
+``make_rules(batch_shard=True, fsdp=False)``) each rank runs the same
+microbatches on its share of each one's rows (:func:`data_rows`), under
+the data group (``dist.use_data_group``: the MoE balance loss averages
+over it); after the loop the accumulated grads are summed over the group
+and divided by n, one all-reduce a leaf, and every rank applies the same
+update, so the replicas stay bitwise equal.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from ..dist.sharding import use_data_group
 from ..models.lm.api import LMApi
 from ..models.lm.layers import torch_dtype
 from ..optim import AdamWConfig, apply_updates_, init_opt_state, opt_state_axes
@@ -121,8 +132,66 @@ def _backward_leaves(params, grads, *, accumulate: bool, gdt):
     return leaves, handles
 
 
+def data_rows(batch: dict, microbatches: int, ranks: int, rank: int) -> dict:
+    """The rows of a global batch ``[B, ...]`` that rank ``rank`` of a data
+    group of ``ranks`` takes: of each microbatch i, rows ``[i·B/m +
+    rank·B/(m·n), i·B/m + (rank+1)·B/(m·n))``, the microbatches in order.
+    The reference reshapes the batch into ``[m, B/m, ...]`` and shards each
+    microbatch over ``data``, so a rank's share of a microbatch is a block
+    of it, not a contiguous n-th of the global batch."""
+    b = batch["tokens"].shape[0]
+    if b % (microbatches * ranks):
+        raise ValueError(f"global batch {b} does not split into {microbatches} microbatches "
+                         f"over {ranks} data ranks")
+    k = b // (microbatches * ranks)
+
+    def take(v: torch.Tensor) -> torch.Tensor:
+        rest = tuple(v.shape[1:])
+        return v.reshape((microbatches, ranks, k) + rest)[:, rank].reshape((microbatches * k,)
+                                                                          + rest)
+
+    return {key: take(v) for key, v in batch.items()}
+
+
+def data_group(mesh):
+    """(group, ranks, rank) of ``mesh``'s ``data`` dimension; the mesh's other
+    dimensions must hold one rank (the LM has no model axis yet: ROADMAP
+    item 7k)."""
+    names = mesh.mesh_dim_names
+    if "data" not in names:
+        raise ValueError(f"the LM step splits its batch over a 'data' mesh dimension; the mesh "
+                         f"has {names}")
+    wide = [n for i, n in enumerate(names) if n != "data" and mesh.size(i) > 1]
+    if wide:
+        raise ValueError(f"the LM has no model-parallel layout yet (ROADMAP item 7k): mesh "
+                         f"dimensions {wide} must hold one rank")
+    d = names.index("data")
+    return mesh.get_group(d), mesh.size(d), mesh.get_local_rank(d)
+
+
+def reduce_over_data(grads, metrics: dict, group, *, wire_dtype=None) -> dict:
+    """Sum each grad leaf over the data group in place and divide it by the
+    group's size (one all-reduce a leaf; the leaf goes on the wire in
+    ``wire_dtype`` when set, and comes back into its own dtype); returns
+    the group's means of the metrics.  Every rank ends with the same
+    bits."""
+    n = dist.get_world_size(group)
+    for g in tree_leaves(grads):
+        if wire_dtype is not None and g.dtype != wire_dtype:
+            w = g.to(wire_dtype)
+            dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
+            g.copy_(w)
+        else:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        g.div_(n)
+    keys = sorted(metrics)
+    m = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+    return dict(zip(keys, m / n))
+
+
 def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
-                   grad_dtype: str | None = None) -> tuple[Any, dict]:
+                   grad_dtype: str | None = None, mesh=None) -> tuple[Any, dict]:
     """(grads, {"loss", "aux_loss"}) of ``batch`` (on the params' device),
     one forward and backward a microbatch, in the reference's order.
 
@@ -131,8 +200,18 @@ def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
     0 + g₁ + g₂ …, then ÷ n, and so do the metrics.
     ``grad_dtype="bfloat16"`` rounds each microbatch's grads to bf16 before
     they are added (the reference's compressed gradient all-reduce; with
-    no mesh, only the rounding)."""
+    no mesh, only the rounding).
+
+    With a data ``mesh`` the batch is still the global one: this rank runs
+    its rows of each microbatch (:func:`data_rows`) under the data group,
+    then :func:`reduce_over_data` sums the grads over the group (in
+    ``grad_dtype`` on the wire when set) and divides them by its size: the
+    grads and metrics of the global batch, the same on every rank."""
     gdt = torch_dtype(grad_dtype) if grad_dtype else None
+    group = None
+    if mesh is not None:
+        group, ranks, rank = data_group(mesh)
+        batch = data_rows(batch, microbatches, ranks, rank)
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"global batch {b} does not split into {microbatches} microbatches")
@@ -142,23 +221,27 @@ def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
                                            if accumulate else gdt or p.dtype), params)
     dev = batch["tokens"].device
     loss_sum = aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(microbatches):
-        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-        leaves, handles = _backward_leaves(params, grads, accumulate=accumulate, gdt=gdt)
-        try:
-            total, mx = lm_loss(api, leaves, mb)
-            total.backward()
-        finally:
-            for h in handles:
-                h.remove()
-        loss, aux = mx["loss"].detach(), mx["aux_loss"].detach()
-        loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
-        del leaves, total, mx
+    with use_data_group(group):
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            leaves, handles = _backward_leaves(params, grads, accumulate=accumulate, gdt=gdt)
+            try:
+                total, mx = lm_loss(api, leaves, mb)
+                total.backward()
+            finally:
+                for h in handles:
+                    h.remove()
+            loss, aux = mx["loss"].detach(), mx["aux_loss"].detach()
+            loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
+            del leaves, total, mx
     if accumulate:
         for g in tree_leaves(grads):
             g.div_(microbatches)
         loss, aux = loss_sum / microbatches, aux_sum / microbatches
-    return grads, {"loss": loss, "aux_loss": aux}
+    metrics = {"loss": loss, "aux_loss": aux}
+    if group is not None:
+        metrics = reduce_over_data(grads, metrics, group, wire_dtype=gdt)
+    return grads, metrics
 
 
 def make_train_step(
@@ -168,19 +251,22 @@ def make_train_step(
     microbatches: int = 1,
     lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None,
     grad_dtype: str | None = None,
+    mesh=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the train step: ``step(state, batch) -> (state, metrics)``,
     batch leaves ``[B_global, ...]`` (moved to the state's device), the
     state updated in place.  Metrics (0-d tensors): ``loss``, ``aux_loss``,
-    ``grad_norm`` and ``lr``.  ``microbatches`` and ``grad_dtype``: see
-    :func:`loss_and_grads`."""
+    ``grad_norm`` and ``lr``.  ``microbatches``, ``grad_dtype`` and the data
+    ``mesh`` (``launch.mesh.make_data_mesh``; None: one process): see
+    :func:`loss_and_grads`.  Over a mesh the metrics are the data group's,
+    the same on every rank, and so is the update."""
     sched = lr_schedule or (lambda s: warmup_cosine(s, peak_lr=opt_cfg.lr))
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         dev = state.step.device
         batch = {k: v.to(dev) for k, v in batch.items()}
         grads, metrics = loss_and_grads(api, state.params, batch, microbatches=microbatches,
-                                        grad_dtype=grad_dtype)
+                                        grad_dtype=grad_dtype, mesh=mesh)
         lr = torch.as_tensor(sched(state.step), dtype=torch.float32, device=dev)
         params, opt, gnorm = apply_updates_(state.params, grads, state.opt, opt_cfg, lr)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
