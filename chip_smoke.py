@@ -4953,9 +4953,10 @@ DP_MOE = dict(arch="dbrx-132b", layers=1, batch=8, seq=1024)
 DP_MOE_REL = GRAD_REL  # loss, aux and each grad leaf (of its scale): float32 sums in other orders
 
 
-def rank_rows_loss(api, params, batch, ranks: int, rank: int, group) -> float:
+def rank_rows_loss(api, params, batch, ranks: int, rank: int, group, **on_mesh) -> float:
     """The loss (``lm_loss`` with no grad) of a global batch, each rank over
-    its own rows 2 at a time, averaged over the data group."""
+    its own rows 2 at a time, averaged over the data group; ``on_mesh``:
+    ``lm_loss``'s mesh and placements, where the params are pieces."""
     from repro_torch.train import lm_loss
     from repro_torch.train.step import data_rows
 
@@ -4964,8 +4965,8 @@ def rank_rows_loss(api, params, batch, ranks: int, rank: int, group) -> float:
     rows = data_rows(batch, DP_MICRO, ranks, rank)
     n = rows["tokens"].shape[0]
     with torch.no_grad():
-        losses = [lm_loss(api, params, {k: v[i:i + 2] for k, v in rows.items()})[1]["loss"]
-                  for i in range(0, n, 2)]
+        losses = [lm_loss(api, params, {k: v[i:i + 2] for k, v in rows.items()},
+                          **on_mesh)[1]["loss"] for i in range(0, n, 2)]
     mean = torch.stack(losses).mean().reshape(1)
     dist.all_reduce(mean, group=group)
     return float(mean) / ranks
@@ -5316,6 +5317,684 @@ def lm_data_parallel() -> dict:
     finally:
         if ckpt and dist.get_rank() == 0:
             shutil.rmtree(ckpt, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+# -- the LM under the model axis (tp), four cards ---------------------------------
+
+MS_REL = 1e-5  # float32: logits, loss and each grad leaf within this of one card's (of its scale)
+MS_STEPS = 10  # b. steps a mesh (phase 6k's loss rises for about five before it falls)
+MS_SHAPES = ((1, 4), (2, 2))  # b. (data, model)
+MS_DECODE = dict(batch=4, prompt=8, steps=16, cache=64)  # c. float32 llama, greedy
+MS_MOE_F32 = dict(layers=2, seq=1024)  # d. float32 at a depth one card holds
+MS_MOE_BIG = 16  # d. dbrx-132b layers in bf16: 109 GB of weights, more than one card holds
+
+
+def ms_device() -> torch.device:
+    """This rank's card (``make_mesh`` sets it from ``LOCAL_RANK``)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def ms_config(arch: str, **over):
+    """The full config of ``arch`` with ``over`` replaced."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def ms_pieces(tree, placements, mesh):
+    """This rank's pieces of a logical tree (``dist.local_slice``)."""
+    from repro_torch.dist import local_slice, map_placements
+
+    return map_placements(lambda pl, x: local_slice(x, pl, mesh), placements, tree)
+
+
+def ms_logical(tree, placements, mesh):
+    """The logical leaves of a tree of pieces (a collective)."""
+    from repro_torch.dist import gather_leaf, map_placements
+
+    return map_placements(lambda pl, x: gather_leaf(x, pl, mesh), placements, tree)
+
+
+def ms_draw_pieces(cfg, placements, mesh, dev):
+    """This rank's pieces of random params (seed 0), drawn one logical leaf
+    at a time on the card and cut at once: a model whose logical weights
+    one card cannot hold.  Every rank draws the same leaves in the same
+    order."""
+    from repro_torch.dist import local_slice, map_placements
+    from repro_torch.models.lm.layers import init_from_specs, torch_dtype
+    from repro_torch.models.lm.transformer import decoder_specs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def draw(pl, spec):
+        leaf = init_from_specs({"x": spec}, gen, dtype, dev)["x"]
+        piece = local_slice(leaf, pl, mesh)
+        del leaf
+        return piece
+
+    return map_placements(draw, placements, decoder_specs(cfg))
+
+
+def ms_same_pieces(sums: list, placements, mesh) -> bool:
+    """Whether every two ranks that hold the same piece of a leaf (the same
+    coordinates on the mesh dimensions of more than one rank that shard it)
+    hold it bit for bit: ``sums`` are the ranks' ``leaf_checksums`` in
+    rank order."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import placement_leaves
+    from torch.distributed.tensor import Shard
+
+    coords = [None] * dist.get_world_size()
+    dist.all_gather_object(coords, mesh.get_coordinate())
+    for i, pl in enumerate(placement_leaves(placements)):
+        dims = [d for d, p in enumerate(pl) if isinstance(p, Shard) and mesh.size(d) > 1]
+        seen = {}
+        for r, c in enumerate(coords):
+            if seen.setdefault(tuple(c[d] for d in dims), sums[r][i]) != sums[r][i]:
+                return False
+    return True
+
+
+def ms_worst(got_tree, want: dict, dev) -> tuple[float, str]:
+    """max over leaves of max |got - want| / max |want| (``want`` by path,
+    on the host; one leaf on the card at a time)."""
+    from repro_torch.tree import tree_leaves_with_path
+
+    worst = (0.0, "")
+    for k, g in tree_leaves_with_path(got_tree):
+        w = want[k].to(dev)
+        worst = max(worst, (float((g.float() - w.float()).abs().max()) / float(w.abs().max()), k))
+        del w
+    return worst
+
+
+def ms_forward(mesh, rank: int, counters: dict, fa_mod, say) -> tuple[dict, dict]:
+    """a. llama3.2-3b at full width and depth on the (1, 4) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.models.lm import attention
+    from repro_torch.models.lm.api import build
+
+    dev = ms_device()
+    res, checks = {}, {}
+    group = mesh.get_group("model")
+    # float32: one card's forward on rank 0 against the group's, the same tokens
+    cfg = ms_config(LM_ARCH, dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    pl = param_shardings(mesh, make_rules(fsdp=cfg.fsdp), api.axes())
+    pieces = ms_pieces(params, pl, mesh)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                            (LM_BATCH, LM_SEQ_F32)),
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        one = api.forward(params, toks)[0] if rank == 0 else None
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        got, ms32 = timed(lambda: api.forward(pieces, toks, mesh=mesh, placements=pl)[0])
+    sums = [None] * dist.get_world_size(group)
+    dist.all_gather_object(sums, leaf_checksums([got]), group=group)
+    checks["a_f32_bitwise"] = all(s == sums[0] for s in sums)
+    if rank == 0:
+        rel = float((got - one).abs().max()) / float(one.abs().max())
+        checks["a_f32"] = rel <= MS_REL
+        res["float32"] = dict(batch=LM_BATCH, seq=LM_SEQ_F32, rel=rel, ms=ms32,
+                              bitwise_in_group=checks["a_f32_bitwise"])
+        say(f"[lm tp a] float32, B={LM_BATCH} S={LM_SEQ_F32}, xla: the (1, 4) group's logits "
+            f"within {rel:.3e} of one card's scale (limit {MS_REL}), "
+            f"{'bitwise equal' if checks['a_f32_bitwise'] else 'NOT equal'} on the 4 ranks; "
+            f"{ms32:.1f} ms")
+    del pieces, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16, flash: #7 on each rank's own heads, counted; one card's forward timed on rank 0
+    cfg = ms_config(LM_ARCH)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    pl = param_shardings(mesh, make_rules(fsdp=cfg.fsdp), api.axes())
+    pieces = ms_pieces(params, pl, mesh)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                            (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        one_ms, one = [], None
+        if rank == 0:
+            one = api.forward(params, toks, impl="flash")[0]
+            one_ms = [timed(lambda: api.forward(params, toks, impl="flash"))[1] for _ in range(3)]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        real, shapes = attention.flash_attention, []
+
+        def recorded(q, k, v, **kw):
+            shapes.append((tuple(q.shape), tuple(k.shape)))
+            return real(q, k, v, **kw)
+
+        attention.flash_attention = recorded
+        try:
+            reset_counts(counters, fa_mod)  # the main path: counts zeroed just before
+            got, cold = timed(lambda: api.forward(pieces, toks, impl="flash", mesh=mesh,
+                                                  placements=pl)[0])
+            launches = {k: fn.launches for k, fn in counters.items()}  # and read just after
+            by_route = dict(fa_mod.flash_attention.launches_by_route)
+        finally:
+            attention.flash_attention = real
+        steady = [timed(lambda: api.forward(pieces, toks, impl="flash", mesh=mesh,
+                                            placements=pl))[1] for _ in range(3)]
+        prof = profiled(lambda: api.forward(pieces, toks, impl="flash", mesh=mesh,
+                                            placements=pl), 2)
+    m = mesh.size(1)
+    heads = ((LM_BATCH, cfg.num_heads // m, LM_SEQ, cfg.head_dim),
+             (LM_BATCH, cfg.num_kv_heads // m, LM_SEQ, cfg.head_dim))
+    want = {k: 0 for k in counters} | {"flash_attention": cfg.num_layers}
+    checks["a_launches"] = (launches == want and by_route.get("wgmma") == cfg.num_layers
+                            and shapes == [heads] * cfg.num_layers)
+    # #7 at a rank's shape against its plain version (after the counts were read)
+    case = (LM_BATCH, cfg.num_heads // m, cfg.num_kv_heads // m, LM_SEQ, LM_SEQ, cfg.head_dim,
+            True, None)
+    q, k, v = flash_operands(case, torch.bfloat16)
+    out, plain = fa_mod.flash_attention(q, k, v, causal=True), \
+        fa_mod.flash_attention_plain(q, k, v, causal=True)
+    kernel = dict(max_abs_err=float((out.float() - plain.float()).abs().max()),
+                  bitwise_share=float((out == plain).float().mean()),
+                  one_rounding=bool(torch.allclose(out.float(), plain.float(), atol=1e-4,
+                                                   rtol=8e-3)))
+    checks["a_kernel"] = kernel["one_rounding"] and \
+        kernel["bitwise_share"] >= fa_mod.BITWISE_SHARE_MIN
+    del q, k, v, out, plain
+    kernel.update(flash_shape_times(fa_mod, case, f"llama3.2-3b's heads of one of {m} ranks"))
+    res["bf16_flash"] = dict(batch=LM_BATCH, seq=LM_SEQ, route=attention.attention_route(cfg, m),
+                             launches=launches, launches_by_route=by_route,
+                             kernel_shapes=sorted(set(map(str, shapes))), kernel=kernel,
+                             cold_ms=cold,
+                             steady_ms=steady, one_card_ms=one_ms, profiled=prof,
+                             peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        top1 = top1_agreement(got, one, cfg.vocab_size)
+        res["bf16_flash"]["top1_vs_one_card"] = top1
+        say(f"[lm tp a] bf16, flash, B={LM_BATCH} S={LM_SEQ}: route "
+            f"{res['bf16_flash']['route']}, launches {json.dumps(launches)}, #7 by route "
+            f"{json.dumps(by_route)}, #7's (q, k) shapes {res['bf16_flash']['kernel_shapes']} "
+            f"(expected {cfg.num_layers} of {heads}); ms cold {cold:.3f}, steady "
+            f"{['%.3f' % t for t in steady]}; one card {['%.3f' % t for t in one_ms]}; top-1 "
+            f"agreement with one card's logits {top1:.6f}")
+        say(f"[lm tp a] #7 at {case} bf16 against its plain version: max |d| "
+            f"{kernel['max_abs_err']:.3e}, one rounding {kernel['one_rounding']}, bitwise share "
+            f"{kernel['bitwise_share']:.6f} (>= {fa_mod.BITWISE_SHARE_MIN})")
+        say(f"[lm tp a] 2 forwards under the profiler (rank 0): "
+            f"{['%.3f' % t for t in prof['steps_ms']]} ms, device busy {prof['device_busy_ms']:.3f}"
+            f" of {prof['device_wall_ms']:.3f}, idle {prof['device_idle_share']:.4f}, NCCL "
+            f"{prof['nccl_ms']:.3f} ms")
+        for k in prof["top_kernels"][:6]:
+            say(f"[lm tp a]   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    del pieces, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def ms_one_card_grads(api32, first: dict, dev) -> tuple[dict, float, tuple[float, str]]:
+    """b. one card's float32 grads (by path, on the host) and loss over the
+    global batch in the meshes' own microbatches (``DP_MICRO`` of 8 rows:
+    on (1, 4) every rank runs those rows, on (2, 2) each data rank 4 of
+    them), and the floor of one card against itself: the worst leaf of the
+    same grads in ``lm_data_parallel``'s 8 microbatches of 2 rows (only the
+    float32 sums' order differs)."""
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_leaves_with_path
+
+    params = api32.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    g, m = loss_and_grads(api32, params, first, microbatches=DP_MICRO)
+    want = {k: v.cpu() for k, v in tree_leaves_with_path(g)}
+    del g
+    gc.collect()
+    g2, _ = loss_and_grads(api32, params, first, microbatches=DP_ONE_MICRO)
+    floor = ms_worst(g2, want, dev)
+    del params, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, float(m["loss"]), floor
+
+
+def ms_train(shape, one, rank: int, counters: dict, fa_mod, say) -> tuple[dict, dict]:
+    """b. the llama3.2-3b train step on one mesh ``shape`` under
+    ``make_rules(fsdp=True)``."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm.api import build
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import TrainState, data_group, loss_and_grads, train_state_axes
+
+    mesh = make_mesh(shape, ("data", "model"), device_type=ms_device().type)
+    dev = ms_device()
+    tag = f"[lm tp b {shape[0]}x{shape[1]}]"
+    cfg = ms_config(TRAIN_ARCH)
+    opt = AdamWConfig(**TRAIN_OPT)
+    rules = make_rules(fsdp=cfg.fsdp)
+    data_kw = dict(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DP_BATCH, seed=0)
+    first = {k: v.to(dev) for k, v in SyntheticLMData(**data_kw).next().items()}
+    res, checks = dict(mesh=list(shape), rules="make_rules(fsdp=True)"), {}
+
+    # the first step's float32 grads against one card's
+    api32 = build(dataclasses.replace(cfg, dtype="float32"))
+    params = api32.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    ppl = param_shardings(mesh, rules, api32.axes())
+    pieces = ms_pieces(params, ppl, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    (grads, m), ms = timed(lambda: loss_and_grads(api32, pieces, first, microbatches=DP_MICRO,
+                                                  mesh=mesh, placements=ppl))
+    whole = ms_logical(grads, ppl, mesh)
+    del grads
+    if rank == 0:
+        g1, l1, floor = one
+        worst = ms_worst(whole, g1, dev)
+        loss_rel = abs(float(m["loss"]) - l1) / l1
+        checks["b_f32"] = loss_rel <= MS_REL and worst[0] <= MS_REL
+        res["float32_first_step"] = dict(loss=[l1, float(m["loss"])], loss_rel=loss_rel,
+                                         worst_leaf_rel=worst[0], worst_leaf=worst[1],
+                                         one_card_floor=floor, grads_ms=ms)
+        say(f"{tag} float32 compute, the first step's grads over {DP_BATCH} x {TRAIN_SEQ} rows in "
+            f"{DP_MICRO} microbatches: loss {l1:.6f} one card, {float(m['loss']):.6f} the mesh "
+            f"(rel {loss_rel:.3e}); worst grad leaf {worst[1]} {worst[0]:.3e} of its scale (limit "
+            f"{MS_REL}); one card against itself in {DP_ONE_MICRO} microbatches: {floor[1]} "
+            f"{floor[0]:.3e}; {ms:.1f} ms")
+    del whole, pieces
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the config's bf16 compute: MS_STEPS steps, the pieces' checksums after each
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = TrainState(params, init_opt_state(params, opt),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    pl = param_shardings(mesh, rules, train_state_axes(api, opt, state.params))
+    state = ms_pieces(state, pl, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(api, opt, microbatches=DP_MICRO, mesh=mesh, placements=pl,
+                           lr_schedule=lambda s: torch.tensor(opt.lr))
+    data = SyntheticLMData(**data_kw)
+    group, ranks, drank = data_group(mesh)
+    on_mesh = dict(mesh=mesh, placements=pl.params)
+    seen = [rank_rows_loss(api, state.params, first, ranks, drank, group, **on_mesh)]
+    torch.cuda.reset_peak_memory_stats()
+    hist, times, sums = [], [], []
+    reset_counts(counters, fa_mod)  # the main path: counts zeroed just before
+    for _ in range(MS_STEPS):
+        batch = data.next()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, mx = step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        hist.append({k: float(v) for k, v in mx.items()})
+        sums.append(leaf_checksums(state.params))
+    launches = {k: fn.launches for k, fn in counters.items()}  # and read just after
+    peak = torch.cuda.max_memory_allocated()
+    seen.append(rank_rows_loss(api, state.params, first, ranks, drank, group, **on_mesh))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, sums)
+    hists = [None] * dist.get_world_size()
+    dist.all_gather_object(hists, hist)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    checks["b_pieces"] = all(ms_same_pieces([s[i] for s in every], pl.params, mesh)
+                             for i in range(MS_STEPS)) and all(h == hists[0] for h in hists)
+    checks["b_no_kernel"] = not any(launches.values())
+    run = dict(history=[{k: h[k] for k in ("loss", "aux_loss", "grad_norm")} | {"ms": t}
+                        for h, t in zip(hist, times)], first_batch_loss=seen)
+    try:
+        falls(f"{TRAIN_ARCH} on a {shape} mesh", run, fresh=True)
+        checks["b_falls"] = True
+    except AssertionError as e:
+        say(f"{tag} {e}")
+        checks["b_falls"] = False
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], data.next())
+
+    prof = profiled(one_step, 2)
+    del state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = float(np.median(times[1:]))
+    res.update(run=run, steady_ms=steady, tokens_s=DP_BATCH * TRAIN_SEQ / (steady / 1e3),
+               peak_mem_bytes=peaks, launches=launches, profiled=prof,
+               pieces_bitwise=checks["b_pieces"])
+    say(f"{tag} bf16 compute, {MS_STEPS} steps of {DP_BATCH} x {TRAIN_SEQ} in {DP_MICRO} "
+        f"microbatches: loss {['%.6f' % h['loss'] for h in hist]} (the first batch's "
+        f"{seen[0]:.6f} -> {seen[1]:.6f}); pieces "
+        f"{'bitwise equal' if checks['b_pieces'] else 'DIFFER'} where the layout replicates them, "
+        f"after every step; step ms {['%.3f' % t for t in times]}, steady {steady:.3f} "
+        f"({res['tokens_s']:.1f} tokens/s); peak {['%.3f GiB' % (p / 2**30) for p in peaks]}; "
+        f"kernel launches {json.dumps(launches)} (none may launch)")
+    say(f"{tag} 2 steps under the profiler (rank 0): {['%.3f' % t for t in prof['steps_ms']]} "
+        f"ms, device busy {prof['device_busy_ms']:.3f} of {prof['device_wall_ms']:.3f}, idle "
+        f"{prof['device_idle_share']:.4f}, NCCL {prof['nccl_ms']:.3f} ms "
+        f"({prof['nccl_ms'] / prof['device_wall_ms']:.4f} of the wall)")
+    for k in prof["top_kernels"][:6]:
+        say(f"{tag}   {k['device_ms']:9.3f} ms x{k['calls']:<4d} {k['name']}")
+    return res, checks
+
+
+def ms_decode(mesh, rank: int, counters: dict, fa_mod, say) -> tuple[dict, dict]:
+    """c. greedy decode of float32 llama3.2-3b on the (1, 4) mesh, its
+    caches sequence-sharded over ``model``, against one card's
+    ``greedy_generate``."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import make_rules, map_placements, param_shardings
+    from repro_torch.launch.dryrun import cache_placements
+    from repro_torch.models.lm.api import build
+    from repro_torch.models.lm.attention import AttnCache
+    from repro_torch.serve import engine
+
+    dev = ms_device()
+    d = MS_DECODE
+    cfg = ms_config(LM_ARCH, dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                              (d["batch"], d["prompt"])),
+                             dtype=torch.int32, device=dev)
+    one = engine.greedy_generate(api, params, prompt, d["steps"], d["cache"]) if rank == 0 \
+        else None
+    pl = param_shardings(mesh, make_rules(fsdp=cfg.fsdp), api.axes())
+    pieces = ms_pieces(params, pl, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = engine.init_serve_state(api, d["batch"], d["cache"], dtype=torch.float32, device=dev)
+    cpl = cache_placements(mesh, state.caches, cfg, batch=d["batch"], cache_len=d["cache"],
+                           data_axes=("data",))
+    state = engine.ServeState(caches=ms_pieces(state.caches, cpl, mesh), cache_pos=0)
+    kw = dict(mesh=mesh, placements=pl, cache_placements=cpl)
+    prefill, step = engine.make_prefill(api, **kw), engine.make_serve_step(api, **kw)
+    slots = {tuple(c.k.shape) for c in [state.caches["scan"]["pos0"]]}
+    reset_counts(counters, fa_mod)
+    with torch.no_grad():
+        (lg, state), prefill_ms = timed(lambda: prefill(pieces, state, prompt))
+        out, step_ms = [], []
+        for _ in range(d["steps"]):
+            tok = lg[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+            out.append(tok)
+            (lg, state), ms = timed(lambda: step(pieces, state, tok[:, None]))
+            step_ms.append(ms)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    got = torch.stack(out, 1)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got.tolist())
+    res = dict(cfg=d, cache_piece_shape=sorted(slots), prefill_ms=prefill_ms, step_ms=step_ms,
+               launches=launches)
+    checks = {"c_ranks": all(e == every[0] for e in every),
+              "c_split": all(s[2] == d["cache"] // mesh.size(1) for s in slots),
+              "c_no_kernel": not any(launches.values())}
+    if rank == 0:
+        checks["c_tokens"] = torch.equal(got, one)
+        res.update(tokens=got.tolist(), one_card=one.tolist())
+        say(f"[lm tp c] float32 greedy, B={d['batch']}, prompt {d['prompt']}, {d['steps']} new, "
+            f"cache {d['cache']} slots ({d['cache'] // mesh.size(1)} a rank: cache piece "
+            f"{sorted(slots)}): tokens {'equal' if checks['c_tokens'] else 'DIFFER from'} one "
+            f"card's {'' if checks['c_tokens'] else str(one.tolist())}; the ranks "
+            f"{'agree' if checks['c_ranks'] else 'DISAGREE'}; prefill {prefill_ms:.1f} ms, steps "
+            f"{['%.1f' % t for t in step_ms]} ms; launches {json.dumps(launches)}")
+    del pieces, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def ms_moe_compare(arch: str, cfg, toks, mesh, rank: int, dtype, say, counters=None,
+                   fa_mod=None) -> tuple[dict, dict]:
+    """d. one MoE config on the (1, 4) mesh against one card's forward on
+    rank 0 over the same tokens and weights: the route flips (those with
+    none upstream must be near-ties), the logits on the tokens routed alike
+    in every layer, and, with ``counters``, #7's launches (impl flash)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.api import build
+
+    dev = ms_device()
+    api = build(cfg)
+    impl = "flash" if counters is not None else "xla"
+    pl = param_shardings(mesh, make_rules(fsdp=cfg.fsdp), api.axes())
+    one = r1 = None
+    with torch.no_grad():
+        if rank == 0:  # the logical weights on the card for one card's forward, then cut
+            params = api.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+            r1 = []
+            one = api.forward(params, toks, impl=impl, routes=r1)[0]
+            pieces = ms_pieces(params, pl, mesh)
+            del params
+        else:
+            pieces = ms_pieces(api.init(torch.Generator(device=dev).manual_seed(0), device=dev),
+                               pl, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        r2 = []
+        torch.cuda.reset_peak_memory_stats()
+        if counters is not None:
+            reset_counts(counters, fa_mod)
+        got, ms = timed(lambda: api.forward(pieces, toks, impl=impl, mesh=mesh, placements=pl,
+                                            routes=r2)[0])
+        launches = None if counters is None else {k: fn.launches for k, fn in counters.items()}
+        steady = [timed(lambda: api.forward(pieces, toks, impl=impl, mesh=mesh,
+                                            placements=pl))[1] for _ in range(2)]
+    res = dict(layers=cfg.num_layers, dtype=cfg.dtype, seq=toks.shape[1], impl=impl,
+               cold_ms=ms, steady_ms=steady, launches=launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    checks = {}
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, leaf_checksums([got]))
+    checks[f"d_{arch}_{cfg.dtype}_bitwise"] = all(s == sums[0] for s in sums)
+    if counters is not None:
+        checks[f"d_{arch}_launches"] = launches == ({k: 0 for k in counters}
+                                                    | {"flash_attention": cfg.num_layers})
+    if rank == 0:
+        flipped, unexplained = moe.route_flips(stacked(r1, "expert_ids"), stacked(r1, "gap"),
+                                               stacked(r2, "expert_ids"), stacked(r2, "gap"),
+                                               dtype)
+        free = torch.stack([upstream_free(f) for f in flipped.unbind(1)], 1)  # [L, B, S]
+        agree = ~flipped.any(0)
+        a, b = one[agree][:, : cfg.vocab_size].float(), got[agree][:, : cfg.vocab_size].float()
+        rel = float((a - b).abs().max()) / float(a.abs().max())
+        top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        res.update(flipped_by_layer=flipped.sum((1, 2)).tolist(),
+                   upstream_free_beyond_near_tie=int((unexplained & free).sum()),
+                   tokens_agreeing=int(agree.sum()), rel_on_agreeing=rel, top1_on_agreeing=top1,
+                   one_card_launches=None)
+        ok = res["upstream_free_beyond_near_tie"] == 0 and torch.isfinite(got).all()
+        if dtype == torch.float32:
+            ok = ok and rel <= MS_REL
+        checks[f"d_{arch}_{cfg.dtype}"] = bool(ok)
+        say(f"[lm tp d] {arch}, {cfg.num_layers} layers, {cfg.dtype}, {impl}, B={toks.shape[0]} "
+            f"S={toks.shape[1]}: route flips by layer {res['flipped_by_layer']} (with none "
+            f"upstream and beyond a near-tie: {res['upstream_free_beyond_near_tie']}); on the "
+            f"{res['tokens_agreeing']} tokens routed alike in every layer max |d| {rel:.3e} of one "
+            f"card's scale{f' (limit {MS_REL})' if dtype == torch.float32 else ''}, top-1 "
+            f"{top1:.6f}; ms cold {ms:.1f}, steady {['%.1f' % t for t in steady]}; launches "
+            f"{json.dumps(launches)}; peak {res['peak_mem_bytes'] / 2**30:.3f} GiB")
+    del pieces, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def ms_moe(mesh, rank: int, counters: dict, fa_mod, say) -> tuple[dict, dict]:
+    """d. dbrx-132b (experts over ``model``) and grok-1-314b (FFN over
+    ``mlp``) on the (1, 4) mesh: float32 at ``MS_MOE_F32`` layers and bf16
+    at phases 6d/6e's depth against one card; dbrx at ``MS_MOE_BIG`` layers,
+    which one card cannot hold."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.models.lm.api import build
+    from repro_torch.tree import tree_leaves
+
+    dev = ms_device()
+    res, checks = {}, {}
+    for arch in ("dbrx-132b", "grok-1-314b"):
+        cfg = ms_config(arch, num_layers=MS_MOE_F32["layers"], dtype="float32",
+                        param_dtype="float32")
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LM_BATCH, MS_MOE_F32["seq"])), dtype=torch.int32, device=dev)
+        res[f"{arch}/float32"], c = ms_moe_compare(arch, cfg, toks, mesh, rank, torch.float32, say)
+        checks.update(c)
+        cfg = ms_config(arch, num_layers=MOE_LAYERS[arch])
+        toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                (LM_BATCH, LM_SEQ)),
+                               dtype=torch.int32, device=dev)
+        res[f"{arch}/bf16"], c = ms_moe_compare(arch, cfg, toks, mesh, rank, torch.bfloat16, say,
+                                                counters, fa_mod)
+        checks.update(c)
+
+    # dbrx at MS_MOE_BIG layers: each rank draws its pieces one logical leaf at a time
+    cfg = ms_config("dbrx-132b", num_layers=MS_MOE_BIG)
+    api = build(cfg)
+    pl = param_shardings(mesh, make_rules(fsdp=cfg.fsdp), api.axes())
+    torch.cuda.reset_peak_memory_stats()
+    pieces, init_ms = timed(lambda: ms_draw_pieces(cfg, pl, mesh, dev))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                            (LM_BATCH, LM_SEQ)),
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        reset_counts(counters, fa_mod)
+        (got, aux), cold = timed(lambda: api.forward(pieces, toks, impl="flash", mesh=mesh,
+                                                     placements=pl))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steady = [timed(lambda: api.forward(pieces, toks, impl="flash", mesh=mesh,
+                                            placements=pl))[1] for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    weight = sum(t.numel() * t.element_size() for t in tree_leaves(pieces))
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    checks["d_big"] = bool(torch.isfinite(got).all()) and math.isfinite(float(aux)) and \
+        launches["flash_attention"] == cfg.num_layers
+    res["dbrx-132b/big"] = dict(layers=cfg.num_layers, of_layers=40, weight_bytes_a_rank=weight,
+                                init_ms=init_ms, cold_ms=cold, steady_ms=steady,
+                                launches=launches, peak_mem_bytes=peaks)
+    say(f"[lm tp d] dbrx-132b at {cfg.num_layers} of 40 layers in bf16 "
+        f"({4 * weight / 1e9:.1f} GB of weights, {weight / 1e9:.1f} GB a rank), flash, "
+        f"B={LM_BATCH} S={LM_SEQ}: ms cold {cold:.1f}, steady {['%.1f' % t for t in steady]}; "
+        f"launches {json.dumps(launches)}; peak {['%.3f GiB' % (p / 2**30) for p in peaks]}; "
+        f"pieces drawn in {init_ms:.0f} ms")
+    del pieces, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, checks
+
+
+def lm_model_sharded() -> dict:
+    """The LM under the ``model`` mesh axis (the ``tp`` posture) on four
+    cards, one process a card (NCCL, TF32 off):
+
+        torchrun --nproc-per-node 4 --no-python python3 -c 'import chip_smoke as c; c.lm_model_sharded()'
+
+    Each rank holds its pieces of the weights (``dist.param_shardings`` under
+    ``make_rules(fsdp=True)``, ``dist.local_slice``), and the forward, the
+    train step and decode compute on them with the mesh and the placements.
+
+    a. llama3.2-3b at full width and depth on the (1, 4) mesh.  float32
+       (xla, B = 2, S = 2,048): the logits within ``MS_REL`` of one card's
+       scale (rank 0's forward over the same tokens) and bitwise equal on
+       the 4 ranks.  bf16, impl flash, B = 2, S = 4,096: #7 launches once a
+       layer a forward on each rank's 6 q / 2 K/V heads (route "local
+       heads", every launch on the wgmma route), counted with the counts
+       zeroed just before; the steady time beside one card's, and the NCCL
+       time under the profiler.
+    b. llama3.2-3b's train step on the (1, 4) and (2, 2) meshes,
+       ``lm_data_parallel``'s 16 × 2,048 rows in 2 microbatches and optimizer: the
+       first step's float32-compute loss and each gathered grad leaf
+       within ``MS_REL`` of one card's over the same 2 microbatches (beside
+       one card against itself in 8 microbatches of 2 rows, the float32
+       sums' floor); ``MS_STEPS`` steps at the config's
+       bf16 compute, the pieces bitwise equal on the ranks that hold the
+       same piece after every step, the loss falling as phase 6k's; peak
+       memory a rank, the steady step and the NCCL share; no kernel
+       launches (training runs impl "xla").
+    c. greedy decode, float32 llama3.2-3b, B = 4, caches of 64 slots
+       sequence-sharded over ``model`` (16 a rank): 16 tokens equal to one
+       card's ``greedy_generate``.
+    d. dbrx-132b (experts over ``model``) and grok-1-314b (``ep_shard``
+       off: each expert's FFN over ``mlp``): float32 at 2 layers, B = 2,
+       S = 1,024, within ``MS_REL`` of one card's on the tokens routed alike
+       in every layer; bf16 at phases 6d/6e's 8 and 4 layers, flash, against
+       one card (route flips with none upstream must be near-ties); then
+       dbrx at ``MS_MOE_BIG`` of 40 layers in bf16 (109 GB of weights), its
+       pieces drawn a leaf at a time: the forward time and peak a rank.
+
+    Rank 0 prints the results and writes lm_model_sharded.json to the output
+    directory."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm.api import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl")
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != 4:
+            raise AssertionError(f"lm_model_sharded runs on 4 ranks, not {world}")
+        mesh = make_mesh((1, 4), ("data", "model"))  # each rank on card LOCAL_RANK
+        dev = ms_device()
+        say = log if rank == 0 else (lambda *_: None)
+        fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+        counters = kernel_counters()
+        res, checks = dict(card=card_line(), world=world), {}
+        say(f"[lm tp] {res['card']}; {world} ranks")
+        res["a"], c = ms_forward(mesh, rank, counters, fa_mod, say)
+        checks.update(c)
+        one = None
+        if rank == 0:
+            cfg = ms_config(TRAIN_ARCH)
+            first = {k: v.to(dev) for k, v in SyntheticLMData(
+                vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DP_BATCH,
+                seed=0).next().items()}
+            one = ms_one_card_grads(build(dataclasses.replace(cfg, dtype="float32")), first, dev)
+        for shape in MS_SHAPES:
+            res[f"b_{shape[0]}x{shape[1]}"], c = ms_train(shape, one, rank, counters, fa_mod, say)
+            checks.update({f"{k}_{shape[0]}x{shape[1]}": v for k, v in c.items()})
+        del one
+        res["c"], c = ms_decode(mesh, rank, counters, fa_mod, say)
+        checks.update(c)
+        res["d"], c = ms_moe(mesh, rank, counters, fa_mod, say)
+        checks.update(c)
+        res["checks"] = checks
+        ok = torch.tensor(int(all(checks.values())), device=dev)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        res["all_ranks_ok"] = bool(ok)
+        if rank == 0:
+            OUT.mkdir(exist_ok=True)
+            (OUT / "lm_model_sharded.json").write_text(json.dumps(res, indent=1, default=str))
+            log(f"[lm tp] checks {json.dumps(checks)}; all ranks ok: {res['all_ranks_ok']}")
+            log(res["card"])
+        if not res["all_ranks_ok"]:
+            raise AssertionError(f"rank {rank}: the LM under the model axis failed a check "
+                                 f"({checks}; see {OUT / 'lm_model_sharded.json'})")
+        return res
+    finally:
         dist.destroy_process_group()
 
 

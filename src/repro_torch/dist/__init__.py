@@ -10,35 +10,49 @@ only; which mesh dimension a name lands on is decided once, at launch
 time, by ``make_rules``.
 """
 from .sharding import (
+    ModelSplit,
     Rules,
     active_data_group,
     active_rules,
+    data_sharded,
+    gather_columns,
+    gather_fsdp,
     gather_leaf,
     lane_axes,
     local_slice,
     make_rules,
     map_placements,
     mean_over_data,
+    model_split,
     param_shardings,
     placement_leaves,
     shard,
+    sum_cotangent,
+    sum_partials,
     use_data_group,
     use_rules,
 )
 
 __all__ = [
+    "ModelSplit",
     "Rules",
     "active_data_group",
     "active_rules",
+    "data_sharded",
+    "gather_columns",
+    "gather_fsdp",
     "gather_leaf",
     "lane_axes",
     "local_slice",
     "make_rules",
     "map_placements",
     "mean_over_data",
+    "model_split",
     "param_shardings",
     "placement_leaves",
     "shard",
+    "sum_cotangent",
+    "sum_partials",
     "use_data_group",
     "use_rules",
 ]

@@ -27,6 +27,16 @@ piece explicitly.  :func:`param_shardings` gives, per leaf, one
 or ``Replicate()``); :func:`local_slice` takes a rank's piece of a logical
 leaf and :func:`gather_leaf` rebuilds the logical leaf from the pieces,
 with the rank's slice of the cotangent as its backward.
+
+The LM under the ``model`` axis (the ``tp`` posture) computes on its
+pieces with explicit collectives, each an autograd function whose
+backward is stated: :func:`sum_partials` (a row-parallel product's partial
+sums, all-reduced; backward the identity), :func:`gather_columns` (an
+activation's column blocks, all-gathered, where each rank then uses the
+whole differently; backward a reduce-scatter) and :func:`gather_fsdp`
+(a leaf's pieces over the data axes, the same reduce-scatter backward:
+each data rank saw other rows).  :class:`ModelSplit` holds a rank's place
+on the ``model`` axis for the modules.
 """
 from __future__ import annotations
 
@@ -429,3 +439,158 @@ def gather_leaf(x: torch.Tensor, placement: tuple[Placement, ...], mesh) -> torc
     if not _sharded_dims(placement, mesh):
         return x
     return _Gather.apply(x, placement, mesh)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    x = x.contiguous()  # NCCL takes contiguous tensors
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))  # the ranks' pieces along dim 0
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    blocks = x.chunk(n, dim=dim)
+    parts = torch.cat(blocks) if dim else x.contiguous()  # rank i's block i-th along dim 0
+    out = parts.new_empty(blocks[0].shape)
+    dist.reduce_scatter_tensor(out, parts, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _GatherScatter(torch.autograd.Function):
+    """All-gathers ``x`` along the (mesh dim, tensor dim) ``pairs``, last
+    pair first (the inverse of :func:`local_slice`); the backward
+    reduce-scatters the cotangent, first pair first: each rank gets the sum
+    over the group's ranks of its own slice.  That is the gradient where
+    each rank's use of the whole differs (other rows of the batch, other
+    heads), unlike :class:`_Gather`'s."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pairs):
+        ctx.mesh, ctx.pairs = mesh, pairs
+        for d, dim in reversed(pairs):
+            x = _all_gather(x, dim, mesh.get_group(d), mesh.size(d))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for d, dim in ctx.pairs:
+            grad = _reduce_scatter(grad, dim, ctx.mesh.get_group(d), ctx.mesh.size(d))
+        return grad, None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    """All-reduce SUM over one mesh dimension (every rank gets the same
+    bits); the backward is the identity: every rank computes the same
+    function of the sum, so each partial's cotangent is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_partials(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum over the ranks of mesh dimension ``axis`` of each rank's
+    partial ``x`` (a row-parallel product over this rank's rows of a
+    weight), the same on every rank (a collective)."""
+    dim = mesh.mesh_dim_names.index(axis)
+    if mesh.size(dim) == 1:
+        return x
+    return _SumPartials.apply(x, mesh.get_group(dim))
+
+
+def gather_columns(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The whole of an activation whose tensor dim ``dim`` the ranks of
+    mesh dimension ``axis`` hold in contiguous blocks (a column-parallel
+    product's output), for a use that differs on each rank (the rank's own
+    heads, its own block of the output): the backward is a reduce-scatter
+    (:class:`_GatherScatter`)."""
+    d = mesh.mesh_dim_names.index(axis)
+    if mesh.size(d) == 1:
+        return x
+    return _GatherScatter.apply(x, mesh, ((d, dim % x.dim()),))
+
+
+def gather_fsdp(x: torch.Tensor, placement: tuple[Placement, ...], mesh) -> torch.Tensor:
+    """This rank's piece of a leaf, gathered over the mesh dimensions other
+    than ``model`` that shard it (``fsdp``: ``embed`` over the data axes),
+    so that only its ``model`` split is left; the backward reduce-scatters
+    the cotangent over them (:class:`_GatherScatter`): the leaf's grad
+    piece is then already summed over the data ranks.  ``x`` itself where
+    no such dimension shards it."""
+    pairs = tuple((d, dim) for d, dim in _sharded_dims(placement, mesh)
+                  if mesh.mesh_dim_names[d] != "model")
+    if not pairs:
+        return x
+    return _GatherScatter.apply(x, mesh, pairs)
+
+
+def data_sharded(placement: tuple[Placement, ...], mesh) -> bool:
+    """Whether a mesh dimension other than ``model`` of more than one rank
+    shards the leaf (its grad is summed over data by :func:`gather_fsdp`'s
+    backward)."""
+    return any(mesh.mesh_dim_names[d] != "model" for d, _ in _sharded_dims(placement, mesh))
+
+
+def _on_dim(mesh, axis: str, dim: int) -> tuple[Placement, ...]:
+    return tuple(Shard(dim) if n == axis else Replicate() for n in mesh.mesh_dim_names)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """A rank's place on the ``model`` dimension of ``mesh``: ``size``
+    ranks, this one at ``rank``.  A module given one computes on its pieces
+    of the weights (contiguous blocks of their ``model``-split dims) and
+    joins them with the collectives below."""
+
+    mesh: object
+    size: int
+    rank: int
+
+    def block(self, n: int) -> tuple[int, int]:
+        """[start, stop) of this rank's contiguous block of ``n``."""
+        if n % self.size:
+            raise ValueError(f"{n} does not split over {self.size} model ranks")
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return sum_partials(x, self.mesh, "model")
+
+    def cotangent(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the input of a product over this rank's columns of a
+        weight: its gradient sums the ranks' parts (:func:`sum_cotangent`)."""
+        return sum_cotangent(x, self.mesh, "model")
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks (no gradient)."""
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.mesh.get_group("model"))
+        return out
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:func:`gather_columns` over ``model`` (each rank then uses the
+        whole its own way)."""
+        return gather_columns(x, self.mesh, "model", dim)
+
+    def gather_replicated(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The whole of ``x``'s blocks for a use that every rank repeats
+        alike (:func:`gather_leaf`: the backward takes the rank's slice)."""
+        return gather_leaf(x, _on_dim(self.mesh, "model", dim % x.dim()), self.mesh)
+
+
+def model_split(mesh) -> ModelSplit | None:
+    """The :class:`ModelSplit` of ``mesh``'s ``model`` dimension, or None
+    where there is no mesh, no such dimension or it holds one rank (the
+    one-process path of every module)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    d = mesh.mesh_dim_names.index("model")
+    if mesh.size(d) == 1:
+        return None
+    return ModelSplit(mesh=mesh, size=mesh.size(d), rank=mesh.get_local_rank(d))

@@ -23,9 +23,13 @@ up, NCCL on ``cuda`` and gloo on ``--device cpu``):
   summed over it after the microbatches; one rank logs and writes
   checkpoints, every rank restores, and a checkpoint resumes at any
   number of ranks (``train_loop`` with the mesh and the placements);
-* 256 or more without ``--smoke``: the reference's production mesh under
-  the ``tp`` rules, which shard heads and FFN dims over ``model``; the
-  port's LM has no model axis yet, so this raises (ROADMAP item 7k).
+* 256 or more without ``--smoke``: the reference's production mesh
+  (``mesh.make_production_mesh``: 16 × 16 over ``("data", "model")``, or
+  2 × 16 × 16 with ``--multi-pod``) under the ``tp`` rules,
+  ``make_rules(fsdp=cfg.fsdp)``: heads, FFN dims, experts and vocab over
+  ``model``, every weight's ``embed`` dim over ``data`` where the config
+  sets ``fsdp``; each rank holds its pieces of the state and the step
+  computes on them (``train.step``).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from ..checkpoint import writes_checkpoints
+from ..checkpoint import reshard_to, writes_checkpoints
 from ..configs import ARCH_IDS, get_config, smoke_config
 from ..data import SyntheticLMData
 from ..dist import make_rules, param_shardings
@@ -44,38 +48,51 @@ from ..optim import AdamWConfig
 from ..runtime import resolve_device
 from ..train import make_train_step, train_loop
 from ..train.step import TrainState, init_train_state, train_state_axes
-from .mesh import make_data_mesh
+from .mesh import make_data_mesh, make_production_mesh
 
 SMOKE_LR = 1e-2
 PRODUCTION_RANKS = 256  # from here on the reference builds the production mesh
 
 
-def training_mesh(ranks: int, *, smoke: bool = False, device_type: str = "cuda"):
+def production(ranks: int, smoke: bool) -> bool:
+    """Whether the reference's launcher takes the production mesh."""
+    return ranks >= PRODUCTION_RANKS and not smoke
+
+
+def training_mesh(ranks: int, *, smoke: bool = False, multi_pod: bool = False,
+                  device_type: str = "cuda"):
     """The reference launcher's mesh for ``ranks`` ranks: None at one, the
     ``(ranks, 1)`` data mesh below ``PRODUCTION_RANKS`` (or with
-    ``smoke``); at or above it the production mesh under the ``tp`` rules,
-    which the port cannot lay out yet: ValueError naming item 7k."""
-    if ranks >= PRODUCTION_RANKS and not smoke:
-        raise ValueError(
-            f"{ranks} ranks: the reference trains on the production mesh under the 'tp' rules "
-            f"(heads and FFN dims over 'model'), and the port's LM has no model axis yet "
-            f"(ROADMAP Queue 1 item 7k); train on fewer than {PRODUCTION_RANKS} ranks, over "
-            f"the data mesh")
+    ``smoke``), the production mesh (16 × 16, or 2 × 16 × 16 with
+    ``multi_pod``) at or above it."""
+    if production(ranks, smoke):
+        return make_production_mesh(multi_pod=multi_pod, device_type=device_type)
     return make_data_mesh(ranks, device_type=device_type)
+
+
+def training_rules(ranks: int, cfg, *, smoke: bool = False, multi_pod: bool = False):
+    """The rules of :func:`training_mesh`'s mesh: the ``tp`` rules with the
+    config's ``fsdp`` on the production mesh, else the data mesh's (every
+    parameter replicated)."""
+    if production(ranks, smoke):
+        return make_rules(multi_pod=multi_pod, fsdp=cfg.fsdp)
+    return make_rules(batch_shard=ranks > 1, fsdp=False)
 
 
 def run_training(arch: str = "llama3.2-3b", *, smoke: bool = False, steps: int = 20,
                  global_batch: int = 8, seq: int = 32, microbatches: int = 2,
                  ckpt: str | None = None, device: str = "cuda", ckpt_every: int = 50,
-                 crash_at: int | None = None, log=print) -> tuple[TrainState, list[dict]]:
+                 crash_at: int | None = None, multi_pod: bool = False,
+                 log=print) -> tuple[TrainState, list[dict]]:
     """The launcher's run: (final state, logged history).  ``ckpt_every``
     and ``crash_at`` (a failure injected at that step) are
     ``train_loop``'s.  Under an initialised process group of n ranks every
-    rank calls it: the data mesh of :func:`training_mesh`, and only the
-    writer logs."""
+    rank calls it: the mesh and rules of :func:`training_mesh` and
+    :func:`training_rules`, each rank holding its pieces of the state, and
+    only the writer logs."""
     dev = resolve_device(device)
     ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    mesh = training_mesh(ranks, smoke=smoke, device_type=dev.type)
+    mesh = training_mesh(ranks, smoke=smoke, multi_pod=multi_pod, device_type=dev.type)
     if mesh is not None and dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if not writes_checkpoints(mesh):
@@ -88,15 +105,17 @@ def run_training(arch: str = "llama3.2-3b", *, smoke: bool = False, steps: int =
         seed=0, with_frames=cfg.frontend == "audio",
         frame_len=cfg.encoder_seq, d_model=cfg.d_model,
     )
-    # one seed on every rank: the replicas start equal
+    # one seed on every rank: the replicas start equal, and each cuts its pieces
     state = init_train_state(api, torch.Generator(device=dev).manual_seed(0), opt, device=dev)
     placements = None
     if mesh is not None:
-        rules = make_rules(batch_shard=True, fsdp=False)
+        rules = training_rules(ranks, cfg, smoke=smoke, multi_pod=multi_pod)
         placements = param_shardings(mesh, rules, train_state_axes(api, opt, state.params))
+        state = reshard_to(state, mesh=mesh, placements=placements)
     step = make_train_step(
         api, opt, microbatches=microbatches,
         lr_schedule=(lambda s: torch.tensor(SMOKE_LR)) if smoke else None, mesh=mesh,
+        placements=placements,
     )
     return train_loop(state=state, train_step=step, data=data, steps=steps, ckpt_dir=ckpt,
                       ckpt_every=ckpt_every, log_every=5, crash_at=crash_at, log=log,
@@ -112,6 +131,7 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     # under torchrun (one process per rank) the launcher joins the group it sets up
@@ -122,7 +142,7 @@ def main(argv: list[str] | None = None):
         _, hist = run_training(args.arch, smoke=args.smoke, steps=args.steps,
                                global_batch=args.global_batch, seq=args.seq,
                                microbatches=args.microbatches, ckpt=args.ckpt,
-                               device=args.device)
+                               device=args.device, multi_pod=args.multi_pod)
         if hist and (not dist.is_initialized() or dist.get_rank() == 0):
             print(f"final loss {hist[-1]['loss']:.4f} (start {hist[0]['loss']:.4f})")
     finally:

@@ -23,7 +23,8 @@ class LMApi:
     # forward(params, tokens, **kw) -> (logits, aux)
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     # decode(params, tokens, cache_pos, caches, **kw) -> (logits, caches);
-    # the encoder-decoder takes cross_kv= (``encdec.precompute_cross``)
+    # the encoder-decoder takes cross_kv= (``encdec.precompute_cross``); both
+    # take mesh=, placements=, cache_placements= (their ``decode_step``)
     decode: Callable[..., tuple[torch.Tensor, Any]]
     # init_caches(batch, cache_len, dtype=torch.bfloat16, device="cuda") -> caches
     init_caches: Callable[..., Any]
@@ -43,15 +44,15 @@ def build(cfg: LMConfig) -> LMApi:
         family, init_fn, caches_fn = encdec, encdec.init_encdec, encdec.init_encdec_caches
         axes_fn = encdec.encdec_axes
 
-        def dec(params, tokens, cache_pos, caches, *, cross_kv):
-            return encdec.decode_step(params, cfg, tokens, cache_pos, caches, cross_kv)
+        def dec(params, tokens, cache_pos, caches, *, cross_kv, **kw):
+            return encdec.decode_step(params, cfg, tokens, cache_pos, caches, cross_kv, **kw)
     else:
         transformer.check_supported(cfg)
         family, init_fn, caches_fn = transformer, transformer.init_decoder, transformer.init_caches
         axes_fn = transformer.decoder_axes
 
-        def dec(params, tokens, cache_pos, caches):
-            return transformer.decode_step(params, cfg, tokens, cache_pos, caches)
+        def dec(params, tokens, cache_pos, caches, **kw):
+            return transformer.decode_step(params, cfg, tokens, cache_pos, caches, **kw)
 
     def init(generator: torch.Generator, device: str | torch.device = "cuda"):
         return init_fn(cfg, generator, resolve_device(device))

@@ -195,8 +195,8 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     if sum(sections) != half:
         raise ValueError(f"m_rope sections {tuple(sections)} must sum to head_dim // 2 = {half}")
     inv_freq = _inv_freq(head_dim, theta, positions.device)
-    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
-                                     torch.tensor(sections, device=positions.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=positions.device)
     pos = positions.float()[..., sec_id]  # [..., S, half]: slot j reads component sec_id[j]
     return pos * inv_freq
 

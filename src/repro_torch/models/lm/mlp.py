@@ -1,5 +1,10 @@
 """Dense MLP blocks (SwiGLU / plain), the counterpart of
-``repro/models/lm/mlp.py``."""
+``repro/models/lm/mlp.py``.
+
+Under the ``model`` mesh axis (``ms``, a ``dist.ModelSplit``) the block
+holds the ``tp`` posture's pieces: the column blocks of ``w_gate``/``w_up``
+(and ``b_up``) and the row block of ``w_down``; one all-reduce of the
+partial sums follows ``w_down``, and ``b_down`` is added once, after it."""
 from __future__ import annotations
 
 import torch
@@ -37,12 +42,16 @@ def _act(name: str):
     }[name]
 
 
-def mlp_forward(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """x [B, S, D] -> [B, S, D]."""
+def mlp_forward(params: dict, x: torch.Tensor, cfg: LMConfig, ms=None) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D]; ``ms``: the params are this rank's pieces."""
     act = _act(cfg.act)
     dt = x.dtype
+    if ms is not None:
+        x = ms.cotangent(x)
     if cfg.mlp_gated:
         h = act(x @ params["w_gate"].to(dt)) * (x @ params["w_up"].to(dt))
-        return h @ params["w_down"].to(dt)
+        y = h @ params["w_down"].to(dt)
+        return y if ms is None else ms.sum(y)
     h = act(x @ params["w_up"].to(dt) + params["b_up"].to(dt))
-    return h @ params["w_down"].to(dt) + params["b_down"].to(dt)
+    y = h @ params["w_down"].to(dt)
+    return (y if ms is None else ms.sum(y)) + params["b_down"].to(dt)

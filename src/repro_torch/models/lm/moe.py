@@ -6,8 +6,7 @@ semantic graphs, the router-weighted combine the part of GSF, and the
 capacity drop the part of the overflow-workload bound — copies beyond an
 expert's capacity go to the residual path.
 
-On one card, as PyTorch ops (the reference's ``shard`` annotations are
-no-ops without a mesh and are dropped).  Under the LM step's data group
+As PyTorch ops.  Under the LM step's data group
 (``dist.use_data_group``) each rank holds its share of a microbatch's
 rows, and the balance loss's ``me`` and ``ce`` are averaged over the
 group first (``dist.mean_over_data``), as the reference's means over the
@@ -29,6 +28,16 @@ each token's kept copies and sums them in top-k slot order.  Neither uses
 a scatter-add, so the result is deterministic on the card.  The expert
 FFNs run over all ``E · cap`` slots, empty ones too (zeros in, zeros out),
 as the reference's einsums do.
+
+Under the ``model`` mesh axis (``ms``, a ``dist.ModelSplit``) the router
+stays whole on every rank, so every rank routes alike, and the layer holds
+the ``tp`` posture's pieces of the experts: with ``cfg.ep_shard`` (dbrx's
+16 experts) a block of whole experts, each rank running the FFNs of its
+own over their capacity slots; without it (grok's 8) every expert with its
+FFN split over ``mlp`` (column blocks of ``w_gate``/``w_up``, a row block
+of ``w_down``).  Either way a rank's combine sums the kept copies it
+computed, in slot order, and one all-reduce adds the ranks' partial sums;
+the gates' gradient sums the ranks' parts (``ms.cotangent``).
 """
 from __future__ import annotations
 
@@ -131,12 +140,13 @@ def route_flips(ids_a: torch.Tensor, gap_a: torch.Tensor, ids_b: torch.Tensor,
 
 
 def moe_forward(
-    params: dict, x: torch.Tensor, cfg: LMConfig, *, routes: list | None = None,
+    params: dict, x: torch.Tensor, cfg: LMConfig, *, routes: list | None = None, ms=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D], aux_loss float32 scalar).
 
     Each batch row routes its S tokens independently.  ``routes``, when
-    given, receives this layer's :class:`Routing`."""
+    given, receives this layer's :class:`Routing`.  ``ms``: the expert
+    weights are this rank's pieces (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     r = route(params, x, cfg)
@@ -150,8 +160,16 @@ def moe_forward(
     ce = mean_over_data(F.one_hot(r.expert_ids, e).sum(dim=2).float().mean(dim=(0, 1)) / k)
     aux = e * torch.sum(me * ce)
 
+    ids, keep, gates, table = r.expert_ids, r.keep, r.gates, r.table
+    if ms is not None:
+        x, gates = ms.cotangent(x), ms.cotangent(gates)
+        if cfg.ep_shard:  # this rank's experts [e0, e1) and the copies routed to them
+            e0, e1 = ms.block(e)
+            keep = keep & (ids >= e0) & (ids < e1)
+            ids, table, e = (ids - e0).clamp(0, e1 - e0 - 1), table[:, e0:e1], e1 - e0
+
     # xin [E, B·cap, D]: each expert's slots of every row; empty slots read a zero row
-    rows = torch.where(r.table >= 0, r.table + s * torch.arange(b, device=x.device)[:, None, None],
+    rows = torch.where(table >= 0, table + s * torch.arange(b, device=x.device)[:, None, None],
                        b * s)
     xin = torch.cat([x.reshape(b * s, d), x.new_zeros(1, d)])[rows.transpose(0, 1).reshape(e, -1)]
     dt = x.dtype
@@ -159,12 +177,14 @@ def moe_forward(
     y = torch.bmm(h, params["w_down"].to(dt))  # [E, B·cap, D]
 
     # combine: each token's kept copies, gate cast to y's dtype, summed in slot order
-    at = (r.expert_ids * b + torch.arange(b, device=x.device)[:, None, None]) * cap \
+    at = (ids * b + torch.arange(b, device=x.device)[:, None, None]) * cap \
         + r.rank.clamp_max(cap - 1)
     c = y.reshape(e * b * cap, d)[at.reshape(-1)].reshape(b, s, k, d)
-    c = c * r.gates.to(y.dtype)[..., None]
-    c = torch.where(r.keep[..., None], c, 0)  # dropped copies take the residual path
+    c = c * gates.to(y.dtype)[..., None]
+    c = torch.where(keep[..., None], c, 0)  # dropped copies take the residual path
     out = c[:, :, 0]
     for j in range(1, k):
         out = out + c[:, :, j]
+    if ms is not None:
+        out = ms.sum(out)
     return out.to(x.dtype), aux.float()

@@ -13,6 +13,16 @@ passes over the sequence axis, where the reference runs
 ``jax.lax.associative_scan``.  The two scans add in different orders, so
 the port agrees with the reference to float32 rounding, not bit for bit.
 Decode is an O(1) step.
+
+Under the ``model`` mesh axis (``ms``, a ``dist.ModelSplit``) the block
+holds the ``tp`` posture's pieces of ``rnn``: ``w_x``'s and ``w_y``'s
+columns, ``w_a``'s and ``w_i``'s rows (their products mix every channel),
+the conv's, gates' biases' and ``lam``'s blocks, and ``w_out``'s rows.
+It takes the "replicated" route (``ssm.core_params``): the projected
+``w_x`` columns and the core's leaves are gathered, the conv, gates and
+scan run whole on every rank, and each rank multiplies its block of ``h``
+by its own ``w_y`` columns' gate and feeds it to its ``w_out`` rows, one
+all-reduce after them.  The states stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ import torch
 
 from .config import LMConfig
 from .layers import P, gelu_tanh
-from .ssm import depthwise_conv, softplus
+from .ssm import core_params, depthwise_conv, softplus
 
 
 def rglru_specs(cfg: LMConfig, *, layers: int | None = None) -> dict:
@@ -73,31 +83,53 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, h_state=None):
-    """x [B,S,D] -> (y [B,S,D], (conv_state, h_state))."""
+# the rnn leaves the conv and the gates read (name: the dim ``model`` cuts)
+_CORE = {"conv_w": -1, "conv_b": -1, "w_a": 0, "b_a": -1, "w_i": 0, "b_i": -1, "lam": -1}
+
+
+def _inputs(params, x: torch.Tensor, ms):
+    """(u, gate): the recurrent branch's input, whole, and the gate branch,
+    this rank's columns under ``ms``."""
+    if ms is not None:
+        x = ms.cotangent(x)
     u = x @ params["w_x"].to(x.dtype)
-    u, conv_state = _conv(params, u, conv_state)
-    a, bterm = _gates(params, u, cfg)  # [B,S,rw] float32
+    return (u if ms is None else ms.gather(u)), gelu_tanh(x @ params["w_y"].to(x.dtype))
+
+
+def _out(params, h: torch.Tensor, gate: torch.Tensor, ms) -> torch.Tensor:
+    """``(h · gate) @ w_out``; under ``ms``, this rank's block of ``h`` (its
+    gate's columns) times its ``w_out`` rows, summed over the ranks."""
+    if ms is not None:
+        h = h[..., slice(*ms.block(h.shape[-1]))]
+    y = (h.to(gate.dtype) * gate) @ params["w_out"].to(gate.dtype)
+    return y if ms is None else ms.sum(y)
+
+
+def rglru_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, h_state=None,
+                  ms=None):
+    """x [B,S,D] -> (y [B,S,D], (conv_state, h_state)); ``ms``: the params
+    are this rank's pieces (module docstring)."""
+    u, gate = _inputs(params, x, ms)
+    core = core_params(params, ms, _CORE)
+    u, conv_state = _conv(core, u, conv_state)
+    a, bterm = _gates(core, u, cfg)  # [B,S,rw] float32
     if h_state is not None:
         # fold the carried state into the first step's additive term
         bterm = torch.cat([bterm[:, :1] + a[:, :1] * h_state.float()[:, None], bterm[:, 1:]],
                           dim=1)
     h = linear_scan(a, bterm)
     h_state = h[:, -1, :]
-    gate = gelu_tanh(x @ params["w_y"].to(x.dtype))
-    y = (h.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
-    return y, (conv_state, h_state)
+    return _out(params, h, gate, ms), (conv_state, h_state)
 
 
-def rglru_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, h_state):
+def rglru_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, h_state, ms=None):
     """x [B,1,D] single step."""
-    u = x @ params["w_x"].to(x.dtype)
-    u, conv_state = _conv(params, u, conv_state)
-    a, bterm = _gates(params, u, cfg)
+    u, gate = _inputs(params, x, ms)
+    core = core_params(params, ms, _CORE)
+    u, conv_state = _conv(core, u, conv_state)
+    a, bterm = _gates(core, u, cfg)
     h = a[:, 0] * h_state.float() + bterm[:, 0]
-    gate = gelu_tanh(x @ params["w_y"].to(x.dtype))
-    y = (h[:, None, :].to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
-    return y, (conv_state, h)
+    return _out(params, h[:, None, :], gate, ms), (conv_state, h)
 
 
 def init_rglru_cache(cfg: LMConfig, batch: int, dtype, device):

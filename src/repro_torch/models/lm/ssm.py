@@ -16,6 +16,16 @@ each, in the pairing that keeps the intermediates at ``[B, nc, L, L, H]``
 and ``[B, nc, L, H, P]``: ``torch.einsum`` pairs operands left to right,
 and the other pairings build ``[B, nc, L, L, H, P]`` (10.7 GB a layer at
 mamba2-2.7b's width, B = 2, S = 4096).
+
+Under the ``model`` mesh axis (``ms``, a ``dist.ModelSplit``) the block
+holds the ``tp`` posture's pieces: ``w_in``'s columns, ``conv_w``'s,
+``conv_b``'s and ``norm``'s blocks of ``ssm_inner``, and ``w_out``'s rows.
+A rank's block of ``w_in``'s 2·di + 2n + h columns cuts across ``[z, xBC,
+dt]`` (:func:`_split_in`), so the block takes the "replicated" route: the
+projected columns and those leaves are gathered, the recurrent core runs
+whole on every rank, and each rank feeds its block of the core's output
+to its ``w_out`` rows, one all-reduce after them (:func:`core_params`,
+:func:`row_out`).  The states stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -49,9 +59,41 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _split_in(params, x, cfg: LMConfig):
+def core_params(params: dict, ms, split: dict, shared: tuple = ()) -> dict:
+    """The params a recurrent core runs with: under a model split the
+    ``split`` leaves (name: the dim ``model`` cuts) gathered whole, and the
+    ``shared`` leaves' gradient summed over the ranks: every rank runs the
+    core whole and feeds only its own block of the output on, so each
+    sees a part of every leaf's gradient.  ``params`` itself with no
+    ``ms``."""
+    if ms is None:
+        return params
+    out = dict(params)
+    for k, dim in split.items():
+        out[k] = ms.gather(params[k], dim)
+    for k in shared:
+        out[k] = ms.cotangent(params[k])
+    return out
+
+
+def row_out(y: torch.Tensor, w_out: torch.Tensor, ms) -> torch.Tensor:
+    """``y @ w_out``; under a model split, this rank's block of ``y``'s
+    columns times its rows of ``w_out``, summed over the ranks."""
+    if ms is None:
+        return y @ w_out.to(y.dtype)
+    return ms.sum(y[..., slice(*ms.block(y.shape[-1]))] @ w_out.to(y.dtype))
+
+
+_CORE = {"conv_w": -1, "conv_b": -1, "norm": -1}  # the ssm_inner leaves the core reads
+_SHARED = ("a_log", "dt_bias", "d_skip")
+
+
+def _split_in(params, x, cfg: LMConfig, ms=None):
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    zxbcdt = x @ params["w_in"].to(x.dtype)
+    if ms is None:
+        zxbcdt = x @ params["w_in"].to(x.dtype)
+    else:  # the columns gathered: a rank's block cuts across [z, xBC, dt]
+        zxbcdt = ms.gather(ms.cotangent(x) @ params["w_in"].to(x.dtype))
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
     return z, xbc, dt  # dt [..., H]
 
@@ -130,11 +172,14 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int, init_state=None):
     return y, carry
 
 
-def ssm_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, ssd_state=None):
-    """Full-sequence mamba2 block.  x [B,S,D] -> (y, (conv_state, ssd_state))."""
+def ssm_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, ssd_state=None,
+                ms=None):
+    """Full-sequence mamba2 block.  x [B,S,D] -> (y, (conv_state, ssd_state)).
+    ``ms``: the params are this rank's pieces (module docstring)."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
-    z, xbc, dt = _split_in(params, x, cfg)
+    z, xbc, dt = _split_in(params, x, cfg, ms)
+    w_out, params = params["w_out"], core_params(params, ms, _CORE, _SHARED)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_state)
     xi, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
     xh = xi.reshape(x.shape[0], x.shape[1], h, p)
@@ -147,15 +192,16 @@ def ssm_forward(params, x: torch.Tensor, cfg: LMConfig, conv_state=None, ssd_sta
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(x.shape[0], x.shape[1], di).to(x.dtype)
     y = rms_norm(y * silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype), (conv_state, ssd_state)
+    return row_out(y, w_out, ms), (conv_state, ssd_state)
 
 
-def ssm_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, ssd_state):
+def ssm_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, ssd_state, ms=None):
     """Single-token decode.  x [B,1,D]; states carried O(1) in context."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
     b = x.shape[0]
-    z, xbc, dt = _split_in(params, x, cfg)
+    z, xbc, dt = _split_in(params, x, cfg, ms)
+    w_out, params = params["w_out"], core_params(params, ms, _CORE, _SHARED)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"], conv_state)
     xi, bmat, cmat = torch.split(xbc[:, 0], [di, n, n], dim=-1)
     xh = xi.reshape(b, h, p).float()
@@ -168,7 +214,7 @@ def ssm_decode(params, x: torch.Tensor, cfg: LMConfig, conv_state, ssd_state):
     y = y + params["d_skip"].float()[None, :, None] * xh
     y = y.reshape(b, 1, di).to(x.dtype)
     y = rms_norm(y * silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype), (conv_state, ssd_state)
+    return row_out(y, w_out, ms), (conv_state, ssd_state)
 
 
 def init_ssm_cache(cfg: LMConfig, batch: int, dtype, device):

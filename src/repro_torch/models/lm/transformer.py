@@ -23,6 +23,17 @@ reference's scan) in the backward and keeps only its input, "dots" keeps
 the products with no batch dims (``aten.mm``: the weight products) and
 recomputes the rest, as ``checkpoint_dots_with_no_batch_dims`` does.  The
 tail layers run outside it, as in the reference.
+
+Under a mesh (``forward(..., mesh=, placements=)``, the placements
+``dist.param_shardings`` gives :func:`decoder_axes` under the rules) the
+params are this rank's pieces.  Each block first gathers its leaves' data
+pieces (``fsdp``: ``embed`` over the data axes; ``dist.gather_fsdp``,
+inside the remat region, so the backward gathers them again), and its
+modules then compute on their ``model`` pieces (``dist.ModelSplit``): the
+attention, MLP and MoE as their modules say, the embedding by ``vocab``
+rows (a lookup masked to the rank's range, then one all-reduce) and the
+head by ``vocab`` columns (logits split by vocab; gathered unless the
+caller takes them split, as the loss does).
 """
 from __future__ import annotations
 
@@ -31,12 +42,14 @@ import functools
 from typing import Any
 
 import torch
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
+from ...dist.sharding import gather_fsdp, map_placements, model_split
 from ...tree import tree_leaves, tree_map
 from .attention import AttnCache, attention_decode, attention_forward, attention_specs, init_attn_cache
 from .config import LMConfig
@@ -171,68 +184,110 @@ def _angles(cfg: LMConfig, positions: torch.Tensor) -> torch.Tensor:
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _ffn(cfg: LMConfig, p: dict, x: torch.Tensor, routes: list | None = None):
+def _ffn(cfg: LMConfig, p: dict, x: torch.Tensor, routes: list | None = None, ms=None):
     """The block's MLP or MoE: (out, the MoE's aux loss or None)."""
     if cfg.is_moe:
-        return moe_forward(p["moe"], x, cfg, routes=routes)
-    return mlp_forward(p["mlp"], x, cfg), None
+        return moe_forward(p["moe"], x, cfg, routes=routes, ms=ms)
+    return mlp_forward(p["mlp"], x, cfg, ms), None
 
 
 def _block_forward(cfg: LMConfig, pat: str, p: dict, h: torch.Tensor, angles, impl: str,
-                   routes: list | None):
-    """One block, full-sequence.  Returns (h, aux_loss or None)."""
+                   routes: list | None, ms=None):
+    """One block, full-sequence.  Returns (h, aux_loss or None).  ``ms``:
+    ``p`` holds this rank's ``model`` pieces (attention and FFN blocks)."""
     if pat == "ssm":
-        y, _ = ssm_forward(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg)
+        y, _ = ssm_forward(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, ms=ms)
         return h + y, None
     if pat == "rglru":
-        y, _ = rglru_forward(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg)
+        y, _ = rglru_forward(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, ms=ms)
         h = h + y
-        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), None
+        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg, ms), None
     win = cfg.window if pat == "local" else None
     a = attention_forward(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
-        angles=angles, window=win, impl=impl,
+        angles=angles, window=win, impl=impl, ms=ms,
     )
     h = h + a
-    m, aux = _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps), routes)
+    m, aux = _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps), routes, ms)
     return h + m, aux
 
 
-def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos):
+def _block_decode(cfg: LMConfig, pat: str, p: dict, h, angles, cache, cache_pos, ms=None,
+                  seq_split: bool = False):
     """One block, single token.  Returns (h, cache): the attention cache
-    written in place, or the recurrent block's new ``(conv, state)``."""
+    written in place, or the recurrent block's new ``(conv, state)``.
+    ``ms``: ``p`` holds this rank's ``model`` pieces; ``seq_split``: the
+    cache holds this rank's block of slots (``attention_decode``)."""
     if pat == "ssm":
-        y, cache = ssm_decode(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache)
+        y, cache = ssm_decode(p["ssm"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache,
+                              ms=ms)
         return h + y, cache
     if pat == "rglru":
-        y, cache = rglru_decode(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache)
+        y, cache = rglru_decode(p["rglru"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg, *cache,
+                                ms=ms)
         h = h + y
-        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg), cache
+        return h + mlp_forward(p["mlp"], rms_norm(h, p["norm2"], cfg.norm_eps), cfg, ms), cache
     win = cfg.window if pat == "local" else None
     a, cache = attention_decode(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
-        cache, cache_pos, angles=angles, window=win,
+        cache, cache_pos, angles=angles, window=win, ms=ms, seq_split=seq_split,
     )
     h = h + a
-    return h + _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps))[0], cache
+    return h + _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps), None, ms)[0], cache
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill / scoring)
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    h = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+def lookup(table: torch.Tensor, tokens: torch.Tensor, ms=None) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``; ``ms``: ``table`` is this rank's
+    block of ``vocab`` rows, looked up where a token falls in it (zero rows
+    elsewhere) and summed over the ranks (exact: one term is not zero)."""
+    if ms is None:
+        return table[tokens.long()]
+    t = tokens.long() - ms.rank * table.shape[0]
+    inside = (t >= 0) & (t < table.shape[0])
+    return ms.sum(torch.where(inside[..., None], table[t.clamp(0, table.shape[0] - 1)], 0))
+
+
+def embed_tokens(params, cfg: LMConfig, tokens: torch.Tensor, ms=None) -> torch.Tensor:
+    """The embedding of ``tokens`` (:func:`lookup`)."""
+    h = lookup(params["embed"], tokens, ms).to(torch_dtype(cfg.dtype))
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
     return h
 
 
-def logits_from_hidden(params, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params, cfg: LMConfig, h: torch.Tensor, ms=None) -> torch.Tensor:
+    """The logits of the final hidden state; ``ms``: this rank's block of
+    ``vocab`` columns (the head's, or the tied embedding's rows)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if ms is not None:
+        h = ms.cotangent(h)
     if cfg.tie_embeddings:
         return h @ params["embed"].t().to(h.dtype)
     return h @ params["lm_head"].to(h.dtype)
+
+
+def _per_layer(placements):
+    """The placements of one layer's slice of stacked (``[n_super, ...]``)
+    leaves: each ``Shard`` one dim lower (the layer dim is never split)."""
+    return map_placements(
+        lambda pl: tuple(Shard(q.dim - 1) if isinstance(q, Shard) else q for q in pl),
+        placements)
+
+
+def _whole_over_data(mesh, placements):
+    """``gather(p, pl)``: a params subtree's leaves with their data pieces
+    gathered (``dist.gather_fsdp``), left with their ``model`` split; the
+    subtree itself with no mesh or placements."""
+    def gather(p, pl):
+        if mesh is None or pl is None:
+            return p
+        return map_placements(lambda a, x: gather_fsdp(x, a, mesh), pl, p)
+
+    return gather
 
 
 def forward(
@@ -244,13 +299,25 @@ def forward(
     visual_embeds: torch.Tensor | None = None,  # [B, n_vis, D] stub frontend output
     impl: str = "xla",
     routes: list | None = None,
+    mesh=None,
+    placements=None,
+    split_logits: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, S, vocab_padded], aux_loss): the float32 sum of
     every MoE layer's balance term, in layer order (zero for the dense
     family).  ``routes``, when given, receives each MoE layer's
     ``moe.Routing`` in layer order.  ``visual_embeds`` (precomputed patch
-    embeddings) take the first ``n_vis`` slots, cast to the hidden dtype."""
+    embeddings) take the first ``n_vis`` slots, cast to the hidden dtype.
+
+    ``mesh`` and ``placements`` (the module docstring): the params are this
+    rank's pieces, and every rank of the mesh calls the forward.  The
+    logits are then whole on every rank, or with ``split_logits`` this
+    rank's block of ``vocab_padded`` over ``model``."""
     check_supported(cfg)
+    ms = model_split(mesh)
+    if ms is not None and placements is None:
+        raise ValueError("a model split needs the params' placements")
+    whole = _whole_over_data(mesh, placements)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -258,17 +325,24 @@ def forward(
             positions = positions[..., None].expand(b, s, 3)
     angles = _angles(cfg, positions)
 
-    h = embed_tokens(params, cfg, tokens)
+    keys = [k for k in ("embed", "final_norm", "lm_head") if k in params]
+    top = whole({k: params[k] for k in keys},
+                None if placements is None else {k: placements[k] for k in keys})
+    h = embed_tokens(top, cfg, tokens, ms)
     if visual_embeds is not None:
         nv = visual_embeds.shape[1]
         h = torch.cat([visual_embeds.to(h.dtype), h[:, nv:]], dim=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def block(pat, p, h, aux_total):
-        h, aux = _block_forward(cfg, pat, p, h, angles, impl, routes)
+        h, aux = _block_forward(cfg, pat, p, h, angles, impl, routes, ms)
         return h, aux_total if aux is None else aux_total + aux
 
+    scan_pl = None if placements is None or "scan" not in placements else \
+        _per_layer(placements["scan"])
+
     def superblock(h, aux_total, sp):
+        sp = whole(sp, scan_pl)
         for i, pat in enumerate(cfg.block_pattern):
             h, aux_total = block(pat, sp[f"pos{i}"], h, aux_total)
         return h, aux_total
@@ -278,8 +352,12 @@ def forward(
     for layer in range(n_super):
         h, aux_total = superblock(h, aux_total, _layer(params["scan"], layer))
     for i in range(rem):
-        h, aux_total = block(cfg.block_pattern[i], params["tail"][i], h, aux_total)
-    return logits_from_hidden(params, cfg, h), aux_total
+        p = whole(params["tail"][i], None if placements is None else placements["tail"][i])
+        h, aux_total = block(cfg.block_pattern[i], p, h, aux_total)
+    logits = logits_from_hidden(top, cfg, h, ms)
+    if ms is not None and not split_logits:
+        logits = ms.gather_replicated(logits)
+    return logits, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -404,16 +482,43 @@ def _store(cache, new) -> None:
             t.copy_(n)
 
 
+def _seq_split(placement, mesh) -> bool:
+    """Whether a block cache's placements split an attention cache's slots
+    over ``model``; a recurrent block's states must stay whole on every
+    model rank."""
+    if placement is None:
+        return False
+    d = mesh.mesh_dim_names.index("model")
+    if isinstance(placement, AttnCache):
+        return isinstance(placement.k[d], Shard)
+    if any(isinstance(pl[d], Shard) for pl in placement):
+        raise ValueError("a recurrent block's states are whole on every model rank; their "
+                         f"placements split them over 'model': {placement}")
+    return False
+
+
 def decode_step(
     params: dict,
     cfg: LMConfig,
     tokens: torch.Tensor,            # [B, 1]
     cache_pos: int | torch.Tensor,   # a position, or [B] per-slot positions
     caches,
+    *,
+    mesh=None,
+    placements=None,
+    cache_placements=None,
 ) -> tuple[torch.Tensor, Any]:
     """One decode step: returns (logits [B, 1, vocab_padded], caches),
-    the caches updated in place."""
+    the caches updated in place.  ``mesh``/``placements``: the params are
+    this rank's pieces (as :func:`forward`'s), ``tokens`` and ``caches``
+    this rank's rows, and ``cache_placements`` (``launch.dryrun.
+    cache_placements``) say which caches split their slots over ``model``;
+    the logits are whole on every rank."""
     check_supported(cfg)
+    ms = model_split(mesh)
+    if ms is not None and placements is None:
+        raise ValueError("a model split needs the params' placements")
+    whole = _whole_over_data(mesh, placements)
     for c in _attn_caches(caches):
         check_cache_dtype(cfg, c.k.dtype)
     _widen_conv_states(cfg, caches)
@@ -425,17 +530,29 @@ def decode_step(
         positions = positions[..., None].expand(b, 1, 3)
     angles = _angles(cfg, positions)
 
-    h = embed_tokens(params, cfg, tokens)
+    keys = [k for k in ("embed", "final_norm", "lm_head") if k in params]
+    top = whole({k: params[k] for k in keys},
+                None if placements is None else {k: placements[k] for k in keys})
+    h = embed_tokens(top, cfg, tokens, ms)
+    cpl = cache_placements or {}
+    split = (lambda pl: False) if ms is None else (lambda pl: _seq_split(pl, mesh))  # noqa: E731
     n_super, rem = _layout(cfg)
+    scan_pl = None if placements is None or "scan" not in placements else \
+        _per_layer(placements["scan"])
     for layer in range(n_super):
-        sp = _layer(params["scan"], layer)
+        sp = whole(_layer(params["scan"], layer), scan_pl)
         for i, pat in enumerate(cfg.block_pattern):
             c = _cache_map(lambda t: t[layer], caches["scan"][f"pos{i}"])
-            h, new = _block_decode(cfg, pat, sp[f"pos{i}"], h, angles, c, cache_pos)
+            h, new = _block_decode(cfg, pat, sp[f"pos{i}"], h, angles, c, cache_pos, ms,
+                                   split(cpl.get("scan", {}).get(f"pos{i}")))
             _store(c, new)
     for i in range(rem):
         c = caches["tail"][i]
-        h, new = _block_decode(cfg, cfg.block_pattern[i], params["tail"][i], h, angles, c,
-                               cache_pos)
+        p = whole(params["tail"][i], None if placements is None else placements["tail"][i])
+        h, new = _block_decode(cfg, cfg.block_pattern[i], p, h, angles, c, cache_pos, ms,
+                               split(cpl["tail"][i] if "tail" in cpl else None))
         _store(c, new)
-    return logits_from_hidden(params, cfg, h), caches
+    logits = logits_from_hidden(top, cfg, h, ms)
+    if ms is not None:
+        logits = ms.gather_replicated(logits)
+    return logits, caches

@@ -25,7 +25,10 @@ Under a model axis (``dist.sharding``) a leaf may be this rank's piece of
 the logical one: :func:`global_norm` and the updates then take the
 leaves' placements and the mesh, and sum the squares of each sharded leaf
 over the ranks that share it, so that every rank clips by the same norm
-of the whole gradient.  The update itself is elementwise.
+of the whole gradient.  The unfactored update is elementwise; the
+factored one takes its row and column means over the logical leaf: on a
+piece, a mean over a sharded dim is the sum all-reduced over the mesh
+dimensions that shard it, divided by the logical size (:func:`_piece_means`).
 """
 from __future__ import annotations
 
@@ -173,18 +176,49 @@ def _adamw_leaf(cfg: AdamWConfig, lr, scale, c1, c2, mdt, p, g, m, v, master):
     return new_base.to(p.dtype), m32.to(mdt), v32.to(mdt), new_base
 
 
-def _factored_leaf(cfg: AdamWConfig, lr, scale, p, g, vr, vc, vf, master):
+def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x.mean(dim=dim)
+
+
+def _piece_means(placement, mesh, ndim: int):
+    """(mean over the rows, mean over the columns) of a piece of a logical
+    leaf of ``ndim`` dims that ``placement`` places on ``mesh``: each a
+    ``mean(x, dim)`` that takes ``x``'s dim ``dim`` (holding the leaf's rows,
+    resp. columns) as a block of the logical one.  A dim that no mesh
+    dimension of more than one rank shards takes the plain mean."""
+    def over(leaf_dim: int):
+        groups = [(mesh.get_group(d), mesh.size(d)) for d, q in enumerate(placement)
+                  if isinstance(q, Shard) and q.dim % ndim == leaf_dim and mesh.size(d) > 1]
+        if not groups:
+            return _mean
+
+        def mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+            total = x.sum(dim=dim)
+            n = x.shape[dim]
+            for group, ranks in groups:
+                dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+                n *= ranks
+            return total / n
+
+        return mean
+
+    return over(ndim - 2), over(ndim - 1)
+
+
+def _factored_leaf(cfg: AdamWConfig, lr, scale, p, g, vr, vc, vf, master, means=(_mean, _mean)):
     """One slice of a leaf: the reference's factored ``upd``, in its
     order.  A factorable slice is ``[n, rows, cols]`` with ``vr [n, rows]``
-    and ``vc [n, cols]``."""
+    and ``vc [n, cols]``; ``means``: the (rows, columns) means of a piece
+    (:func:`_piece_means`)."""
     b2 = cfg.b2
+    row_mean, col_mean = means
     g = g.float() * scale
     g2 = g * g + 1e-30
     if vr is not None:
-        vr = b2 * vr + (1 - b2) * g2.mean(dim=-1)
-        vc = b2 * vc + (1 - b2) * g2.mean(dim=-2)
+        vr = b2 * vr + (1 - b2) * col_mean(g2, -1)
+        vc = b2 * vc + (1 - b2) * row_mean(g2, -2)
         # V ≈ (R C) / mean(R): rank-1 reconstruction (Shazeer & Stern '18)
-        denom = vr.mean(dim=-1, keepdim=True)
+        denom = row_mean(vr, -1)[..., None]
         vhat = (vr / torch.clamp(denom, min=1e-30))[..., None] * vc[..., None, :]
     else:
         vf = b2 * vf + (1 - b2) * g2
@@ -230,7 +264,7 @@ def apply_updates_(params, grads, state: dict, cfg: AdamWConfig, lr, *, placemen
     tensors are updated in place, ``count`` too).  Returns (params, state,
     grad_norm).  Each leaf is updated a slice at a time, so the step needs
     a few slices of scratch on top of the state.  ``placements``/``mesh``:
-    the leaves are pieces (:func:`global_norm`)."""
+    the leaves are pieces (:func:`global_norm`, :func:`_piece_means`)."""
     with torch.no_grad():
         gnorm = global_norm(grads, placements=placements, mesh=mesh)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -238,12 +272,15 @@ def apply_updates_(params, grads, state: dict, cfg: AdamWConfig, lr, *, placemen
         flat_p = tree_leaves(params)
         flat = lambda t: _at_leaves(params, t)  # noqa: E731
         if cfg.factored:
-            for p, g, vr, vc, vf, ma in zip(flat_p, flat(grads), flat(state["v_row"]),
-                                            flat(state["v_col"]), flat(state["v_full"]),
-                                            flat(state["master"])):
+            pls = [None] * len(flat_p) if placements is None or mesh is None else \
+                placement_leaves(placements)
+            for p, g, vr, vc, vf, ma, pl in zip(flat_p, flat(grads), flat(state["v_row"]),
+                                                flat(state["v_col"]), flat(state["v_full"]),
+                                                flat(state["master"]), pls):
+                means = (_mean, _mean) if pl is None else _piece_means(pl, mesh, p.dim())
                 for cp, cg, cvr, cvc, cvf, cma in _factored_chunks(p, g.contiguous(), vr, vc, vf,
                                                                    ma):
-                    out = _factored_leaf(cfg, lr, scale, cp, cg, cvr, cvc, cvf, cma)
+                    out = _factored_leaf(cfg, lr, scale, cp, cg, cvr, cvc, cvf, cma, means)
                     for dst, src in zip((cp, cvr, cvc, cvf, cma), out):
                         _write(dst, src)
             return params, state, gnorm

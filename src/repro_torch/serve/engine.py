@@ -44,12 +44,19 @@ def init_serve_state(
     return ServeState(caches=caches, cache_pos=filled, cross_kv=cross)
 
 
-def make_serve_step(api: LMApi) -> Callable:
-    """(params, state, tokens [B,1]) -> (logits [B, vocab_pad], state)."""
+def make_serve_step(api: LMApi, *, mesh=None, placements=None,
+                    cache_placements=None) -> Callable:
+    """(params, state, tokens [B,1]) -> (logits [B, vocab_pad], state).
+    ``mesh``, ``placements`` and ``cache_placements``: decode under a mesh,
+    the params, tokens and caches this rank's pieces
+    (``transformer.decode_step``; the caches laid out by
+    ``launch.dryrun.cache_placements``, the reference's heuristic)."""
     has_cross = api.cfg.is_encoder_decoder
+    on_mesh = {} if mesh is None else dict(mesh=mesh, placements=placements,
+                                           cache_placements=cache_placements)
 
     def serve_step(params, state: ServeState, tokens: torch.Tensor):
-        kw = {"cross_kv": state.cross_kv} if has_cross else {}
+        kw = dict(on_mesh, cross_kv=state.cross_kv) if has_cross else dict(on_mesh)
         logits, caches = api.decode(params, tokens, state.cache_pos, state.caches, **kw)
         return logits[:, 0], ServeState(caches=caches, cache_pos=state.cache_pos + 1,
                                         cross_kv=state.cross_kv)
@@ -57,19 +64,20 @@ def make_serve_step(api: LMApi) -> Callable:
     return serve_step
 
 
-def make_prefill(api: LMApi) -> Callable:
+def make_prefill(api: LMApi, **on_mesh) -> Callable:
     """(params, state, tokens [B,S], frames=None) -> (last logits, state) —
     fills the caches by running decode steps, one token at a time.  An
     encoder-decoder first encodes ``frames`` ``[B, S_enc, D]`` and
-    precomputes every layer's cross K/V from them."""
-    serve_step = make_serve_step(api)
+    precomputes every layer's cross K/V from them.  ``on_mesh``:
+    :func:`make_serve_step`'s."""
+    serve_step = make_serve_step(api, **on_mesh)
     cfg = api.cfg
+    mesh_kw = {k: on_mesh[k] for k in ("mesh", "placements") if k in on_mesh}
 
     def prefill(params, state: ServeState, tokens: torch.Tensor, frames=None):
         if cfg.is_encoder_decoder:
-            enc_out = encdec.encode(params, cfg, frames)
-            state = dataclasses.replace(state, cross_kv=encdec.precompute_cross(params, cfg,
-                                                                                enc_out))
+            state = dataclasses.replace(state, cross_kv=encdec.encode_for_decode(
+                params, cfg, frames, **mesh_kw))
         logits = None
         for t in range(tokens.shape[1]):
             logits, state = serve_step(params, state, tokens[:, t:t + 1])

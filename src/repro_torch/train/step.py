@@ -26,6 +26,19 @@ the data group (``dist.use_data_group``: the MoE balance loss averages
 over it); after the loop the accumulated grads are summed over the group
 and divided by n, one all-reduce a leaf, and every rank applies the same
 update, so the replicas stay bitwise equal.
+
+Over a ``(data, model)`` mesh with the ``tp`` posture's placements
+(``dist.param_shardings`` of :func:`train_state_axes` under
+``make_rules(fsdp=cfg.fsdp)``; ``placements=``) the state holds this
+rank's pieces and the forward computes on them (``transformer.forward``
+with the mesh).  The loss takes the logits split by vocab over ``model``
+(:func:`vocab_split_nll`).  A leaf that ``fsdp`` shards over the data axes
+is gathered in the forward and its grad reduce-scattered in the backward
+(``dist.gather_fsdp``), so it is already summed over the data ranks and
+:func:`reduce_over_data` only divides it; every other leaf is all-reduced
+over data as before.  The clip's norm goes over the pieces
+(``optim.global_norm``), and the factored update takes its means over the
+logical leaf (``optim.adamw``).
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from ..dist.sharding import use_data_group
+from ..dist.sharding import data_sharded, model_split, placement_leaves, use_data_group
 from ..models.lm.api import LMApi
 from ..models.lm.layers import torch_dtype
 from ..optim import AdamWConfig, apply_updates_, init_opt_state, opt_state_axes
@@ -71,15 +84,44 @@ def train_state_axes(api: LMApi, opt_cfg: AdamWConfig, params_abstract=None) -> 
     return TrainState(params=pax, opt=opt_state_axes(pax, opt_cfg, params_abstract), step=())
 
 
-def lm_loss(api: LMApi, params, batch: dict) -> tuple[torch.Tensor, dict]:
+def vocab_split_nll(logits: torch.Tensor, targets: torch.Tensor, vocab_size: int,
+                    ms) -> torch.Tensor:
+    """The next-token NLL ``[B, S]`` from logits split by vocab over the
+    ``model`` ranks (``ms``; this rank's block ``[B, S, V_pad/m]``): the
+    padded slots (global index ``>= vocab_size``) masked out, the max, the
+    log-sum-exp and the target's logit (on the one rank whose block holds
+    it) each taken over the ranks.  The same on every rank."""
+    n = logits.shape[-1]
+    lo = ms.rank * n
+    logits = logits.float()
+    pad = torch.arange(lo, lo + n, device=logits.device) >= vocab_size
+    logits = torch.where(pad, -1e30, logits)
+    top = ms.max(logits.amax(dim=-1, keepdim=True))
+    lse = top[..., 0] + torch.log(ms.sum(torch.exp(logits - top).sum(dim=-1)))
+    t = targets.long() - lo
+    inside = (t >= 0) & (t < n)
+    picked = logits.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - ms.sum(torch.where(inside, picked, 0.0))
+
+
+def lm_loss(api: LMApi, params, batch: dict, *, mesh=None,
+            placements=None) -> tuple[torch.Tensor, dict]:
     """Next-token CE with the vocab padding masked; returns (loss + 0.01 ·
     aux, {"loss", "aux_loss"}).  ``batch["tokens"]`` is ``[B, S+1]``; the
-    keys of ``BATCH_KEYS`` go to the forward."""
+    keys of ``BATCH_KEYS`` go to the forward.  ``mesh``/``placements``:
+    the params are this rank's pieces (``transformer.forward``), and under
+    a model split the logits stay split by vocab (:func:`vocab_split_nll`)."""
     cfg = api.cfg
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     kw = {k: batch[k] for k in BATCH_KEYS if k in batch}
+    ms = model_split(mesh)
+    if placements is not None:
+        kw.update(mesh=mesh, placements=placements, split_logits=True)
     logits, aux = api.forward(params, inputs, **kw)
+    if ms is not None:
+        loss = vocab_split_nll(logits, targets, cfg.vocab_size, ms).mean()
+        return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
     vp = logits.shape[-1]
     logits = logits.float()
     if vp > cfg.vocab_size:  # mask padded vocab slots out of the softmax
@@ -154,30 +196,35 @@ def data_rows(batch: dict, microbatches: int, ranks: int, rank: int) -> dict:
 
 
 def data_group(mesh):
-    """(group, ranks, rank) of ``mesh``'s ``data`` dimension; the mesh's other
-    dimensions must hold one rank (the LM has no model axis yet: ROADMAP
-    item 7k)."""
+    """(group, ranks, rank) of ``mesh``'s data axes: every dimension but
+    ``model`` (``data``; ``("pod", "data")`` flattened into one group on a
+    multi-pod mesh, the pod major, as the reference's compound axis)."""
     names = mesh.mesh_dim_names
     if "data" not in names:
         raise ValueError(f"the LM step splits its batch over a 'data' mesh dimension; the mesh "
                          f"has {names}")
-    wide = [n for i, n in enumerate(names) if n != "data" and mesh.size(i) > 1]
-    if wide:
-        raise ValueError(f"the LM has no model-parallel layout yet (ROADMAP item 7k): mesh "
-                         f"dimensions {wide} must hold one rank")
-    d = names.index("data")
-    return mesh.get_group(d), mesh.size(d), mesh.get_local_rank(d)
+    axes = tuple(n for n in names if n != "model")
+    if len(axes) == 1:
+        d = names.index("data")
+        return mesh.get_group(d), mesh.size(d), mesh.get_local_rank(d)
+    flat = mesh[axes]._flatten()
+    return flat.get_group(), flat.size(), flat.get_local_rank()
 
 
-def reduce_over_data(grads, metrics: dict, group, *, wire_dtype=None) -> dict:
+def reduce_over_data(grads, metrics: dict, group, *, wire_dtype=None, summed=None) -> dict:
     """Sum each grad leaf over the data group in place and divide it by the
     group's size (one all-reduce a leaf; the leaf goes on the wire in
     ``wire_dtype`` when set, and comes back into its own dtype); returns
     the group's means of the metrics.  Every rank ends with the same
-    bits."""
+    bits.  ``summed`` (a bool a leaf, ``tree_leaves`` order): the leaves
+    whose grads the backward already summed over the group (``fsdp``
+    leaves, :func:`dist.gather_fsdp`), which are only divided."""
     n = dist.get_world_size(group)
-    for g in tree_leaves(grads):
-        if wire_dtype is not None and g.dtype != wire_dtype:
+    leaves = tree_leaves(grads)
+    for g, done in zip(leaves, summed or [False] * len(leaves)):
+        if done:
+            pass
+        elif wire_dtype is not None and g.dtype != wire_dtype:
             w = g.to(wire_dtype)
             dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
             g.copy_(w)
@@ -191,7 +238,8 @@ def reduce_over_data(grads, metrics: dict, group, *, wire_dtype=None) -> dict:
 
 
 def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
-                   grad_dtype: str | None = None, mesh=None) -> tuple[Any, dict]:
+                   grad_dtype: str | None = None, mesh=None,
+                   placements=None) -> tuple[Any, dict]:
     """(grads, {"loss", "aux_loss"}) of ``batch`` (on the params' device),
     one forward and backward a microbatch, in the reference's order.
 
@@ -202,16 +250,24 @@ def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
     they are added (the reference's compressed gradient all-reduce; with
     no mesh, only the rounding).
 
-    With a data ``mesh`` the batch is still the global one: this rank runs
-    its rows of each microbatch (:func:`data_rows`) under the data group,
-    then :func:`reduce_over_data` sums the grads over the group (in
-    ``grad_dtype`` on the wire when set) and divides them by its size: the
-    grads and metrics of the global batch, the same on every rank."""
+    With a ``mesh`` the batch is still the global one: this rank runs its
+    rows of each microbatch (:func:`data_rows`; the ranks of a model group
+    take the same rows) under the data group, then :func:`reduce_over_data`
+    sums the grads over the group (in ``grad_dtype`` on the wire when set)
+    and divides them by its size: the grads and metrics of the global
+    batch, the same on every rank of a data group.  ``placements``
+    (``dist.param_shardings`` of the params' axes; needed where the mesh
+    splits ``model`` or ``fsdp`` shards a leaf): the params and grads are
+    this rank's pieces."""
     gdt = torch_dtype(grad_dtype) if grad_dtype else None
-    group = None
+    group, summed = None, None
     if mesh is not None:
+        if model_split(mesh) is not None and placements is None:
+            raise ValueError("a model split needs the params' placements")
         group, ranks, rank = data_group(mesh)
         batch = data_rows(batch, microbatches, ranks, rank)
+        if placements is not None:
+            summed = [data_sharded(pl, mesh) for pl in placement_leaves(placements)]
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"global batch {b} does not split into {microbatches} microbatches")
@@ -226,7 +282,7 @@ def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             leaves, handles = _backward_leaves(params, grads, accumulate=accumulate, gdt=gdt)
             try:
-                total, mx = lm_loss(api, leaves, mb)
+                total, mx = lm_loss(api, leaves, mb, mesh=mesh, placements=placements)
                 total.backward()
             finally:
                 for h in handles:
@@ -240,7 +296,7 @@ def loss_and_grads(api: LMApi, params, batch: dict, *, microbatches: int = 1,
         loss, aux = loss_sum / microbatches, aux_sum / microbatches
     metrics = {"loss": loss, "aux_loss": aux}
     if group is not None:
-        metrics = reduce_over_data(grads, metrics, group, wire_dtype=gdt)
+        metrics = reduce_over_data(grads, metrics, group, wire_dtype=gdt, summed=summed)
     return grads, metrics
 
 
@@ -252,23 +308,29 @@ def make_train_step(
     lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None,
     grad_dtype: str | None = None,
     mesh=None,
+    placements=None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the train step: ``step(state, batch) -> (state, metrics)``,
     batch leaves ``[B_global, ...]`` (moved to the state's device), the
     state updated in place.  Metrics (0-d tensors): ``loss``, ``aux_loss``,
-    ``grad_norm`` and ``lr``.  ``microbatches``, ``grad_dtype`` and the data
-    ``mesh`` (``launch.mesh.make_data_mesh``; None: one process): see
-    :func:`loss_and_grads`.  Over a mesh the metrics are the data group's,
-    the same on every rank, and so is the update."""
+    ``grad_norm`` and ``lr``.  ``microbatches``, ``grad_dtype`` and the
+    ``mesh`` (``launch.mesh.make_data_mesh`` or a ``(data, model)`` mesh;
+    None: one process): see :func:`loss_and_grads`.  ``placements``: the
+    :class:`TrainState`'s (``dist.param_shardings`` of
+    :func:`train_state_axes`), its leaves this rank's pieces.  Over a mesh
+    the metrics are the data group's, the same on every rank, and so is
+    the update of every piece."""
     sched = lr_schedule or (lambda s: warmup_cosine(s, peak_lr=opt_cfg.lr))
+    ppl = None if placements is None else placements.params
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         dev = state.step.device
         batch = {k: v.to(dev) for k, v in batch.items()}
         grads, metrics = loss_and_grads(api, state.params, batch, microbatches=microbatches,
-                                        grad_dtype=grad_dtype, mesh=mesh)
+                                        grad_dtype=grad_dtype, mesh=mesh, placements=ppl)
         lr = torch.as_tensor(sched(state.step), dtype=torch.float32, device=dev)
-        params, opt, gnorm = apply_updates_(state.params, grads, state.opt, opt_cfg, lr)
+        params, opt, gnorm = apply_updates_(state.params, grads, state.opt, opt_cfg, lr,
+                                            placements=ppl, mesh=None if ppl is None else mesh)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(params=params, opt=opt, step=state.step + 1), metrics
 

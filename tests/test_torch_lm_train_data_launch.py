@@ -2,7 +2,8 @@
 placements of the train state on an ``(n, 1)`` data mesh, the launcher
 under 2 gloo ranks (``torch.multiprocessing.spawn``, ``file://``
 rendezvous), checkpoints crossing between 2 ranks and one process in both
-directions, and the production mesh's 256 ranks refused (ROADMAP item 7k).
+directions, and the production mesh at 256 ranks: 16 × 16 over
+``("data", "model")`` under the ``tp`` rules with the config's ``fsdp``.
 
 Bitwise: a checkpoint restores the very state that wrote it, whatever
 the number of ranks; the next step's loss then agrees with the other
@@ -168,14 +169,41 @@ def test_data_rows_take_a_block_of_each_microbatch():
         data_rows(batch, 3, 2, 0)
 
 
-def test_the_production_mesh_is_refused_naming_item_7k():
-    from repro_torch.launch import train as tl
+def test_the_production_mesh_is_the_tp_mesh():
+    """At 256 ranks the launcher takes the reference's production mesh and
+    the ``tp`` rules with the config's ``fsdp``: heads and vocab over
+    ``model``, every weight's ``embed`` dim over ``data``; ``--smoke`` (as
+    the reference's) and fewer ranks keep the data mesh."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    with pytest.raises(ValueError, match="7k"):
-        tl.training_mesh(256)
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_rules, param_shardings
+    from repro_torch.launch import train as tl
+    from repro_torch.models.lm.api import build
+    from repro_torch.models.lm.layers import abstract_from_specs
+    from repro_torch.models.lm.transformer import decoder_specs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import train_state_axes
+
+    cfg = get_config(ARCH)
+    assert cfg.fsdp
+    rules = tl.training_rules(256, cfg)
+    assert rules == make_rules(fsdp=True)
+    assert tl.training_rules(256, cfg, smoke=True) == make_rules(batch_shard=True, fsdp=False)
     with fake_group(256):
-        with pytest.raises(ValueError, match="item 7k"):
-            tl.run_training(ARCH, device="cpu")
+        mesh = tl.training_mesh(256, device_type="cpu")
+        assert tuple(mesh.shape) == (16, 16)
+        assert mesh.mesh_dim_names == ("data", "model")
+        api = build(cfg)
+        opt = AdamWConfig()
+        params = abstract_from_specs(decoder_specs(cfg), cfg.param_dtype)
+        pl = param_shardings(mesh, rules, train_state_axes(api, opt, params))
+        attn = pl.params["scan"]["pos0"]["attn"]
+        assert attn["wq"] == (Shard(1), Shard(2))  # [L, embed, heads]
+        assert attn["wo"] == (Shard(2), Shard(1))  # [L, heads, embed]
+        assert pl.params["embed"] == (Shard(1), Shard(0))  # [vocab, embed]
+        assert pl.params["final_norm"] == (Replicate(), Replicate())
+        assert pl.opt["m"]["scan"]["pos0"]["mlp"]["w_down"] == (Shard(2), Shard(1))
         mesh = tl.training_mesh(256, smoke=True, device_type="cpu")  # the reference's --smoke
         assert tuple(mesh.shape) == (256, 1)
     assert tl.training_mesh(1) is None
