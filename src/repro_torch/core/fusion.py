@@ -49,7 +49,7 @@ from ..kernels.fused_fp_coeff import fused_fp_coeff
 from ..kernels.seg_gat_agg import bias_vector, range_check, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import edge_index, seg_gat_agg_multigraph
-from ..obs.trace import trace_span
+from ..obs.trace import trace_span, tracing_enabled
 from . import stages
 
 
@@ -127,7 +127,8 @@ def batch_semantic_graph(
     block: int = 128,
     device: str | torch.device = "cpu",
 ) -> SemanticGraphBatch:
-    bc = to_block_csr(sg, block=block)
+    with trace_span("setup/block_csr", graph=sg.name):
+        bc = to_block_csr(sg, block=block)
     return SemanticGraphBatch(
         name=sg.name,
         src_type=sg.src_type,
@@ -177,6 +178,11 @@ class FusedFPInputs:
             wsel=torch.zeros((a_src.shape[0],), dtype=torch.int32, device=x.device),
             index=index,
         )
+
+
+def _graph_names(batches: list[SemanticGraphBatch]) -> list[str] | None:
+    """A span's ``graph_names``, built only while a tracer is enabled."""
+    return [bb.name for bb in batches] if tracing_enabled() else None
 
 
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -387,8 +393,7 @@ def neighbor_aggregate_multi(
                     edge_bias)
         with trace_span(
             "na/fused_fp", stage="NA", backend=backend.value, graphs=g_n,
-            units=int(col.shape[0]), fused_fp=True,
-            graph_names=[bb.name for bb in batches],
+            units=int(col.shape[0]), fused_fp=True, graph_names=_graph_names(batches),
         ) as sp:
             # [G*R*B, H, Dh] — units are g-major, rows in order
             out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope,
@@ -406,7 +411,7 @@ def neighbor_aggregate_multi(
     operands = (col, gid, row, masks, th_s, th_d, hs, edge_bias)
     with trace_span(
         "na/multigraph", stage="NA", backend=backend.value, graphs=g_n,
-        units=int(col.shape[0]), graph_names=[bb.name for bb in batches],
+        units=int(col.shape[0]), graph_names=_graph_names(batches),
     ) as sp:
         # [G*R*B, H, Dh] — units are g-major, rows in order
         out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope, index=index))

@@ -32,6 +32,7 @@ from ...core.multilane import (
     resolve_multilane_backend,
 )
 from ...dist.sharding import gather_leaf
+from ...obs.trace import trace_span
 from ...runtime import barrier
 from .common import HGNNData, HGNNModel, glorot
 
@@ -157,6 +158,11 @@ def _han_embed_multilane(
     (b_g's: the semantic softmax's cotangent sums to zero over the graphs)
     moves further when the GEMM's bits move, by about its own float32
     error against float64.
+
+    Spans (DESIGN.md §12): ``han/fp``, ``han/theta`` (off ``fused_fp``,
+    which projects inside the NA call), the NA call's ``na/multilane`` and
+    ``han/fusion`` (ELU, LSF, GSF); :func:`han_forward_multilane` adds
+    ``han/classifier``.
     """
     x = data.features[data.target_type]
     n = x.shape[0]
@@ -178,16 +184,20 @@ def _han_embed_multilane(
                                   params["a_src"], params["a_dst"])
         z_all = na(plan, None, None, None, backend=backend, fp=fp, **kw)
     else:
-        h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
-        if split_fp:  # this rank's columns of h, gathered as w_fp's columns are placed
-            h = gather_leaf(h, placements["w_fp"], mesh)
-        hh = h.reshape(n, heads, -1)
-        th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
-        th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
-        th_s = _pad_rows(th_s.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
-        th_d = _pad_rows(th_d.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
-        z_all = na(plan, th_s, th_d, _pad_rows(hh, n_pad).contiguous(), backend=backend, **kw)
-    return _fuse(z_all[:, :n], params, n)
+        with trace_span("han/fp", stage="FP"):
+            h = stages.feature_projection(x, params["w_fp"], params["b_fp"])
+            if split_fp:  # this rank's columns of h, gathered as w_fp's columns are placed
+                h = gather_leaf(h, placements["w_fp"], mesh)
+            hh = h.reshape(n, heads, -1)
+        with trace_span("han/theta", stage="theta"):
+            th_s = torch.einsum("nhd,ghd->gnh", hh, params["a_src"])
+            th_d = torch.einsum("nhd,ghd->gnh", hh, params["a_dst"])
+            th_s = _pad_rows(th_s.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
+            th_d = _pad_rows(th_d.transpose(0, 1), n_pad).transpose(0, 1).contiguous()
+            hs = _pad_rows(hh, n_pad).contiguous()
+        z_all = na(plan, th_s, th_d, hs, backend=backend, **kw)
+    with trace_span("han/fusion", stage="FA"):
+        return _fuse(z_all[:, :n], params, n)
 
 
 def han_forward_multilane(
@@ -203,9 +213,10 @@ def han_forward_multilane(
     (lane, model) mesh with ``placements`` (see ``_han_embed_multilane``)."""
     fused, _ = _han_embed_multilane(params, data, plan, mesh=mesh, placements=placements,
                                     backend=backend)
-    w_out = params["w_out"] if placements is None else gather_leaf(
-        params["w_out"], placements["w_out"], mesh)
-    return fused @ w_out + params["b_out"]
+    with trace_span("han/classifier"):
+        w_out = params["w_out"] if placements is None else gather_leaf(
+            params["w_out"], placements["w_out"], mesh)
+        return fused @ w_out + params["b_out"]
 
 
 # --- staged execution (Fig. 4(a) baseline): one stage at a time ---

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ...core.fusion import NABackend, neighbor_aggregate, project_coefficients
 from ...dist.sharding import gather_leaf, sum_cotangent
+from ...obs.trace import trace_span
 from ...tree import tree_map
 from .common import HGNNData, HGNNModel, glorot
 
@@ -93,7 +94,12 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
     of a model group, so the group's logits, loss and gathered gradients
     are bitwise equal; against one process they agree within 1e-5 of each
     leaf's largest magnitude in float32 (the column-split products move
-    bits)."""
+    bits).
+
+    Spans (DESIGN.md §12): per relation and layer, on lane
+    ``sg/<relation>``, ``rgat/fp`` (both sides' projections) and
+    ``rgat/na``; per layer ``rgat/mean`` (the relation mean, the ``self``
+    products, ELU); last ``rgat/classifier``."""
     if placements is not None and mesh is None:
         raise ValueError("placements without a mesh")
     split_fp = placements is not None and backend is not NABackend.KERNEL
@@ -108,33 +114,39 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
         for i, batch in enumerate(data.graphs):
             rp = lp["rel"][f"g{i}"]
             rpl = dict.fromkeys(rp) if lpl is None else lpl["rel"][f"g{i}"]
-            a_src, a_dst = whole(rp["a_src"], rpl["a_src"]), whole(rp["a_dst"], rpl["a_dst"])
+            lane = f"sg/{batch.name}"
             # FP (relation-specific) fused with coefficient computation
-            if split_fp:
-                hs, th_s, _ = _project_split(h[batch.src_type], rp["w_src"], rpl["w_src"],
-                                             a_src, a_dst, mesh)
-                _, _, th_d = _project_split(h[batch.dst_type], rp["w_dst"], rpl["w_dst"],
-                                            a_src, a_dst, mesh)
-            else:
-                hs, th_s, _ = project_coefficients(h[batch.src_type],
-                                                   whole(rp["w_src"], rpl["w_src"]),
-                                                   a_src, a_dst, backend=backend)
-                _, _, th_d = project_coefficients(h[batch.dst_type],
-                                                  whole(rp["w_dst"], rpl["w_dst"]),
-                                                  a_src, a_dst, backend=backend)
-            z = neighbor_aggregate(batch, th_s, th_d, hs, backend=backend)
-            agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
-        h_new = {}
-        for t in h:
-            if t in agg:
-                s = torch.stack(agg[t]).mean(dim=0)  # SF: mean over relations
-            else:
-                s = h[t] @ whole(lp["self"][t], None if lpl is None else lpl["self"][t])
-            h_new[t] = F.elu(s)
-        h = h_new
-    w_out = whole(params["w_out"], None if placements is None else placements["w_out"])
-    b_out = whole(params["b_out"], None if placements is None else placements["b_out"])
-    return h[data.target_type] @ w_out + b_out
+            with trace_span("rgat/fp", stage="FP", lane=lane, layer=layer):
+                a_src = whole(rp["a_src"], rpl["a_src"])
+                a_dst = whole(rp["a_dst"], rpl["a_dst"])
+                if split_fp:
+                    hs, th_s, _ = _project_split(h[batch.src_type], rp["w_src"], rpl["w_src"],
+                                                 a_src, a_dst, mesh)
+                    _, _, th_d = _project_split(h[batch.dst_type], rp["w_dst"], rpl["w_dst"],
+                                                a_src, a_dst, mesh)
+                else:
+                    hs, th_s, _ = project_coefficients(h[batch.src_type],
+                                                       whole(rp["w_src"], rpl["w_src"]),
+                                                       a_src, a_dst, backend=backend)
+                    _, _, th_d = project_coefficients(h[batch.dst_type],
+                                                      whole(rp["w_dst"], rpl["w_dst"]),
+                                                      a_src, a_dst, backend=backend)
+            with trace_span("rgat/na", stage="NA", lane=lane, layer=layer):
+                z = neighbor_aggregate(batch, th_s, th_d, hs, backend=backend)
+                agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
+        with trace_span("rgat/mean", stage="FA", layer=layer):
+            h_new = {}
+            for t in h:
+                if t in agg:
+                    s = torch.stack(agg[t]).mean(dim=0)  # SF: mean over relations
+                else:
+                    s = h[t] @ whole(lp["self"][t], None if lpl is None else lpl["self"][t])
+                h_new[t] = F.elu(s)
+            h = h_new
+    with trace_span("rgat/classifier"):
+        w_out = whole(params["w_out"], None if placements is None else placements["w_out"])
+        b_out = whole(params["b_out"], None if placements is None else placements["b_out"])
+        return h[data.target_type] @ w_out + b_out
 
 
 RGAT = HGNNModel(name="R-GAT", init=init_rgat, forward=rgat_forward)

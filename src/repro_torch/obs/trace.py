@@ -1,19 +1,27 @@
 """Span-based tracing (the counterpart of ``repro.obs.trace``).
 
 Spans around the FP/theta/NA/FA stages, one *lane row* per semantic
-graph or serving slot, and Chrome-trace/Perfetto + JSONL exporters
-(DESIGN.md §12).
+graph or serving slot, and a Chrome-trace/Perfetto exporter (DESIGN.md
+§12).
 
 * **Near-zero cost when disabled.**  The global tracer is ``None`` by
   default; ``trace_span`` then hands back a shared no-op span, so traced
   code paths compute exactly what untraced ones do.
+* **The profiler's clock.**  Spans are stamped in Unix-epoch ns
+  (``time.time_ns``), the clock ``torch.profiler`` maps its events onto,
+  and exported in µs: a launcher's Chrome trace and a profiler trace of
+  the same process line up.  While a ``torch.profiler`` records, each span
+  of an enabled tracer is also a profiler range of its own name, beside
+  the kernels its code launches.
 * **Honest device timing.**  CUDA launches are asynchronous, so a span
   that closes after the launch measures only the enqueue.
   ``Span.sync(value)`` calls ``torch.cuda.synchronize()`` when the tracer
   was enabled with ``sync=True`` and ``value`` holds a CUDA tensor (a
   pass-through otherwise).
 * **Deterministic structure.**  Span names, attributes, nesting depth and
-  parentage depend only on the code path, never on timing.
+  parentage depend only on the code path, never on timing.  Each finished
+  span records its ``id`` and its parent's name and id (``parent``,
+  ``parent_id``), so self time (a span less its children's cover) follows.
 
 Usage::
 
@@ -24,11 +32,14 @@ Usage::
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
 
 import torch
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
 __all__ = [
     "Span",
@@ -57,7 +68,8 @@ class Span:
     """A live span.  ``annotate`` adds attributes; ``sync`` optionally
     waits for the device so the close timestamp is honest."""
 
-    __slots__ = ("tracer", "name", "lane", "attrs", "depth", "parent", "t0", "_sync")
+    __slots__ = ("tracer", "name", "lane", "attrs", "depth", "parent", "parent_id", "id",
+                 "t0", "_sync", "_range")
 
     def __init__(self, tracer, name, lane, attrs, depth, parent, sync):
         self.tracer = tracer
@@ -65,8 +77,11 @@ class Span:
         self.lane = lane
         self.attrs = attrs
         self.depth = depth
-        self.parent = parent
+        self.parent = None if parent is None else parent.name
+        self.parent_id = None if parent is None else parent.id
+        self.id = next(tracer._ids)
         self._sync = sync
+        self._range = None
         self.t0 = 0
 
     def annotate(self, **attrs) -> None:
@@ -94,7 +109,7 @@ _NOOP_SPAN = _NoopSpan()
 
 
 class Tracer:
-    """Collects finished spans; exports Chrome-trace JSON and JSONL.
+    """Collects finished spans; exports Chrome-trace JSON.
 
     Thread-safe: each thread keeps its own span stack, the finished-event
     list and lane-row table are lock-guarded.
@@ -103,7 +118,7 @@ class Tracer:
     def __init__(self, *, sync: bool = False):
         self.sync = sync
         self.events: list[dict] = []
-        self._origin_ns = time.perf_counter_ns()
+        self._ids = itertools.count()
         self._lock = threading.Lock()
         self._local = threading.local()
         self._lanes: dict[str, int] = {}
@@ -126,18 +141,19 @@ class Tracer:
         if lane is None:
             # inherit the enclosing span's row so nested stages stay on it
             lane = parent.lane if parent is not None else "main"
-        sp = Span(
-            self, name, lane, attrs,
-            depth=len(stack),
-            parent=None if parent is None else parent.name,
-            sync=self.sync if sync is None else sync,
-        )
+        sp = Span(self, name, lane, attrs, depth=len(stack), parent=parent,
+                  sync=self.sync if sync is None else sync)
         stack.append(sp)
-        sp.t0 = time.perf_counter_ns()
+        if _profiler._is_profiler_enabled:  # the range holds the span's stamps
+            sp._range = _RecordFunctionFast(name)
+            sp._range.__enter__()
+        sp.t0 = time.time_ns()
         return sp
 
     def end(self, span: Span) -> None:
-        t1 = time.perf_counter_ns()
+        t1 = time.time_ns()
+        if span._range is not None:
+            span._range.__exit__(None, None, None)
         stack = self._stack()
         if stack and stack[-1] is span:
             stack.pop()
@@ -145,12 +161,14 @@ class Tracer:
             del stack[stack.index(span):]
         event = dict(
             name=span.name,
-            ts=(span.t0 - self._origin_ns) / 1e3,   # µs since tracer start
-            dur=(t1 - span.t0) / 1e3,               # µs
+            ts=span.t0 / 1e3,           # µs since the Unix epoch
+            dur=(t1 - span.t0) / 1e3,   # µs
             lane=span.lane,
             tid=self._lane_tid(span.lane),
             depth=span.depth,
+            id=span.id,
             parent=span.parent,
+            parent_id=span.parent_id,
             attrs=span.attrs,
         )
         with self._lock:
@@ -176,18 +194,6 @@ class Tracer:
             ))
         with open(path, "w") as f:
             json.dump({"traceEvents": out, "displayTimeUnit": "ms"}, f, indent=1)
-
-    def export_jsonl(self, path: str) -> None:
-        """Append-only JSONL event log: one finished span per line."""
-        with self._lock:
-            events = list(self.events)
-        with open(path, "a") as f:
-            for e in events:
-                f.write(json.dumps(e) + "\n")
-
-    def span_names(self) -> list[str]:
-        with self._lock:
-            return [e["name"] for e in self.events]
 
     def spans(self, name: str | None = None) -> list[dict]:
         with self._lock:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.hgnn.common import HGNNData, HGNNModel
+from ..obs.trace import trace_span
 from ..optim import AdamWConfig, apply_updates, init_opt_state, opt_state_axes
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .step import TrainState
@@ -83,22 +84,32 @@ def hgnn_loss_and_grads(forward_fn: Callable[[Any], torch.Tensor], params, data:
     """(loss, acc, grads) of the minibatch ``idx``: one forward and one
     ``torch.autograd.grad``.  ``grads`` has the structure of ``params`` (a
     tree); a param the loss does not reach gets zeros, as under
-    ``jax.grad``."""
+    ``jax.grad``.
+
+    Spans (DESIGN.md §12): ``step/forward``, ``step/backward`` (the grad
+    and the zero fills) and ``step/loss`` twice, the weights before the
+    forward (their host bincount and copy come first, while the card is
+    idle anyway) and the NLL and accuracy after it."""
     labels = data.labels
-    # the count of each vertex in idx over len(idx): the minibatch mean as an
-    # elementwise weight on the full-graph NLL
-    counts = torch.bincount(idx.detach().cpu().long(), minlength=labels.shape[0])
-    weight = (counts.float() / idx.numel()).to(labels.device)
-    params = tree_map(lambda p: p.detach().requires_grad_(), params)
-    logp = torch.log_softmax(forward_fn(params).float(), dim=-1)
-    onehot = F.one_hot(labels, data.num_classes).float()
-    loss = -(weight * (logp * onehot).sum(dim=-1)).sum()
-    leaves = tree_leaves(params)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(leaves, grads)])
-    with torch.no_grad():
-        acc = (weight * (logp.argmax(dim=-1) == labels).float()).sum()
+    with trace_span("step/loss"):
+        # the count of each vertex in idx over len(idx): the minibatch mean as an
+        # elementwise weight on the full-graph NLL
+        counts = torch.bincount(idx.detach().cpu().long(), minlength=labels.shape[0])
+        weight = (counts.float() / idx.numel()).to(labels.device)
+    with trace_span("step/forward"):
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        logits = forward_fn(params)
+    with trace_span("step/loss"):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        onehot = F.one_hot(labels, data.num_classes).float()
+        loss = -(weight * (logp * onehot).sum(dim=-1)).sum()
+        with torch.no_grad():
+            acc = (weight * (logp.argmax(dim=-1) == labels).float()).sum()
+    with trace_span("step/backward"):
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                        for p, g in zip(leaves, grads)])
     return loss.detach(), acc, grads
 
 
@@ -127,11 +138,12 @@ def make_hgnn_train_step(
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         loss, acc, grads = hgnn_loss_and_grads(forward_fn, state.params, data, batch["idx"])
-        with torch.no_grad():
+        with torch.no_grad(), trace_span("step/optimizer"):
             lr = sched(state.step)
             new_params, new_opt, gnorm = apply_updates(state.params, grads, state.opt, opt_cfg, lr,
                                                        placements=placements, mesh=mesh)
+            new_step = state.step + 1
         metrics = {"loss": loss, "acc": acc, "grad_norm": gnorm, "lr": lr}
-        return TrainState(params=new_params, opt=new_opt, step=state.step + 1), metrics
+        return TrainState(params=new_params, opt=new_opt, step=new_step), metrics
 
     return train_step

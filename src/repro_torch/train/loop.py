@@ -25,7 +25,7 @@ from ..checkpoint import (
 from ..data.pipeline import SyntheticHGNNData, SyntheticLMData
 from ..obs.emit import Emitter
 from ..obs.metrics import MetricsRegistry, get_registry
-from ..obs.trace import trace_span
+from ..obs.trace import trace_span, tracing_enabled
 from ..tree import tree_leaves
 from .step import TrainState
 
@@ -65,6 +65,11 @@ def _restore_latest(ckpt_dir: str, state: TrainState, mesh,
     return found[0], reshard_to(logical, mesh=mesh, placements=placements), aux[0]
 
 
+def _device_mallocs(dev: torch.device) -> int:
+    """cudaMalloc calls the caching allocator has made on ``dev``."""
+    return torch.cuda.memory_stats(dev)["num_device_alloc"]
+
+
 def train_loop(
     *,
     state: TrainState,
@@ -101,7 +106,10 @@ def train_loop(
     gauges and emit a ``[train] step=… loss=… sec=…`` record through
     :class:`Emitter` (mirrored to ``log_jsonl`` when given).  On the card
     each step ends with a device synchronise, so ``sec`` and
-    ``train.step_ms`` are the step's latency, not its enqueue time.
+    ``train.step_ms`` are the step's latency, not its enqueue time.  Each
+    step is a ``train/step`` span; on the card, under a tracer enabled when
+    the loop starts, the span's ``device_mallocs`` counts the caching
+    allocator's cudaMalloc calls from the step's start to that synchronise.
 
     The LM step (``make_train_step``) updates the state in place and the
     HGNN step returns a new one; the loop takes the state each returns.
@@ -130,6 +138,7 @@ def train_loop(
             em.emit("resume", step=last)
 
     history: list[dict] = []
+    count_mallocs = dev.type == "cuda" and tracing_enabled()
     try:
         for step in range(start, steps):
             if crash_at is not None and step == crash_at:
@@ -137,10 +146,13 @@ def train_loop(
             t0 = time.perf_counter()
             batch = data.next()
             with trace_span("train/step", step=step) as sp:
+                mallocs = _device_mallocs(dev) if count_mallocs else 0
                 state, metrics = train_step(state, batch)
                 sp.sync(metrics["loss"])
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                    if count_mallocs:
+                        sp.annotate(device_mallocs=_device_mallocs(dev) - mallocs)
             dt = time.perf_counter() - t0
             if step % log_every == 0 or step == steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}

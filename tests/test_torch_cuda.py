@@ -547,6 +547,29 @@ def test_kernel_training_on_cuda_is_bitwise_repeatable(cuda):
 
 
 @pytest.mark.cuda
+def test_traced_training_on_cuda_counts_mallocs_and_keeps_the_bits(cuda):
+    """The port's tracer, sync off, on the card: every ``train/step`` span
+    counts the caching allocator's cudaMalloc calls, the step's phases are
+    its children, and the state is the untraced run's bit for bit."""
+    kw = dict(_RUN, steps=3, device="cuda")
+    a, _, _ = hgnn_train.run_training(**kw)
+    tracer = enable_tracing()
+    try:
+        b, _, _ = hgnn_train.run_training(**kw)
+    finally:
+        disable_tracing()
+    for (ka, va), (kb, vb) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
+        assert ka == kb and torch.equal(va, vb), ka
+    steps = tracer.spans("train/step")
+    assert len(steps) == 3
+    assert all(type(e["attrs"]["device_mallocs"]) is int and e["attrs"]["device_mallocs"] >= 0
+               for e in steps)
+    ids = {e["id"] for e in steps}
+    for phase in ("step/forward", "step/backward", "step/optimizer"):
+        assert {e["parent_id"] for e in tracer.spans(phase)} == ids, phase
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(KERNEL5_CASES))
 def test_kernel5_matches_plain_on_cuda(cuda, name):
     col, masks, ths, thd, hs, bias = (torch.from_numpy(np.array(a)).to(cuda)

@@ -5,7 +5,8 @@ process-wide metrics registry (``obs.get_registry``/``reset_registry``),
 tests/test_torch_train.py's size (scale=0.05, block=16, max_edges=20000;
 hidden=8, heads=2): the metrics snapshots have the same series names and
 label sets, the characterization the same keys, and the traces the same
-span names and lanes."""
+span names and lanes, besides the spans of the port's eager step phases and
+HAN stages, which the reference's jitted step has not."""
 import json
 
 import pytest
@@ -23,6 +24,10 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.train import init_hgnn_train_state, make_hgnn_train_step, train_loop
 
 PROBLEM = dict(scale=0.05, feat_scale=0.1, block=16, max_edges=20_000)
+# the spans a port's HAN step opens that the reference's jitted step cannot
+PORT_STEP_SPANS = {(name, "main") for name in (
+    "step/forward", "step/loss", "step/backward", "step/optimizer",
+    "han/fp", "han/theta", "han/fusion", "han/classifier")}
 _SILENT = lambda *_: None  # noqa: E731
 
 
@@ -102,9 +107,10 @@ def test_run_training_trace_and_metrics_match_the_reference(tmp_path):
         assert list(meta["characterize"][k]) == list(jmeta["characterize"][k])
     # span names and lanes: the reference's, but for na/multilane_sharded,
     # which the port opens only over a lane group (lanes > 1), where the
-    # reference wraps its 1 x 1 mesh too
+    # reference wraps its 1 x 1 mesh too; and the port's eager step opens
+    # spans of its phases and of HAN's stages inside train/step, on its lane
     tspans, jspans = _spans(tmp_path / "tt.json"), _spans(tmp_path / "jt.json")
-    assert tspans == {s for s in jspans if s[0] != "na/multilane_sharded"}
+    assert tspans == {s for s in jspans if s[0] != "na/multilane_sharded"} | PORT_STEP_SPANS
     assert ("train/step", "main") in tspans
     reset_registry()
 
