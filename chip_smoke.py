@@ -10,6 +10,14 @@ Phases, each fatal on failure:
    reports; the tensor-core kernels (#6, #7, and the projection phase of
    #3 and #4) and #5's edge walk must not spill, nor the wgmma
    instructions be serialised for want of registers (ptxas warning C7512).
+   Then AdamW's kernel pair (phase 9) at the benchmark's HAN and R-GAT
+   trees: one step against the loop, every leaf within 1e-6 of its own
+   largest magnitude, the loop's bits given the kernels' norm, twice
+   bitwise equal, two launches a step; the pair's device ms beside its
+   bytes bound, and the wall ms of a step through ``apply_updates`` and
+   through the loop it replaces.  Its launches on the kernels line come
+   from the HAN and R-GAT training runs of phases 4b and 5.  Alone:
+   ``c.adamw_alone()``.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (full-scale synthetic IMDB, HAN at
    heads=8, hidden=64) and on edge cases (an all-padding unit, fully
@@ -334,7 +342,7 @@ Phases, each fatal on failure:
       1e-4; then ``examples_torch/serve_hgnn.py`` (every #1 call held
       against plain) and ``quickstart.py`` at their defaults.  Alone:
       ``python3 -c 'import chip_smoke as c; c.observability_alone()'``.
-8. Print the ``kernels`` JSON line (#1-#7, #7's also at the MoE,
+8. Print the ``kernels`` JSON line (#1-#7 and AdamW's pair, #7's also at the MoE,
    recurrentgemma, qwen2-vl and whisper layer shapes; each row's ``ms_per`` says
    what its times cover and ``launches_by_path`` which runs its launches
    come from; bounds count NA work per edge, not per dense B×B block; #1's
@@ -1142,15 +1150,18 @@ def training(data, counters, fusion_mod) -> dict:
     res = {}
     # b. the main path, as a user runs it: counters zeroed just before, read just after
     lines = []
+    adamw_fn = importlib.import_module("repro_torch.kernels.fused_adamw").fused_adamw
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
+    for fn in (*counters.values(), adamw_fn):
         fn.launches = 0
     t0 = time.perf_counter()
     _, hist, meta = hgnn_train.run_training(steps=20, backend="kernel", log_every=1,
                                             log=lines.append, device="cuda", **TRAIN, **TRAIN_WIDTH)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    res["multigraph_run"] = dict(launches=launches, wall_s=wall, meta=meta,
+    adamw_launches = adamw_fn.launches
+    res["multigraph_run"] = dict(launches=launches, adamw_launches=adamw_launches, wall_s=wall,
+                                 meta=meta,
                                  peak_mem_bytes=torch.cuda.max_memory_allocated(),
                                  steps_ms=[h["sec"] * 1e3 for h in hist],
                                  loss=[h["loss"] for h in hist])
@@ -1161,6 +1172,8 @@ def training(data, counters, fusion_mod) -> dict:
         f"{res['multigraph_run']['peak_mem_bytes'] / 2**30:.3f} GiB")
     if launches != {"multigraph": 20, "multigraph_bwd": 20, "fused_fp": 0, "fused_fp_bwd": 0}:
         raise AssertionError(f"training launches per step are not 1/1/0/0 over 20 steps: {launches}")
+    if adamw_launches != 2 * 20:
+        raise AssertionError(f"AdamW's kernel pair launched {adamw_launches} times in 20 steps")
     if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"the loss did not fall: {[h['loss'] for h in hist]}")
 
@@ -2878,8 +2891,9 @@ def rgat_training(counters) -> dict:
     from repro_torch.launch import hgnn_train
 
     lines = []
+    adamw_fn = importlib.import_module("repro_torch.kernels.fused_adamw").fused_adamw
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
+    for fn in (*counters.values(), adamw_fn):
         fn.launches = 0
     t0 = time.perf_counter()
     _, hist, meta = hgnn_train.run_training(model_name="R-GAT", steps=20, backend="kernel",
@@ -2887,8 +2901,10 @@ def rgat_training(counters) -> dict:
                                             **TRAIN, **RGAT_TRAIN)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    adamw_launches = adamw_fn.launches
     steps_ms = [h["sec"] * 1e3 for h in hist]
-    res = dict(launches=launches, per_step={k: v / 20 for k, v in launches.items()}, wall_s=wall,
+    res = dict(launches=launches, per_step={k: v / 20 for k, v in launches.items()},
+               adamw_launches=adamw_launches, wall_s=wall,
                meta=meta, steps_ms=steps_ms, loss=[h["loss"] for h in hist],
                peak_mem_bytes=torch.cuda.max_memory_allocated())
     log(f"[train R-GAT] {lines[0]}")
@@ -2899,6 +2915,8 @@ def rgat_training(counters) -> dict:
     want = {k: 0 for k in launches} | {"multigraph": 120, "multigraph_bwd": 120}
     if launches != want:
         raise AssertionError(f"R-GAT training launches {launches}, expected {want} (6/6 a step)")
+    if adamw_launches != 2 * 20:
+        raise AssertionError(f"AdamW's kernel pair launched {adamw_launches} times in 20 steps")
     if not hist[-1]["loss"] < hist[0]["loss"] or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"the R-GAT loss did not fall: {[h['loss'] for h in hist]}")
 
@@ -6247,6 +6265,149 @@ def obs_counters(mg_mod, ff_mod, k5_mod) -> dict:
             "seg_gat_agg": k5_mod.seg_gat_agg}
 
 
+# -- phase 9: AdamW as one kernel pair ------------------------------------------
+
+
+def adamw_trees() -> dict[str, list[tuple]]:
+    """Leaf shapes of the benchmark's trees (``hgnnbench/configs``): HAN on
+    ``han-dblp`` (9 leaves), R-GAT on ``rgat-mag`` (66)."""
+    han = json.loads((ROOT / "hgnnbench" / "configs" / "han-dblp.json").read_text())
+    w, g = han["widths"], han["graph"]
+    c, k, n_cls = w["heads"] * w["hidden"], len(g["metapaths"]), g["num_classes"]
+    han_shapes = [(g["features"][g["target"]], c), (c,), (k, w["heads"], w["hidden"]),
+                  (k, w["heads"], w["hidden"]), (c, w["att_dim"]), (w["att_dim"],),
+                  (w["att_dim"], 1), (c, n_cls), (n_cls,)]
+    rgat = json.loads((ROOT / "hgnnbench" / "configs" / "rgat-mag.json").read_text())
+    w, g = rgat["widths"], rgat["graph"]
+    c, feat = w["heads"] * w["hidden"], g["feature_width"]
+    rels, types = len(g["relations"]) + len(g["reverse"]), len(g["vertices"])
+    rgat_shapes = []
+    for layer in range(w["layers"]):
+        d = feat if layer == 0 else c
+        rgat_shapes += [(d, c), (d, c), (w["heads"], w["hidden"]), (w["heads"], w["hidden"])] * rels
+        rgat_shapes += [(d, c)] * types
+    rgat_shapes += [(c, g["num_classes"]), (g["num_classes"],)]
+    return {"han-dblp": han_shapes, "rgat-mag": rgat_shapes}
+
+
+ADAMW_LEAF_REL = 1e-6  # of each leaf's largest magnitude: kernels against the loop
+
+
+def adamw_phase(reps: int = 200) -> dict:
+    """AdamW's kernel pair (``kernels/fused_adamw.py``) at the benchmark's
+    HAN and R-GAT trees, float32, the configurations' optimizer: one step
+    against the loop (every leaf of params, m and v, and the norm, within
+    ``ADAMW_LEAF_REL`` of its own largest magnitude: v is ~1e-8 here, below
+    any absolute tolerance), the loop's bits given the kernels' norm, and
+    twice bitwise equal; the pair's device ms (torch.profiler, in place),
+    its bound (28 bytes an element at 3.35 TB/s: g, p, m, v read and p, m,
+    v written once from HBM; pass 2's second read of g hits the 50 MB L2,
+    which holds R-GAT's 7.5 MB of gradient), and the wall ms of
+    a step with its synchronise through ``apply_updates`` (the kernels, out
+    of place, as the trainer calls it) and through the loop it replaces
+    (``fused_adamw_plain`` out of place: the clones, the norm, the leaf
+    loop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import AdamWConfig, adamw, apply_updates, init_opt_state
+
+    fa = importlib.import_module("repro_torch.kernels.fused_adamw")
+    opt = json.loads((ROOT / "hgnnbench" / "configs" / "rgat-mag.json").read_text())["optimizer"]
+    cfg = AdamWConfig(**opt)
+    res = {}
+    for name, shapes in adamw_trees().items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = {f"w{i:03d}": torch.randn(s, generator=gen, device="cuda")
+                  for i, s in enumerate(shapes)}
+        grads = {k: 0.1 * torch.randn(p.shape, generator=gen, device="cuda")
+                 for k, p in params.items()}
+        state = init_opt_state(params, cfg)
+        lr = torch.tensor(cfg.lr, device="cuda")
+        leaves = adamw._leaves(params, grads, state)
+        n = sum(p.numel() for p in params.values())
+        got = fa.fused_adamw(cfg, lr, *leaves, state["count"], in_place=False)
+        again = fa.fused_adamw(cfg, lr, *leaves, state["count"], in_place=False)
+        want = fa.fused_adamw_plain(cfg, lr, *leaves, state["count"], in_place=False)
+        flat = lambda out: [*out[0], *out[1], *out[2], out[4], out[5]]  # noqa: E731
+        if int(got[4]) != int(want[4]) or int(got[4]) != int(state["count"]) + 1:
+            raise AssertionError(f"fused_adamw {name}: count {int(got[4])}, loop {int(want[4])}")
+        err = rel = 0.0
+        labels = [f"{k}[{i}]" for k in ("param", "m", "v") for i in range(len(shapes))]
+        for label, a, b in zip(labels + ["grad_norm"], flat(got)[:-2] + [got[5]],
+                               flat(want)[:-2] + [want[5]]):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"fused_adamw {name} {label}: shape or non-finite")
+            d = float((a - b).abs().max())
+            leaf_rel = d / max(float(b.abs().max()), 1e-30)
+            if leaf_rel > ADAMW_LEAF_REL:
+                raise AssertionError(f"fused_adamw {name} {label}: {d:.3e} is {leaf_rel:.3e} of "
+                                     f"the leaf's largest magnitude (limit {ADAMW_LEAF_REL})")
+            err, rel = max(err, d), max(rel, leaf_rel)
+        log(f"[check] fused_adamw {name} vs loop: max_abs_err={err:.3e}, worst leaf "
+            f"{rel:.3e} of its largest magnitude (limit {ADAMW_LEAF_REL})")
+        # given the kernels' norm, the loop writes the kernels' bits
+        p_, m_, v_ = ([t.clone() for t in ts] for ts in (leaves[0], leaves[2], leaves[3]))
+        master_ = [None if t is None else t.clone() for t in leaves[4]]
+        count_ = state["count"].clone()
+        adamw.update_leaves_(cfg, lr, got[5], p_, leaves[1], m_, v_, master_, count_)
+        if not all(torch.equal(a, b) for a, b in zip(flat(got)[:-2], p_ + m_ + v_)):
+            raise AssertionError(f"fused_adamw {name}: the loop given the kernels' norm differs")
+        if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))):
+            raise AssertionError(f"fused_adamw {name}: two runs differ")
+
+        def walls(step) -> float:
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / reps
+
+        fused_ms = walls(lambda: apply_updates(params, grads, state, cfg, lr))
+        loop_ms = walls(lambda: fa.fused_adamw_plain(cfg, lr, *leaves, state["count"],
+                                                     in_place=False))
+        before = fa.fused_adamw.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fa.fused_adamw(cfg, lr, *leaves, state["count"], in_place=True)
+            torch.cuda.synchronize()
+        launches = fa.fused_adamw.launches - before
+        pair = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+                if "adamw_" in e.key and e.self_device_time_total > 0}
+        kernel_ms = sum(pair.values())
+        bound = 28 * n / PEAK_HBM_BYTES * 1e3
+        res[name] = dict(leaves=len(shapes), elements=n, groups=len(fa.plan(
+            tuple(p.numel() for p in params.values())).groups), launches_per_step=launches / reps,
+            max_abs_err=err, max_leaf_rel_err=rel, kernel_ms=kernel_ms, by_kernel=pair,
+            bound_ms=bound, apply_updates_ms=fused_ms, loop_ms=loop_ms)
+        log(f"[adamw] {name}: {len(shapes)} leaves, {n} elements, pair {kernel_ms:.4f} ms "
+            f"({', '.join(f'{k[:40]} {v:.4f}' for k, v in pair.items())}), bound {bound:.4f} ms, "
+            f"apply_updates {fused_ms:.4f} ms a step, loop {loop_ms:.4f} ms a step, "
+            f"{launches / reps:.0f} launches a step")
+        if launches != 2 * reps or kernel_ms <= 0:
+            raise AssertionError(f"fused_adamw {name}: {launches} launches, {kernel_ms} ms")
+    return res
+
+
+def adamw_alone() -> dict:
+    """Phase 9 alone (``python3 -c 'import chip_smoke as c; c.adamw_alone()'``):
+    builds the kernel pair, writes its ptxas report, runs the phase and
+    writes adamw.json to the output directory."""
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    OUT.mkdir(exist_ok=True)
+    check_ptxas(build.build(("fused_adamw",)))
+    res = adamw_phase()
+    res["card"] = card_line()
+    (OUT / "adamw.json").write_text(json.dumps(res, indent=1, default=str))
+    return res
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -6342,6 +6503,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"[build] {len(build.KERNELS)} kernels in {build_s:.1f} s")
     check_ptxas(reports)
+    adamw = adamw_phase()
 
     t0 = time.perf_counter()
     graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
@@ -6609,6 +6771,23 @@ def main() -> int:
          "launches_by_path": by_path[k], "ms_per": ms_per[k]}
         for k in sources
     ]}
+    # AdamW's pair: port only, replaces no TPU kernel; its launches from the
+    # HAN and R-GAT main-path training runs, its times from phase 9
+    line["kernels"].append({
+        "name": "fused_adamw", "route": "cuda", "source": "src/repro_torch/csrc/fused_adamw.cu",
+        "replaces": None, "launches": train["multigraph_run"]["adamw_launches"]
+        + rgat_train["adamw_launches"],
+        "max_abs_err": max(adamw[t]["max_abs_err"] for t in ("han-dblp", "rgat-mag")),
+        "max_leaf_rel_err": max(adamw[t]["max_leaf_rel_err"] for t in ("han-dblp", "rgat-mag")),
+        "ms": adamw["rgat-mag"]["kernel_ms"], "plain_ms": adamw["rgat-mag"]["loop_ms"],
+        "bound_ms": adamw["rgat-mag"]["bound_ms"], "bound_by": "hbm", "library_ms": None,
+        "launches_by_path": {"HAN training, 20 steps": train["multigraph_run"]["adamw_launches"],
+                             "R-GAT training, 20 steps": rgat_train["adamw_launches"]},
+        "ms_per": ("one step of the pair (adamw_norm_partials + adamw_update) at rgat-mag's "
+                   "66-leaf tree, device ms; plain_ms: the loop it replaces, wall ms of a step "
+                   "with its synchronise; han_*: the same at han-dblp's 9-leaf tree"),
+        "han_ms": adamw["han-dblp"]["kernel_ms"], "han_plain_ms": adamw["han-dblp"]["loop_ms"],
+        "han_bound_ms": adamw["han-dblp"]["bound_ms"]})
     fa_row = next(r for r in line["kernels"] if r["name"] == "flash_attention")
     fa_row["ms_float32"] = train_kernels["flash_attention"]["ms_float32"]
     fa_row["bound_split_ms"] = train_kernels["flash_attention"]["bound_split_ms"]
@@ -6650,7 +6829,7 @@ def main() -> int:
                 train_kernels=train_kernels, training=train, multilane=lanes, fused_b128=b128,
                 inference=infer,
                 observability=obs,
-                rgat_training=rgat_train, lm=lm,
+                rgat_training=rgat_train, lm=lm, adamw=adamw,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
                 serve_max_abs_err=serve_err, launcher=cli)

@@ -2,6 +2,7 @@
 version beside it.  Importing this package builds nothing: a kernel is
 compiled (``kernels/build.py``) the first time a CUDA tensor reaches it."""
 from .flash_attention import flash_attention, flash_attention_plain
+from .fused_adamw import fused_adamw, fused_adamw_plain
 from .fused_fp_coeff import fused_fp_coeff, fused_fp_coeff_plain
 from .seg_gat_agg import seg_gat_agg, seg_gat_agg_plain
 from .seg_gat_agg_fused_fp import (
@@ -22,6 +23,8 @@ from .seg_gat_agg_multigraph import (
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "fused_adamw",
+    "fused_adamw_plain",
     "fused_fp_coeff",
     "fused_fp_coeff_plain",
     "seg_gat_agg",

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "seg_gat_agg", "seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd",
     "seg_gat_agg_fused_fp", "seg_gat_agg_fused_fp_bwd", "flash_attention", "fused_fp_coeff",
+    "fused_adamw",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -21,6 +21,16 @@ bits into the state it is given, a slice of each leaf at a time, so that
 an LM step over 50 GB of state needs no second copy of it.  Both run the
 reference's operations in its order.
 
+On the card both take one route by what their inputs show: the unfactored
+update of a tree whose leaves lie on a CUDA device, none sharded, runs as
+one kernel pair over the whole tree (``kernels/fused_adamw.py``): no
+clone, no host loop over the leaves, no scalar copied to the card.  The
+kernels raise on operands they do not take (a dtype other than float32
+or bfloat16, an ``lr`` that is not a float32 tensor on the card).  They
+sum the norm in another order, so that route agrees with the loop to
+float32 rounding.  CPU leaves, the factored mode and sharded leaves keep
+the loop.
+
 Under a model axis (``dist.sharding``) a leaf may be this rank's piece of
 the logical one: :func:`global_norm` and the updates then take the
 leaves' placements and the mesh, and sum the squares of each sharded leaf
@@ -39,7 +49,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import Shard
 
 from ..dist.sharding import map_axes, placement_leaves
-from ..tree import tree_leaves, tree_map
+from ..kernels.fused_adamw import fused_adamw, on_card
+from ..tree import tree_leaves, tree_leaves_at, tree_map, tree_unflatten
 
 CHUNK = 1 << 26  # elements an update step takes of a leaf at a time (256 MiB in float32)
 
@@ -247,52 +258,82 @@ def _factored_chunks(p, g, vr, vc, vf, master):
         yield [p3[s], g3[s], vr2[s], vc2[s], None, None if m3 is None else m3[s]]
 
 
-def _at_leaves(params, tree) -> list:
-    """``tree``'s entries at the leaves of ``params`` (None where it holds
-    None, as the master slot of a float32 param), in ``tree_leaves`` order."""
-    return [get() for get in tree_leaves(tree_map(lambda _, x: lambda: x, params, tree))]
-
-
 def _write(dst, src) -> None:
     if dst is not None:
         dst.copy_(src)
+
+
+def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def update_leaves_(cfg: AdamWConfig, lr, gnorm, params, grads, m, v, master, count) -> None:
+    """The unfactored step of leaves (lists in ``tree_leaves`` order, None
+    in ``master`` where a param keeps none) whose gradient norm is
+    ``gnorm``, written in place (``count`` too): the reference's ``upd``,
+    leaf by leaf, a slice at a time."""
+    scale = _clip_scale(cfg, gnorm)
+    count.add_(1)
+    cf = count.float()
+    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
+    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
+    mdt = _dtype(cfg.moment_dtype)
+    for p, g, mi, vi, ma in zip(params, grads, m, v, master):
+        for cp, cg, cm, cv, cma in _flat_chunks(p, g.contiguous(), mi, vi, ma):
+            out = _adamw_leaf(cfg, lr, scale, c1, c2, mdt, cp, cg, cm, cv, cma)
+            for dst, src in zip((cp, cm, cv, cma), out):
+                _write(dst, src)
+
+
+def _leaves(params, grads, state: dict) -> tuple[list, ...]:
+    """(params, grads, m, v, master) at the params' leaves."""
+    flat = lambda t: tree_leaves_at(params, t)  # noqa: E731
+    return (tree_leaves(params), flat(grads), flat(state["m"]), flat(state["v"]),
+            flat(state["master"]))
+
+
+def _fused(flat_params, placements, mesh) -> bool:
+    """Whether the unfactored step of leaves ``flat_params`` takes the
+    kernels (``kernels/fused_adamw.py``): leaves on a CUDA device, none
+    sharded."""
+    if placements is not None and mesh is not None and any(
+            isinstance(q, Shard) for pl in placement_leaves(placements) for q in pl):
+        return False
+    return on_card(flat_params)
 
 
 def apply_updates_(params, grads, state: dict, cfg: AdamWConfig, lr, *, placements=None,
                    mesh=None):
     """One optimizer step written into ``params`` and ``state`` (their
     tensors are updated in place, ``count`` too).  Returns (params, state,
-    grad_norm).  Each leaf is updated a slice at a time, so the step needs
-    a few slices of scratch on top of the state.  ``placements``/``mesh``:
-    the leaves are pieces (:func:`global_norm`, :func:`_piece_means`)."""
+    grad_norm).  On the loop each leaf is updated a slice at a time, so the
+    step needs a few slices of scratch on top of the state; the kernels
+    need none.  ``placements``/``mesh``: the leaves are pieces
+    (:func:`global_norm`, :func:`_piece_means`)."""
     with torch.no_grad():
-        gnorm = global_norm(grads, placements=placements, mesh=mesh)
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-        state["count"].add_(1)
-        flat_p = tree_leaves(params)
-        flat = lambda t: _at_leaves(params, t)  # noqa: E731
-        if cfg.factored:
-            pls = [None] * len(flat_p) if placements is None or mesh is None else \
-                placement_leaves(placements)
-            for p, g, vr, vc, vf, ma, pl in zip(flat_p, flat(grads), flat(state["v_row"]),
-                                                flat(state["v_col"]), flat(state["v_full"]),
-                                                flat(state["master"]), pls):
-                means = (_mean, _mean) if pl is None else _piece_means(pl, mesh, p.dim())
-                for cp, cg, cvr, cvc, cvf, cma in _factored_chunks(p, g.contiguous(), vr, vc, vf,
-                                                                   ma):
-                    out = _factored_leaf(cfg, lr, scale, cp, cg, cvr, cvc, cvf, cma, means)
-                    for dst, src in zip((cp, cvr, cvc, cvf, cma), out):
-                        _write(dst, src)
+        count = state["count"]
+        if not cfg.factored:
+            leaves = _leaves(params, grads, state)
+            if _fused(leaves[0], placements, mesh):
+                gnorm = fused_adamw(cfg, lr, *leaves, count, in_place=True)[-1]
+            else:
+                gnorm = global_norm(grads, placements=placements, mesh=mesh)
+                update_leaves_(cfg, lr, gnorm, *leaves, count)
             return params, state, gnorm
-        cf = state["count"].float()
-        c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
-        c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
-        mdt = _dtype(cfg.moment_dtype)
-        for p, g, m, v, ma in zip(flat_p, flat(grads), flat(state["m"]), flat(state["v"]),
-                                  flat(state["master"])):
-            for cp, cg, cm, cv, cma in _flat_chunks(p, g.contiguous(), m, v, ma):
-                out = _adamw_leaf(cfg, lr, scale, c1, c2, mdt, cp, cg, cm, cv, cma)
-                for dst, src in zip((cp, cm, cv, cma), out):
+        gnorm = global_norm(grads, placements=placements, mesh=mesh)
+        scale = _clip_scale(cfg, gnorm)
+        count.add_(1)
+        flat_p = tree_leaves(params)
+        flat = lambda t: tree_leaves_at(params, t)  # noqa: E731
+        pls = [None] * len(flat_p) if placements is None or mesh is None else \
+            placement_leaves(placements)
+        for p, g, vr, vc, vf, ma, pl in zip(flat_p, flat(grads), flat(state["v_row"]),
+                                            flat(state["v_col"]), flat(state["v_full"]),
+                                            flat(state["master"]), pls):
+            means = (_mean, _mean) if pl is None else _piece_means(pl, mesh, p.dim())
+            for cp, cg, cvr, cvc, cvf, cma in _factored_chunks(p, g.contiguous(), vr, vc, vf, ma):
+                out = _factored_leaf(cfg, lr, scale, cp, cg, cvr, cvc, cvf, cma, means)
+                for dst, src in zip((cp, cvr, cvc, cvf, cma), out):
                     _write(dst, src)
     return params, state, gnorm
 
@@ -301,7 +342,18 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig, lr, *, placement
                   mesh=None):
     """One optimizer step.  Returns (params, state, grad_norm), new trees;
     the inputs are not modified.  The bits are :func:`apply_updates_`'s.
-    ``placements``/``mesh``: the leaves are pieces (:func:`global_norm`)."""
+    ``placements``/``mesh``: the leaves are pieces (:func:`global_norm`).
+    On the kernels' route nothing is cloned: they read the old state and
+    write fresh tensors, one a leaf."""
+    if not cfg.factored:
+        leaves = _leaves(params, grads, state)
+        if _fused(leaves[0], placements, mesh):
+            with torch.no_grad():
+                p, m, v, master, count, gnorm = fused_adamw(cfg, lr, *leaves, state["count"],
+                                                            in_place=False)
+            tree = lambda xs: tree_unflatten(params, xs)  # noqa: E731
+            new = dict(state, m=tree(m), v=tree(v), master=tree(master), count=count)
+            return tree(p), new, gnorm
     clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
     state = {k: clone(v) for k, v in state.items()}
     return apply_updates_(clone(params), grads, state, cfg, lr, placements=placements, mesh=mesh)

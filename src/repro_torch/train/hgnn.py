@@ -134,12 +134,14 @@ def make_hgnn_train_step(
     if data.labels is None:
         raise ValueError("training needs labels in HGNNData")
     dev = data.labels.device
-    sched = lr_schedule or (lambda s: torch.tensor(opt_cfg.lr, dtype=torch.float32, device=dev))
+    if lr_schedule is None:  # one copy to the card here, none a step
+        lr_const = torch.tensor(opt_cfg.lr, dtype=torch.float32, device=dev)
+        lr_schedule = lambda s: lr_const  # noqa: E731
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         loss, acc, grads = hgnn_loss_and_grads(forward_fn, state.params, data, batch["idx"])
         with torch.no_grad(), trace_span("step/optimizer"):
-            lr = sched(state.step)
+            lr = lr_schedule(state.step)
             new_params, new_opt, gnorm = apply_updates(state.params, grads, state.opt, opt_cfg, lr,
                                                        placements=placements, mesh=mesh)
             new_step = state.step + 1

@@ -42,6 +42,18 @@ def tree_leaves(tree) -> list:
     return [x for _, x in tree_leaves_with_path(tree)]
 
 
+def tree_leaves_at(like, tree) -> list:
+    """``tree``'s entries at the leaves of ``like`` (a tree of the same
+    structure, whose entries there may be anything, None included), in
+    :func:`tree_leaves` order."""
+    if like is None:
+        return []
+    kids = _children(like)
+    if kids is None:
+        return [tree]
+    return [x for (_, a), (_, b) in zip(kids, _children(tree)) for x in tree_leaves_at(a, b)]
+
+
 def tree_map(fn: Callable[..., Any], tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching entries of
     ``rest`` (trees of the same structure, whose entries at ``tree``'s
