@@ -6408,6 +6408,158 @@ def adamw_alone() -> dict:
     return res
 
 
+# -- phase 10: Simple-HGN's joint NA (the joint #1 and #2) ----------------------
+
+SIMPLE_HGN_PROBLEM = dict(dataset="imdb", scale=1.0, feat_scale=1.0, block=8)
+SIMPLE_HGN_WIDTH = dict(hidden=64, heads=8)
+JOINT_CASES = (  # (H, Dh, prior layers): the hidden layers' shape, and the output
+    (8, 64, 1),  # layer's 349 columns padded to 352 (float4 lane groups)
+    (8, 64, 0),
+    (1, 352, 0),
+)
+
+
+def joint_case(mg_mod, jg, H: int, Dh: int, K: int, seed: int, dev) -> dict:
+    """Random operands of the joint NA over ``jg`` (every unit, or the
+    target's units at H = 1) and K prior layers, each prior's lse its own
+    joint forward's (as the model passes it on)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, R = jg.num_rows, jg.num_edge_types
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    n_units = jg.num_units if H > 1 else jg.units_of(jg.types[0])
+    index = jg.index(n_units)
+    ops = dict(theta_src=rnd(n, H), theta_dst=rnd(n, H), h_src=rnd(n, H, Dh),
+               edge_bias=rnd(R, H))
+    priors = None
+    if K:
+        ths, thd, bias = rnd(K, n, H), rnd(K, n, H), rnd(K, R, H)
+        lse = torch.zeros((K, n, H), device=dev)
+        for k in range(K):
+            _, lse_k, _ = mg_mod.seg_gat_agg_multigraph_joint_plain(
+                index, ths[k], thd[k], rnd(n, H, Dh), bias[k], leaky_slope=0.05)
+            lse[k, : lse_k.shape[0]] = lse_k
+        priors = mg_mod.JointPriors(ths, thd, bias, lse, (1.0,) * K)
+    return dict(index=index, ops=ops, priors=priors)
+
+
+def simple_hgn_phase() -> dict:
+    """The joint #1 and #2 against their plain versions at each of
+    JOINT_CASES on full IMDB as Simple-HGN trains on it (B = 8), each run
+    twice and bitwise equal, with their CUDA-event times; then Simple-HGN's
+    loss and gradients on the card against the CPU at 8 heads of 64, with
+    the step's joint launches (3 forward, 3 backward, 2 prior layers
+    recomputed: one in the forward, one in the backward)."""
+    from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import SIMPLE_HGN
+    from repro_torch.train.hgnn import hgnn_loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mg_mod = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
+    fwd, bwd = mg_mod.seg_gat_agg_multigraph_joint_fwd, mg_mod.seg_gat_agg_multigraph_joint_bwd
+    dev = torch.device("cuda")
+    _, data = hgnn_train.build_simple_hgn_problem(device=dev, **SIMPLE_HGN_PROBLEM)
+    jg = data.joint
+    res = dict(edges=jg.num_edges, rows=jg.num_rows, slots=int(jg.slot_col.numel()), cases={})
+    for H, Dh, K in JOINT_CASES:
+        name = f"{H}x{Dh}_priors{K}"
+        c = joint_case(mg_mod, jg, H, Dh, K, seed=H * Dh + K, dev=dev)
+        idx, ops, pr = c["index"], c["ops"], c["priors"]
+        kw = dict(beta=0.05, leaky_slope=0.05)
+        got = fwd(idx, **ops, priors=pr, **kw)
+        again = fwd(idx, **ops, priors=pr, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"joint #1 {name}: two runs differ")
+        err_f = compare(f"joint #1 {name}",
+                        got, mg_mod.seg_gat_agg_multigraph_joint_plain(idx, **ops, priors=pr, **kw))
+        out, lse, soft = got
+        g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+        gb = bwd(idx, **ops, soft=soft, lse=lse, g_out=g, priors=pr, **kw)
+        gb2 = bwd(idx, **ops, soft=soft, lse=lse, g_out=g, priors=pr, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(gb, gb2)):
+            raise AssertionError(f"joint #2 {name}: two runs differ")
+        err_b = compare(f"joint #2 {name}", gb, mg_mod.seg_gat_agg_multigraph_joint_bwd_plain(
+            idx, **ops, soft=soft, lse=lse, g_out=g, priors=pr, **kw))
+        res["cases"][name] = dict(
+            edges=idx["E"], fwd_err=err_f, bwd_err=err_b,
+            fwd_ms=cuda_ms(lambda: fwd(idx, **ops, priors=pr, **kw), reps=10),
+            bwd_ms=cuda_ms(lambda: bwd(idx, **ops, soft=soft, lse=lse, g_out=g, priors=pr, **kw),
+                           reps=10))
+        log(f"[simple_hgn] {name}: {res['cases'][name]}")
+    # the model on the card against the CPU, and its launches a step
+    params = SIMPLE_HGN.init(torch.Generator().manual_seed(0), data, **SIMPLE_HGN_WIDTH,
+                             edge_dim=SIMPLE_HGN_WIDTH["hidden"])
+    _, cpu = hgnn_train.build_simple_hgn_problem(device="cpu", **SIMPLE_HGN_PROBLEM)
+    idx_all = torch.arange(int(data.labels.shape[0]))
+    before = (fwd.launches, bwd.launches, fwd.prior_layers)
+    loss, _, grads = hgnn_loss_and_grads(lambda p: SIMPLE_HGN.forward(p, data), params, data,
+                                         idx_all.to(dev))
+    torch.cuda.synchronize()
+    launches = dict(fwd=fwd.launches - before[0], bwd=bwd.launches - before[1],
+                    prior_layers=fwd.prior_layers - before[2])
+    if launches != dict(fwd=3, bwd=3, prior_layers=2):
+        raise AssertionError(f"Simple-HGN's step launched {launches}")
+    loss_c, _, grads_c = hgnn_loss_and_grads(
+        lambda p: SIMPLE_HGN.forward(p, cpu), tree_map(lambda t: t.cpu(), params), cpu, idx_all)
+    res["model"] = dict(
+        launches=launches, loss=float(loss), loss_cpu=float(loss_c),
+        grad_err=compare("Simple-HGN grads card vs CPU",
+                         [g.cpu() for g in tree_leaves(grads)], tree_leaves(grads_c)))
+    return res
+
+
+def simple_hgn_alone() -> dict:
+    """Phase 10 alone (``python3 -c 'import chip_smoke as c; c.simple_hgn_alone()'``):
+    builds #1's and #2's libraries, writes their ptxas reports, runs the
+    phase and writes simple_hgn.json to the output directory."""
+    from repro_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    log(card_line())
+    OUT.mkdir(exist_ok=True)
+    reports = build.build(("seg_gat_agg_multigraph", "seg_gat_agg_multigraph_bwd"))
+    check_ptxas(reports)
+    res = simple_hgn_phase()
+    res["card"] = card_line()
+    res["registers"] = {k: ptxas_registers(v) for k, v in reports.items()}
+    (OUT / "simple_hgn.json").write_text(json.dumps(res, indent=1, default=str))
+    return res
+
+
+def multigraph_digest() -> dict:
+    """Digests of HAN's and R-GAT's trained parameters after three steps
+    of the training launcher on full IMDB (#1 and #2 in every forward and
+    backward, AdamW after), each run twice: prints one JSON line.  It runs
+    the ``repro_torch`` beside this script through calls that trees
+    before the joint NA have too, so two trees compare bit for bit by
+    copying this script to each tree's root and running it there
+    (``python3 -c 'import chip_smoke as c; c.multigraph_digest()'``)."""
+    import hashlib
+
+    from repro_torch.launch import hgnn_train
+    from repro_torch.tree import tree_leaves
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for model, heads in (("HAN", 8), ("R-GAT", 4)):
+        digests = []
+        for _ in range(2):
+            state, hist, _ = hgnn_train.run_training(
+                dataset="imdb", model_name=model, steps=3, scale=1.0, feat_scale=1.0,
+                hidden=64, heads=heads, block=16, log=lambda *_: None, device="cuda")
+            h = hashlib.sha256()
+            for leaf in tree_leaves(state.params):
+                h.update(leaf.detach().cpu().numpy().tobytes())
+            digests.append(h.hexdigest()[:16])
+        res[model] = dict(digests=digests, losses=[r["loss"] for r in hist])
+    res["card"] = card_line()
+    print("DIGEST " + json.dumps(res), flush=True)
+    return res
+
+
 # -- phase 3: the serving path -------------------------------------------------
 
 
@@ -6504,6 +6656,7 @@ def main() -> int:
     log(f"[build] {len(build.KERNELS)} kernels in {build_s:.1f} s")
     check_ptxas(reports)
     adamw = adamw_phase()
+    simple_hgn = simple_hgn_phase()
 
     t0 = time.perf_counter()
     graph = synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0)
@@ -6829,7 +6982,7 @@ def main() -> int:
                 train_kernels=train_kernels, training=train, multilane=lanes, fused_b128=b128,
                 inference=infer,
                 observability=obs,
-                rgat_training=rgat_train, lm=lm, adamw=adamw,
+                rgat_training=rgat_train, lm=lm, adamw=adamw, simple_hgn=simple_hgn,
                 launches=launches, launches_by_path=launches_by_path,
                 serve={"multigraph": st_mg, "fused-fp": st_ff}, steady=steady,
                 serve_max_abs_err=serve_err, launcher=cli)

@@ -1,0 +1,8 @@
+"""The joint #1's share of its roofline, % (its work counted by
+``reference.simple_hgn.na_joint_forward``)."""
+
+from hgnnbench import readers
+
+
+def read(r):
+    return readers.roofline(r, "seg_gat_agg_multigraph")

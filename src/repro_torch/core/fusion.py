@@ -44,11 +44,17 @@ import numpy as np
 import torch
 
 from ..graphs.formats import to_block_csr, to_padded_edges
-from ..graphs.hetgraph import SemanticGraph
+from ..graphs.hetgraph import HetGraph, SemanticGraph
 from ..kernels.fused_fp_coeff import fused_fp_coeff
 from ..kernels.seg_gat_agg import bias_vector, range_check, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
-from ..kernels.seg_gat_agg_multigraph import edge_index, seg_gat_agg_multigraph
+from ..kernels.seg_gat_agg_multigraph import (
+    JointPriors,
+    edge_index,
+    joint_index,
+    seg_gat_agg_multigraph,
+    seg_gat_agg_multigraph_joint,
+)
 from ..obs.trace import trace_span, tracing_enabled
 from . import stages
 
@@ -421,3 +427,124 @@ def neighbor_aggregate_multi(
 def mean_aggregate(batch: SemanticGraphBatch, h_src: torch.Tensor) -> torch.Tensor:
     """Mean NA (R-GCN) over the batch's edge list.  Returns [num_dst, ...]."""
     return stages.segment_mean_aggregate(*batch.edges, h_src, batch.num_dst)
+
+
+# -- NA over every relation at once (Simple-HGN) ------------------------------------
+
+
+@dataclasses.dataclass
+class JointGraph:
+    """Every relation of a heterogeneous graph over ONE table of vertices,
+    for NA with one softmax over all in-edges of a vertex, of every
+    relation (Simple-HGN).  Type ``t``'s vertices are rows
+    ``offsets[t] + [0, counts[t])`` of the table (``num_rows`` rows, each
+    type's range padded to a multiple of ``block``); edge type
+    ``edge_types[relation]`` picks each relation's attention bias (several
+    relations may share one: HGB's self-loops).  Work units are the dst
+    blocks of the table, each holding the slots of every relation into it,
+    ragged (``kernels.seg_gat_agg_multigraph.joint_index``)."""
+
+    types: tuple[str, ...]
+    counts: dict[str, int]
+    offsets: dict[str, int]
+    num_rows: int
+    block: int
+    edge_types: dict[str, int]
+    num_edges: int
+    unit_off: torch.Tensor  # int32 [num_rows / block + 1]
+    slot_col: torch.Tensor  # int32 [S]
+    slot_rel: torch.Tensor  # int32 [S]
+    masks: torch.Tensor     # bool  [S, B, B]
+    _indexes: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def num_edge_types(self) -> int:
+        return max(self.edge_types.values()) + 1
+
+    @property
+    def num_units(self) -> int:
+        return self.num_rows // self.block
+
+    def units_of(self, vtype: str) -> int:
+        """The units that cover ``vtype``, which must come first in the
+        table (its blocks are then a prefix of the units)."""
+        if self.offsets[vtype] != 0:
+            raise ValueError(f"{vtype!r} is not the table's first type")
+        return -(-self.counts[vtype] // self.block)
+
+    def index(self, n_units: int) -> dict:
+        """The joint NA's topology index of units [0, n_units), built the
+        first time it is asked for, then kept."""
+        if n_units not in self._indexes:
+            with trace_span("setup/joint_index", units=n_units):
+                self._indexes[n_units] = joint_index(
+                    self.unit_off, self.slot_col, self.slot_rel, self.masks, n_units,
+                    self.num_rows, self.num_edge_types)
+        return self._indexes[n_units]
+
+
+def build_joint_graph(g: HetGraph, edge_types: dict[str, int], *, block: int = 8,
+                      device: str | torch.device = "cpu") -> JointGraph:
+    """The :class:`JointGraph` of every relation of ``g`` (the vertex
+    types in ``g``'s order), built on ``device``: a slot per distinct (dst
+    block, edge type, src block), sorted in that order."""
+    dev = torch.device(device)
+    types = tuple(g.vertex_counts)
+    counts = {t: int(n) for t, n in g.vertex_counts.items()}
+    offsets, at = {}, 0
+    for t in types:
+        offsets[t] = at
+        at += -(-counts[t] // block) * block
+    n_blocks = at // block
+    with trace_span("setup/joint_graph", relations=len(g.relations)):
+        src, dst, rel = [], [], []
+        for name, r in g.relations.items():
+            src.append(torch.as_tensor(r.src_ids, device=dev).long() + offsets[r.src_type])
+            dst.append(torch.as_tensor(r.dst_ids, device=dev).long() + offsets[r.dst_type])
+            rel.append(torch.full_like(src[-1], edge_types[name]))
+        src, dst, rel = torch.cat(src), torch.cat(dst), torch.cat(rel)
+        n_types = max(edge_types.values()) + 1
+        key = (dst // block * n_types + rel) * n_blocks + src // block
+        uniq, inv = torch.unique(key, return_inverse=True)
+        unit_off = torch.zeros(n_blocks + 1, dtype=torch.long, device=dev)
+        unit_off[1:] = torch.cumsum(torch.bincount(uniq // (n_types * n_blocks),
+                                                   minlength=n_blocks), 0)
+        masks = torch.zeros((uniq.numel(), block, block), dtype=torch.bool, device=dev)
+        masks[inv, dst % block, src % block] = True
+    return JointGraph(
+        types=types, counts=counts, offsets=offsets, num_rows=at, block=block,
+        edge_types=dict(edge_types), num_edges=int(src.numel()),
+        unit_off=unit_off.int(), slot_col=(uniq % n_blocks).int(),
+        slot_rel=(uniq // n_blocks % n_types).int(), masks=masks)
+
+
+def neighbor_aggregate_joint(
+    jg: JointGraph,
+    theta_src: torch.Tensor,  # [num_rows, H]
+    theta_dst: torch.Tensor,  # [num_rows, H]
+    h_src: torch.Tensor,      # [num_rows, H, Dh]
+    edge_bias: torch.Tensor,  # [num_edge_types, H]
+    *,
+    n_units: int | None = None,
+    priors: JointPriors | None = None,
+    beta: float = 0.0,
+    backend: NABackend = NABackend.MULTIGRAPH,
+    leaky_slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """NA with one softmax over every in-edge of each dst row of units
+    [0, ``n_units``) (all units by default), of every relation, and the
+    prior layers' attention mixed in by ``beta`` (Simple-HGN's residual
+    attention).  Returns (out [n_units·B, H, Dh], lse [n_units·B, H]).
+
+    MULTIGRAPH only: the joint instantiations of kernels #1/#2 on the card,
+    their plain versions on the CPU; one launch a call, and under autograd
+    one backward launch.  Span: ``na/joint``."""
+    if backend is not NABackend.MULTIGRAPH:
+        raise ValueError(f"the joint NA runs on MULTIGRAPH, not {backend}")
+    n_units = jg.num_units if n_units is None else n_units
+    index = jg.index(n_units)
+    with trace_span("na/joint", stage="NA", backend=backend.value, units=n_units,
+                    edges=index["E"], priors=0 if priors is None else priors.K) as sp:
+        out, lse = seg_gat_agg_multigraph_joint(index, theta_src, theta_dst, h_src, edge_bias,
+                                                priors, beta=beta, leaky_slope=leaky_slope)
+        return sp.sync(out), lse

@@ -239,6 +239,52 @@ __device__ __forceinline__ void aggregate_row(
   if (visits != nullptr && lane == 0) atomicAdd(visits, visited);
 }
 
+// The prior layers of a joint NA call (Simple-HGN's residual attention,
+// seg_gat_agg_multigraph.cu and _bwd.cu): layer k's attention on edge
+// (i <- j, relation r) is p^k = exp(LeakyReLU(theta_dst[k, i] + theta_src[k, j]
+// + bias[k, r]) - lse[k, i]), per head, recomputed where an edge is visited,
+// and alpha = sum over k < K of coef[k] * p^k.
+constexpr int kMaxPriors = 4;
+
+struct Priors {
+  const float* theta_src;  // [K, ns, H]
+  const float* theta_dst;  // [K, nd, H]
+  const float* bias;       // [K, R, H]
+  const float* lse;        // [K, nd, H]
+  float coef[kMaxPriors];
+  int K;
+};
+
+// Lane h's prior-layer scalars of dst row r: theta_dst and lse of each layer.
+__device__ __forceinline__ void prior_row(const Priors& pr, size_t r, int nd, int H, int hl,
+                                          float (&tdk)[kMaxPriors], float (&lsk)[kMaxPriors]) {
+#pragma unroll
+  for (int k = 0; k < kMaxPriors; ++k) {
+    if (k < pr.K) {
+      const size_t at = ((size_t)k * nd + r) * H + hl;
+      tdk[k] = pr.theta_dst[at];
+      lsk[k] = pr.lse[at];
+    }
+  }
+}
+
+// alpha of head hl on the edge from src vertex s under relation rel.
+__device__ __forceinline__ float prior_alpha(const Priors& pr, int s, int rel, int ns, int R,
+                                             int H, int hl, const float (&tdk)[kMaxPriors],
+                                             const float (&lsk)[kMaxPriors], float slope) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxPriors; ++k) {
+    if (k < pr.K) {
+      const float pre = tdk[k] + pr.theta_src[((size_t)k * ns + s) * H + hl]
+                        + pr.bias[((size_t)k * R + rel) * H + hl];
+      const float lg = pre >= 0.f ? pre : slope * pre;
+      a = fmaf(pr.coef[k], expf(lg - lsk[k]), a);
+    }
+  }
+  return a;
+}
+
 // launch(V, NK) for the instantiation a row of H*Dh floats takes, as
 // std::integral_constant values (kernels/seg_gat_agg_multigraph.py:
 // lane_groups): V = 4 when Dh % 4 == 0, else 1, and NK in {1, 2, 4, 8}

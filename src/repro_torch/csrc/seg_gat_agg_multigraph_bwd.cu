@@ -212,6 +212,135 @@ int launch(const int* gdst_off, const int* gdst_items, const int* row_off, const
   return (int)cudaGetLastError();
 }
 
+// Pass A of the joint NA (seg_gat_agg_multigraph.cu:
+// multigraph_fwd_kernel_joint), one warp per dst row r over its edges
+// [row_off[r], row_off[r+1]) in dst-major order, each with its src vertex
+// e_src[e] and relation e_rel[e]: pre = theta_dst[r] + theta_src[s] +
+// bias[rel], p = exp(LeakyReLU(pre) - lse), dp_h = gs * <g_out, h_src[s]>
+// per head (the dot as edge_pass_a sums it), dpre = LeakyReLU'(pre) * p *
+// (dp - delta), with gs = 1 - beta where the call has prior layers (the
+// softmax part's share of the output) and delta = gs * <g_out, softmax
+// part>.  It writes dpre and the edge's coefficient of h_src's gradient,
+// p, or with prior layers (1 - beta) p + beta alpha (alpha recomputed as
+// the forward does; it carries no gradient: the prior attention is
+// detached), and sums dpre into d_theta_dst[r] in edge order.  Pass B is
+// edge_pass_b with a "graph" a relation: its src-major CSR has a segment a
+// (src vertex, relation), so d_theta_src comes out a relation and the
+// caller's sums over it give theta_src's and each relation's bias's
+// gradient in a fixed order.
+template <int V, int NK, bool kPrior>
+__global__ void __launch_bounds__(kThreads) edge_pass_a_joint(
+    const int* __restrict__ row_off,      // [rows + 1]
+    const int* __restrict__ e_src,        // [E]
+    const int* __restrict__ e_rel,        // [E]
+    const float* __restrict__ theta_src,  // [ns, H]
+    const float* __restrict__ theta_dst,  // [nd, H]
+    const float* __restrict__ h_src,      // [ns, H, Dh]
+    const float* __restrict__ edge_bias,  // [R, H]
+    const Priors pr, float beta,
+    const float* __restrict__ g_out,      // [rows, H, Dh]
+    const float* __restrict__ lse,        // [rows, H]
+    const float* __restrict__ delta,      // [rows, H]
+    float* __restrict__ p_e,              // [E, H]
+    float* __restrict__ dpre_e,           // [E, H]
+    float* __restrict__ d_theta_dst,      // [rows, H]
+    int rows, int ns, int nd, int R, int H, int Dh, float slope) {
+  __shared__ float red[kWarps][32 * NK + 32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= rows) return;  // warp-uniform
+  const int HDh = H * Dh;
+  const int hl = lane < H ? lane : 0;
+  const int per_head = Dh / V;
+  int head[NK];
+  group_heads<V, NK>(lane, HDh, Dh, head);
+  float* red_w = red[warp];
+  const float* run = red_w + hl * (per_head + 1);
+  const float td = theta_dst[(size_t)r * H + hl];
+  const float ls = lse[(size_t)r * H + hl];
+  const float dl = delta[(size_t)r * H + hl];
+  float tdk[kMaxPriors], lsk[kMaxPriors];
+  if constexpr (kPrior) prior_row(pr, (size_t)r, nd, H, hl, tdk, lsk);
+  float go[NK][V];
+  load_row<V, NK>(g_out + (size_t)r * HDh, lane, HDh, go);
+
+  float dthd = 0.f;
+  const int e0 = row_off[r], e1 = row_off[r + 1];
+  if (e0 < e1) {  // warp-uniform
+    // the next edge's src row is loaded while this edge is reduced
+    int s = e_src[e0];
+    float hv[NK][V];
+    load_row<V, NK>(h_src + (size_t)s * HDh, lane, HDh, hv);
+    for (int e = e0; e < e1; ++e) {
+      int s_next = s;
+      float hn[NK][V];
+      if (e + 1 < e1) {  // warp-uniform
+        s_next = e_src[e + 1];
+        load_row<V, NK>(h_src + (size_t)s_next * HDh, lane, HDh, hn);
+      }
+#pragma unroll
+      for (int t = 0; t < NK; ++t) {
+        float part = 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) part = fmaf(go[t][v], hv[t][v], part);
+        const int grp = lane + 32 * t;
+        if (V * grp < HDh) red_w[grp + head[t]] = part;
+      }
+      __syncwarp();
+      if (lane < H) {
+        float dp = 0.f;
+        for (int n = 0; n < per_head; ++n) dp += run[n];
+        if constexpr (kPrior) dp *= 1.f - beta;
+        const int rel = e_rel[e];
+        const float pre = td + theta_src[(size_t)s * H + lane] + edge_bias[rel * H + lane];
+        const float lg = pre >= 0.f ? pre : slope * pre;
+        const float p = expf(lg - ls);
+        const float dlg = p * (dp - dl);
+        const float dpr = pre >= 0.f ? dlg : slope * dlg;
+        dthd += dpr;
+        float coeff = p;
+        if constexpr (kPrior) {
+          const float a = prior_alpha(pr, s, rel, ns, R, H, lane, tdk, lsk, slope);
+          coeff = fmaf(1.f - beta, p, beta * a);
+        }
+        p_e[(size_t)e * H + lane] = coeff;
+        dpre_e[(size_t)e * H + lane] = dpr;
+      }
+      __syncwarp();  // red is read before the next edge writes it
+      s = s_next;
+#pragma unroll
+      for (int t = 0; t < NK; ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) hv[t][v] = hn[t][v];
+    }
+  }
+  if (lane < H) d_theta_dst[(size_t)r * H + lane] = dthd;
+}
+
+template <int V, int NK, bool kPrior>
+int launch_joint(const int* row_off, const int* e_src, const int* e_rel, const int* src_off,
+                 const int* src_edge, const int* src_row, const float* theta_src,
+                 const float* theta_dst, const float* h_src, const float* edge_bias,
+                 const Priors& pr, float beta, const float* g_out, const float* lse,
+                 const float* delta, float* p_e, float* dpre_e, float* d_h_src,
+                 float* d_theta_src, float* d_theta_dst, int rows, int ns, int nd, int R, int H,
+                 int Dh, float slope, cudaStream_t stream) {
+  if (rows > 0) {
+    edge_pass_a_joint<V, NK, kPrior><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
+                                       stream>>>(
+        row_off, e_src, e_rel, theta_src, theta_dst, h_src, edge_bias, pr, beta, g_out, lse,
+        delta, p_e, dpre_e, d_theta_dst, rows, ns, nd, R, H, Dh, slope);
+  }
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (ns > 0) {
+    edge_pass_b<V, NK><<<(unsigned)((ns + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+        src_off, src_edge, src_row, p_e, dpre_e, g_out, d_h_src, d_theta_src, R, ns, H, Dh);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Pass A then pass B on `stream`: d_h_src [ns_pad, H, Dh], d_theta_src
@@ -233,6 +362,39 @@ extern "C" int seg_gat_agg_multigraph_bwd(
         gdst_off, gdst_items, row_off, e_src, src_off, src_edge, src_row, theta_src, theta_dst,
         h_src, edge_bias, g_out, lse, delta, p_e, dpre_e, d_h_src, d_theta_src, d_theta_dst, G,
         B, ns_pad, nd_pad, H, Dh, slope, s);
+  });
+}
+
+// The joint NA's backward on `stream`: pass A over `rows` dst rows, then
+// pass B with a segment a (src vertex, relation): d_h_src [ns, H, Dh],
+// d_theta_src [R, ns, H] (a relation's share) and d_theta_dst [rows, H],
+// each written whole; p_e and dpre_e [E, H] are the passes' scratch.  With
+// K > 0 prior layers (coef on the host) g_out is scaled by 1 - beta in the
+// softmax's terms and h_src's gradient takes the prior attention's share.
+extern "C" int seg_gat_agg_multigraph_joint_bwd(
+    const int* row_off, const int* e_src, const int* e_rel, const int* src_off,
+    const int* src_edge, const int* src_row, const float* theta_src, const float* theta_dst,
+    const float* h_src, const float* edge_bias, const float* prior_theta_src,
+    const float* prior_theta_dst, const float* prior_bias, const float* prior_lse,
+    const float* prior_coef, int K, float beta, const float* g_out, const float* lse,
+    const float* delta, float* p_e, float* dpre_e, float* d_h_src, float* d_theta_src,
+    float* d_theta_dst, int rows, int ns, int nd, int R, int H, int Dh, float slope,
+    void* stream) {
+  if (H < 1 || H > 32 || K < 0 || K > kMaxPriors) return (int)cudaErrorInvalidValue;
+  Priors pr{prior_theta_src, prior_theta_dst, prior_bias, prior_lse, {0.f, 0.f, 0.f, 0.f}, K};
+  for (int k = 0; k < K; ++k) pr.coef[k] = prior_coef[k];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_lane_groups(H, Dh, [&](auto v, auto nk) {
+    constexpr int kV = decltype(v)::value, kNK = decltype(nk)::value;
+    return K > 0
+        ? launch_joint<kV, kNK, true>(row_off, e_src, e_rel, src_off, src_edge, src_row,
+                                      theta_src, theta_dst, h_src, edge_bias, pr, beta, g_out,
+                                      lse, delta, p_e, dpre_e, d_h_src, d_theta_src, d_theta_dst,
+                                      rows, ns, nd, R, H, Dh, slope, s)
+        : launch_joint<kV, kNK, false>(row_off, e_src, e_rel, src_off, src_edge, src_row,
+                                       theta_src, theta_dst, h_src, edge_bias, pr, beta, g_out,
+                                       lse, delta, p_e, dpre_e, d_h_src, d_theta_src,
+                                       d_theta_dst, rows, ns, nd, R, H, Dh, slope, s);
   });
 }
 

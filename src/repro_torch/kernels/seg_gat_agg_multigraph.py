@@ -530,3 +530,316 @@ def seg_gat_agg_multigraph(
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=h_src.device)
     return MultigraphNA.apply(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
                               h_src, edge_bias, float(leaky_slope), index)
+
+
+# -- the joint NA: one softmax over every relation into a row ----------------------
+#
+# Simple-HGN's NA (Lv et al., KDD'21): the vertices of every type in one
+# table, and one work unit per dst block holding the slots of every
+# relation into it, ragged (unit u's slots are [unit_off[u], unit_off[u+1])),
+# each slot a (relation slot_rel[s], src block slot_col[s]) with its B × B
+# mask.  Per dst row i and head:
+#
+#     logit[i, j] = LeakyReLU(theta_dst[i] + theta_src[j] + edge_bias[rel(i, j)])
+#     p = softmax over every in-edge j of i, of every relation,   lse = m + log l
+#     out[i] = Σ_j p[i, j] h_src[j]                                   (no prior layers)
+#     out[i] = (1 - beta) Σ_j p[i, j] h_src[j] + beta Σ_j alpha[i, j] h_src[j]
+#
+# with alpha = Σ_k coef[k] p^k the prior layers' attention (``JointPriors``),
+# recomputed on each edge from their (theta_src, theta_dst, bias, lse) and
+# detached.  CUDA tensors launch ``multigraph_fwd_kernel_joint`` (#1's
+# library) and ``edge_pass_a_joint`` + ``edge_pass_b`` (#2's); CPU tensors
+# take the plain versions below, over the same edge list.
+
+_JOINT_FWD = "seg_gat_agg_multigraph_joint_fwd"
+_JOINT_BWD = "seg_gat_agg_multigraph_joint_bwd"
+MAX_PRIORS = 4  # csrc/edge_na.cuh: kMaxPriors
+
+
+class JointPriors:
+    """The prior layers of a joint NA call, detached: ``theta_src [K, ns,
+    H]``, ``theta_dst [K, nd, H]``, ``bias [K, R, H]``, ``lse [K, nd, H]``
+    and ``coef``, K floats: alpha = Σ_k coef[k] p^k."""
+
+    def __init__(self, theta_src, theta_dst, bias, lse, coef):
+        self.theta_src = theta_src.detach().contiguous()
+        self.theta_dst = theta_dst.detach().contiguous()
+        self.bias = bias.detach().contiguous()
+        self.lse = lse.detach().contiguous()
+        self.coef = tuple(float(c) for c in coef)
+
+    @property
+    def K(self) -> int:
+        return len(self.coef)
+
+
+def joint_index(unit_off, slot_col, slot_rel, masks, n_units: int, ns_pad: int,
+                n_rel: int) -> dict:
+    """The joint NA's topology, checked (reads the device), with the edge
+    list both directions read: the edges are the set mask entries of units
+    [0, n_units), numbered dst-major in the forward's order, by (dst row
+    u·B + i, slot, src j):
+
+    * ``row_off`` int32 [n_units·B + 1], ``e_row``, ``e_src``, ``e_rel`` int32 [E];
+    * ``src_off`` int32 [ns_pad·R + 1], ``src_edge`` and ``src_row`` int32
+      [E]: the src-major CSR, a segment a (src vertex, relation), the edges
+      in dst-major order within it.
+
+    It holds the topology's tensors too, so a call cannot pair an index
+    with another topology.  Built once per topology (a device sort and
+    host syncs)."""
+    dev = masks.device
+    build.check_tensor("unit_off", unit_off, torch.int32, (None,), dev)
+    build.check_tensor("slot_col", slot_col, torch.int32, (None,), dev)
+    S = slot_col.shape[0]
+    build.check_tensor("slot_rel", slot_rel, torch.int32, (S,), dev)
+    build.check_tensor("masks", masks, torch.bool, (S, None, None), dev)
+    B = masks.shape[-1]
+    if B not in EDGE_BLOCKS or masks.shape[1] != B or ns_pad % B:
+        raise ValueError(f"{_JOINT_FWD}: B={B} must be in {EDGE_BLOCKS} and divide ns_pad={ns_pad}")
+    if not 0 <= n_units < unit_off.shape[0]:
+        raise ValueError(f"{_JOINT_FWD}: n_units={n_units} of {unit_off.shape[0] - 1} units")
+    build.check_range("slot_col", slot_col, 0, ns_pad // B)
+    build.check_range("slot_rel", slot_rel, 0, n_rel)
+    off = unit_off[: n_units + 1].long()
+    if int(off[0]) != 0 or bool((off[1:] < off[:-1]).any()) or int(off[-1]) > S:
+        raise ValueError(f"{_JOINT_FWD}: unit_off must rise from 0 to at most {S} slots")
+    slot_unit = torch.repeat_interleave(torch.arange(n_units, device=dev), off[1:] - off[:-1])
+    s, i, j = masks[: int(off[-1])].nonzero(as_tuple=True)  # (slot, i, j) order
+    rows, order = torch.sort(slot_unit[s] * B + i, stable=True)  # then by dst row
+    s, j = s[order], j[order]
+    e_src = slot_col.long()[s] * B + j
+    e_rel = slot_rel.long()[s]
+    row_off = torch.zeros(n_units * B + 1, dtype=torch.long, device=dev)
+    row_off[1:] = torch.cumsum(torch.bincount(rows, minlength=n_units * B), 0)
+    src_off, src_edge = csr(e_src * n_rel + e_rel, ns_pad * n_rel)
+    return dict(
+        U=n_units, B=B, ns_pad=ns_pad, R=n_rel, E=int(e_src.numel()),
+        unit_off=unit_off, slot_col=slot_col, slot_rel=slot_rel, masks=masks,
+        row_off=row_off.int(), e_row=rows.int(), e_src=e_src.int(), e_rel=e_rel.int(),
+        src_off=src_off, src_edge=src_edge, src_row=rows[src_edge.long()].int())
+
+
+def _leaky(pre, slope):
+    return torch.where(pre >= 0, pre, slope * pre)
+
+
+def _joint_logits(index, theta_src, theta_dst, edge_bias, slope):
+    row, src, rel = (index[k].long() for k in ("e_row", "e_src", "e_rel"))
+    pre = theta_dst[row] + theta_src[src] + edge_bias[rel]  # [E, H]
+    return row, src, rel, pre, _leaky(pre, slope)
+
+
+def _prior_alpha(index, priors: JointPriors, slope):
+    row, src, rel = (index[k].long() for k in ("e_row", "e_src", "e_rel"))
+    a = 0.0
+    for k, c in enumerate(priors.coef):
+        lg = _leaky(priors.theta_dst[k][row] + priors.theta_src[k][src] + priors.bias[k][rel], slope)
+        a = a + c * torch.exp(lg - priors.lse[k][row])
+    return a
+
+
+def seg_gat_agg_multigraph_joint_plain(index, theta_src, theta_dst, h_src, edge_bias,
+                                       priors: JointPriors | None = None, *, beta: float = 0.0,
+                                       leaky_slope: float = 0.2):
+    """Plain PyTorch version of the joint forward over the index's edge
+    list: (out [U·B, H, Dh], lse [U·B, H], soft), ``soft`` the softmax
+    part (``out`` itself without prior layers)."""
+    rows = index["U"] * index["B"]
+    H, Dh = h_src.shape[1:]
+    row, src, _, _, lg = _joint_logits(index, theta_src, theta_dst, edge_bias, leaky_slope)
+    f32 = dict(dtype=torch.float32, device=h_src.device)
+    m = torch.full((rows, H), NEG_INF, **f32).scatter_reduce(
+        0, row[:, None].expand_as(lg), lg, "amax")
+    p = torch.exp(lg - m[row])
+    l = torch.zeros((rows, H), **f32).index_add_(0, row, p)
+    hs = h_src[src]
+    soft = torch.zeros((rows, H, Dh), **f32).index_add_(0, row, p[..., None] * hs)
+    soft = soft / l.clamp(min=1e-9)[..., None]
+    lse = m + torch.log(l.clamp(min=1e-30))
+    if priors is None or priors.K == 0:
+        return soft, lse, soft
+    a = _prior_alpha(index, priors, leaky_slope)
+    pa = torch.zeros((rows, H, Dh), **f32).index_add_(0, row, a[..., None] * hs)
+    return (1 - beta) * soft + beta * pa, lse, soft
+
+
+def seg_gat_agg_multigraph_joint_bwd_plain(index, theta_src, theta_dst, h_src, edge_bias,
+                                           soft, lse, g_out, priors: JointPriors | None = None,
+                                           *, beta: float = 0.0, leaky_slope: float = 0.2):
+    """Plain PyTorch version of the joint backward: (d_theta_src,
+    d_theta_dst, d_h_src, d_edge_bias), the prior attention detached."""
+    gs = 1.0 - beta if priors is not None and priors.K else 1.0
+    row, src, rel, pre, lg = _joint_logits(index, theta_src, theta_dst, edge_bias, leaky_slope)
+    p = torch.exp(lg - lse[row])
+    delta = gs * (g_out * soft).sum(dim=-1)
+    dp = gs * (g_out[row] * h_src[src]).sum(dim=-1)
+    dlogit = p * (dp - delta[row])
+    dpre = torch.where(pre >= 0, dlogit, leaky_slope * dlogit)
+    coeff = p if gs == 1.0 else (1 - beta) * p + beta * _prior_alpha(index, priors, leaky_slope)
+    d_h = torch.zeros_like(h_src).index_add_(0, src, coeff[..., None] * g_out[row])
+    d_ths = torch.zeros_like(theta_src).index_add_(0, src, dpre)
+    d_thd = torch.zeros_like(theta_dst).index_add_(0, row, dpre)
+    d_bias = torch.zeros_like(edge_bias).index_add_(0, rel, dpre)
+    return d_ths, d_thd, d_h, d_bias
+
+
+def _prior_args(priors: JointPriors | None):
+    """The prior operands as the C functions take them: four pointers, the
+    host array of coefficients, K."""
+    if priors is None or priors.K == 0:
+        return (None,) * 5 + (0,)
+    coef = (ctypes.c_float * priors.K)(*priors.coef)
+    return (build.ptr(priors.theta_src), build.ptr(priors.theta_dst), build.ptr(priors.bias),
+            build.ptr(priors.lse), ctypes.cast(coef, ctypes.c_void_p), priors.K)
+
+
+def _check_joint(index, theta_src, theta_dst, h_src, edge_bias, priors):
+    dev = h_src.device
+    if index["masks"].device != dev:
+        raise ValueError(f"{_JOINT_FWD}: the index is on {index['masks'].device}, h_src on {dev}")
+    ns, R, rows = index["ns_pad"], index["R"], index["U"] * index["B"]
+    build.check_tensor("h_src", h_src, torch.float32, (ns, None, None), dev)
+    H, Dh = h_src.shape[1:]
+    build.check_tensor("theta_src", theta_src, torch.float32, (ns, H), dev)
+    build.check_tensor("theta_dst", theta_dst, torch.float32, (None, H), dev)
+    build.check_tensor("edge_bias", edge_bias, torch.float32, (R, H), dev)
+    nd = theta_dst.shape[0]
+    if nd < rows:
+        raise ValueError(f"{_JOINT_FWD}: theta_dst has {nd} rows, the units {rows}")
+    if priors is not None and priors.K:
+        K = priors.K
+        if K > MAX_PRIORS:
+            raise ValueError(f"{_JOINT_FWD}: {K} prior layers, at most {MAX_PRIORS}")
+        build.check_tensor("priors.theta_src", priors.theta_src, torch.float32, (K, ns, H), dev)
+        build.check_tensor("priors.theta_dst", priors.theta_dst, torch.float32, (K, nd, H), dev)
+        build.check_tensor("priors.bias", priors.bias, torch.float32, (K, R, H), dev)
+        build.check_tensor("priors.lse", priors.lse, torch.float32, (K, nd, H), dev)
+    if dev.type == "cuda":
+        check_edge_shape(_JOINT_FWD, index["B"], H, Dh)
+    elif dev.type != "cpu":
+        raise ValueError(f"{_JOINT_FWD}: unsupported device {dev}")
+    return nd, H, Dh
+
+
+def seg_gat_agg_multigraph_joint_fwd(index, theta_src, theta_dst, h_src, edge_bias,
+                                     priors: JointPriors | None = None, *, beta: float = 0.0,
+                                     leaky_slope: float = 0.2):
+    """The joint forward over :func:`joint_index`'s units: (out [U·B, H,
+    Dh], lse [U·B, H], soft), ``soft`` the softmax part the backward's
+    delta reads (``out`` itself without prior layers).  CUDA operands
+    launch the kernel, CPU operands take the plain version.  float32."""
+    nd, H, Dh = _check_joint(index, theta_src, theta_dst, h_src, edge_bias, priors)
+    if h_src.device.type == "cpu":
+        return seg_gat_agg_multigraph_joint_plain(index, theta_src, theta_dst, h_src, edge_bias,
+                                                  priors, beta=beta, leaky_slope=leaky_slope)
+    rows = index["U"] * index["B"]
+    f32 = dict(dtype=torch.float32, device=h_src.device)
+    out = torch.empty((rows, H, Dh), **f32)
+    lse = torch.empty((rows, H), **f32)
+    has_prior = priors is not None and priors.K > 0
+    soft = torch.empty((rows, H, Dh), **f32) if has_prior else out
+    h_src = build.aligned(h_src)
+    lib = build.load(_NAME)
+    fn = lib.seg_gat_agg_multigraph_joint_fwd
+    fn.restype = ctypes.c_int
+    p = build.ptr
+    with torch.cuda.device(h_src.device):
+        err = fn(
+            *(p(index[k]) for k in ("unit_off", "slot_col", "slot_rel", "masks")),
+            p(theta_src), p(theta_dst), p(h_src), p(edge_bias), *_prior_args(priors),
+            ctypes.c_float(beta), p(out), p(lse), p(soft) if has_prior else None,
+            *(ctypes.c_int(v) for v in (index["U"], index["B"], index["ns_pad"], nd, index["R"],
+                                        H, Dh)),
+            ctypes.c_float(leaky_slope), build.stream_of(h_src))
+    build.check_error(lib, _JOINT_FWD, err)
+    seg_gat_agg_multigraph_joint_fwd.launches += 1
+    seg_gat_agg_multigraph_joint_fwd.prior_layers += priors.K if has_prior else 0
+    return out, lse, soft
+
+
+def seg_gat_agg_multigraph_joint_bwd(index, theta_src, theta_dst, h_src, edge_bias, soft, lse,
+                                     g_out, priors: JointPriors | None = None, *,
+                                     beta: float = 0.0, leaky_slope: float = 0.2):
+    """The VJP of :func:`seg_gat_agg_multigraph_joint_fwd` in ``out``:
+    (d_theta_src, d_theta_dst, d_h_src, d_edge_bias), bitwise repeatable on
+    the card (no atomics; the relation sums run in a fixed order).  The
+    prior layers' attention carries no gradient."""
+    nd, H, Dh = _check_joint(index, theta_src, theta_dst, h_src, edge_bias, priors)
+    rows, dev = index["U"] * index["B"], h_src.device
+    for name, t, shape in (("soft", soft, (rows, H, Dh)), ("lse", lse, (rows, H)),
+                           ("g_out", g_out, (rows, H, Dh))):
+        build.check_tensor(name, t, torch.float32, shape, dev)
+    if dev.type == "cpu":
+        return seg_gat_agg_multigraph_joint_bwd_plain(index, theta_src, theta_dst, h_src,
+                                                      edge_bias, soft, lse, g_out, priors,
+                                                      beta=beta, leaky_slope=leaky_slope)
+    has_prior = priors is not None and priors.K > 0
+    gs = 1.0 - beta if has_prior else 1.0
+    delta = (g_out * soft).sum(dim=-1)
+    if has_prior:
+        delta = gs * delta
+    ns, R = index["ns_pad"], index["R"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_src, g_out = build.aligned(h_src), build.aligned(g_out)
+    p_e = torch.empty((index["E"], H), **f32)
+    dpre_e = torch.empty((index["E"], H), **f32)
+    d_h = torch.empty((ns, H, Dh), **f32)
+    d_ths_rel = torch.empty((R, ns, H), **f32)
+    d_thd = (torch.empty if nd == rows else torch.zeros)((nd, H), **f32)
+    lib = build.load(_BWD_NAME)
+    fn = lib.seg_gat_agg_multigraph_joint_bwd
+    fn.restype = ctypes.c_int
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = fn(
+            *(p(index[k]) for k in ("row_off", "e_src", "e_rel", "src_off", "src_edge",
+                                    "src_row")),
+            p(theta_src), p(theta_dst), p(h_src), p(edge_bias), *_prior_args(priors),
+            ctypes.c_float(beta), p(g_out), p(lse), p(delta), p(p_e), p(dpre_e), p(d_h),
+            p(d_ths_rel), p(d_thd),
+            *(ctypes.c_int(v) for v in (rows, ns, nd, R, H, Dh)),
+            ctypes.c_float(leaky_slope), build.stream_of(h_src))
+    build.check_error(lib, _JOINT_BWD, err)
+    seg_gat_agg_multigraph_joint_bwd.launches += 1
+    seg_gat_agg_multigraph_joint_fwd.prior_layers += priors.K if has_prior else 0
+    return d_ths_rel.sum(dim=0), d_thd, d_h, d_ths_rel.sum(dim=1)
+
+
+seg_gat_agg_multigraph_joint_fwd.launches = 0
+seg_gat_agg_multigraph_joint_fwd.prior_layers = 0  # prior layers recomputed, forward and backward
+seg_gat_agg_multigraph_joint_bwd.launches = 0
+
+
+class JointNA(torch.autograd.Function):
+    """The joint forward keeping the softmax part and ``lse``; the joint
+    backward.  Returns (out, lse), ``lse`` without a gradient (a later
+    layer's prior)."""
+
+    @staticmethod
+    def forward(ctx, theta_src, theta_dst, h_src, edge_bias, index, priors, beta, leaky_slope):
+        out, lse, soft = seg_gat_agg_multigraph_joint_fwd(
+            index, theta_src, theta_dst, h_src, edge_bias, priors, beta=beta,
+            leaky_slope=leaky_slope)
+        ctx.save_for_backward(theta_src, theta_dst, h_src, edge_bias, soft, lse)
+        ctx.index, ctx.priors, ctx.beta, ctx.leaky_slope = index, priors, beta, leaky_slope
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, _g_lse):
+        theta_src, theta_dst, h_src, edge_bias, soft, lse = ctx.saved_tensors
+        grads = seg_gat_agg_multigraph_joint_bwd(
+            ctx.index, theta_src, theta_dst, h_src, edge_bias, soft, lse, g_out.contiguous(),
+            ctx.priors, beta=ctx.beta, leaky_slope=ctx.leaky_slope)
+        return (*grads, None, None, None, None)
+
+
+def seg_gat_agg_multigraph_joint(index, theta_src, theta_dst, h_src, edge_bias,
+                                 priors: JointPriors | None = None, *, beta: float = 0.0,
+                                 leaky_slope: float = 0.2):
+    """Differentiable joint NA over :func:`joint_index`'s units: (out [U·B,
+    H, Dh], lse [U·B, H]); gradients flow to theta_src, theta_dst, h_src and
+    edge_bias through the joint backward (#2's library)."""
+    return JointNA.apply(theta_src.contiguous(), theta_dst.contiguous(), h_src.contiguous(),
+                         edge_bias.contiguous(), index, priors, float(beta), float(leaky_slope))

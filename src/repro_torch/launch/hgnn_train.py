@@ -1,11 +1,13 @@
 """HGNN training launcher of the port: HAN or R-GAT, on one card or over a
-lane group of ranks.
+lane group of ranks, and Simple-HGN on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --dataset imdb \\
         --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 8 --plan-lanes 16
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --model R-GAT \\
         --dataset imdb --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 4 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --device cpu --steps 5 --plan-lanes 4
+    PYTHONPATH=src python -m repro_torch.launch.hgnn_train --model Simple-HGN --block 8 \
+        --dataset imdb --scale 1.0 --feat-scale 1.0 --hidden 64 --heads 8 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.hgnn_train --steps 20 --trace t.json --metrics m.json
     torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 4 --plan-lanes 16
     torchrun --nproc-per-node 4 -m repro_torch.launch.hgnn_train --lanes 2 --model-split 2 \
@@ -40,7 +42,11 @@ relation-specific projections keep it off the plan: it runs kernels
 ``reference``, replicated over the lane axis; under ``--model-split M``
 each model rank holds its columns of every relation's ``w_src``/``w_dst``
 and its rows of ``w_out`` (``rgat_forward`` with ``placements``), M
-dividing ``--heads``.  ``--device`` defaults to ``cuda`` and raises on a
+dividing ``--heads``.  Simple-HGN (HGB's graph: every relation, its
+reverse and a self-loop a vertex, one table of every vertex) runs the
+joint #1 once a layer and the joint #2 once in the backward, one softmax
+over every relation into a vertex; ``--lanes`` and ``--model-split``
+raise for it, and so does ``--backend reference``.  ``--device`` defaults to ``cuda`` and raises on a
 host without a card; ``--device cpu`` runs the kernels' plain versions.
 
 ``--trace PATH`` traces the whole run with synchronising spans into a
@@ -73,7 +79,13 @@ from ..graphs import (
     synthetic_hetgraph,
     synthetic_labels,
 )
-from ..models.hgnn import MODELS, han_forward_multilane, prepare_data
+from ..models.hgnn import (
+    MODELS,
+    han_forward_multilane,
+    prepare_data,
+    prepare_simple_hgn,
+    simple_hgn_graph,
+)
 from ..obs import disable_tracing, enable_tracing, get_registry
 from ..obs.characterize import characterize_hgnn
 from ..optim import AdamWConfig
@@ -97,6 +109,8 @@ _PER_GRAPH = {"reference": NABackend.BLOCK, "kernel": NABackend.MULTIGRAPH,
 _INIT_KW = {
     "HAN": lambda hidden, heads: dict(hidden=hidden, heads=heads, att_dim=2 * hidden),
     "R-GAT": lambda hidden, heads: dict(hidden=hidden, heads=heads, layers=2),
+    "Simple-HGN": lambda hidden, heads: dict(hidden=hidden, heads=heads, layers=2,
+                                             edge_dim=hidden),
 }
 
 
@@ -121,6 +135,20 @@ def build_problem(
     data = prepare_data(g, [sgs[i] for i in order], target, ncls, labels, block=block,
                         device=dev)
     return g, data
+
+
+def build_simple_hgn_problem(dataset: str, *, scale: float = 0.1, feat_scale: float = 0.1,
+                             block: int = 128, seed: int = 0,
+                             device: str | torch.device = "cuda"):
+    """The Table-5 HetG as Simple-HGN trains on it (HGB's graph: every
+    relation, its reverse and a self-loop a vertex) and its device-resident
+    training data."""
+    g = synthetic_hetgraph(dataset, scale=scale, feat_scale=feat_scale, seed=seed)
+    target, ncls = dataset_target(dataset)
+    labels = synthetic_labels(g, dataset, seed=seed)
+    full, edge_types = simple_hgn_graph(g)
+    return g, prepare_simple_hgn(full, edge_types, target, ncls, labels, block=block,
+                                 device=resolve_device(device))
 
 
 def run_training(
@@ -152,8 +180,8 @@ def run_training(
     registry=None,
     device: str | torch.device = "cuda",
 ):
-    """Train HAN or R-GAT on one dataset under the lanes posture: one
-    process, or one per rank of a (``lanes``, ``model_split``) mesh (an
+    """Train HAN, R-GAT or Simple-HGN (one card) on one dataset under the
+    lanes posture: one process, or one per rank of a (``lanes``, ``model_split``) mesh (an
     initialised ``torch.distributed`` group).  Returns ``(state, history,
     meta)``: the state holds this rank's pieces of the sharded leaves;
     meta records the model, the resolved backend, the mesh, the plan's
@@ -176,6 +204,12 @@ def run_training(
     if model_split > 1 and heads % model_split:
         raise ValueError(f"heads={heads} must be a multiple of model_split={model_split}: "
                          "a model rank holds whole heads")
+    if model_name == "Simple-HGN" and (lanes > 1 or model_split > 1):
+        raise ValueError("Simple-HGN trains on one card: --lanes and --model-split are out of "
+                         "its scope (its joint NA has no lane or model split)")
+    if model_name == "Simple-HGN" and backend == "reference":
+        raise ValueError("Simple-HGN trains on the kernel backend (the joint #1/#2; their plain "
+                         "versions on the CPU)")
     n_plan_lanes = plan_lanes or lanes
     if n_plan_lanes % lanes:
         raise ValueError(f"plan_lanes={n_plan_lanes} must be a multiple of lanes={lanes}")
@@ -187,8 +221,12 @@ def run_training(
     if not reporter:
         log = lambda *_: None  # noqa: E731
     reg = registry if registry is not None else get_registry()
-    g, data = build_problem(dataset, scale=scale, feat_scale=feat_scale, block=block,
-                            max_edges=max_edges, seed=seed, device=dev)
+    if model_name == "Simple-HGN":
+        g, data = build_simple_hgn_problem(dataset, scale=scale, feat_scale=feat_scale,
+                                           block=block, seed=seed, device=dev)
+    else:
+        g, data = build_problem(dataset, scale=scale, feat_scale=feat_scale, block=block,
+                                max_edges=max_edges, seed=seed, device=dev)
     model = MODELS[model_name]
     n_target = g.vertex_counts[data.target_type]
     opt = AdamWConfig(lr=lr, weight_decay=0.0)
@@ -210,6 +248,11 @@ def run_training(
         forward_fn = lambda p: han_forward_multilane(  # noqa: E731
             p, data, plan, mesh=mesh, placements=param_placements,
             backend=na_backend)
+    elif model_name == "Simple-HGN":
+        # one table of every vertex: the joint #1 once a layer, #2 once under autograd
+        plan = None
+        na_backend = NABackend.MULTIGRAPH.value
+        forward_fn = lambda p: model.forward(p, data, backend=NABackend.MULTIGRAPH)  # noqa: E731
     else:
         # per-relation projections: the kernels once per relation and layer,
         # replicated on every lane rank, FP split over the model axis
@@ -219,7 +262,8 @@ def run_training(
         forward_fn = lambda p: model.forward(  # noqa: E731
             p, data, backend=nab, mesh=mesh, placements=param_placements)
     log(f"[hgnn_train] {model_name}/{dataset} params={n_params / 1e6:.2f}M "
-        f"edges={sum(b.num_edges for b in data.graphs)} mesh=lane{lanes}xmodel{model_split} "
+        f"edges={data.joint.num_edges if data.joint else sum(b.num_edges for b in data.graphs)} "
+        f"mesh=lane{lanes}xmodel{model_split} "
         f"plan_lanes={None if plan is None else plan.num_lanes} device={dev} "
         f"backend={na_backend}")
     step_fn = make_hgnn_train_step(forward_fn, data, opt, mesh=mesh,

@@ -2,9 +2,18 @@ from .common import HGNNData, HGNNModel, cross_entropy, glorot, prepare_data
 from .han import HAN, han_forward, han_forward_multilane, han_forward_staged, init_han
 from .rgat import RGAT, init_rgat, rgat_forward
 from .rgcn import RGCN, init_rgcn, rgcn_forward
-from .shgn import SHGN, init_shgn, shgn_forward
+from .shgn import (
+    SHGN,
+    SIMPLE_HGN,
+    init_shgn,
+    init_simple_hgn,
+    prepare_simple_hgn,
+    shgn_forward,
+    simple_hgn_forward,
+    simple_hgn_graph,
+)
 
-MODELS: dict[str, HGNNModel] = {m.name: m for m in (HAN, RGCN, RGAT, SHGN)}
+MODELS: dict[str, HGNNModel] = {m.name: m for m in (HAN, RGCN, RGAT, SHGN, SIMPLE_HGN)}
 
 __all__ = [
     "HGNNData",
@@ -16,6 +25,7 @@ __all__ = [
     "RGCN",
     "RGAT",
     "SHGN",
+    "SIMPLE_HGN",
     "MODELS",
     "han_forward",
     "han_forward_multilane",
@@ -27,4 +37,8 @@ __all__ = [
     "rgcn_forward",
     "init_shgn",
     "shgn_forward",
+    "init_simple_hgn",
+    "prepare_simple_hgn",
+    "simple_hgn_forward",
+    "simple_hgn_graph",
 ]

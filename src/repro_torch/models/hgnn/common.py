@@ -17,7 +17,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ...core.fusion import NABackend, SemanticGraphBatch, batch_semantic_graph
+from ...core.fusion import JointGraph, NABackend, SemanticGraphBatch, batch_semantic_graph
 from ...core.multilane import MultiLanePlan, build_multilane_plan
 from ...graphs.hetgraph import HetGraph, SemanticGraph
 from ...runtime import resolve_device
@@ -32,6 +32,7 @@ class HGNNData:
     target_type: str
     num_classes: int
     labels: torch.Tensor | None = None       # int64 [N_target]
+    joint: JointGraph | None = None          # every relation over one table (Simple-HGN)
     _plan: tuple | None = dataclasses.field(default=None, init=False, repr=False,
                                             compare=False)
 
