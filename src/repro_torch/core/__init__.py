@@ -13,6 +13,7 @@ from .fusion import (
     neighbor_aggregate,
     neighbor_aggregate_multi,
     project_coefficients,
+    project_dst_coefficients,
 )
 from .multilane import (
     MULTILANE_BACKENDS,
@@ -44,6 +45,7 @@ __all__ = [
     "neighbor_aggregate",
     "neighbor_aggregate_multi",
     "project_coefficients",
+    "project_dst_coefficients",
     "MULTILANE_BACKENDS",
     "MultiLanePlan",
     "build_multilane_plan",

@@ -273,6 +273,26 @@ def project_coefficients(
     return h, torch.einsum("nhd,hd->nh", h, a_src), torch.einsum("nhd,hd->nh", h, a_dst)
 
 
+def project_dst_coefficients(
+    x: torch.Tensor,  # [N, Din]
+    w: torch.Tensor,  # [Din, H*Dh]
+    a: torch.Tensor,  # [H, Dh]
+) -> torch.Tensor:
+    """theta [N, H] of a side whose projection NA never reads (R-GAT's
+    destination table): <x w, a> per head, taken as x @ v with v = <w, a>
+    per head [Din, H], so no [N, H*Dh] table is made or kept for the
+    backward.  Plain products, differentiable by autograd (``w`` and ``a``
+    get their gradients through ``v``).
+
+    Counter: ``project_dst_coefficients.calls``, one a call."""
+    project_dst_coefficients.calls += 1
+    v = torch.einsum("khd,hd->kh", w.reshape(w.shape[0], a.shape[0], -1), a)
+    return x @ v
+
+
+project_dst_coefficients.calls = 0
+
+
 def neighbor_aggregate(
     batch: SemanticGraphBatch,
     theta_src: torch.Tensor,  # [Ns, H]

@@ -10,7 +10,10 @@ decomposed theta_src/theta_dst form.
 Backends: SEGMENT and BLOCK (plain PyTorch, plain autograd), KERNEL
 (inference only: per relation and layer two launches of kernel #6, the
 src and the dst side's FP+θ, and one of kernel #5 for NA) and MULTIGRAPH
-(kernels #1/#2 at G = 1 per relation; the trainer's path).
+(kernels #1/#2 at G = 1 per relation; the trainer's path).  Off KERNEL,
+FP computes only what NA reads: hs and θ_src on the source side, and
+θ_dst straight from the destination features
+(``core.fusion.project_dst_coefficients``), with no destination table.
 :func:`rgat_forward` also runs over a (lane, model) mesh with this rank's
 pieces of the parameters, as HAN's multi-lane layer does.
 """
@@ -19,7 +22,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ...core.fusion import NABackend, neighbor_aggregate, project_coefficients
+from ...core.fusion import (
+    NABackend,
+    neighbor_aggregate,
+    project_coefficients,
+    project_dst_coefficients,
+)
 from ...dist.sharding import gather_leaf, sum_cotangent
 from ...obs.trace import trace_span
 from ...tree import tree_map
@@ -74,6 +82,13 @@ def _project_split(x, w, placement, a_src, a_dst, mesh):
     return h, torch.einsum("nhd,hd->nh", h, a_src), torch.einsum("nhd,hd->nh", h, a_dst)
 
 
+def _project_src(x, w, a_src):
+    """The source side's FP: ``(hs [N, H, Dh], theta_src [N, H])``, with no
+    theta_dst (NA reads the destination side's alone)."""
+    hs = (x @ w).reshape(x.shape[0], a_src.shape[0], -1)
+    return hs, torch.einsum("nhd,hd->nh", hs, a_src)
+
+
 def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGMENT,
                  mesh=None, placements=None):
     """R-GAT logits ``[N_target, C]``.
@@ -84,11 +99,12 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
     rank's pieces.  A model rank holds contiguous columns of each
     relation's ``w_src``/``w_dst`` (whole heads: the model axis must divide
     H) and rows of ``w_out``; it projects its columns and an all-gather
-    over the model group rebuilds ``hs``/``hd``.  θ, NA, the relation
-    mean, ELU and the ``self`` products then run replicated over the model
-    group, and ``w_out`` is gathered before use.  Each gather's backward
-    takes the rank's slice of the (replicated) cotangent, and the input of
-    a split product sums the ranks' parts of its cotangent.  On KERNEL, #6
+    over the model group rebuilds ``hs``.  θ (θ_dst from the gathered
+    ``w_dst``, with no destination table, as in one process), NA, the
+    relation mean, ELU and the ``self`` products then run replicated over
+    the model group, and ``w_out`` is gathered before use.  Each gather's
+    backward takes the rank's slice of the (replicated) cotangent, and the
+    input of a split product sums the ranks' parts of its cotangent.  On KERNEL, #6
     projects inside its call from the whole ``w``, so the weights are
     gathered and FP is not split.  NA sees the same operands on every rank
     of a model group, so the group's logits, loss and gathered gradients
@@ -97,7 +113,7 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
     bits).
 
     Spans (DESIGN.md §12): per relation and layer, on lane
-    ``sg/<relation>``, ``rgat/fp`` (both sides' projections) and
+    ``sg/<relation>``, ``rgat/fp`` (both sides' FP) and
     ``rgat/na``; per layer ``rgat/mean`` (the relation mean, the ``self``
     products, ELU); last ``rgat/classifier``."""
     if placements is not None and mesh is None:
@@ -119,18 +135,21 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
             with trace_span("rgat/fp", stage="FP", lane=lane, layer=layer):
                 a_src = whole(rp["a_src"], rpl["a_src"])
                 a_dst = whole(rp["a_dst"], rpl["a_dst"])
-                if split_fp:
-                    hs, th_s, _ = _project_split(h[batch.src_type], rp["w_src"], rpl["w_src"],
-                                                 a_src, a_dst, mesh)
-                    _, _, th_d = _project_split(h[batch.dst_type], rp["w_dst"], rpl["w_dst"],
-                                                a_src, a_dst, mesh)
-                else:
+                if backend is NABackend.KERNEL:
                     hs, th_s, _ = project_coefficients(h[batch.src_type],
                                                        whole(rp["w_src"], rpl["w_src"]),
                                                        a_src, a_dst, backend=backend)
                     _, _, th_d = project_coefficients(h[batch.dst_type],
                                                       whole(rp["w_dst"], rpl["w_dst"]),
                                                       a_src, a_dst, backend=backend)
+                else:  # only what NA reads: hs, theta_src, theta_dst
+                    if split_fp:
+                        hs, th_s, _ = _project_split(h[batch.src_type], rp["w_src"],
+                                                     rpl["w_src"], a_src, a_dst, mesh)
+                    else:
+                        hs, th_s = _project_src(h[batch.src_type], rp["w_src"], a_src)
+                    th_d = project_dst_coefficients(h[batch.dst_type],
+                                                    whole(rp["w_dst"], rpl["w_dst"]), a_dst)
             with trace_span("rgat/na", stage="NA", lane=lane, layer=layer):
                 z = neighbor_aggregate(batch, th_s, th_d, hs, backend=backend)
                 agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
