@@ -697,11 +697,19 @@ def kernel_phase(eng, fusion, mg_mod, ff_mod) -> dict:
     }
 
 
+def ff_topology(ops: dict):
+    """The checked topology of these fused operands' units, over one table
+    of ``x``'s rows."""
+    from repro_torch.kernels.topology import Topology
+
+    n_pad = ops["x"].shape[0]
+    return Topology(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["masks"],
+                    n_graphs=ops["wsel"].shape[0], ns_pad=n_pad, nd_pad=n_pad)
+
+
 def ff_index(ff_mod, ops: dict, *, backward: bool = True) -> dict:
-    """#3/#4's topology index of these fused operands."""
-    return ff_mod.fused_index(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["wsel"],
-                              ops["w"].shape[0], ops["x"].shape[0], ops["masks"].shape[-1],
-                              backward=backward, masks=ops["masks"])
+    """#3/#4's fused index of these fused operands' topology."""
+    return ff_topology(ops).fused_index(ops["wsel"], ops["w"].shape[0], backward=backward)
 
 
 def multigraph_composition(mg_mod, mg, ff, out=None, lse=None):
@@ -889,10 +897,11 @@ def exact_fused(ops: dict) -> dict:
 
 
 def mg_index(mg_mod, ops: dict) -> dict:
-    """#2's edge index of these multigraph operands."""
+    """#2's edge index of these multigraph operands' topology."""
     ths, thd = ops["theta_src"], ops["theta_dst"]
-    return mg_mod.edge_index(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["masks"],
-                             ths.shape[0], ths.shape[1], thd.shape[1])
+    return mg_mod.Topology(ops["col_index"], ops["graph_id"], ops["dst_row"], ops["masks"],
+                           n_graphs=ths.shape[0], ns_pad=ths.shape[1],
+                           nd_pad=thd.shape[1]).edge_index()
 
 
 def edge_visits(mg_mod, ops: dict, idx: dict, out, lse) -> dict:
@@ -1402,7 +1411,7 @@ def multilane_phase(tdata, counters, mg_mod) -> dict:
                theta_dst=torch.einsum("nhd,ghd->gnh", h, params["a_dst"]).contiguous(),
                h_src=h.contiguous(), edge_bias=torch.zeros((len(data.graphs), H), device=h.device))
     out, lse = mg_mod.seg_gat_agg_multigraph_fwd(**ops)
-    idx_e = units.edge_index(len(data.graphs), n_pad, n_pad)
+    idx_e = units.topology(len(data.graphs), n_pad, n_pad).edge_index()
     res["visits"] = edge_visits(mg_mod, ops, idx_e, out, lse)
     log(f"[multilane 16 lanes balanced] entries visited an edge: #1 {res['visits']['fwd']}, "
         f"#2 pass A {res['visits']['pass_a']}, pass B {res['visits']['pass_b']} "
@@ -1720,14 +1729,15 @@ def fused_b128_phase(counters, mg_mod, ff_mod, fusion) -> dict:
     # their plain versions, and against #1 and #2 on the MULTIGRAPH path's projection
     mg, ff = train_operands(data, params, fusion)
     ff = exact_fused(ff)
-    fidx = ff_index(ff_mod, ff)
-    sub = fidx["reblocked"]
+    ftop = ff_topology(ff)
+    fidx = ftop.fused_index(ff["wsel"], ff["w"].shape[0])
+    sub = dict(zip(("col_index", "graph_id", "dst_row", "masks"), fidx["units"]))
     log(f"[fused B=128] U={ff['col_index'].shape[0]} W={ff['col_index'].shape[1]} live slots "
         f"{int((ff['col_index'] >= 0).sum())} -> re-blocked to 32: U={sub['col_index'].shape[0]} "
         f"W={sub['col_index'].shape[1]} live slots {int((sub['col_index'] >= 0).sum())}, edges "
         f"{live_edges(ff['col_index'], ff['masks'])}")
-    out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, index=fidx)
-    again = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, index=fidx)
+    out_f, lse_f = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, topology=ftop)
+    again = ff_mod.seg_gat_agg_fused_fp_fwd(**ff, topology=ftop)
     torch.cuda.synchronize()
     if not (torch.equal(out_f, again[0]) and torch.equal(lse_f, again[1])):
         raise AssertionError("fused_fp B=128: two runs on the same inputs differ")
@@ -1741,7 +1751,7 @@ def fused_b128_phase(counters, mg_mod, ff_mod, fusion) -> dict:
     err_bwd = check_bwd("fused_fp_bwd B=128", ff_mod.seg_gat_agg_fused_fp_bwd,
                         ff_mod.seg_gat_agg_fused_fp_bwd_plain, ff, out_f, lse_f, g)
     got = ff_mod.seg_gat_agg_fused_fp_bwd(**ff, out=out_f, lse=lse_f, g_out=g, need_dx=False,
-                                          index=fidx)[1:]
+                                          topology=ftop)[1:]
     leaves = [t.clone().requires_grad_() for t in (ff["w"][0], ff["b"][0], ff["a_src"],
                                                    ff["a_dst"], ff["edge_bias"])]
     H, Dh = ff["a_src"].shape[1:]
@@ -1766,8 +1776,7 @@ def fused_b128_phase(counters, mg_mod, ff_mod, fusion) -> dict:
                           reblocked_width=int(sub["col_index"].shape[1]))
 
     # times at B = 128, straight on the launches over the re-blocked topology
-    kops = dict(ff, col_index=sub["col_index"], graph_id=sub["graph_id"], dst_row=sub["dst_row"],
-                masks=sub["masks"])
+    kops = dict(ff, **sub)
     o, lo = torch.empty_like(out_f), torch.empty_like(lse_f)
     delta_f = (g * out_f).sum(-1)
     idx_m = mg_index(mg_mod, mg)
@@ -1778,13 +1787,13 @@ def fused_b128_phase(counters, mg_mod, ff_mod, fusion) -> dict:
                           hh, mg["edge_bias"], g, lse_f, delta_f, idx_m, 0.2)
 
     t = {"fused_fp": (
-        cuda_ms(lambda: ff_mod.launch(**kops, out=o, lse=lo, leaky_slope=0.2,
-                                      index=sub["index"]), reps=10),
+        cuda_ms(lambda: ff_mod.launch(**kops, out=o, lse=lo, leaky_slope=0.2, index=fidx),
+                reps=10),
         cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_plain(**ff), reps=1),
         cuda_ms(lambda: multigraph_composition(mg_mod, mg, ff, o, lo), reps=10)),
         "fused_fp_bwd": (
         cuda_ms(lambda: ff_mod.launch_bwd(**kops, g_out=g, lse=lse_f, delta=delta_f,
-                                          index=sub["index"], leaky_slope=0.2), reps=10),
+                                          index=fidx, leaky_slope=0.2), reps=10),
         cuda_ms(lambda: ff_mod.seg_gat_agg_fused_fp_bwd_plain(**ff, out=out_f, lse=lse_f, g_out=g,
                                                                need_dx=False), reps=1),
         cuda_ms(composition_vjp, reps=10))}

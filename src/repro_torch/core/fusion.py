@@ -46,15 +46,14 @@ import torch
 from ..graphs.formats import to_block_csr, to_padded_edges
 from ..graphs.hetgraph import HetGraph, SemanticGraph
 from ..kernels.fused_fp_coeff import fused_fp_coeff
-from ..kernels.seg_gat_agg import bias_vector, range_check, seg_gat_agg
+from ..kernels.seg_gat_agg import bias_vector, seg_gat_agg
 from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
 from ..kernels.seg_gat_agg_multigraph import (
     JointPriors,
-    edge_index,
-    joint_index,
     seg_gat_agg_multigraph,
     seg_gat_agg_multigraph_joint,
 )
+from ..kernels.topology import JOINT_TABLES, Topology, hold, joint_index
 from ..obs.trace import trace_span, tracing_enabled
 from . import stages
 
@@ -94,6 +93,10 @@ class SemanticGraphBatch:
     def num_dst_pad(self) -> int:
         return int(self.col_index.shape[0]) * self.block
 
+    @property
+    def num_src_pad(self) -> int:
+        return -(-self.num_src // self.block) * self.block
+
     def row_edge_counts(self) -> np.ndarray:
         """#edges per dst-block row (workload units for lane scheduling)."""
         return self.masks.sum(dim=(1, 2, 3)).cpu().numpy().astype(np.int64)
@@ -109,22 +112,13 @@ class SemanticGraphBatch:
                 torch.as_tensor(pe.valid, device=dev))
 
     @functools.cached_property
-    def multigraph_topology(self) -> tuple[tuple, dict]:
-        """The batch alone as MULTIGRAPH work units (``build_unit_tables([self])``)
-        and their edge index (kernel #2's ``edge_index``), read by the
-        per-graph MULTIGRAPH path (R-GAT runs it per relation, layer and
-        step on the same topology): built the first time it runs, then
-        kept."""
-        tables = build_unit_tables([self])
-        return tables, build_edge_index([self], tables)
-
-    @functools.cached_property
-    def kernel_range_check(self) -> dict:
-        """Kernel #5's range check of ``col_index`` (``kernels.seg_gat_agg.range_check``),
-        run the first time KERNEL aggregates the batch, then kept: later
-        calls skip its host sync while ``col_index`` is unchanged (its
-        version counter)."""
-        return range_check(self.col_index, -(-self.num_src // self.block))
+    def topology(self) -> Topology:
+        """The batch's own block CSR as the checked work units of one graph
+        (``kernels.topology.Topology.one_graph``), read by KERNEL (#5) and
+        the per-graph MULTIGRAPH path (#1/#2 at G = 1; R-GAT runs it per
+        relation, layer and step): built the first time one of them runs,
+        then kept, with the edge index #2 builds on it."""
+        return Topology.one_graph(self.col_index, self.masks, ns_pad=self.num_src_pad)
 
 
 def batch_semantic_graph(
@@ -157,11 +151,7 @@ class FusedFPInputs:
 
     ``w``/``b`` are stacked per weight *table* and ``wsel`` maps each
     semantic graph to its table — graphs sharing a projection (HAN: all of
-    them) share one table.  ``index`` is the topology index of kernels #3
-    and #4 (``kernels.seg_gat_agg_fused_fp.fused_index`` over
-    :func:`build_unit_tables` and :func:`fused_fp_rows`): None builds it in
-    every call; a caller that runs many steps on one batch set builds it
-    once.
+    them) share one table.
     """
 
     x: torch.Tensor       # [N, Din]       raw features (shared src/dst space)
@@ -170,10 +160,9 @@ class FusedFPInputs:
     a_src: torch.Tensor   # [G, H, Dh]
     a_dst: torch.Tensor   # [G, H, Dh]
     wsel: torch.Tensor    # int32 [G]      graph -> weight-table row
-    index: dict | None = None
 
     @classmethod
-    def shared(cls, x, w, b, a_src, a_dst, *, index: dict | None = None) -> "FusedFPInputs":
+    def shared(cls, x, w, b, a_src, a_dst) -> "FusedFPInputs":
         """All graphs project through ONE weight table (HAN's layout)."""
         return cls(
             x=x,
@@ -182,7 +171,6 @@ class FusedFPInputs:
             a_src=a_src,
             a_dst=a_dst,
             wsel=torch.zeros((a_src.shape[0],), dtype=torch.int32, device=x.device),
-            index=index,
         )
 
 
@@ -199,13 +187,13 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
 
 
-def build_edge_index(batches: list[SemanticGraphBatch], unit_tables: tuple) -> dict:
-    """MULTIGRAPH's edge index (kernel #2's ``edge_index``) of these
-    batches' :func:`build_unit_tables`, padded as
-    :func:`neighbor_aggregate_multi` pads θ and h."""
+def unit_topology(batches: list[SemanticGraphBatch]) -> Topology:
+    """The checked ``Topology`` of these batches' :func:`build_unit_tables`,
+    padded as :func:`neighbor_aggregate_multi` pads θ and h: what its
+    ``topology=`` takes."""
     b0 = batches[0]
-    ns_pad = -(-b0.num_src // b0.block) * b0.block
-    return edge_index(*unit_tables, len(batches), ns_pad, b0.num_dst_pad)
+    return Topology(*build_unit_tables(batches), n_graphs=len(batches), ns_pad=b0.num_src_pad,
+                    nd_pad=b0.num_dst_pad)
 
 
 def build_unit_tables(batches: list[SemanticGraphBatch]):
@@ -246,7 +234,7 @@ def fused_fp_rows(batches: list[SemanticGraphBatch]) -> int:
     """Rows of the padded raw-feature table FUSED_FP streams: the src and dst
     block rows of the batches, whichever reach further."""
     b0 = batches[0]
-    return max(-(-b0.num_src // b0.block) * b0.block, b0.num_dst_pad)
+    return max(b0.num_src_pad, b0.num_dst_pad)
 
 
 def project_coefficients(
@@ -312,11 +300,10 @@ def neighbor_aggregate(
     ``edge_bias`` is a number, a 0-d or an [H] tensor."""
     edge_bias = bias_vector(edge_bias, theta_src.shape[-1], h_src.device)
     if backend is NABackend.MULTIGRAPH:
-        tables, index = batch.multigraph_topology
         return neighbor_aggregate_multi(
             [batch], theta_src[None], theta_dst[None], h_src,
             backend=backend, leaky_slope=leaky_slope, edge_bias=edge_bias[None],
-            unit_tables=tables, index=index,
+            topology=batch.topology,
         )[0]
     if backend is NABackend.SEGMENT:
         return stages.segment_softmax_aggregate(
@@ -326,9 +313,8 @@ def neighbor_aggregate(
     if backend not in (NABackend.BLOCK, NABackend.KERNEL):
         raise ValueError(f"neighbor_aggregate takes one graph; {backend} runs through "
                          "neighbor_aggregate_multi")
-    ns_pad = ((batch.num_src + batch.block - 1) // batch.block) * batch.block
-    th_s = _pad_rows(theta_src, ns_pad)
-    hs = _pad_rows(h_src, ns_pad)
+    th_s = _pad_rows(theta_src, batch.num_src_pad)
+    hs = _pad_rows(h_src, batch.num_src_pad)
     th_d = _pad_rows(theta_dst, batch.num_dst_pad)
     if backend is NABackend.BLOCK:
         out = stages.block_softmax_aggregate(
@@ -339,7 +325,7 @@ def neighbor_aggregate(
         out = seg_gat_agg(
             batch.col_index, batch.masks, th_s.contiguous(), th_d.contiguous(),
             hs.contiguous(), leaky_slope=leaky_slope, edge_bias=edge_bias,
-            checked=batch.kernel_range_check,
+            topology=batch.topology,
         )
     return out[: batch.num_dst]
 
@@ -353,9 +339,8 @@ def neighbor_aggregate_multi(
     backend: NABackend = NABackend.MULTIGRAPH,
     leaky_slope: float = 0.2,
     edge_bias: torch.Tensor | None = None,  # [G, H]
-    unit_tables: tuple | None = None,
     fp: FusedFPInputs | None = None,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ) -> torch.Tensor:
     """NA for ALL semantic graphs of a step at once.  Returns
     [G, num_dst, H, Dh].
@@ -365,11 +350,10 @@ def neighbor_aggregate_multi(
     KERNEL are a per-graph loop of :func:`neighbor_aggregate` with the same
     semantics (KERNEL: one launch of kernel #5 per graph).  With FUSED_FP,
     pass ``fp=FusedFPInputs(...)`` and leave theta_src/theta_dst/h_src as
-    None.  ``unit_tables`` (from :func:`build_unit_tables` on these
-    batches) may be passed to skip rebuilding them, as in the reference;
-    MULTIGRAPH's edge index (``kernels.seg_gat_agg_multigraph.edge_index``
-    of those tables, which its backward reads) in ``index``, FUSED_FP's
-    topology index in ``fp.index``; None builds either in the call.
+    None.  ``topology`` (:func:`unit_topology` of these batches, or a
+    batch's own ``topology`` at G = 1) may be passed so that a caller that
+    runs many steps on one batch set checks and indexes its unit tables
+    once; None builds it in the call.
 
     Spans (obs.trace, DESIGN.md §12): the multigraph backends emit one
     ``stage=NA`` span for the whole launch; the per-graph loop emits one
@@ -392,15 +376,13 @@ def neighbor_aggregate_multi(
         return torch.stack(outs)
 
     b0 = batches[0]
-    b = b0.block
     nd = b0.num_dst
     nd_pad = b0.num_dst_pad
-    ns_pad = ((b0.num_src + b - 1) // b) * b
+    ns_pad = b0.num_src_pad
     g_n = len(batches)
-
+    if backend not in (NABackend.FUSED_FP, NABackend.MULTIGRAPH):
+        raise ValueError(f"unknown NA backend {backend}")
     if backend is NABackend.FUSED_FP:
-        if index is not None:
-            raise ValueError("index= is MULTIGRAPH's edge index; FUSED_FP's goes in fp.index")
         if fp is None:
             raise ValueError(
                 "FUSED_FP takes fp=FusedFPInputs (raw features + weight tables) "
@@ -411,9 +393,9 @@ def neighbor_aggregate_multi(
                 "fused FP+NA streams ONE raw-feature table for both src and dst "
                 "tiles; src and dst must share the vertex space"
             )
-        if unit_tables is None:
-            unit_tables = build_unit_tables(batches)
-        col, gid, row, masks = unit_tables
+    topology = unit_topology(batches) if topology is None else topology
+    col, gid, row, masks = topology.units
+    if backend is NABackend.FUSED_FP:
         x_pad = _pad_rows(fp.x, fused_fp_rows(batches)).contiguous()
         operands = (col, gid, row, fp.wsel, masks, x_pad, fp.w, fp.b, fp.a_src, fp.a_dst,
                     edge_bias)
@@ -423,14 +405,9 @@ def neighbor_aggregate_multi(
         ) as sp:
             # [G*R*B, H, Dh] — units are g-major, rows in order
             out = sp.sync(seg_gat_agg_fused_fp(*operands, leaky_slope=leaky_slope,
-                                               index=fp.index))
+                                               topology=topology))
         return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
-    if backend is not NABackend.MULTIGRAPH:
-        raise ValueError(f"unknown NA backend {backend}")
-    if unit_tables is None:
-        unit_tables = build_unit_tables(batches)
-    col, gid, row, masks = unit_tables
     th_s = _pad_rows(theta_src.transpose(0, 1), ns_pad).transpose(0, 1).contiguous()
     th_d = _pad_rows(theta_dst.transpose(0, 1), nd_pad).transpose(0, 1).contiguous()
     hs = _pad_rows(h_src, ns_pad).contiguous()
@@ -440,7 +417,8 @@ def neighbor_aggregate_multi(
         units=int(col.shape[0]), graph_names=_graph_names(batches),
     ) as sp:
         # [G*R*B, H, Dh] — units are g-major, rows in order
-        out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope, index=index))
+        out = sp.sync(seg_gat_agg_multigraph(*operands, leaky_slope=leaky_slope,
+                                             topology=topology))
     return out.reshape(g_n, nd_pad, *out.shape[1:])[:, :nd]
 
 
@@ -462,7 +440,7 @@ class JointGraph:
     ``edge_types[relation]`` picks each relation's attention bias (several
     relations may share one: HGB's self-loops).  Work units are the dst
     blocks of the table, each holding the slots of every relation into it,
-    ragged (``kernels.seg_gat_agg_multigraph.joint_index``)."""
+    ragged (``kernels.topology.joint_index``)."""
 
     types: tuple[str, ...]
     counts: dict[str, int]
@@ -493,14 +471,17 @@ class JointGraph:
         return -(-self.counts[vtype] // self.block)
 
     def index(self, n_units: int) -> dict:
-        """The joint NA's topology index of units [0, n_units), built the
-        first time it is asked for, then kept."""
+        """The joint NA's topology index of units [0, n_units), checked and
+        built the first time it is asked for, then kept and held to the
+        graph's tables (``kernels.topology.hold``)."""
+        tables = (self.unit_off, self.slot_col, self.slot_rel, self.masks)
         if n_units not in self._indexes:
             with trace_span("setup/joint_index", units=n_units):
-                self._indexes[n_units] = joint_index(
-                    self.unit_off, self.slot_col, self.slot_rel, self.masks, n_units,
-                    self.num_rows, self.num_edge_types)
-        return self._indexes[n_units]
+                self._indexes[n_units] = joint_index(*tables, n_units, self.num_rows,
+                                                     self.num_edge_types)
+        index = self._indexes[n_units]
+        hold("joint index", index["held"], dict(zip(JOINT_TABLES, tables)))
+        return index
 
 
 def build_joint_graph(g: HetGraph, edge_types: dict[str, int], *, block: int = 8,

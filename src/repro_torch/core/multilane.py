@@ -29,12 +29,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..kernels.seg_gat_agg_fused_fp import fused_index, seg_gat_agg_fused_fp
-from ..kernels.seg_gat_agg_multigraph import (
-    edge_index,
-    seg_gat_agg_multigraph,
-    unit_softmax_aggregate,
-)
+from ..kernels.seg_gat_agg_fused_fp import seg_gat_agg_fused_fp
+from ..kernels.seg_gat_agg_multigraph import seg_gat_agg_multigraph, unit_softmax_aggregate
+from ..kernels.topology import Topology
 from ..obs.trace import trace_span
 from .fusion import FusedFPInputs, SemanticGraphBatch, _pad_rows
 from .scheduling import LanePlan, lane_assignment, naive_lane_assignment
@@ -58,8 +55,8 @@ def resolve_multilane_backend(backend: str) -> str:
 @dataclasses.dataclass
 class LaneUnits:
     """The valid units of a block of lanes, flattened in lane-major order
-    as the kernels read them, with what the kernels' backwards index
-    (built at first use, then kept) and where each unit's rows land."""
+    as the kernels read them, with their checked topology (built at first
+    use, then kept) and where each unit's rows land."""
 
     col_index: torch.Tensor  # int32 [n, W]
     graph_id: torch.Tensor   # int32 [n]
@@ -67,31 +64,22 @@ class LaneUnits:
     masks: torch.Tensor      # bool  [n, W, B, B]
     place: torch.Tensor      # int64 [G·R]: the unit of (g, r), n where another block holds it
     take: torch.Tensor       # int64 [n]: g·R + r of each unit (place's inverse)
-    _indexes: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _topologies: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def count(self) -> int:
         return int(self.col_index.shape[0])
 
-    def edge_index(self, n_graphs: int, ns_pad: int, nd_pad: int) -> dict:
-        """Kernel #2's ``edge_index`` of these units."""
-        key = ("edge", n_graphs, ns_pad, nd_pad)
-        if key not in self._indexes:
-            self._indexes[key] = edge_index(self.col_index, self.graph_id, self.dst_row,
-                                            self.masks, n_graphs, ns_pad, nd_pad)
-        return self._indexes[key]
-
-    def fused_index(self, wsel: torch.Tensor, n_tables: int, n_pad: int) -> dict:
-        """Kernels #3/#4's ``fused_index`` of these units (built with the
-        first ``wsel`` of this shape; another raises in the kernels'
-        ``check_index``); at B above 32 it keeps the units re-blocked to
-        32, which the kernels read."""
-        key = ("fused", n_tables, n_pad)
-        if key not in self._indexes:
-            self._indexes[key] = fused_index(self.col_index, self.graph_id, self.dst_row, wsel,
-                                             n_tables, n_pad, int(self.masks.shape[-1]),
-                                             masks=self.masks)
-        return self._indexes[key]
+    def topology(self, n_graphs: int, ns_pad: int, nd_pad: int) -> Topology:
+        """The ``Topology`` of these units at these extents, which the
+        kernels of both directions take: built (checked) the first time,
+        then kept with the indexes the kernels build on it."""
+        key = (n_graphs, ns_pad, nd_pad)
+        if key not in self._topologies:
+            self._topologies[key] = Topology(self.col_index, self.graph_id, self.dst_row,
+                                             self.masks, n_graphs=n_graphs, ns_pad=ns_pad,
+                                             nd_pad=nd_pad)
+        return self._topologies[key]
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in
@@ -131,8 +119,8 @@ class MultiLanePlan:
     def units(self, lanes: tuple[int, int] | None = None) -> LaneUnits:
         """The valid units of lanes ``[l0, l1)`` (all lanes when None) in
         lane-major order, on the plan's device: built the first time, then
-        kept on the plan, so that no step rebuilds them or the kernels'
-        indexes."""
+        kept on the plan, so that no step rebuilds them or their
+        topology."""
         l0, l1 = (0, self.num_lanes) if lanes is None else lanes
         if not 0 <= l0 <= l1 <= self.num_lanes:
             raise ValueError(f"lanes [{l0}, {l1}) outside the plan's {self.num_lanes}")
@@ -254,12 +242,12 @@ def multilane_na(
         differentiable by autograd;
       * ``"kernel"`` — ONE ``seg_gat_agg_multigraph`` call over all the
         units: kernel #1 forward and, under autograd, one #2 launch
-        backward, reading the edge index kept on the plan;
+        backward, on the units' topology kept on the plan;
       * ``"fused_fp"`` — ONE ``seg_gat_agg_fused_fp`` call (#3, and #4
         under autograd): pass ``fp=FusedFPInputs`` (raw features, padded
         here to the plan's rows, and the projection/attention params) and
-        leave the theta/h operands None; its topology index is kept on the
-        plan unless ``fp.index`` is given;
+        leave the theta/h operands None; on the units' topology kept on
+        the plan;
       * ``"kernel_interpret"`` / ``"fused_fp_interpret"`` — spellings of
         the two above (:func:`resolve_multilane_backend`).
     On CUDA tensors the kernels launch; on CPU tensors their wrappers run
@@ -299,17 +287,16 @@ def multilane_na(
             )
         elif backend == "fused_fp":
             x = _pad_rows(fp.x, max(fp.x.shape[0], plan.n_dst_blocks * B)).contiguous()
-            index = fp.index if fp.index is not None else lu.fused_index(
-                fp.wsel, fp.w.shape[0] if fp.w.dim() == 3 else 1, x.shape[0])
             flat = seg_gat_agg_fused_fp(
                 lu.col_index, lu.graph_id, lu.dst_row, fp.wsel, lu.masks, x, fp.w, fp.b,
-                fp.a_src, fp.a_dst, edge_bias, leaky_slope=leaky_slope, index=index,
+                fp.a_src, fp.a_dst, edge_bias, leaky_slope=leaky_slope,
+                topology=lu.topology(g_n, x.shape[0], x.shape[0]),
             )
         else:
             flat = seg_gat_agg_multigraph(
                 lu.col_index, lu.graph_id, lu.dst_row, lu.masks, theta_src, theta_dst, h_src,
                 edge_bias, leaky_slope=leaky_slope,
-                index=lu.edge_index(g_n, theta_src.shape[1], theta_dst.shape[1]),
+                topology=lu.topology(g_n, theta_src.shape[1], theta_dst.shape[1]),
             )  # [n·B, H, Dh]
         out = _PlaceUnits.apply(flat.reshape(lu.count, B * h_dim * dh), lu.place, lu.take)
         return sp.sync(out.reshape(g_n, plan.n_dst_blocks * B, h_dim, dh))

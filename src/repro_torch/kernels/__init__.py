@@ -19,8 +19,10 @@ from .seg_gat_agg_multigraph import (
     seg_gat_agg_multigraph_fwd,
     seg_gat_agg_multigraph_plain,
 )
+from .topology import Topology
 
 __all__ = [
+    "Topology",
     "flash_attention",
     "flash_attention_plain",
     "fused_adamw",

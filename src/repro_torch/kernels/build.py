@@ -142,13 +142,3 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy when its data is not 16-byte aligned (the edge
     kernels read rows as float4 and mask rows as 8 bytes)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def check_range(name: str, t: torch.Tensor, lo: int, hi: int) -> None:
-    """Raise unless every entry of ``t`` lies in [lo, hi): a kernel reads
-    out of bounds on a bad index.  Reads the device, so it waits for it."""
-    if t.numel() == 0:
-        return
-    vmin, vmax = (int(v) for v in torch.aminmax(t))
-    if vmin < lo or vmax >= hi:
-        raise ValueError(f"{name}: entries must lie in [{lo}, {hi}), got [{vmin}, {vmax}]")

@@ -20,10 +20,11 @@ bits at G = 1.  Like the JAX package's kernel it has no gradient: an
 operand that requires one raises, and MULTIGRAPH (kernels #1/#2 at G = 1)
 is the differentiable per-graph route.
 
-The wrapper checks ``col_index``'s values on every call (a host sync)
-unless it is given ``checked=``, the token :func:`range_check` returned for
-the same unchanged tensor: KERNEL's dispatch keeps one per graph
-(``core.fusion.SemanticGraphBatch.kernel_range_check``).
+The wrapper takes ``topology=``, the graph's checked unit tables
+(``topology.Topology.one_graph``), held to ``col_index`` and ``masks`` with
+no device read while they are its own, unchanged tensors: KERNEL's
+dispatch keeps one per graph (``core.fusion.SemanticGraphBatch.topology``).
+A call without one checks the columns in the call (a host sync).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 
 from . import build
 from .seg_gat_agg_multigraph import check_edge_shape
+from .topology import Topology, resolve
 
 _NAME = "seg_gat_agg"
 
@@ -76,21 +78,6 @@ def launch(col_index, masks, theta_src, theta_dst, h_src, edge_bias, out,
     seg_gat_agg.launches += 1
 
 
-def range_check(col_index: torch.Tensor, n_src_blocks: int) -> dict:
-    """Check that ``col_index`` lies in [-1, n_src_blocks) (reads the
-    device) and return the token :func:`seg_gat_agg` takes as ``checked=``:
-    the tensor, its version counter and the bound.  A later call on the
-    same tensor, unchanged since, skips the check and its host sync."""
-    build.check_range("col_index", col_index, -1, n_src_blocks)
-    return dict(col_index=col_index, version=col_index._version, n_src_blocks=n_src_blocks)
-
-
-def _range_checked(checked: dict | None, col_index: torch.Tensor, n_src_blocks: int) -> bool:
-    return (checked is not None and checked["col_index"] is col_index
-            and checked["version"] == col_index._version
-            and checked["n_src_blocks"] == n_src_blocks)
-
-
 def bias_vector(edge_bias, H: int, dev: torch.device) -> torch.Tensor:
     """``edge_bias`` (a number, a 0-d or an [H] tensor) as a contiguous
     float32 [H] tensor on ``dev``; never read on the host.  The one rule
@@ -116,15 +103,15 @@ def seg_gat_agg(
     *,
     leaky_slope: float = 0.2,
     edge_bias: torch.Tensor | float = 0.0,  # a number, or f32 [H]
-    checked: dict | None = None,
+    topology: Topology | None = None,
 ) -> torch.Tensor:
     """The attention-aggregated features ``[R·B, H, Dh]`` of one graph (the
     counterpart of ``repro.kernels.seg_gat_agg``).
 
     CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only; no gradient.  ``checked``: :func:`range_check` of this
-    ``col_index``, which skips its range check while the tensor is
-    unchanged; None (or a token of another tensor) checks in the call."""
+    float32 only; no gradient.  ``topology``: the graph's
+    ``Topology.one_graph``, held to ``col_index`` and ``masks``; None builds
+    one in the call."""
     dev = h_src.device
     operands = (theta_src, theta_dst, h_src, edge_bias)
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
@@ -143,10 +130,7 @@ def seg_gat_agg(
     build.check_tensor("theta_dst", theta_dst, torch.float32, (R * B, H), dev)
     build.check_tensor("h_src", h_src, torch.float32, (ns_pad, H, None), dev)
     Dh = h_src.shape[-1]
-    if ns_pad % B:
-        raise ValueError(f"Ns_pad={ns_pad} must be a multiple of B={B}")
-    if not _range_checked(checked, col_index, ns_pad // B):
-        build.check_range("col_index", col_index, -1, ns_pad // B)
+    resolve(topology, col_index, None, None, masks, n_graphs=1, ns_pad=ns_pad, nd_pad=R * B)
     bias = bias_vector(edge_bias, H, dev)
     if dev.type == "cpu":
         return seg_gat_agg_plain(col_index, masks, theta_src, theta_dst, h_src,

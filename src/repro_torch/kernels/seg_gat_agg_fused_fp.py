@@ -30,13 +30,15 @@ and p from ``lse``: CUDA tensors launch ``csrc/seg_gat_agg_fused_fp_bwd.cu``
 segmented sums by weight table and by graph); the chain through h is two
 plain products.  CPU tensors take :func:`seg_gat_agg_fused_fp_bwd_plain`.
 :func:`seg_gat_agg_fused_fp` is the differentiable entry point (a
-``torch.autograd.Function`` around kernels #3 and #4).  The topology index
-both directions read (:func:`fused_index`) may be built once per batch set
-and passed in.
+``torch.autograd.Function`` around kernels #3 and #4).  Every entry takes
+``topology=``, the checked unit tables (``topology.Topology``), which a
+caller that runs many steps on one batch set builds once; both directions
+read its fused index (``Topology.fused_index``: the row tiles, the
+backward's CSRs).
 
 The .cu files instantiate B = 8, 16 and 32 (``SUPPORTED_BLOCKS``).  A
 larger block (64 or 128, as ``EDGE_BLOCKS``) is re-blocked on the host to
-B' = 32 before the launch (:func:`reblock`, kept on the index): each unit
+B' = 32 before the launch (:func:`reblock`, kept on the fused index): each unit
 becomes B/32 sub-units whose slots are its non-empty 32 × 32 sub-masks.
 The output rows keep their place, so ``out``, ``lse`` and the VJP are
 those of the B-unit layout; the online softmax takes a row's entries in
@@ -52,18 +54,16 @@ import torch
 from . import build
 from .fused_fp_coeff import BLOCK_M, split_error, split_k, split_scratch
 from .seg_gat_agg_multigraph import (
-    EDGE_BLOCKS,
     SUPPORTED_BLOCKS,
     check_smem,
-    csr,
     unit_softmax_aggregate,
     unit_softmax_aggregate_vjp,
 )
+from .topology import Topology, csr, resolve
 
 ROW_TILE = BLOCK_M  # rows of x a tile of phase P covers (csrc/fused_fp_project.cuh: kRowTile)
 ROUTES = ("wgmma", "cuda_cores")  # phase P's projection: tensor cores, CUDA cores
 _ROUTE_CODE = {"wgmma": 0, "cuda_cores": 1}
-_TOPOLOGY = ("col_index", "graph_id", "dst_row", "wsel")  # what fused_index reads
 KERNEL_BLOCK = max(SUPPORTED_BLOCKS)  # a larger B is re-blocked to this one (:func:`reblock`)
 _NAME = "seg_gat_agg_fused_fp"
 _BWD_NAME = "seg_gat_agg_fused_fp_bwd"
@@ -244,90 +244,6 @@ def reblock(col_index, graph_id, dst_row, masks, block: int = KERNEL_BLOCK):
             row.int().contiguous(), sub_masks.contiguous())
 
 
-def fused_index(col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int, block: int,
-                *, backward: bool = True, masks: torch.Tensor | None = None) -> dict:
-    """The topology index kernels #3 and #4 read, on the topology's device:
-    ``tiles`` (:func:`row_tiles`) and, with ``backward``, :func:`bwd_index`'s
-    live-slot numbering and CSRs.  It takes a device sort and host syncs, so
-    a caller that runs many steps on one batch set builds it once and passes
-    it to every call.  ``built_for`` records what it was built for, which
-    :func:`check_index` holds each call to: (U, W, B, T, N_pad) and the four
-    topology tensors, each with its version counter and a copy of its
-    values.
-
-    A ``block`` above ``KERNEL_BLOCK`` needs ``masks``: the index then holds
-    :func:`reblock`'s topology and the index of that topology at
-    ``KERNEL_BLOCK`` under ``reblocked``, which the kernels read, and is
-    built for the masks too."""
-    topology = dict(zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)))
-    if block > KERNEL_BLOCK:
-        if masks is None:
-            raise ValueError(f"{_NAME}: B={block} is re-blocked to {KERNEL_BLOCK}, which reads "
-                             "the masks: pass masks=")
-        topology["masks"] = masks
-        col, gid, row, sub_masks = reblock(col_index, graph_id, dst_row, masks)
-        index = dict(reblocked=dict(
-            col_index=col, graph_id=gid, dst_row=row, masks=sub_masks,
-            index=fused_index(col, gid, row, wsel, n_tables, n_pad, KERNEL_BLOCK,
-                              backward=backward)))
-    else:
-        index = dict(tiles=row_tiles(col_index, graph_id, dst_row, wsel, n_pad, block))
-        if backward:
-            index.update(bwd_index(col_index, graph_id, dst_row, wsel, int(wsel.numel()),
-                                   n_tables, n_pad // block))
-    index["built_for"] = dict(shape=(*col_index.shape, block, n_tables, n_pad),
-                              operands={k: (t, t._version, t.clone())
-                                        for k, t in topology.items()})
-    return index
-
-
-def check_index(index: dict, col_index, graph_id, dst_row, wsel, n_tables: int, n_pad: int,
-                block: int, *, masks: torch.Tensor | None = None) -> None:
-    """Raise unless ``index`` is :func:`fused_index` of this topology: the
-    same (U, W, B, T, N_pad) and the same values of col_index, graph_id,
-    dst_row and wsel (and masks, for an index of a re-blocked B).  Phase A
-    reads only the rows of h that phase P wrote, so an index of another
-    topology gives wrong numbers, not an error.  A tensor the index was
-    built from, unchanged since (its version counter), passes without
-    reading the device; any other is compared by value."""
-    built = index.get("built_for")
-    if built is None:
-        raise ValueError(f"{_NAME}: index is not one of fused_index")
-    shape = (*col_index.shape, block, n_tables, n_pad)
-    if built["shape"] != shape:
-        raise ValueError(f"{_NAME}: the index was built for (U, W, B, T, N_pad) = "
-                         f"{built['shape']}, the operands have {shape}")
-    given = dict(zip(_TOPOLOGY, (col_index, graph_id, dst_row, wsel)), masks=masks)
-    for name, (ref, version, values) in built["operands"].items():
-        t = given[name]
-        if t is ref and t._version == version:
-            continue
-        if t is None or t.shape != values.shape or not torch.equal(t, values.to(t.device)):
-            raise ValueError(f"{_NAME}: the index was built for another {name}")
-
-
-def _kernel_topology(name: str, col_index, graph_id, dst_row, wsel, masks, n_tables: int,
-                     n_pad: int, index: dict | None, backward: bool):
-    """What the kernels read for these operands: (col_index, graph_id,
-    dst_row, masks, index) at a block the .cu files take, the given ones
-    below ``KERNEL_BLOCK``, else the re-blocked ones the index keeps.
-    ``index`` is checked (:func:`check_index`), or built when None or
-    without the backward's part."""
-    B = masks.shape[-1]
-    if B not in EDGE_BLOCKS:
-        raise ValueError(f"{name}: block size B={B} not in {EDGE_BLOCKS}")
-    kernel_index = index if index is None else index.get("reblocked", {}).get("index", index)
-    if index is None or (backward and "pair_of" not in kernel_index):
-        index = fused_index(col_index, graph_id, dst_row, wsel, n_tables, n_pad, B,
-                            backward=backward, masks=masks)
-    else:
-        check_index(index, col_index, graph_id, dst_row, wsel, n_tables, n_pad, B, masks=masks)
-    if "reblocked" not in index:
-        return col_index, graph_id, dst_row, masks, index
-    r = index["reblocked"]
-    return r["col_index"], r["graph_id"], r["dst_row"], r["masks"], r["index"]
-
-
 def _projection_scratch(route_: str, n_tiles: int, T: int, n_pad: int, din: int, C: int,
                         device) -> tuple:
     """Phase P's workspace ``h [T, N_pad, C]`` and, on the wgmma route, its
@@ -361,9 +277,10 @@ def _bwd_kernel_fn():
 
 def launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
            edge_bias, out, lse, leaky_slope: float, index: dict) -> torch.Tensor:
-    """Launch phase P (on :func:`route`) and phase A on checked operands and
-    :func:`fused_index`'s ``index`` (held to them by :func:`check_index`)
-    into ``out``/``lse``, on the current stream.  Returns phase P's
+    """Launch phase P (on :func:`route`) and phase A on checked operands,
+    the unit tables of their topology's fused index ``index``
+    (``Topology.fused_index``), into ``out``/``lse``, on the current
+    stream.  Returns phase P's
     workspace ``h [T, N_pad, H·Dh]``: the rows of the listed tiles hold
     ``x·W[t] + b[t]``, the others are undefined.  Counts one launch, in
     total and by projection route."""
@@ -372,7 +289,6 @@ def launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
     H, Dh = a_src.shape[1:]
     T, din = w.shape[:2]
     n_pad = x.shape[0]
-    check_index(index, col_index, graph_id, dst_row, wsel, T, n_pad, B)
     route_ = route(H, Dh)
     tiles = index["tiles"]
     L = int(tiles.numel())
@@ -398,16 +314,14 @@ def launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
 def launch_bwd(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
                g_out, lse, delta, index: dict, leaky_slope: float):
     """Launch the backward (phase P on :func:`route`, then pass 1 and its
-    reductions) on checked operands and :func:`fused_index`'s ``index``
-    (with its backward part; held to them by :func:`check_index`), on the
-    current stream.  Returns (dh_t [T, N_pad, H·Dh], d_a_src, d_a_dst,
+    reductions) on checked operands as :func:`launch` takes them, ``index``
+    with its backward part, on the current stream.  Returns (dh_t [T, N_pad, H·Dh], d_a_src, d_a_dst,
     d_edge_bias).  Counts one launch, in total and by projection route."""
     U, W = col_index.shape
     B = masks.shape[-1]
     G, H, Dh = a_src.shape
     T, din = w.shape[:2]
     n_pad = x.shape[0]
-    check_index(index, col_index, graph_id, dst_row, wsel, T, n_pad, B)
     route_ = route(H, Dh)
     n_live = index["n_live"]
     tiles = index["tiles"]
@@ -442,26 +356,23 @@ def launch_bwd(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
     return dh_t, d_a_src, d_a_dst, dthd_g.sum(dim=1)
 
 
-def _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-                    edge_bias):
-    """Check the operands of either direction; returns (w, b, edge_bias)
-    with a shared table taken as T = 1 and zeros for a None bias."""
+def _check_operands(topology, col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+                    edge_bias, *, backward: bool):
+    """Check the operands of either direction and hold ``topology`` to the
+    unit tables (or build one from them: ``topology.resolve``), over one
+    table of ``x``'s rows.  Returns (w, b, edge_bias, the topology's fused
+    index for ``wsel``), a shared table taken as T = 1, zeros for a None
+    bias."""
     dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_NAME}: unsupported device {dev}")
     if w.dim() == 2:
         w = w[None]
     if b.dim() == 1:
         b = b[None]
-    build.check_tensor("col_index", col_index, torch.int32, (None, None), dev)
-    U, W = col_index.shape
-    build.check_tensor("masks", masks, torch.bool, (U, W, None, None), dev)
-    B = masks.shape[-1]
-    build.check_tensor("masks", masks, torch.bool, (U, W, B, B), dev)
-    build.check_tensor("graph_id", graph_id, torch.int32, (U,), dev)
-    build.check_tensor("dst_row", dst_row, torch.int32, (U,), dev)
     build.check_tensor("a_src", a_src, torch.float32, (None, None, None), dev)
     G, H, Dh = a_src.shape
     build.check_tensor("a_dst", a_dst, torch.float32, (G, H, Dh), dev)
-    build.check_tensor("wsel", wsel, torch.int32, (G,), dev)
     build.check_tensor("x", x, torch.float32, (None, None), dev)
     n_pad, din = x.shape
     build.check_tensor("w", w, torch.float32, (None, din, H * Dh), dev)
@@ -470,15 +381,11 @@ def _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a
     if edge_bias is None:
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=dev)
     build.check_tensor("edge_bias", edge_bias, torch.float32, (G, H), dev)
-    if n_pad % B:
-        raise ValueError(f"x has {n_pad} rows, not a multiple of B={B}")
-    build.check_range("col_index", col_index, -1, n_pad // B)
-    build.check_range("graph_id", graph_id, 0, G)
-    build.check_range("dst_row", dst_row, 0, n_pad // B)
-    build.check_range("wsel", wsel, 0, T)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_NAME}: unsupported device {dev}")
-    return w, b, edge_bias
+    topology = resolve(topology, col_index, graph_id, dst_row, masks, n_graphs=G, ns_pad=n_pad,
+                       nd_pad=n_pad)
+    if topology.device != dev:
+        raise ValueError(f"{_NAME}: the topology is on {topology.device}, x on {dev}")
+    return w, b, edge_bias, topology.fused_index(wsel, T, backward=backward)
 
 
 def seg_gat_agg_fused_fp_fwd(
@@ -495,7 +402,7 @@ def seg_gat_agg_fused_fp_fwd(
     edge_bias: torch.Tensor | None = None,  # f32 [G, H]
     *,
     leaky_slope: float = 0.2,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused FP+NA: per-unit aggregates ``out [U·B, H, Dh]`` (same contract
     as ``seg_gat_agg_multigraph_fwd``) and ``lse [U·B, H]``.  ``x`` must
@@ -503,27 +410,21 @@ def seg_gat_agg_fused_fp_fwd(
 
     CUDA operands launch the kernel (B above 32 re-blocked to 32,
     :func:`reblock`); CPU operands take the plain version.  float32 only.
-    ``index``: :func:`fused_index` of these operands, built here when None;
-    one built for another topology raises (:func:`check_index`)."""
-    w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
-                                      a_src, a_dst, edge_bias)
+    ``topology``: the ``Topology`` of the unit tables at Ns_pad = Nd_pad =
+    N_pad, held to them (None: built in the call, a host read)."""
+    w, b, edge_bias, index = _check_operands(topology, col_index, graph_id, dst_row, wsel, masks,
+                                             x, w, b, a_src, a_dst, edge_bias, backward=False)
     if x.device.type == "cpu":
-        if index is not None:
-            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0],
-                        masks.shape[-1], masks=masks)
         return seg_gat_agg_fused_fp_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
             edge_bias, leaky_slope=leaky_slope,
         )
     U, B, (H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape[1:]
-    col_index, graph_id, dst_row, masks, index = _kernel_topology(
-        _NAME, col_index, graph_id, dst_row, wsel, masks, w.shape[0], x.shape[0], index,
-        backward=False)
-    kb = masks.shape[-1]
+    kb = index["units"][3].shape[-1]
     check_smem(_NAME, kb, H, Dh, smem_bytes(kb, H, Dh))
     out = torch.empty((U * B, H, Dh), dtype=torch.float32, device=x.device)
     lse = torch.empty((U * B, H), dtype=torch.float32, device=x.device)
-    launch(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
+    launch(*index["units"][:3], wsel, index["units"][3], x, w, b, a_src, a_dst,
            edge_bias, out, lse, float(leaky_slope), index)
     return out, lse
 
@@ -536,39 +437,33 @@ def seg_gat_agg_fused_fp_bwd(
     *,
     leaky_slope: float = 0.2,
     need_dx: bool = True,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ):
     """The VJP of :func:`seg_gat_agg_fused_fp_fwd`: (d_x or None, d_w
     [T, Din, H·Dh], d_b [T, H·Dh], d_a_src, d_a_dst, d_edge_bias), bitwise
     repeatable on the card.  ``need_dx=False`` skips the ``d_x`` product.
 
     CUDA operands launch the backward kernel (B above 32 re-blocked to 32,
-    :func:`reblock`); CPU operands take the plain version.  float32 only.  ``index``: :func:`fused_index` of these
-    operands with its backward part, built here when None or without it;
-    one built for another topology raises (:func:`check_index`)."""
-    w, b, edge_bias = _check_operands(col_index, graph_id, dst_row, wsel, masks, x, w, b,
-                                      a_src, a_dst, edge_bias)
+    :func:`reblock`); CPU operands take the plain version.  float32 only.
+    ``topology`` as in the forward."""
     dev = x.device
-    U, B, (G, H, Dh) = col_index.shape[0], masks.shape[-1], a_src.shape
+    w, b, edge_bias, index = _check_operands(topology, col_index, graph_id, dst_row, wsel, masks,
+                                             x, w, b, a_src, a_dst, edge_bias,
+                                             backward=dev.type == "cuda")
+    U, B, H, Dh = col_index.shape[0], masks.shape[-1], *a_src.shape[1:]
     build.check_tensor("out", out, torch.float32, (U * B, H, Dh), dev)
     build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
     build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
     if dev.type == "cpu":
-        if index is not None:
-            check_index(index, col_index, graph_id, dst_row, wsel, w.shape[0], x.shape[0], B,
-                        masks=masks)
         return seg_gat_agg_fused_fp_bwd_plain(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
             out, lse, g_out, leaky_slope=leaky_slope, need_dx=need_dx,
         )
-    col_index, graph_id, dst_row, masks, index = _kernel_topology(
-        _BWD_NAME, col_index, graph_id, dst_row, wsel, masks, w.shape[0], x.shape[0], index,
-        backward=True)
-    kb = masks.shape[-1]
+    kb = index["units"][3].shape[-1]
     check_smem(_BWD_NAME, kb, H, Dh, bwd_smem_bytes(kb, H, Dh))
     delta = (g_out * out).sum(dim=-1)
     dh_t, d_a_src, d_a_dst, d_bias = launch_bwd(
-        col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
+        *index["units"][:3], wsel, index["units"][3], x, w, b, a_src, a_dst, edge_bias,
         g_out, lse, delta, index, float(leaky_slope))
     d_x, d_w, d_b = _chain_projection(x, w, dh_t, need_dx)
     return d_x, d_w, d_b, d_a_src, d_a_dst, d_bias
@@ -582,40 +477,41 @@ seg_gat_agg_fused_fp_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 class FusedFPNA(torch.autograd.Function):
     """Forward kernel #3 keeping ``out`` and ``lse``; backward kernel #4,
-    both reading the same topology index."""
+    both on the unit tables of one checked ``Topology``."""
 
     @staticmethod
-    def forward(ctx, col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-                edge_bias, leaky_slope, index):
+    def forward(ctx, topology, wsel, x, w, b, a_src, a_dst, edge_bias, leaky_slope):
+        col_index, graph_id, dst_row, masks = topology.units
         out, lse = seg_gat_agg_fused_fp_fwd(
             col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst, edge_bias,
-            leaky_slope=leaky_slope, index=index)
-        ctx.save_for_backward(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src,
-                              a_dst, edge_bias, out, lse)
+            leaky_slope=leaky_slope, topology=topology)
+        ctx.save_for_backward(wsel, x, w, b, a_src, a_dst, edge_bias, out, lse)
         ctx.leaky_slope = leaky_slope
-        ctx.index = index
+        ctx.topology = topology
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        *operands, out, lse = ctx.saved_tensors
-        grads = seg_gat_agg_fused_fp_bwd(*operands, out, lse, g_out.contiguous(),
+        wsel, *operands, out, lse = ctx.saved_tensors
+        col_index, graph_id, dst_row, masks = ctx.topology.units
+        grads = seg_gat_agg_fused_fp_bwd(col_index, graph_id, dst_row, wsel, masks, *operands,
+                                         out, lse, g_out.contiguous(),
                                          leaky_slope=ctx.leaky_slope,
-                                         need_dx=ctx.needs_input_grad[5], index=ctx.index)
-        return (None, None, None, None, None, *grads, None, None)
+                                         need_dx=ctx.needs_input_grad[2], topology=ctx.topology)
+        return (None, None, *grads, None)
 
 
 def seg_gat_agg_fused_fp(
     col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
     edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ) -> torch.Tensor:
     """Differentiable fused FP+NA ``[U·B, H, Dh]`` (the counterpart of
     ``repro``'s ``seg_gat_agg_fused_fp``): gradients flow to x, w, b,
     a_src, a_dst and edge_bias through kernel #4.  A 2-D ``w`` / 1-D ``b``
-    is one shared table.  ``index``: :func:`fused_index` of the topology,
-    built once by a caller that runs many steps on it (else each call
-    builds what it needs)."""
+    is one shared table.  ``topology``: the ``Topology`` of the unit tables,
+    built once by a caller that runs many steps on it (None: built here),
+    which both directions read."""
     if w.dim() == 2:
         w = w[None]
     if b.dim() == 1:
@@ -623,5 +519,6 @@ def seg_gat_agg_fused_fp(
     if edge_bias is None:
         G, H, _ = a_src.shape
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=x.device)
-    return FusedFPNA.apply(col_index, graph_id, dst_row, wsel, masks, x, w, b, a_src, a_dst,
-                           edge_bias, float(leaky_slope), index)
+    topology = resolve(topology, col_index, graph_id, dst_row, masks, n_graphs=a_src.shape[0],
+                       ns_pad=x.shape[0], nd_pad=x.shape[0])
+    return FusedFPNA.apply(topology, wsel, x, w, b, a_src, a_dst, edge_bias, float(leaky_slope))

@@ -20,12 +20,14 @@ Both kernels visit the set mask entries of live slots (the edges) only.
 The forward needs no index.  The backward (:func:`seg_gat_agg_multigraph_bwd`)
 recomputes p from lse: CUDA tensors launch ``csrc/seg_gat_agg_multigraph_bwd.cu``
 (a dst-major pass over the edges, then a src-major one, in fixed orders
-over the edge index :func:`edge_index` builds, which a caller that runs
-many steps on one topology builds once and passes in); CPU tensors take
-:func:`seg_gat_agg_multigraph_bwd_plain`.  :func:`seg_gat_agg_multigraph`
-is the differentiable entry point: a ``torch.autograd.Function`` whose
-forward launches the forward kernel and keeps ``out`` and ``lse``, and
-whose backward launches the backward kernel.
+over the topology's edge index, ``topology.Topology.edge_index``); CPU
+tensors take :func:`seg_gat_agg_multigraph_bwd_plain`.
+:func:`seg_gat_agg_multigraph` is the differentiable entry point: a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+keeps ``out`` and ``lse``, and whose backward launches the backward
+kernel.  Every entry takes ``topology=``, the checked unit tables
+(``topology.Topology``), which a caller that runs many steps on one
+topology builds once; None builds one in the call.
 """
 from __future__ import annotations
 
@@ -34,16 +36,15 @@ import ctypes
 import torch
 
 from . import build
+from .topology import EDGE_BLOCKS, Topology, resolve
 
 NEG_INF = -1e30
 SUPPORTED_BLOCKS = (8, 16, 32)  # B that kernels #3 and #4 are instantiated for (64, 128: re-blocked)
 SMEM_OPTIN = 232_448            # bytes of shared memory a block may opt into (sm_90)
-EDGE_BLOCKS = (8, 16, 32, 64, 128)  # B that #1, #2 and #5 take (csrc/edge_na.cuh: kMaxBlock)
 MAX_HEADS = 32                  # #1, #2 and #5: lane h of a warp holds head h
 _PLAIN_CHUNK_BYTES = 64 << 20   # working set of one chunk of units in the plain version
 _NAME = "seg_gat_agg_multigraph"
 _BWD_NAME = "seg_gat_agg_multigraph_bwd"
-_TOPOLOGY = ("col_index", "graph_id", "dst_row", "masks")  # what edge_index reads
 
 
 def _gather_unit_chunk(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
@@ -219,83 +220,6 @@ def check_edge_shape(name: str, B: int, H: int, Dh: int) -> None:
                          f"registers hold at Dh={Dh}")
 
 
-# -- the topology index of the backward ---------------------------------------
-
-
-def csr(keys: torch.Tensor, n_keys: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(offsets int32 [n_keys + 1], items int32 [N]): the positions of
-    ``keys`` grouped by key, in their own order within a key (a stable
-    sort), so a segmented sum over them runs in a fixed order."""
-    sorted_keys, order = torch.sort(keys.long(), stable=True)
-    bounds = torch.arange(n_keys + 1, device=keys.device)
-    return (torch.searchsorted(sorted_keys, bounds).int().contiguous(),
-            order.int().contiguous())
-
-
-def edge_index(col_index, graph_id, dst_row, masks, n_graphs: int, ns_pad: int,
-               nd_pad: int) -> dict:
-    """The edge index #2 reads, on the topology's device.  The edges are
-    the set mask entries of live slots, numbered dst-major in the forward's
-    order, by (unit u, dst row i, slot w, src j):
-
-    * ``row_off`` int32 [U·B + 1]: unit row u·B + i's edges start there;
-    * ``e_src`` int32 [E]: each edge's src vertex col[u, w]·B + j;
-    * ``src_off`` int32 [Ns_pad·G + 1], ``src_edge`` and ``src_row`` int32
-      [E]: the src-major CSR, the edges sorted by (src vertex, graph, unit,
-      slot, i), one segment a (src vertex, graph): each edge's dst-major
-      number and unit row;
-    * ``gdst``: (offsets, units) of each (graph, dst block), in unit order;
-    * ``E``, and ``built_for``, what :func:`check_index` holds each call to:
-      (U, W, B, G, Ns_pad, Nd_pad) and the four topology tensors, each with
-      its version counter and a copy of its values.
-
-    It depends on the topology only.  Building it takes a device sort and
-    host syncs, so a caller that runs many steps on one topology builds it
-    once (HAN: ``MultiLanePlan.units().edge_index``) and passes it to every
-    call."""
-    U, W, B, _ = masks.shape
-    nblk_d = nd_pad // B
-    _check_ranges(col_index, graph_id, dst_row, B, n_graphs, ns_pad, nd_pad)
-    live = masks & (col_index >= 0)[:, :, None, None]
-    u, i, w, j = live.permute(0, 2, 1, 3).nonzero(as_tuple=True)  # dst-major order
-    src = col_index.long()[u, w] * B + j
-    rows = u * B + i
-    row_off = torch.zeros(U * B + 1, dtype=torch.long, device=masks.device)
-    row_off[1:] = torch.cumsum(torch.bincount(rows, minlength=U * B), 0)
-    src_off, src_edge = csr(src * n_graphs + graph_id.long()[u], ns_pad * n_graphs)
-    topology = (col_index, graph_id, dst_row, masks)
-    return dict(
-        E=int(src.numel()), row_off=row_off.int(), e_src=src.int(), src_off=src_off,
-        src_edge=src_edge, src_row=rows[src_edge.long()].int(),
-        gdst=csr(graph_id.long() * nblk_d + dst_row.long(), n_graphs * nblk_d),
-        built_for=dict(shape=(U, W, B, n_graphs, ns_pad, nd_pad),
-                       operands={k: (t, t._version, t.clone())
-                                 for k, t in zip(_TOPOLOGY, topology)}))
-
-
-def check_index(index: dict, col_index, graph_id, dst_row, masks, n_graphs: int, ns_pad: int,
-                nd_pad: int) -> None:
-    """Raise unless ``index`` is :func:`edge_index` of this topology: the
-    same (U, W, B, G, Ns_pad, Nd_pad) and the same values of col_index,
-    graph_id, dst_row and masks (an index of another topology would give
-    wrong gradients, not an error).  A tensor the index was built from,
-    unchanged since (its version counter), passes without reading the
-    device; any other is compared by value."""
-    built = index.get("built_for")
-    if built is None or "src_off" not in index:
-        raise ValueError(f"{_BWD_NAME}: index is not one of edge_index")
-    shape = (*masks.shape[:3], n_graphs, ns_pad, nd_pad)
-    if built["shape"] != shape:
-        raise ValueError(f"{_BWD_NAME}: the index was built for (U, W, B, G, Ns_pad, Nd_pad) = "
-                         f"{built['shape']}, the operands have {shape}")
-    for name, t in zip(_TOPOLOGY, (col_index, graph_id, dst_row, masks)):
-        ref, version, values = built["operands"][name]
-        if t is ref and t._version == version:
-            continue
-        if t.shape != values.shape or not torch.equal(t, values.to(t.device)):
-            raise ValueError(f"{_BWD_NAME}: the index was built for another {name}")
-
-
 # -- the CUDA kernels -------------------------------------------------------------
 
 
@@ -341,10 +265,9 @@ def launch(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
 def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
                g_out, lse, delta, index: dict, leaky_slope: float):
     """Launch the backward kernel (passes A and B) on checked operands and
-    :func:`edge_index`'s ``index`` of them (the caller holds it to them:
-    :func:`seg_gat_agg_multigraph_bwd` builds it or runs :func:`check_index`),
-    on the current stream.  Returns (d_theta_src, d_theta_dst, d_h_src).
-    Counts one launch."""
+    the edge index of their topology (``Topology.edge_index``), on the
+    current stream.  Returns (d_theta_src, d_theta_dst, d_h_src).  Counts
+    one launch."""
     B = masks.shape[-1]
     G, ns_pad, H = theta_src.shape
     nd_pad = theta_dst.shape[1]
@@ -372,27 +295,15 @@ def launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     return d_theta_src, d_theta_dst, d_h_src
 
 
-def _check_ranges(col_index, graph_id, dst_row, B: int, n_graphs: int, ns_pad: int,
-                  nd_pad: int) -> None:
-    """The topology's values in range (reads the device): the forward runs
-    it every call, the backward once per topology, in :func:`edge_index`."""
-    build.check_range("col_index", col_index, -1, ns_pad // B)
-    build.check_range("graph_id", graph_id, 0, n_graphs)
-    build.check_range("dst_row", dst_row, 0, nd_pad // B)
-
-
-def _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias):
-    """Check the operands' dtypes, shapes and devices for either direction
-    (not the topology's values: :func:`_check_ranges`); returns
-    ``edge_bias`` (zeros when None)."""
+def _check_operands(topology, col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
+                    edge_bias):
+    """Check the operands' dtypes, shapes and devices for either direction,
+    and hold ``topology`` to the unit tables (or build one from them, which
+    checks their values: ``topology.resolve``).  Returns (topology,
+    ``edge_bias``, zeros when None)."""
     dev = h_src.device
-    build.check_tensor("col_index", col_index, torch.int32, (None, None), dev)
-    U, W = col_index.shape
-    build.check_tensor("masks", masks, torch.bool, (U, W, None, None), dev)
-    B = masks.shape[-1]
-    build.check_tensor("masks", masks, torch.bool, (U, W, B, B), dev)
-    build.check_tensor("graph_id", graph_id, torch.int32, (U,), dev)
-    build.check_tensor("dst_row", dst_row, torch.int32, (U,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{_NAME}: unsupported device {dev}")
     build.check_tensor("theta_src", theta_src, torch.float32, (None, None, None), dev)
     G, ns_pad, H = theta_src.shape
     build.check_tensor("theta_dst", theta_dst, torch.float32, (G, None, H), dev)
@@ -400,12 +311,11 @@ def _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst, h
     if edge_bias is None:
         edge_bias = torch.zeros((G, H), dtype=torch.float32, device=dev)
     build.check_tensor("edge_bias", edge_bias, torch.float32, (G, H), dev)
-    nd_pad = theta_dst.shape[1]
-    if ns_pad % B or nd_pad % B:
-        raise ValueError(f"Ns_pad={ns_pad} and Nd_pad={nd_pad} must be multiples of B={B}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{_NAME}: unsupported device {dev}")
-    return edge_bias
+    topology = resolve(topology, col_index, graph_id, dst_row, masks, n_graphs=G, ns_pad=ns_pad,
+                       nd_pad=theta_dst.shape[1])
+    if topology.device != dev:
+        raise ValueError(f"{_NAME}: the topology is on {topology.device}, h_src on {dev}")
+    return topology, edge_bias
 
 
 def seg_gat_agg_multigraph_fwd(
@@ -419,16 +329,16 @@ def seg_gat_agg_multigraph_fwd(
     edge_bias: torch.Tensor | None = None,  # f32 [G, H]
     *,
     leaky_slope: float = 0.2,
+    topology: Topology | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-unit aggregates ``out [U·B, H, Dh]`` (the caller scatters by
     (graph_id, dst_row) — disjoint by construction) and ``lse [U·B, H]``.
 
     CUDA operands launch the kernel; CPU operands take the plain version.
-    float32 only."""
-    edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                                h_src, edge_bias)
-    _check_ranges(col_index, graph_id, dst_row, masks.shape[-1], *theta_src.shape[:2],
-                  theta_dst.shape[1])
+    float32 only.  ``topology``: the ``Topology`` of the unit tables, held
+    to them (None: built in the call, a host read)."""
+    _, edge_bias = _check_operands(topology, col_index, graph_id, dst_row, masks, theta_src,
+                                   theta_dst, h_src, edge_bias)
     if h_src.device.type == "cpu":
         return seg_gat_agg_multigraph_plain(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
@@ -450,30 +360,21 @@ def seg_gat_agg_multigraph_bwd(
     g_out: torch.Tensor,  # f32 [U·B, H, Dh]  cotangent of out
     *,
     leaky_slope: float = 0.2,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The VJP of :func:`seg_gat_agg_multigraph_fwd`: (d_theta_src,
     d_theta_dst, d_h_src, d_edge_bias), bitwise repeatable on the card.
 
-    CUDA operands launch the backward kernel; CPU operands take the plain
-    version.  float32 only.  ``index``: :func:`edge_index` of these
-    operands, built once by a caller that runs many steps on one topology
-    (None builds it in the call, on either device: its build checks the
-    topology's values); one built for another topology raises
-    (:func:`check_index`, which reads the device only for tensors other
-    than those the index was built from, or changed since)."""
+    CUDA operands launch the backward kernel over the topology's edge index
+    (built on its first backward); CPU operands take the plain version.
+    float32 only.  ``topology`` as in the forward."""
     dev = h_src.device
-    edge_bias = _check_operands(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                                h_src, edge_bias)
-    U, B, (G, ns_pad, H), Dh = col_index.shape[0], masks.shape[-1], theta_src.shape, h_src.shape[-1]
-    nd_pad = theta_dst.shape[1]
+    topology, edge_bias = _check_operands(topology, col_index, graph_id, dst_row, masks,
+                                          theta_src, theta_dst, h_src, edge_bias)
+    U, B, H, Dh = col_index.shape[0], masks.shape[-1], theta_src.shape[2], h_src.shape[-1]
     build.check_tensor("out", out, torch.float32, (U * B, H, Dh), dev)
     build.check_tensor("lse", lse, torch.float32, (U * B, H), dev)
     build.check_tensor("g_out", g_out, torch.float32, (U * B, H, Dh), dev)
-    if index is None:
-        index = edge_index(col_index, graph_id, dst_row, masks, G, ns_pad, nd_pad)
-    else:
-        check_index(index, col_index, graph_id, dst_row, masks, G, ns_pad, nd_pad)
     if dev.type == "cpu":
         return seg_gat_agg_multigraph_bwd_plain(
             col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
@@ -482,7 +383,7 @@ def seg_gat_agg_multigraph_bwd(
     check_edge_shape(_BWD_NAME, B, H, Dh)
     delta = (g_out * out).sum(dim=-1)
     d_ths, d_thd, d_hs = launch_bwd(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                                    h_src, edge_bias, g_out, lse, delta, index,
+                                    h_src, edge_bias, g_out, lse, delta, topology.edge_index(),
                                     float(leaky_slope))
     return d_ths, d_thd, d_hs, d_thd.sum(dim=1)
 
@@ -493,43 +394,41 @@ seg_gat_agg_multigraph_bwd.launches = 0
 
 class MultigraphNA(torch.autograd.Function):
     """Forward kernel #1 keeping ``out`` and ``lse``; backward kernel #2,
-    reading the edge index the caller passed (or one built in the call)."""
+    both on the unit tables of one checked ``Topology``."""
 
     @staticmethod
-    def forward(ctx, col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
-                edge_bias, leaky_slope, index):
-        out, lse = seg_gat_agg_multigraph_fwd(
-            col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src, edge_bias,
-            leaky_slope=leaky_slope)
-        ctx.save_for_backward(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                              h_src, edge_bias, out, lse)
+    def forward(ctx, topology, theta_src, theta_dst, h_src, edge_bias, leaky_slope):
+        out, lse = seg_gat_agg_multigraph_fwd(*topology.units, theta_src, theta_dst, h_src,
+                                              edge_bias, leaky_slope=leaky_slope,
+                                              topology=topology)
+        ctx.save_for_backward(theta_src, theta_dst, h_src, edge_bias, out, lse)
         ctx.leaky_slope = leaky_slope
-        ctx.index = index
+        ctx.topology = topology
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         *operands, out, lse = ctx.saved_tensors
-        grads = seg_gat_agg_multigraph_bwd(*operands, out, lse, g_out.contiguous(),
-                                           leaky_slope=ctx.leaky_slope, index=ctx.index)
-        return (None, None, None, None, *grads, None, None)
+        grads = seg_gat_agg_multigraph_bwd(*ctx.topology.units, *operands, out, lse,
+                                           g_out.contiguous(), leaky_slope=ctx.leaky_slope,
+                                           topology=ctx.topology)
+        return (None, *grads, None)
 
 
 def seg_gat_agg_multigraph(
     col_index, graph_id, dst_row, masks, theta_src, theta_dst, h_src,
     edge_bias: torch.Tensor | None = None, *, leaky_slope: float = 0.2,
-    index: dict | None = None,
+    topology: Topology | None = None,
 ) -> torch.Tensor:
     """Differentiable per-unit aggregates ``[U·B, H, Dh]`` (the counterpart
     of ``repro``'s ``seg_gat_agg_multigraph``): gradients flow to
     theta_src, theta_dst, h_src and edge_bias through kernel #2.
-    ``index``: :func:`edge_index` of the topology, built once per topology
-    by the caller (None: the backward builds it)."""
-    if edge_bias is None:
-        G, _, H = theta_src.shape
-        edge_bias = torch.zeros((G, H), dtype=torch.float32, device=h_src.device)
-    return MultigraphNA.apply(col_index, graph_id, dst_row, masks, theta_src, theta_dst,
-                              h_src, edge_bias, float(leaky_slope), index)
+    ``topology``: the ``Topology`` of the unit tables, built once per
+    topology by the caller (None: built here), which both directions read."""
+    topology, edge_bias = _check_operands(topology, col_index, graph_id, dst_row, masks,
+                                          theta_src, theta_dst, h_src, edge_bias)
+    return MultigraphNA.apply(topology, theta_src, theta_dst, h_src, edge_bias,
+                              float(leaky_slope))
 
 
 # -- the joint NA: one softmax over every relation into a row ----------------------
@@ -571,53 +470,6 @@ class JointPriors:
     @property
     def K(self) -> int:
         return len(self.coef)
-
-
-def joint_index(unit_off, slot_col, slot_rel, masks, n_units: int, ns_pad: int,
-                n_rel: int) -> dict:
-    """The joint NA's topology, checked (reads the device), with the edge
-    list both directions read: the edges are the set mask entries of units
-    [0, n_units), numbered dst-major in the forward's order, by (dst row
-    u·B + i, slot, src j):
-
-    * ``row_off`` int32 [n_units·B + 1], ``e_row``, ``e_src``, ``e_rel`` int32 [E];
-    * ``src_off`` int32 [ns_pad·R + 1], ``src_edge`` and ``src_row`` int32
-      [E]: the src-major CSR, a segment a (src vertex, relation), the edges
-      in dst-major order within it.
-
-    It holds the topology's tensors too, so a call cannot pair an index
-    with another topology.  Built once per topology (a device sort and
-    host syncs)."""
-    dev = masks.device
-    build.check_tensor("unit_off", unit_off, torch.int32, (None,), dev)
-    build.check_tensor("slot_col", slot_col, torch.int32, (None,), dev)
-    S = slot_col.shape[0]
-    build.check_tensor("slot_rel", slot_rel, torch.int32, (S,), dev)
-    build.check_tensor("masks", masks, torch.bool, (S, None, None), dev)
-    B = masks.shape[-1]
-    if B not in EDGE_BLOCKS or masks.shape[1] != B or ns_pad % B:
-        raise ValueError(f"{_JOINT_FWD}: B={B} must be in {EDGE_BLOCKS} and divide ns_pad={ns_pad}")
-    if not 0 <= n_units < unit_off.shape[0]:
-        raise ValueError(f"{_JOINT_FWD}: n_units={n_units} of {unit_off.shape[0] - 1} units")
-    build.check_range("slot_col", slot_col, 0, ns_pad // B)
-    build.check_range("slot_rel", slot_rel, 0, n_rel)
-    off = unit_off[: n_units + 1].long()
-    if int(off[0]) != 0 or bool((off[1:] < off[:-1]).any()) or int(off[-1]) > S:
-        raise ValueError(f"{_JOINT_FWD}: unit_off must rise from 0 to at most {S} slots")
-    slot_unit = torch.repeat_interleave(torch.arange(n_units, device=dev), off[1:] - off[:-1])
-    s, i, j = masks[: int(off[-1])].nonzero(as_tuple=True)  # (slot, i, j) order
-    rows, order = torch.sort(slot_unit[s] * B + i, stable=True)  # then by dst row
-    s, j = s[order], j[order]
-    e_src = slot_col.long()[s] * B + j
-    e_rel = slot_rel.long()[s]
-    row_off = torch.zeros(n_units * B + 1, dtype=torch.long, device=dev)
-    row_off[1:] = torch.cumsum(torch.bincount(rows, minlength=n_units * B), 0)
-    src_off, src_edge = csr(e_src * n_rel + e_rel, ns_pad * n_rel)
-    return dict(
-        U=n_units, B=B, ns_pad=ns_pad, R=n_rel, E=int(e_src.numel()),
-        unit_off=unit_off, slot_col=slot_col, slot_rel=slot_rel, masks=masks,
-        row_off=row_off.int(), e_row=rows.int(), e_src=e_src.int(), e_rel=e_rel.int(),
-        src_off=src_off, src_edge=src_edge, src_row=rows[src_edge.long()].int())
 
 
 def _leaky(pre, slope):
@@ -725,7 +577,7 @@ def _check_joint(index, theta_src, theta_dst, h_src, edge_bias, priors):
 def seg_gat_agg_multigraph_joint_fwd(index, theta_src, theta_dst, h_src, edge_bias,
                                      priors: JointPriors | None = None, *, beta: float = 0.0,
                                      leaky_slope: float = 0.2):
-    """The joint forward over :func:`joint_index`'s units: (out [U·B, H,
+    """The joint forward over ``topology.joint_index``'s units: (out [U·B, H,
     Dh], lse [U·B, H], soft), ``soft`` the softmax part the backward's
     delta reads (``out`` itself without prior layers).  CUDA operands
     launch the kernel, CPU operands take the plain version.  float32."""
@@ -838,7 +690,7 @@ class JointNA(torch.autograd.Function):
 def seg_gat_agg_multigraph_joint(index, theta_src, theta_dst, h_src, edge_bias,
                                  priors: JointPriors | None = None, *, beta: float = 0.0,
                                  leaky_slope: float = 0.2):
-    """Differentiable joint NA over :func:`joint_index`'s units: (out [U·B,
+    """Differentiable joint NA over ``topology.joint_index``'s units: (out [U·B,
     H, Dh], lse [U·B, H]); gradients flow to theta_src, theta_dst, h_src and
     edge_bias through the joint backward (#2's library)."""
     return JointNA.apply(theta_src.contiguous(), theta_dst.contiguous(), h_src.contiguous(),

@@ -73,6 +73,7 @@ from repro_torch.kernels import (
     seg_gat_agg_plain,
 )
 from repro_torch.kernels.flash_attention import BITWISE_SHARE_MIN
+from repro_torch.kernels.topology import Topology
 from repro_torch.kernels.fused_fp_coeff import SPLIT_ERROR_MAX, split_error
 from repro_torch.kernels.fused_fp_coeff import launch as kernel6_launch
 from repro_torch.kernels.fused_fp_coeff import route as kernel6_route
@@ -364,12 +365,13 @@ def test_multigraph_fwd_kernel_matches_plain_on_cuda(cuda, name):
 def test_multigraph_bwd_passes_visit_only_the_edges_on_cuda(cuda, name):
     """The edge index #2's passes walk lists each edge once: pass A the
     unit rows' edges of every (graph, dst block), pass B the src-major
-    CSR's; an index passed in gives the bits of one built in the call."""
+    CSR's; a topology's index gives the bits of one built in the call."""
     case = [torch.from_numpy(np.array(a)).to(cuda) for a in CARD_MULTI_CASES[name]()]
     col, gid, row, masks, ths, thd, hs, bias = case
     out, lse = seg_gat_agg_multigraph_fwd(*case)
     g_out = torch.cos(out)
-    index = mg_mod.edge_index(col, gid, row, masks, ths.shape[0], ths.shape[1], thd.shape[1])
+    index = Topology(col, gid, row, masks, n_graphs=ths.shape[0], ns_pad=ths.shape[1],
+                     nd_pad=thd.shape[1]).edge_index()
     got = mg_mod.launch_bwd(*case, g_out, lse, (g_out * out).sum(-1), index, 0.2)
     want = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)
     torch.cuda.synchronize()
@@ -461,18 +463,18 @@ def test_fused_fp_kernels_match_plain_on_both_routes(cuda, name):
 def test_fused_fp_kernels_at_b64_and_b128_match_plain(cuda, name):
     """#3 and #4 at a block above 32, re-blocked to 32 on the host: against
     the plain versions at B (another softmax order: atol=rtol=1e-4), twice
-    bitwise equal, one launch a call, reading the index's re-blocked
-    topology when it is passed."""
+    bitwise equal, one launch a call, reading the re-blocked units of the
+    topology's fused index when a topology is passed."""
     case = [torch.from_numpy(np.array(a)).to(cuda) for a in _exact(REBLOCK_CASES[name]())]
     col, gid, row, wsel, masks, x, w = case[:7]
-    index = fused_ffp.fused_index(col, gid, row, wsel, w.shape[0], x.shape[0],
-                                  masks.shape[-1], masks=masks)
-    assert index["reblocked"]["masks"].shape[-1] == 32
+    topology = Topology(col, gid, row, masks, n_graphs=wsel.shape[0], ns_pad=x.shape[0],
+                        nd_pad=x.shape[0])
+    assert topology.fused_index(wsel, w.shape[0])["units"][3].shape[-1] == 32
     before = (seg_gat_agg_fused_fp_fwd.launches, seg_gat_agg_fused_fp_bwd.launches)
-    got = [seg_gat_agg_fused_fp_fwd(*case, index=ix) for ix in (None, index)]
+    got = [seg_gat_agg_fused_fp_fwd(*case, topology=t) for t in (None, topology)]
     want = seg_gat_agg_fused_fp_plain(*case)
     g_out = torch.cos(want[0])
-    grads = [seg_gat_agg_fused_fp_bwd(*case, *want, g_out, index=ix) for ix in (None, index)]
+    grads = [seg_gat_agg_fused_fp_bwd(*case, *want, g_out, topology=t) for t in (None, topology)]
     want_grads = seg_gat_agg_fused_fp_bwd_plain(*case, *want, g_out)
     torch.cuda.synchronize()
     assert (seg_gat_agg_fused_fp_fwd.launches - before[0],
@@ -513,8 +515,8 @@ def test_fused_fp_projection_meets_the_split_limit(cuda):
     col, gid, row, wsel, masks, x, w, b, a_s = case[:9]
     (U, B), (H, Dh) = (col.shape[0], masks.shape[-1]), a_s.shape[1:]
     assert fused_ffp.route(H, Dh) == "wgmma"
-    index = fused_ffp.fused_index(col, gid, row, wsel, w.shape[0], x.shape[0], B,
-                                  backward=False)
+    index = Topology(col, gid, row, masks, n_graphs=wsel.shape[0], ns_pad=x.shape[0],
+                     nd_pad=x.shape[0]).fused_index(wsel, w.shape[0], backward=False)
     out, lse = torch.empty((U * B, H, Dh), device=cuda), torch.empty((U * B, H), device=cuda)
     hs = [fused_ffp.launch(*case, out, lse, 0.2, index).clone() for _ in range(2)]
     torch.cuda.synchronize()

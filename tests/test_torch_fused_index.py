@@ -4,19 +4,20 @@
   128-row tile) that a live unit reads exactly once, and no other (a
   property over random topologies: one or two tables, padding slots, an
   all-padding unit, B in {8, 16, 32});
-* an index built for another topology raises, and one of the same
-  topology in other tensors passes;
+* a topology held to another topology's operands raises (its fused index
+  to another ``wsel`` or table count), and to the same topology in other
+  tensors passes;
 * the route rule, and that the card's cases cover both routes;
 * on the card test's operands, ``SPLIT_ERROR_MAX`` passes phase P's three
   TF32 products and fails one (its numerics in plain PyTorch);
 * the plain versions of #3 and #4 match the JAX package's interpret-mode
   Pallas kernel on every ``FUSED_CASES`` operand set (forward at 1e-5; the
   VJP at rtol 1e-4, atol 1e-5 in tests/test_torch_kernels_bwd.py);
-* ``neighbor_aggregate_multi(..., unit_tables=)`` and the FUSED_FP index
-  built once per data set give the same bits as building both in the call,
-  forward and gradients, for HAN on FUSED_FP and MULTIGRAPH; HAN's one-lane
-  plan keeps its unit tables and the FUSED_FP index, and is rebuilt when
-  the data set's graphs change.
+* ``neighbor_aggregate_multi(..., topology=)`` built once per data set
+  gives the same bits as building it in the call, forward and gradients,
+  for HAN on FUSED_FP and MULTIGRAPH; HAN's one-lane plan keeps its unit
+  tables, their topology and its fused index, and is rebuilt when the data
+  set's graphs change.
 """
 import importlib
 
@@ -33,11 +34,13 @@ from repro_torch.core.fusion import (
     build_unit_tables,
     fused_fp_rows,
     neighbor_aggregate_multi,
+    unit_topology,
 )
 from repro_torch.launch.hgnn_train import build_problem
 from repro_torch.models.hgnn import HAN
 from repro_torch.models.hgnn.han import han_forward
 from repro_torch.kernels import seg_gat_agg_fused_fp_fwd
+from repro_torch.kernels.topology import Topology
 from test_torch_cuda import FUSED_CASES, FUSED_ROUTE_CASES, SPLIT_CASE, fused_case
 
 ffp = importlib.import_module("repro_torch.kernels.seg_gat_agg_fused_fp")
@@ -81,14 +84,17 @@ def test_row_tiles_name_each_read_tile_once(seed, B, tables, units, width, nblk)
 
 def test_fused_index_holds_the_row_tiles_and_the_backward_index():
     col, gid, row, wsel = _topology(1, B=16, tables=2, units=10, width=4, nblk=20)
-    idx = ffp.fused_index(col, gid, row, wsel, 2, 320, 16)
+    masks = torch.ones((*col.shape, 16, 16), dtype=torch.bool)
+    topology = Topology(col, gid, row, masks, n_graphs=3, ns_pad=320, nd_pad=320)
+    assert "pair_of" not in topology.fused_index(wsel, 2, backward=False)
+    idx = topology.fused_index(wsel, 2)
+    assert all(a is b for a, b in zip(idx["units"], topology.units))
     assert torch.equal(idx["tiles"], ffp.row_tiles(col, gid, row, wsel, 320, 16))
     bwd = ffp.bwd_index(col, gid, row, wsel, 3, 2, 20)
     assert idx["n_live"] == bwd["n_live"] == int((col >= 0).sum())
     assert torch.equal(idx["pair_of"], bwd["pair_of"])
     for key in ("table", "graph"):
         assert all(torch.equal(a, b) for a, b in zip(idx[key], bwd[key]))
-    assert "pair_of" not in ffp.fused_index(col, gid, row, wsel, 2, 320, 16, backward=False)
 
 
 def test_route_takes_the_tensor_cores_at_whole_column_tiles():
@@ -110,13 +116,18 @@ def _fused_operands(name="T=2-B=16-subset"):
     return [torch.from_numpy(np.array(a)) for a in FUSED_CASES[name]()]
 
 
-def _index(case, **kw):
+def _index(case):
+    """The topology of ``case``'s units, its fused index built for its
+    ``wsel`` and tables."""
     col, gid, row, wsel, masks, x, w = case[:7]
-    return ffp.fused_index(col, gid, row, wsel, w.shape[0], x.shape[0], masks.shape[-1], **kw)
+    topology = Topology(col, gid, row, masks, n_graphs=wsel.shape[0], ns_pad=x.shape[0],
+                        nd_pad=x.shape[0])
+    topology.fused_index(wsel, w.shape[0])
+    return topology
 
 
 def _other_topology(case, what):
-    """The index of ``case`` but for one thing: (index, operands)."""
+    """The topology of ``case`` but for one thing: (topology, operands)."""
     case = list(case)
     col, gid, row, wsel, masks, x, w, b = case[:8]
     if what == "n_pad":  # one more block of rows
@@ -131,10 +142,10 @@ def _other_topology(case, what):
         case[0] = col
     elif what == "wsel":
         case[3] = 1 - wsel
-    elif what == "in place":  # the index's own graph_id, changed after it was built
-        index = _index(case)
+    elif what == "in place":  # the topology's own graph_id, changed after it was built
+        topology = _index(case)
         gid[0] = (gid[0] + 1) % 3
-        return index, case
+        return topology, case
     elif what == "units":
         case = [col[:-1], gid[:-1], row[:-1], wsel, masks[:-1], *case[5:]]
     return _index(_fused_operands()), case
@@ -142,23 +153,24 @@ def _other_topology(case, what):
 
 @pytest.mark.parametrize("what", ["n_pad", "tables", "col_index", "wsel", "in place", "units"])
 def test_an_index_of_another_topology_raises(what):
-    """Phase A reads only the rows phase P wrote: an index built for another
-    topology must raise in both directions, not give other numbers."""
-    index, case = _other_topology(_fused_operands(), what)
-    with pytest.raises(ValueError, match="the index was built for"):
-        seg_gat_agg_fused_fp_fwd(*case, index=index)
+    """Phase A reads only the rows phase P wrote: a topology (or its fused
+    index) held to another topology's operands must raise in both
+    directions, not give other numbers."""
+    topology, case = _other_topology(_fused_operands(), what)
+    with pytest.raises(ValueError, match="was built for|changed in place"):
+        seg_gat_agg_fused_fp_fwd(*case, topology=topology)
     out, lse = seg_gat_agg_fused_fp_fwd(*case)
-    with pytest.raises(ValueError, match="the index was built for"):
-        ffp.seg_gat_agg_fused_fp_bwd(*case, out, lse, torch.cos(out), index=index)
+    with pytest.raises(ValueError, match="was built for|changed in place"):
+        ffp.seg_gat_agg_fused_fp_bwd(*case, out, lse, torch.cos(out), topology=topology)
 
 
 def test_an_index_of_the_same_topology_in_other_tensors_passes():
     case = _fused_operands()
-    index = _index(case)
+    topology = _index(case)
     same = [t.clone() for t in case]
-    out, lse = seg_gat_agg_fused_fp_fwd(*same, index=index)
+    out, lse = seg_gat_agg_fused_fp_fwd(*same, topology=topology)
     assert all(torch.equal(a, b) for a, b in zip((out, lse), seg_gat_agg_fused_fp_fwd(*case)))
-    ffp.seg_gat_agg_fused_fp_bwd(*same, out, lse, torch.cos(out), index=index)
+    ffp.seg_gat_agg_fused_fp_bwd(*same, out, lse, torch.cos(out), topology=topology)
 
 
 def test_split_limit_separates_phase_p_three_products_from_one():
@@ -207,6 +219,8 @@ def han_problem():
 
 @pytest.mark.parametrize("backend", [NABackend.FUSED_FP, NABackend.MULTIGRAPH])
 def test_unit_tables_and_index_once_give_the_same_bits(han_problem, backend):
+    """``topology=`` (the unit tables checked once) against building it in
+    the call."""
     data, params = han_problem
     x = data.features[data.target_type]
     heads = params["a_src"].shape[1]
@@ -215,25 +229,21 @@ def test_unit_tables_and_index_once_give_the_same_bits(han_problem, backend):
     def na(**kw):
         if backend is NABackend.FUSED_FP:
             fp = FusedFPInputs.shared(x, leaves["w_fp"], leaves["b_fp"], leaves["a_src"],
-                                      leaves["a_dst"], index=kw.pop("index", None))
+                                      leaves["a_dst"])
             return neighbor_aggregate_multi(data.graphs, None, None, None, backend=backend,
                                             fp=fp, **kw)
         hh = (x @ leaves["w_fp"] + leaves["b_fp"]).reshape(x.shape[0], heads, -1)
         th_s = torch.einsum("nhd,ghd->gnh", hh, leaves["a_src"])
         th_d = torch.einsum("nhd,ghd->gnh", hh, leaves["a_dst"])
-        kw.pop("index", None)
         return neighbor_aggregate_multi(data.graphs, th_s, th_d, hh, backend=backend, **kw)
 
-    tables = build_unit_tables(data.graphs)
-    wsel = torch.zeros(len(data.graphs), dtype=torch.int32)
-    index = ffp.fused_index(*tables[:3], wsel, 1, fused_fp_rows(data.graphs),
-                            data.graphs[0].block)
+    topology = unit_topology(data.graphs)
     runs = []
-    for kw in ({}, dict(unit_tables=tables, index=index)):
+    for kw in ({}, dict(topology=topology), dict(topology=topology)):
         z = na(**kw)
         grads = torch.autograd.grad(torch.sin(z).sum(), list(leaves.values()))
         runs.append((z.detach(), *grads))
-    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
 
 
 def _tables(units):
@@ -262,9 +272,11 @@ def test_han_builds_the_topology_once(han_problem):
     plan = data.plan()
     units = plan.units()
     assert data.plan() is plan and plan.units() is units
-    (index,) = [v for k, v in units._indexes.items() if k[0] == "fused"]
+    (topology,) = units._topologies.values()
+    wsel = torch.zeros(len(data.graphs), dtype=torch.int32)
+    index = topology.fused_index(wsel, 1)
     assert torch.equal(han_forward(params, data, backend=NABackend.FUSED_FP), logits)
-    assert [v for k, v in units._indexes.items() if k[0] == "fused"] == [index]
+    assert list(units._topologies.values()) == [topology]
+    assert topology.fused_index(wsel, 1) is index
     assert torch.equal(index["tiles"], ffp.row_tiles(
-        *_tables(units)[:3], torch.zeros(len(data.graphs), dtype=torch.int32),
-        fused_fp_rows(data.graphs), data.graphs[0].block))
+        *_tables(units)[:3], wsel, fused_fp_rows(data.graphs), data.graphs[0].block))

@@ -9,9 +9,9 @@ files take.
   version on the B-unit topology, out and lse within 1e-5, and its VJP;
 * against the reference's interpret-mode ``seg_gat_agg_fused_fp`` at B = 64,
   forward and VJP at rtol 1e-4, atol 1e-5;
-* ``fused_index`` keeping the re-blocked topology and its index (built
-  for the masks too), and HAN's FUSED_FP at B = 64 over the plan's index
-  against MULTIGRAPH.
+* the topology's fused index keeping the re-blocked units and their index
+  (the topology held to the masks too), and HAN's FUSED_FP at B = 64 over
+  the plan's topology against MULTIGRAPH.
 
 The card's counterparts are in tests/test_torch_cuda.py."""
 import importlib
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import NABackend
 from repro_torch.launch import hgnn_train
+from repro_torch.kernels.topology import Topology
 from repro_torch.models.hgnn import han_forward, init_han
 
 from test_torch_cuda import one_thread, reblock_case  # noqa: F401 (one_thread: a fixture)
@@ -102,20 +103,20 @@ def test_reblocked_plain_matches_the_reference_interpret_kernel_at_b64():
 
 def test_fused_index_keeps_the_reblocked_topology_and_checks_the_masks():
     col, gid, row, wsel, masks = _case(128, density=0.02)[:5]
-    n_pad = 3 * 128
-    with pytest.raises(ValueError, match="masks="):
-        ff.fused_index(col, gid, row, wsel, 2, n_pad, 128)
-    index = ff.fused_index(col, gid, row, wsel, 2, n_pad, 128, masks=masks)
-    r = index["reblocked"]
-    for got, want in zip((r["col_index"], r["graph_id"], r["dst_row"], r["masks"]),
-                         ff.reblock(col, gid, row, masks)):
+    n_pad, G = 3 * 128, wsel.shape[0]
+    with pytest.raises(ValueError, match="one table"):  # #3/#4 read one table of rows
+        Topology(col, gid, row, masks, n_graphs=G, ns_pad=n_pad + 128,
+                 nd_pad=n_pad).fused_index(wsel, 2)
+    topology = Topology(col, gid, row, masks, n_graphs=G, ns_pad=n_pad, nd_pad=n_pad)
+    index = topology.fused_index(wsel, 2)
+    for got, want in zip(index["units"], ff.reblock(col, gid, row, masks)):
         assert torch.equal(got, want)
-    assert "pair_of" in r["index"] and r["index"]["built_for"]["shape"][2] == 32
-    ff.check_index(index, col, gid, row, wsel, 2, n_pad, 128, masks=masks.clone())
+    assert "pair_of" in index and index["units"][3].shape[-1] == 32
+    topology.holds(col, gid, row, masks.clone(), n_graphs=G, ns_pad=n_pad, nd_pad=n_pad)
     other = masks.clone()
     other[0, 0, 0, 0] = ~other[0, 0, 0, 0]
     with pytest.raises(ValueError, match="another masks"):
-        ff.check_index(index, col, gid, row, wsel, 2, n_pad, 128, masks=other)
+        topology.holds(col, gid, row, other, n_graphs=G, ns_pad=n_pad, nd_pad=n_pad)
 
 
 def test_han_fused_fp_at_b64_matches_multigraph():
@@ -127,5 +128,6 @@ def test_han_fused_fp_at_b64_matches_multigraph():
         multi = han_forward(params, data, backend=NABackend.MULTIGRAPH)
     torch.testing.assert_close(fused, multi, **TOL)
     units = data.plan().units()
-    index = next(v for k, v in units._indexes.items() if k[0] == "fused")
-    assert index["reblocked"]["masks"].shape[-1] == 32
+    (topology,) = units._topologies.values()  # both backends' one topology
+    wsel = torch.zeros(len(data.graphs), dtype=torch.int32)
+    assert topology.fused_index(wsel, 1)["units"][3].shape[-1] == 32

@@ -10,7 +10,8 @@ softmax in another sum order).  The cases are tests/test_torch_cuda.py's,
 which holds the CUDA kernel against the plain version on the card.  Like
 the JAX kernel it has no gradient; the SEGMENT and KERNEL backends of
 ``neighbor_aggregate`` agree with BLOCK; and KERNEL checks a graph's
-columns once (its first call), not on every call."""
+columns once (the graph's topology, built on its first call), not on
+every call."""
 import importlib
 
 import jax
@@ -27,13 +28,14 @@ from repro_torch.graphs import (
     synthetic_hetgraph,
     synthetic_labels,
 )
-from repro_torch.kernels import build, seg_gat_agg, seg_gat_agg_multigraph_plain
+from repro_torch.kernels import seg_gat_agg, seg_gat_agg_multigraph_plain
+from repro_torch.kernels.topology import Topology
 from repro_torch.models.hgnn import MODELS, prepare_data
 
 from test_torch_cuda import KERNEL5_CASES, one_thread  # noqa: F401 (one_thread: a fixture)
 
 jkernel = importlib.import_module("repro.kernels.seg_gat_agg")
-k5 = importlib.import_module("repro_torch.kernels.seg_gat_agg")
+topology_mod = importlib.import_module("repro_torch.kernels.topology")
 mg = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -157,21 +159,22 @@ def test_the_card_cases_reach_every_instantiation_of_the_edge_walk():
 
 
 def test_a_range_check_token_holds_only_for_its_unchanged_tensor():
-    """``checked=`` skips the column check only for the tensor it was made
-    from, unchanged since (its version counter): a column written out of
-    range afterwards, or another tensor, is checked and raises."""
+    """``topology=`` skips the column check only for the tensors it was
+    built from, unchanged since (their version counters): another tensor
+    with a column out of range, or its own column written out of range
+    afterwards, raises."""
     col, masks, ths, thd, hs, bias = _torch(KERNEL5_CASES["B8-R3-W2-H2-Dh16"]())
-    token = k5.range_check(col, ths.shape[0] // masks.shape[-1])
+    token = Topology.one_graph(col, masks, ns_pad=ths.shape[0])
     want = seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias)
     torch.testing.assert_close(seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias,
-                                           checked=token), want, rtol=0, atol=0)
+                                           topology=token), want, rtol=0, atol=0)
     bad = col.clone()
     bad[0, 0] = ths.shape[0] // masks.shape[-1]
     with pytest.raises(ValueError, match="col_index"):
-        seg_gat_agg(bad, masks, ths, thd, hs, edge_bias=bias, checked=token)
-    col[0, 0] = ths.shape[0] // masks.shape[-1]  # in place: the token's version is stale
+        seg_gat_agg(bad, masks, ths, thd, hs, edge_bias=bias, topology=token)
+    col[0, 0] = ths.shape[0] // masks.shape[-1]  # in place: the topology's version is stale
     with pytest.raises(ValueError, match="col_index"):
-        seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias, checked=token)
+        seg_gat_agg(col, masks, ths, thd, hs, edge_bias=bias, topology=token)
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -180,9 +183,9 @@ def test_a_range_check_token_holds_only_for_its_unchanged_tensor():
 ])
 def test_kernel_dispatch_checks_the_columns_once_per_graph(name, kw, monkeypatch):
     """KERNEL's dispatch range-checks a graph's col_index on its first call
-    only (``SemanticGraphBatch.kernel_range_check``): during a second
-    forward neither ``build.check_range`` nor ``torch.aminmax`` (the host
-    sync) runs, and the logits are the first forward's."""
+    only (``SemanticGraphBatch.topology``): during a second forward neither
+    ``topology.check_ranges`` nor ``torch.aminmax`` (the host sync) runs,
+    and the logits are the first forward's."""
     g = synthetic_hetgraph("acm", scale=0.05, feat_scale=0.1, seed=0)
     target, ncls = dataset_target("acm")
     data = prepare_data(g, relation_semantic_graphs(g), target, ncls, synthetic_labels(g, "acm"),
@@ -192,7 +195,8 @@ def test_kernel_dispatch_checks_the_columns_once_per_graph(name, kw, monkeypatch
     calls = []
     with torch.no_grad():
         first = model.forward(params, data, backend=NABackend.KERNEL)
-        monkeypatch.setattr(build, "check_range", lambda *a, **k: calls.append("check_range"))
+        monkeypatch.setattr(topology_mod, "check_ranges",
+                            lambda *a, **k: calls.append("check_ranges"))
         monkeypatch.setattr(torch, "aminmax", lambda *a, **k: calls.append("aminmax"))
         again = model.forward(params, data, backend=NABackend.KERNEL)
     assert calls == []

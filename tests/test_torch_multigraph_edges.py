@@ -2,8 +2,8 @@
 
 The CUDA kernels visit the set mask entries of live slots (the edges)
 only: #1 walks them in the forward's order with no index; #2 runs a
-dst-major pass and a src-major pass over the edge index ``edge_index``
-builds.  Here, where the kernels cannot run:
+dst-major pass and a src-major pass over the edge index its topology
+builds (``Topology.edge_index``).  Here, where the kernels cannot run:
 
 * the index against a plain reference built by loops, on the reference
   tests' shapes and degenerate cases (padding slots whose masks hold set
@@ -16,11 +16,11 @@ builds.  Here, where the kernels cannot run:
   built on the index alone, against ``seg_gat_agg_multigraph_bwd_plain``
   (rtol 1e-4, atol 1e-5); tests/test_torch_multigraph_edges_jax.py holds
   both emulations against the JAX package's interpret-mode kernel;
-* an index of another topology raises, one of the same topology in other
-  tensors passes;
+* a topology held to another topology's operands raises, to the same
+  topology in other tensors passes;
 * HAN builds its edge index once per data set, R-GAT once per graph, and
-  a backward given that index neither builds one nor reads the device to
-  check it;
+  a backward on the model's topology neither builds one nor reads the
+  device to check it;
 * the shapes #1 and #2 take, and that the card's cases reach each of
   their kernels' instantiations.
 """
@@ -37,6 +37,7 @@ from repro_torch.kernels import (
     seg_gat_agg_multigraph,
     seg_gat_agg_multigraph_bwd,
     seg_gat_agg_multigraph_bwd_plain,
+    seg_gat_agg_multigraph_fwd,
     seg_gat_agg_multigraph_plain,
 )
 from repro_torch.launch.hgnn_train import build_problem
@@ -47,8 +48,7 @@ from test_torch_cuda import (  # noqa: F401 (one_thread: a fixture)
     CARD_MULTI_CASES, MULTI_CASES, REPEATED_UNITS, multigraph_case, one_thread)
 
 mg = importlib.import_module("repro_torch.kernels.seg_gat_agg_multigraph")
-fusion = importlib.import_module("repro_torch.core.fusion")
-multilane = importlib.import_module("repro_torch.core.multilane")
+topology_mod = importlib.import_module("repro_torch.kernels.topology")
 pytestmark = pytest.mark.usefixtures("one_thread")  # the plain versions at B = 64 and 128
 
 SLOPE = 0.2
@@ -77,9 +77,14 @@ def _tensors(case):
     return [torch.from_numpy(np.array(a)) for a in case]
 
 
-def _index(case):
+def _topology(case):
     col, gid, row, masks, ths, thd = case[:6]
-    return mg.edge_index(col, gid, row, masks, ths.shape[0], ths.shape[1], thd.shape[1])
+    return topology_mod.Topology(col, gid, row, masks, n_graphs=ths.shape[0],
+                                 ns_pad=ths.shape[1], nd_pad=thd.shape[1])
+
+
+def _index(case):
+    return _topology(case).edge_index()
 
 
 def _reference_index(col, gid, row, masks, G, ns_pad, nd_pad):
@@ -263,31 +268,34 @@ def _with(case, what):
 @pytest.mark.parametrize("what", ["col_index", "graph_id", "dst_row", "masks", "units", "ns_pad"])
 def test_an_index_of_another_topology_raises(what):
     case = _tensors(MULTI_CASES["seed7"]())
-    index = _index(case)
+    topology = _topology(case)
     other = _with(case, what)
     out, lse = seg_gat_agg_multigraph_plain(*other)
-    with pytest.raises(ValueError, match="the index was built for"):
-        seg_gat_agg_multigraph_bwd(*other, out, lse, torch.cos(out), index=index)
+    with pytest.raises(ValueError, match="the topology was built for"):
+        seg_gat_agg_multigraph_bwd(*other, out, lse, torch.cos(out), topology=topology)
+    with pytest.raises(ValueError, match="the topology was built for"):
+        seg_gat_agg_multigraph_fwd(*other, topology=topology)
     leaves = [t.requires_grad_() for t in other[4:]]
-    y = seg_gat_agg_multigraph(*other[:4], *leaves, index=index)
-    with pytest.raises(ValueError, match="the index was built for"):
-        y.sum().backward()
+    with pytest.raises(ValueError, match="the topology was built for"):
+        seg_gat_agg_multigraph(*other[:4], *leaves, topology=topology).sum().backward()
 
 
 def test_an_index_changed_in_place_raises_and_equal_tensors_pass():
     case = _tensors(MULTI_CASES["seed7-degenerate"]())
-    index = _index(case)
+    topology = _topology(case)
     out, lse = seg_gat_agg_multigraph_plain(*case)
     g_out = torch.cos(out)
     want = seg_gat_agg_multigraph_bwd(*case, out, lse, g_out)
     same = [t.clone() for t in case]  # the same topology in other tensors
-    for g, w in zip(seg_gat_agg_multigraph_bwd(*same, out, lse, g_out, index=index), want):
+    for g, w in zip(seg_gat_agg_multigraph_bwd(*same, out, lse, g_out, topology=topology), want):
         assert torch.equal(g, w)
-    case[3][1, 0, 2, 3] = ~case[3][1, 0, 2, 3]  # the index's own masks, changed after
-    with pytest.raises(ValueError, match="another masks"):
-        seg_gat_agg_multigraph_bwd(*case, out, lse, g_out, index=index)
-    with pytest.raises(ValueError, match="not one of edge_index"):
-        seg_gat_agg_multigraph_bwd(*same, out, lse, g_out, index={"E": 0})
+    case[3][1, 0, 2, 3] = ~case[3][1, 0, 2, 3]  # the topology's own masks, changed after
+    with pytest.raises(ValueError, match="masks changed in place"):
+        seg_gat_agg_multigraph_bwd(*case, out, lse, g_out, topology=topology)
+    with pytest.raises(ValueError, match="masks changed in place"):  # and so every copy
+        seg_gat_agg_multigraph_bwd(*same, out, lse, g_out, topology=topology)
+    with pytest.raises(TypeError, match="expected a Topology"):
+        seg_gat_agg_multigraph_bwd(*same, out, lse, g_out, topology={"E": 0})
 
 
 # -- built once per topology ---------------------------------------------------------------
@@ -295,16 +303,19 @@ def test_an_index_changed_in_place_raises_and_equal_tensors_pass():
 
 @pytest.fixture
 def counted_builds(monkeypatch):
-    """Counts ``edge_index`` builds (HAN's one-lane plan calls it through
-    ``core.multilane``, R-GAT's batches through ``fusion.build_edge_index``)."""
+    """Counts topology builds, each one range check (``topology.check_ranges``;
+    HAN's one-lane plan builds through ``LaneUnits.topology``, R-GAT's
+    batches through ``SemanticGraphBatch.topology``).  The card's backward
+    builds the edge index on the topology, once (the plain version on the
+    CPU reads none)."""
     calls = []
+    check = topology_mod.check_ranges
 
-    def counting(*args, **kw):
-        calls.append(args[0].shape)
-        return mg.edge_index(*args, **kw)
+    def counting(**bounds):
+        calls.append(bounds["col_index"][0].shape)
+        return check(**bounds)
 
-    monkeypatch.setattr(fusion, "edge_index", counting)
-    monkeypatch.setattr(multilane, "edge_index", counting)
+    monkeypatch.setattr(topology_mod, "check_ranges", counting)
     return calls
 
 
@@ -344,10 +355,10 @@ def test_rgat_builds_each_graphs_edge_index_once(counted_builds):
 
 @pytest.mark.parametrize("model", ["HAN", "R-GAT"])
 def test_a_backward_with_the_models_index_reads_nothing_of_the_device(model, monkeypatch):
-    """The tensors an index was built from come back to the backward
-    through autograd's saved tensors as the same objects at the same
-    version, so ``check_index`` passes them without ``torch.equal``; the
-    backward builds no index, sorts nothing and checks no range."""
+    """The backward takes the unit tables from the topology autograd kept,
+    the same objects at the same version, so ``Topology.holds`` passes them
+    without ``torch.equal``; the backward builds no index, sorts nothing
+    and checks no range."""
     _, data = build_problem("acm", scale=0.05, feat_scale=0.1, block=8, max_edges=20_000,
                             device="cpu")
     width = (dict(hidden=8, heads=2, att_dim=16) if model == "HAN"
@@ -360,10 +371,10 @@ def test_a_backward_with_the_models_index_reads_nothing_of_the_device(model, mon
         return lambda *args, **kw: reads.append(name) or real(*args, **kw)
 
     def watched_bwd(*args, **kw):
-        backwards.append(kw.get("index") is not None)
+        backwards.append(kw.get("topology") is not None)
         with monkeypatch.context() as m:
-            for mod, name in ((torch, "equal"), (torch, "sort"), (mg.build, "check_range"),
-                              (mg, "edge_index")):
+            for mod, name in ((torch, "equal"), (torch, "sort"), (topology_mod, "check_ranges"),
+                              (topology_mod, "build_edge_index")):
                 m.setattr(mod, name, counted(mod, name))
             return bwd(*args, **kw)
 

@@ -170,8 +170,10 @@ def test_plan_keeps_its_unit_tables_and_indexes(dblp):
         z = multilane_na(plan, ths, thd, hs, backend="kernel")
         torch.autograd.grad(z.square().sum(), (ths, thd, hs))
     lu = plan.units()
-    assert plan.units() is lu and list(lu._indexes) == [("edge", 3, *ths.shape[1:2],
-                                                         thd.shape[1])]
+    key = (3, ths.shape[1], thd.shape[1])
+    assert plan.units() is lu and list(lu._topologies) == [key]
+    assert all(a is b for a, b in zip(lu._topologies[key].units,
+                                      (lu.col_index, lu.graph_id, lu.dst_row, lu.masks)))
     assert lu.count == 3 * plan.n_dst_blocks == int(plan.valid.sum())
     assert torch.equal(torch.sort(lu.take).values, torch.arange(lu.count))
     assert plan.nbytes() == sum(getattr(plan, f).nbytes for f in TABLES)
