@@ -124,8 +124,9 @@ Phases, each fatal on failure:
       beside their bound.  Alone:
       ``python3 -c 'import chip_smoke as c; c.kernel5_alone()'``;
    b. inference, under no_grad: R-GAT and S-HGN on KERNEL (per relation
-      and layer #6 twice, the src and dst side's FP+θ, and #5 once: 36 and
-      18 launches for R-GAT, 24 and 12 for S-HGN, every #6 launch on the
+      and layer #6 twice, the src and dst side's FP+θ, and #5 once: 30 and
+      15 launches for R-GAT, whose last layer runs only the three
+      relations into movie, 24 and 12 for S-HGN, every #6 launch on the
       wgmma route; counters zeroed just before each model's first forward
       and read just after) and R-GCN
       (mean NA, no kernel); logits against BLOCK on the card (R-GAT,
@@ -2250,6 +2251,17 @@ MODEL_WIDTHS = {  # the init_* defaults of the JAX package, the widths benchmark
 RGAT_TRAIN = dict(hidden=64, heads=4)  # the launcher's R-GAT (layers=2) at R-GAT's own width
 
 
+def relation_passes(name: str, data, layers: int) -> int:
+    """The (relation, layer) passes a forward of model ``name`` runs on
+    ``data``: R-GAT's live ones (``live_relations``: those whose output
+    reaches the logits), every one for S-HGN."""
+    from repro_torch.models.hgnn import live_relations
+
+    if name != "R-GAT":
+        return layers * len(data.graphs)
+    return sum(len(live) for live, _ in live_relations(data.graphs, data.target_type, layers))
+
+
 def relation_data(graph, device):
     from repro_torch.graphs import relation_semantic_graphs, synthetic_labels
     from repro_torch.models.hgnn import prepare_data
@@ -2685,7 +2697,7 @@ def edge_walk_times() -> dict:
 
 def inference(graph, counters, NAB) -> dict:
     """R-GAT and S-HGN on KERNEL (#6 twice and #5 once per relation and
-    layer) and R-GCN
+    layer, R-GAT's live ones alone) and R-GCN
     (mean NA) on full IMDB's relation graphs, forward under no_grad: each
     model's first forward with the counters zeroed just before and read just
     after, then steady forwards; logits against BLOCK on the card (R-GAT,
@@ -2735,8 +2747,8 @@ def inference(graph, counters, NAB) -> dict:
         err = compare(f"{name} logits {backend.value} vs {against}", (logits,), (ref,))
         expect = {k: 0 for k in launches}
         if name != "R-GCN":  # per relation and layer: #6 on the src and dst side, #5 once
-            expect |= {"seg_gat_agg": width["layers"] * len(data.graphs),
-                       "fused_fp_coeff": 2 * width["layers"] * len(data.graphs)}
+            passes = relation_passes(name, data, width["layers"])
+            expect |= {"seg_gat_agg": passes, "fused_fp_coeff": 2 * passes}
         if launches != expect:
             raise AssertionError(f"{name} forward launches {launches}, expected {expect}")
         if k6_routes != {"wgmma": expect["fused_fp_coeff"], "cuda_cores": 0}:
@@ -2853,9 +2865,10 @@ def inference_block128(graph, k5_mod, NAB) -> dict:
                 return model.forward(params, data, backend=NAB.KERNEL)
 
         logits, calls, err = k5_calls_to_plain(f"{name} B=128", forward, k5_mod)
-        if len(calls) != width["layers"] * len(data.graphs):
+        passes = relation_passes(name, data, width["layers"])
+        if len(calls) != passes:
             raise AssertionError(f"{name} at B=128: {len(calls)} launches of #5, expected "
-                                 f"{width['layers'] * len(data.graphs)}")
+                                 f"{passes}")
         with torch.no_grad():
             ref = model.forward(params, data, backend=NAB.BLOCK)
         err = max(err, compare(f"{name} B=128 logits kernel vs BLOCK", (logits,), (ref,)))
@@ -6539,19 +6552,35 @@ def simple_hgn_alone() -> dict:
 def multigraph_digest() -> dict:
     """Digests of HAN's and R-GAT's trained parameters after three steps
     of the training launcher on full IMDB (#1 and #2 in every forward and
-    backward, AdamW after), each run twice: prints one JSON line.  It runs
-    the ``repro_torch`` beside this script through calls that trees
-    before the joint NA have too, so two trees compare bit for bit by
-    copying this script to each tree's root and running it there
+    backward, AdamW after), and of R-GAT (phase 5's width, 3 layers) on
+    full IMDB's relation graphs, whose last layer feeds the logits from
+    three of its six relations: its KERNEL logits (#6 and #5) and its
+    parameters after three MULTIGRAPH training steps.  Each is run twice;
+    prints one JSON line.  It runs the ``repro_torch`` beside this script
+    through calls that trees before the joint NA have too, so two trees
+    compare bit for bit by copying this script to each tree's root and
+    running it there
     (``python3 -c 'import chip_smoke as c; c.multigraph_digest()'``)."""
     import hashlib
 
+    from repro_torch.core import NABackend
+    from repro_torch.graphs import synthetic_hetgraph
     from repro_torch.launch import hgnn_train
+    from repro_torch.models.hgnn import RGAT
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_hgnn_train_state, make_hgnn_train_step
     from repro_torch.tree import tree_leaves
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     res = {}
     for model, heads in (("HAN", 8), ("R-GAT", 4)):
         digests = []
@@ -6559,11 +6588,26 @@ def multigraph_digest() -> dict:
             state, hist, _ = hgnn_train.run_training(
                 dataset="imdb", model_name=model, steps=3, scale=1.0, feat_scale=1.0,
                 hidden=64, heads=heads, block=16, log=lambda *_: None, device="cuda")
-            h = hashlib.sha256()
-            for leaf in tree_leaves(state.params):
-                h.update(leaf.detach().cpu().numpy().tobytes())
-            digests.append(h.hexdigest()[:16])
+            digests.append(digest(tree_leaves(state.params)))
         res[model] = dict(digests=digests, losses=[r["loss"] for r in hist])
+    data = relation_data(synthetic_hetgraph("imdb", scale=1.0, feat_scale=1.0, seed=0), "cuda")
+    opt = AdamWConfig(lr=5e-3, weight_decay=0.0)
+    idx = torch.arange(data.labels.shape[0], device="cuda")
+    logits, trained, losses = [], [], []
+    for _ in range(2):
+        params = RGAT.init(torch.Generator().manual_seed(0), data, **MODEL_WIDTHS["R-GAT"])
+        with torch.no_grad():
+            logits.append(digest([RGAT.forward(params, data, backend=NABackend.KERNEL)]))
+        state = init_hgnn_train_state(RGAT, torch.Generator().manual_seed(0), data, opt,
+                                      **MODEL_WIDTHS["R-GAT"])
+        step = make_hgnn_train_step(
+            lambda p: RGAT.forward(p, data, backend=NABackend.MULTIGRAPH), data, opt)
+        losses = []
+        for _ in range(3):
+            state, metrics = step(state, {"idx": idx})
+            losses.append(float(metrics["loss"]))
+        trained.append(digest(tree_leaves(state.params)))
+    res["R-GAT relations"] = dict(kernel_logits=logits, trained=trained, losses=losses)
     res["card"] = card_line()
     print("DIGEST " + json.dumps(res), flush=True)
     return res

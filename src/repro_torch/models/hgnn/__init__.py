@@ -1,4 +1,4 @@
-from .common import HGNNData, HGNNModel, cross_entropy, glorot, prepare_data
+from .common import HGNNData, HGNNModel, cross_entropy, glorot, live_relations, prepare_data
 from .han import HAN, han_forward, han_forward_multilane, han_forward_staged, init_han
 from .rgat import RGAT, init_rgat, rgat_forward
 from .rgcn import RGCN, init_rgcn, rgcn_forward
@@ -20,6 +20,7 @@ __all__ = [
     "HGNNModel",
     "cross_entropy",
     "glorot",
+    "live_relations",
     "prepare_data",
     "HAN",
     "RGCN",

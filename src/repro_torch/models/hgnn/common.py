@@ -76,6 +76,29 @@ def prepare_data(
     )
 
 
+def live_relations(graphs: Sequence[SemanticGraphBatch], target_type: str,
+                   layers: int) -> list[tuple[tuple[int, ...], frozenset[str]]]:
+    """Per layer, the relation passes whose output reaches the logits:
+    ``(indexes of the live graphs, the types whose new h is built)``.
+
+    From the last layer down: the last layer builds the target type alone;
+    a relation is live in a layer when its destination type is built
+    there; the layer before builds every type a live relation reads (its
+    source, and its destination for θ_dst) and every built type that no
+    relation enters (it takes its ``self`` product of the layer before).
+    It reads only the relations' endpoint types: where every relation
+    reaches the target, every pass is live."""
+    entered = {g.dst_type for g in graphs}
+    need = {target_type}
+    schedule = []
+    for _ in range(layers):
+        live = tuple(i for i, g in enumerate(graphs) if g.dst_type in need)
+        schedule.append((live, frozenset(need)))
+        need = {t for i in live for t in (graphs[i].src_type, graphs[i].dst_type)} | (
+            need - entered)
+    return schedule[::-1]
+
+
 def glorot(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
     """Glorot-uniform float32 weights drawn from ``gen`` (a CPU generator,
     so the values do not depend on the device they are later moved to)."""

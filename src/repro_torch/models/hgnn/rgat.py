@@ -14,8 +14,11 @@ src and the dst side's FP+θ, and one of kernel #5 for NA) and MULTIGRAPH
 FP computes only what NA reads: hs and θ_src on the source side, and
 θ_dst straight from the destination features
 (``core.fusion.project_dst_coefficients``), with no destination table.
-:func:`rgat_forward` also runs over a (lane, model) mesh with this rank's
-pieces of the parameters, as HAN's multi-lane layer does.
+On every backend a forward runs only the relation passes whose output
+reaches the logits (``common.live_relations``) and builds only the types
+the next layer reads.  :func:`rgat_forward` also runs over a (lane,
+model) mesh with this rank's pieces of the parameters, as HAN's
+multi-lane layer does.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from ...core.fusion import (
 from ...dist.sharding import gather_leaf, sum_cotangent
 from ...obs.trace import trace_span
 from ...tree import tree_map
-from .common import HGNNData, HGNNModel, glorot
+from .common import HGNNData, HGNNModel, glorot, live_relations
 
 
 def init_rgat(
@@ -112,7 +115,17 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
     leaf's largest magnitude in float32 (the column-split products move
     bits).
 
-    Spans (DESIGN.md §12): per relation and layer, on lane
+    Liveness: a layer runs the relations into the types it must build
+    (``live_relations``), and builds those types alone: the last layer
+    the target, the one before the types the live relations read.  The
+    schedule reads only the schema, so every rank of a mesh skips the same
+    passes and their gathers.  A dead pass's parameters get no gradient
+    (zeros in the train step, as under ``jax.grad``); the live passes and
+    the logits keep their bits.  Counter:
+    ``rgat_forward.relations_skipped``, the dead (relation, layer) passes
+    of each forward.
+
+    Spans (DESIGN.md §12): per live relation and layer, on lane
     ``sg/<relation>``, ``rgat/fp`` (both sides' FP) and
     ``rgat/na``; per layer ``rgat/mean`` (the relation mean, the ``self``
     products, ELU); last ``rgat/classifier``."""
@@ -124,10 +137,13 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
         return x if placements is None else gather_leaf(x, placement, mesh)
 
     h = dict(data.features)
-    for layer, lp in enumerate(params["layers"]):
+    schedule = live_relations(data.graphs, data.target_type, len(params["layers"]))
+    for layer, (lp, (live, build)) in enumerate(zip(params["layers"], schedule)):
+        rgat_forward.relations_skipped += len(data.graphs) - len(live)
         lpl = None if placements is None else placements["layers"][layer]
         agg: dict[str, list[torch.Tensor]] = {}
-        for i, batch in enumerate(data.graphs):
+        for i in live:
+            batch = data.graphs[i]
             rp = lp["rel"][f"g{i}"]
             rpl = dict.fromkeys(rp) if lpl is None else lpl["rel"][f"g{i}"]
             lane = f"sg/{batch.name}"
@@ -155,7 +171,7 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
                 agg.setdefault(batch.dst_type, []).append(z.reshape(batch.num_dst, -1))
         with trace_span("rgat/mean", stage="FA", layer=layer):
             h_new = {}
-            for t in h:
+            for t in [t for t in h if t in build]:
                 if t in agg:
                     s = torch.stack(agg[t]).mean(dim=0)  # SF: mean over relations
                 else:
@@ -168,4 +184,5 @@ def rgat_forward(params, data: HGNNData, *, backend: NABackend = NABackend.SEGME
         return h[data.target_type] @ w_out + b_out
 
 
+rgat_forward.relations_skipped = 0
 RGAT = HGNNModel(name="R-GAT", init=init_rgat, forward=rgat_forward)

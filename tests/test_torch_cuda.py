@@ -86,6 +86,7 @@ from repro_torch.models.hgnn import (
     han_forward,
     han_forward_multilane,
     han_forward_staged,
+    live_relations,
     prepare_data,
 )
 from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing
@@ -1120,8 +1121,9 @@ def test_kernel6_cuda_core_route_forced_on_float32(cuda):
 
 @pytest.mark.cuda
 def test_rgat_kernel_backend_at_its_width_runs_kernel6_on_the_tensor_cores(cuda):
-    """R-GAT at its own width (4 heads of 64, 3 layers): 36 launches of #6
-    a forward, every one on the wgmma route; logits against BLOCK."""
+    """R-GAT at its own width (4 heads of 64, 3 layers): two launches of #6
+    a live relation pass (``live_relations``), every one on the wgmma
+    route; logits against BLOCK."""
     g = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.5, seed=0)
     data = prepare_data(g, relation_semantic_graphs(g), "movie", 3, synthetic_labels(g, "imdb"),
                         block=16, device=cuda)
@@ -1133,15 +1135,16 @@ def test_rgat_kernel_backend_at_its_width_runs_kernel6_on_the_tensor_cores(cuda)
         got = MODELS["R-GAT"].forward(params, data, backend=NABackend.KERNEL)
         ran = {r: n - before[r] for r, n in fused_fp_coeff.launches_by_route.items()}
         want = MODELS["R-GAT"].forward(params, data, backend=NABackend.BLOCK)
-    assert ran == {"wgmma": 36, "cuda_cores": 0}
+    passes = sum(len(live) for live, _ in live_relations(data.graphs, "movie", 3))
+    assert ran == {"wgmma": 2 * passes, "cuda_cores": 0}
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
 def test_rgat_kernel_backend_launches_kernel6_per_relation_and_layer(cuda):
-    """R-GAT (3 layers) on small IMDB's six relation graphs: #6 launches 36
-    times a forward (src and dst side of each relation and layer), #5 18
-    times, and the logits match the CPU."""
+    """R-GAT (3 layers) on small IMDB's six relation graphs: #6 launches
+    twice (src and dst side) and #5 once a live relation pass
+    (``live_relations``), and the logits match the CPU."""
     g = synthetic_hetgraph("imdb", scale=0.05, feat_scale=0.02, seed=0)
     cpu, card = (prepare_data(g, relation_semantic_graphs(g), "movie", 3,
                               synthetic_labels(g, "imdb"), block=16, device=d)
@@ -1154,6 +1157,7 @@ def test_rgat_kernel_backend_launches_kernel6_per_relation_and_layer(cuda):
                                       backend=NABackend.KERNEL)
         want = MODELS["R-GAT"].forward(params, cpu, backend=NABackend.KERNEL)
     assert len(card.graphs) == 6
-    assert fused_fp_coeff.launches - before6 == 36
-    assert seg_gat_agg.launches - before5 == 18
+    passes = sum(len(live) for live, _ in live_relations(card.graphs, "movie", 3))
+    assert fused_fp_coeff.launches - before6 == 2 * passes
+    assert seg_gat_agg.launches - before5 == passes
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

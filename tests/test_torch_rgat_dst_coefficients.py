@@ -9,7 +9,7 @@ the source side projects hs and takes θ_src alone.
 * one R-GAT forward on MULTIGRAPH and on SEGMENT makes a product with H·Dh
   columns over the source table of each relation and layer and over none
   else (the products' output shapes, seen through a dispatch mode), and
-  the counter reads relations × layers;
+  the counter reads the live (relation, layer) passes;
 * KERNEL still runs ``project_coefficients`` (#6) on both sides, and the
   counter reads 0 there.
 
@@ -26,7 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.core import NABackend, project_coefficients, project_dst_coefficients
 from repro_torch.graphs import dataset_target, relation_semantic_graphs, synthetic_hetgraph
 from repro_torch.graphs import synthetic_labels
-from repro_torch.models.hgnn import init_rgat, prepare_data, rgat_forward
+from repro_torch.models.hgnn import init_rgat, live_relations, prepare_data, rgat_forward
 
 rgat = importlib.import_module("repro_torch.models.hgnn.rgat")
 
@@ -112,15 +112,19 @@ def test_training_forward_projects_no_destination_table(backend):
     project_dst_coefficients.calls = 0
     with _Products(c) as spy:
         logits = rgat_forward(tree, data, backend=backend)
-    layers, graphs = WIDTH["layers"], data.graphs
-    assert project_dst_coefficients.calls == layers * len(graphs)
+    graphs = data.graphs
+    schedule = live_relations(graphs, data.target_type, WIDTH["layers"])
+    assert project_dst_coefficients.calls == sum(len(live) for live, _ in schedule)
     entered = {b.dst_type for b in graphs}
-    self_rows = [data.features[t].shape[0] for t in data.features if t not in entered]
-    want = ([b.num_src for b in graphs] + self_rows) * layers
+    want = []
+    for live, build in schedule:
+        want += [graphs[i].num_src for i in live]
+        want += [data.features[t].shape[0] for t in build - entered]
     assert collections.Counter(spy.rows) == collections.Counter(want)
     logits.sum().backward()  # w_dst and a_dst get their gradients through the fold
     live = [r for lp in tree["layers"] for r in lp["rel"].values() if r["w_src"].grad is not None]
     assert len(live) > len(graphs)  # every relation into the target, and more
+    assert len(live) == project_dst_coefficients.calls  # and no dead pass
     for r in tree["layers"][-1]["rel"].values():
         assert (r["w_src"].grad is not None) == (r["w_dst"].grad is not None)
     for r in live:
@@ -139,6 +143,8 @@ def test_kernel_backend_keeps_both_sides_on_project_coefficients(monkeypatch):
     project_dst_coefficients.calls = 0
     with torch.no_grad():
         rgat_forward(params, data, backend=NABackend.KERNEL)
-    want = [n for b in data.graphs for n in (b.num_src, b.num_dst)] * WIDTH["layers"]
+    graphs = data.graphs
+    want = [n for live, _ in live_relations(graphs, data.target_type, WIDTH["layers"])
+            for i in live for n in (graphs[i].num_src, graphs[i].num_dst)]
     assert sides == want
     assert project_dst_coefficients.calls == 0

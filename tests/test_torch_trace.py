@@ -15,7 +15,8 @@ from repro_torch.data import SyntheticHGNNData
 from repro_torch.graphs import dataset_target, relation_semantic_graphs, synthetic_hetgraph
 from repro_torch.graphs import synthetic_labels
 from repro_torch.launch import hgnn_train
-from repro_torch.models.hgnn import HAN, MODELS, han_forward_multilane, prepare_data
+from repro_torch.models.hgnn import HAN, MODELS, han_forward_multilane, live_relations
+from repro_torch.models.hgnn import prepare_data
 from repro_torch.obs import MetricsRegistry, disable_tracing, enable_tracing, trace_span
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import init_hgnn_train_state, make_hgnn_train_step, train_loop
@@ -197,11 +198,13 @@ def test_rgat_forward_is_bitwise_the_same_traced(relation_problem, backend):
 
     off, on, tracer = _traced_and_not(forward)
     assert torch.equal(on, off)
-    layers, lanes = len(params["layers"]), [f"sg/{b.name}" for b in data.graphs]
-    for name in ("rgat/fp", "rgat/na"):  # per relation and layer, on the relation's lane
-        assert [e["lane"] for e in tracer.spans(name)] == lanes * layers
+    layers = len(params["layers"])
+    lanes = [f"sg/{data.graphs[i].name}"
+             for live, _ in live_relations(data.graphs, data.target_type, layers) for i in live]
+    for name in ("rgat/fp", "rgat/na"):  # per live relation and layer, on the relation's lane
+        assert [e["lane"] for e in tracer.spans(name)] == lanes
     assert len(tracer.spans("rgat/mean")) == layers and len(tracer.spans("rgat/classifier")) == 1
     inner = tracer.spans("na/multigraph")
-    assert len(inner) == (len(lanes) * layers if backend is NABackend.MULTIGRAPH else 0)
+    assert len(inner) == (len(lanes) if backend is NABackend.MULTIGRAPH else 0)
     assert {e["parent"] for e in inner} <= {"rgat/na"}
     assert all(e["attrs"]["graph_names"] is not None for e in inner)
